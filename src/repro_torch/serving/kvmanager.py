@@ -1,0 +1,106 @@
+"""KV-cache manager for the paged layout (port of the paged core of
+``repro/serving/kvmanager.py``).
+
+K/V live in a shared pool of fixed-size pages on the device; each sequence
+slot owns a block table (the page ids holding its context), grown on
+demand by ``ensure_len`` and returned on ``free``. Page 0 is the reserved
+null page: tables are zero-filled and padded rows write there, so a dummy
+row never touches a live sequence. Slot and page ids are handed out lowest
+first from heaps. Every page has one owner in this slice (no prefix
+sharing, no copy-on-write).
+"""
+from __future__ import annotations
+
+import heapq
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import init_cache
+from repro_torch.models.params import DTYPES
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def kv_token_bytes(cfg: ModelConfig) -> int:
+    """K+V bytes one cached token occupies in one attention layer."""
+    item = DTYPES[cfg.dtype].itemsize
+    return 2 * cfg.num_kv_heads * cfg.resolved_head_dim * item
+
+
+class KVManager:
+    """Slots + the page pool. ``block_tables`` (max_slots, max_pages_per_slot)
+    int32 and ``lens`` (max_slots,) int32 are host arrays the engine stages
+    into each stage's inputs; ``cache`` is the device pool."""
+
+    def __init__(self, cfg: ModelConfig, max_slots: int, max_len: int, *,
+                 page_size: int = 64, num_pages: Optional[int] = None,
+                 device="cuda"):
+        self.cfg = cfg
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self.page_size = page_size
+        self.max_pages_per_slot = _cdiv(max_len, page_size)
+        if num_pages is None:
+            # full dense capacity plus the null page
+            num_pages = 1 + max_slots * self.max_pages_per_slot
+        assert num_pages >= 2, "need at least the null page + one page"
+        self.num_pages = num_pages
+        self.cache = init_cache(cfg, page_size=page_size, num_pages=num_pages,
+                                device=device)
+        self._free: List[int] = list(range(max_slots))
+        self._active: set = set()
+        self._page_free: List[int] = list(range(1, num_pages))
+        self._slot_pages: Dict[int, List[int]] = {}
+        self.block_tables = np.zeros((max_slots, self.max_pages_per_slot), np.int32)
+        self.lens = np.zeros((max_slots,), np.int32)
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._page_free)
+
+    @property
+    def live_pages(self) -> int:
+        return self.num_pages - 1 - len(self._page_free)
+
+    def slot_page_count(self, slot: int) -> int:
+        return len(self._slot_pages.get(slot, ()))
+
+    def allocate(self) -> int:
+        """Claim the lowest free slot, with an empty block table."""
+        slot = heapq.heappop(self._free)
+        self._active.add(slot)
+        self._slot_pages[slot] = []
+        return slot
+
+    def free(self, slot: int) -> None:
+        """Release a slot and its pages. Idempotent."""
+        if slot not in self._active:
+            return
+        self._active.discard(slot)
+        heapq.heappush(self._free, slot)
+        for pid in self._slot_pages.pop(slot, []):
+            heapq.heappush(self._page_free, pid)
+        self.block_tables[slot] = 0
+        self.lens[slot] = 0
+
+    def ensure_len(self, slot: int, target_len: int) -> None:
+        """Grow ``slot``'s block table to cover ``target_len`` positions
+        (monotonic). Raises RuntimeError when the pool is exhausted."""
+        assert slot in self._active, slot
+        pages = self._slot_pages[slot]
+        need = _cdiv(max(target_len, 1), self.page_size)
+        assert need <= self.max_pages_per_slot, (target_len, self.max_len)
+        while len(pages) < need:
+            if not self._page_free:
+                raise RuntimeError(f"KV page pool exhausted ({self.num_pages} pages)")
+            pid = heapq.heappop(self._page_free)
+            self.block_tables[slot, len(pages)] = pid
+            pages.append(pid)

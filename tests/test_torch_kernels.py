@@ -1,0 +1,183 @@
+"""PyTorch port, kernel level: each kernel's plain PyTorch version against
+the JAX package's Pallas kernel (interpret mode) and its ``ref.py`` oracle,
+on the same numpy inputs, at atol = rtol = 2e-5 in float32 (the reference's
+kernel tolerance band). The CUDA kernels themselves run only on the card:
+``tests/test_torch_cuda.py``."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.kernels.decode_attn import (chunked_prefill_attention_kernel as
+                                       pallas_chunk,
+                                       paged_decode_attention_kernel as
+                                       pallas_decode)
+from repro.kernels import ops as jops
+from repro.models.attention import chunk_attention
+from repro_torch.kernels import build, decode_attn, moe_gemm, moe_gemv
+from repro_torch.kernels import ops as tops
+
+torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products on a card
+torch.set_num_threads(1)   # tiny shapes; leave the cores to the other test workers
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _pools(rng, lens, *, KV=2, hd=16, page=8, maxp=5):
+    """Random pools plus block tables giving each sequence its own pages."""
+    B = len(lens)
+    P = 1 + B * maxp
+    k = rng.standard_normal((P, KV, page, hd)).astype(np.float32)
+    v = rng.standard_normal((P, KV, page, hd)).astype(np.float32)
+    ids = list(rng.permutation(np.arange(1, P)))
+    bt = np.zeros((B, maxp), np.int32)
+    for b, n in enumerate(lens):
+        need = -(-n // page)
+        bt[b, :need] = ids[:need]
+        ids = ids[need:]
+    return k, v, bt
+
+
+def _dense(pages, bt):
+    """(P, KV, page, hd) + (B, maxp) -> (B, KV, maxp*page, hd)."""
+    g = pages[bt]
+    B, maxp, KV, page, hd = g.shape
+    return g.transpose(0, 2, 1, 3, 4).reshape(B, KV, maxp * page, hd)
+
+
+@pytest.mark.parametrize("qpk", [1, 2])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (7, 0.0), (0, 5.0), (12, 3.0)])
+def test_paged_decode_plain_matches_pallas(qpk, window, softcap):
+    rng = np.random.default_rng(10 + qpk)
+    lens = [0, 1, 8, 9, 23, 40]          # ragged, empty, page boundaries, full
+    k, v, bt = _pools(rng, lens)
+    q = rng.standard_normal((len(lens), 2, qpk, 16)).astype(np.float32)
+    lengths = np.asarray(lens, np.int32)
+    got = decode_attn.paged_decode_attention_kernel(
+        torch.tensor(q), torch.tensor(k), torch.tensor(v), torch.tensor(lengths),
+        torch.tensor(bt), window=window, softcap=softcap).numpy()
+    want = np.asarray(pallas_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    jnp.asarray(lengths), jnp.asarray(bt),
+                                    window=window, softcap=softcap, interpret=True))
+    np.testing.assert_allclose(got, want, **TOL)
+    live = lengths > 0                   # the oracle softmaxes empty rows uniformly
+    oracle = np.asarray(ref.decode_attention_ref(
+        jnp.asarray(q), jnp.asarray(_dense(k, bt)), jnp.asarray(_dense(v, bt)),
+        jnp.asarray(lengths), window=window, softcap=softcap))
+    np.testing.assert_allclose(got[live], oracle[live], **TOL)
+    assert not got[~live].any()          # empty rows come back exactly zero
+
+
+@pytest.mark.parametrize("qpk", [1, 2])
+@pytest.mark.parametrize("softcap", [0.0, 4.0])
+def test_chunked_prefill_plain_matches_pallas(qpk, softcap):
+    rng = np.random.default_rng(20 + qpk)
+    Sc, KV, hd = 6, 2, 16
+    starts = np.asarray([0, 8, 13, 0], np.int32)
+    clens = np.asarray([6, 6, 3, 0], np.int32)        # padded rows, totals == 0
+    totals = starts + clens
+    k, v, bt = _pools(rng, list(totals))
+    qm = rng.standard_normal((4, Sc, KV * qpk, hd)).astype(np.float32)
+    got = tops.chunked_prefill_attention(
+        torch.tensor(qm), torch.tensor(k), torch.tensor(v), torch.tensor(totals),
+        torch.tensor(starts), torch.tensor(bt), softcap=softcap).numpy()
+    # Pallas kernel in its own layout, through the reference's adapter
+    want = np.asarray(jops.chunked_prefill_attention(
+        jnp.asarray(qm), jnp.asarray(k), jnp.asarray(v), jnp.asarray(totals),
+        jnp.asarray(starts), jnp.asarray(bt), softcap=softcap, interpret=True))
+    np.testing.assert_allclose(got, want, **TOL)
+    # and the XLA chunk path over the gathered context, on live positions
+    kd = _dense(k, bt).transpose(0, 2, 1, 3)
+    vd = _dense(v, bt).transpose(0, 2, 1, 3)
+    qpos = starts[:, None] + np.arange(Sc)[None]
+    kpos = np.broadcast_to(np.arange(kd.shape[1])[None], (4, kd.shape[1]))
+    xla = np.asarray(chunk_attention(jnp.asarray(qm), jnp.asarray(kd), jnp.asarray(vd),
+                                     jnp.asarray(qpos), jnp.asarray(kpos),
+                                     jnp.asarray(totals), softcap=softcap))
+    live = np.arange(Sc)[None] < clens[:, None]
+    np.testing.assert_allclose(got[live], xla[live], **TOL)
+    assert not got[3].any()              # totals == 0: exact zeros
+
+
+def test_chunked_prefill_kernel_layout_direct():
+    """The kernel-layout entry (heads innermost) against Pallas directly."""
+    rng = np.random.default_rng(3)
+    qpk, Sc = 2, 4
+    starts = np.asarray([5, 0], np.int32)
+    totals = starts + np.asarray([4, 2], np.int32)
+    k, v, bt = _pools(rng, list(totals))
+    q = rng.standard_normal((2, 2, Sc * qpk, 16)).astype(np.float32)
+    got = decode_attn.chunked_prefill_attention_kernel(
+        torch.tensor(q), torch.tensor(k), torch.tensor(v), torch.tensor(totals),
+        torch.tensor(starts), torch.tensor(bt), qpk=qpk).numpy()
+    want = np.asarray(pallas_chunk(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   jnp.asarray(totals), jnp.asarray(starts),
+                                   jnp.asarray(bt), qpk=qpk, interpret=True))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def _experts(rng, E, d=16, f=64):
+    w = {"wi_gate": rng.standard_normal((E, d, f)).astype(np.float32) * 0.1,
+         "wi_up": rng.standard_normal((E, d, f)).astype(np.float32) * 0.1,
+         "wo": rng.standard_normal((E, f, d)).astype(np.float32) * 0.1}
+    return w
+
+
+@pytest.mark.parametrize("counts", [
+    [16, 0, 0, 1],             # full, empty, one token
+    [0, 8, 9, 7],              # block boundary (c_block 8) and either side
+    [0, 0, 0, 0],              # all empty
+])
+@pytest.mark.parametrize("hot", [True, False])
+def test_moe_plain_matches_pallas(counts, hot):
+    rng = np.random.default_rng(sum(counts) + hot)
+    E, n, C, d = 6, len(counts), 16, 16
+    w = _experts(rng, E)
+    perm = rng.permutation(E)[:n].astype(np.int32)
+    x = rng.standard_normal((n, C, d)).astype(np.float32)
+    cnt = np.asarray(counts, np.int32)
+    tw = {k: torch.tensor(v) for k, v in w.items()}
+    op = tops.ragged_moe_gemm if hot else tops.moe_gemv
+    got = op(tw, torch.tensor(x), torch.tensor(cnt), torch.tensor(perm)).numpy()
+    w_perm = {k: jnp.asarray(v[perm]) for k, v in w.items()}
+    if hot:
+        want = jops.ragged_moe_gemm(w_perm, jnp.asarray(x), jnp.asarray(cnt),
+                                    c_block=8, f_block=32, interpret=True)
+    else:
+        want = jops.moe_gemv(w_perm, jnp.asarray(x), jnp.asarray(cnt),
+                             f_block=32, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    oracle = ref.ragged_moe_ffn_ref(w_perm, jnp.asarray(x), jnp.asarray(cnt))
+    np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
+
+
+def test_moe_wrappers_clamp_counts_to_capacity():
+    """Counts past the slot buffer (routed tokens over capacity) clamp."""
+    rng = np.random.default_rng(7)
+    w = {k: torch.tensor(v) for k, v in _experts(rng, 3).items()}
+    x = torch.tensor(rng.standard_normal((2, 4, 16)).astype(np.float32))
+    perm = torch.tensor([2, 0], dtype=torch.int32)
+    over = tops.ragged_moe_gemm(w, x, torch.tensor([9, 2]), perm)
+    exact = tops.ragged_moe_gemm(w, x, torch.tensor([4, 2]), perm)
+    torch.testing.assert_close(over, exact, rtol=0, atol=0)
+
+
+def test_wrappers_do_not_fall_back_off_cpu():
+    """A tensor that is on neither the CPU nor a card is refused, never
+    quietly run through the plain version."""
+    q = torch.zeros((1, 1, 1, 16), device="meta")
+    k = torch.zeros((2, 1, 8, 16), device="meta")
+    one = torch.zeros((1,), dtype=torch.int32, device="meta")
+    bt = torch.zeros((1, 1), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attn.paged_decode_attention_kernel(q, k, k, one, bt)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attn.chunked_prefill_attention_kernel(q, k, k, one, one, bt, qpk=1)
+    x = torch.zeros((1, 2, 16), device="meta")
+    w = torch.zeros((1, 16, 64), device="meta")
+    wo = torch.zeros((1, 64, 16), device="meta")
+    for fn in (moe_gemm.ragged_moe_gemm_kernel, moe_gemv.ragged_moe_gemv_kernel):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x, w, w, wo, one, one)
+    assert all(v == 0 for v in build.launch_counts.values())
