@@ -12,13 +12,21 @@ Phases, each printing a line:
      bfloat16 within its rounding band and again in float32 within 1e-4:
      max error and tolerance, kernel / plain / library time, and the
      kernel's bound (least bytes / 3.35 TB/s or operations over the peak
-     rate of the inputs' type: 989 TFLOP/s bf16, 67 TFLOP/s float32);
-  4. the main path: ``ServingEngine`` serving 16 seeded requests on
-     OLMoE-1B-7B at full width and depth with random weights, paged KV
-     (page 16), chunked prefill (64) and the duplex ragged MoE; checks that
-     every request completes with in-vocabulary tokens, that each kernel was
-     launched on the main path, and that one mixed stage's logits through
-     the kernels agree with the plain (kernel-free) torch path.
+     rate of the inputs' type: 989 TFLOP/s bf16, 67 TFLOP/s float32, 1979
+     TOP/s int8); the int8 attention rows also print the float kernel's
+     time at the same shape;
+  4. the paths, each driven with every launch count set to 0 just before
+     it and read just after: ``ServingEngine`` serving 16 seeded requests
+     on OLMoE-1B-7B at full width and depth with random weights, paged KV
+     (page 16) and chunked prefill (64),
+       a. bf16 KV pages and the duplex ragged MoE (the first path),
+       b. int8 KV pages (``kv_quant``) and the capacity-padded duplex MoE
+          (``moe_ragged=False``);
+     each checks that every request completes with in-vocabulary tokens,
+     that each of its kernels was launched, and that one mixed stage's
+     logits through the kernels agree with the plain (kernel-free) torch
+     path, then profiles a short run; b also prints both paths' KV pool
+     bytes.
 
 Prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as the
 last line. Any failure raises, and the exit code is non-zero. Without a CUDA
@@ -37,7 +45,14 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,   # H100 SXM dense bf16 tensor-core peak
-              "float32": 67e12}     # H100 SXM float32 outside the tensor cores
+              "float32": 67e12,     # H100 SXM float32 outside the tensor cores
+              "int8": 1979e12}      # H100 SXM dense int8 tensor-core peak
+# Kernel vs plain version. The int8 kernels are held to the same bands: on
+# the card both sides requantize with the same recipe and the card's own
+# expf, so their int8 values agree and only float32 sums differ in order.
+# (A last-bit difference in exp would flip a requantized p*v_scale by one
+# int8 step, moving an output by at most p*v_scale*|v8|/l; none is expected
+# here, and it would show as a failure at 1e-4.)
 TOL = {"bfloat16": 2e-2,            # bf16 rounding of outputs of magnitude ~4
        "float32": 1e-4}             # float32 sums in another order
 
@@ -68,8 +83,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float, dtype: str):
-    tb, tf = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+def bound_ms(nbytes: float, flops: float, ops_type: str):
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[ops_type]
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -96,7 +111,13 @@ def _tables(torch, gen, lens, page, maxp, P):
     return bt.cuda()
 
 
-def check_decode(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0):
+def _quant_pools(kp, vp):
+    from repro_torch.kernels.quant import int8_quantize
+    (k8, ks), (v8, vs) = int8_quantize(kp), int8_quantize(vp)
+    return k8, ks, v8, vs
+
+
+def check_decode(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0, int8=False):
     from repro_torch.kernels import decode_attn as da
     B, hd, page, maxp = 16, 128, 16, 64
     P = 1 + B * maxp
@@ -107,34 +128,54 @@ def check_decode(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0):
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q = torch.randn((B, KV, qpk, hd), generator=gen, device="cuda").to(dtype)
     kw = dict(window=window, softcap=softcap)
-    got = da.paged_decode_attention_kernel(q, kp, vp, lengths, bt, **kw)
-    want = da.paged_decode_attention_plain(q, kp, vp, lengths, bt, **kw)
+    fp_call = lambda: da.paged_decode_attention_kernel(q, kp, vp, lengths, bt, **kw)
+    if int8:
+        k8, ks, v8, vs = _quant_pools(kp, vp)
+        args = (q, k8, ks, v8, vs, lengths, bt)
+        kernel, plain = (da.paged_decode_attention_int8_kernel,
+                         da.paged_decode_attention_int8_plain)
+    else:
+        args = (q, kp, vp, lengths, bt)
+        kernel, plain = da.paged_decode_attention_kernel, da.paged_decode_attention_plain
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    ms = time_ms(lambda: da.paged_decode_attention_kernel(q, kp, vp, lengths, bt, **kw))
-    plain_ms = time_ms(lambda: da.paged_decode_attention_plain(q, kp, vp, lengths, bt, **kw))
+    out = dict(err=(got.float() - want.float()).abs().max().item(),
+               scale=want.float().abs().max().item(),
+               ms=time_ms(lambda: kernel(*args, **kw)),
+               plain_ms=time_ms(lambda: plain(*args, **kw)), lib_ms=None)
     live = [min(n, maxp * page) if not window else min(n, window) for n in lens]
     item = q.element_size()
-    nbytes = (sum(live) * KV * hd * 2 * item + 2 * q.numel() * item
-              + B * 4 + sum(-(-n // page) for n in live) * 4)
-    flops = sum(live) * KV * qpk * hd * 4
-    # library yardstick: SDPA over the same K/V gathered dense, with the mask
-    kd = da._gather_pages(kp, bt)
-    vd = da._gather_pages(vp, bt)
-    kpos = torch.arange(maxp * page, device="cuda")[None]
-    valid = kpos < lengths.long()[:, None]
-    if window:
-        valid &= kpos > lengths.long()[:, None] - 1 - window
-    mask = valid[:, None, None, :]
-    lib_ms = None
-    if not softcap:
-        qs = q.reshape(B, KV, qpk, hd)
-        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qs, kd, vd, attn_mask=mask))
-    return err, want.float().abs().max().item(), ms, plain_ms, lib_ms, nbytes, flops
+    if int8:
+        # pages the kernel must read: the window's first page to the last
+        pages = 0
+        for n in lens:
+            first = max(n - window, 0) if window else 0
+            pages += -(-n // page) - first // page if n else 0
+        out["nbytes"] = (pages * 2 * KV * page * (hd + 4) + 2 * q.numel() * item
+                         + B * 4 + pages * 4)
+        out["ops_type"] = "int8"
+        out["fp_ms"] = time_ms(fp_call)
+    else:
+        out["nbytes"] = (sum(live) * KV * hd * 2 * item + 2 * q.numel() * item
+                         + B * 4 + sum(-(-n // page) for n in live) * 4)
+        if not softcap:
+            # library yardstick: SDPA over the same K/V gathered dense, with the mask
+            kd = da._gather_pages(kp, bt)
+            vd = da._gather_pages(vp, bt)
+            kpos = torch.arange(maxp * page, device="cuda")[None]
+            valid = kpos < lengths.long()[:, None]
+            if window:
+                valid &= kpos > lengths.long()[:, None] - 1 - window
+            mask = valid[:, None, None, :]
+            qs = q.reshape(B, KV, qpk, hd)
+            out["lib_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, kd, vd, attn_mask=mask))
+    out["flops"] = sum(live) * KV * qpk * hd * 4
+    return out
 
 
-def check_chunk(torch, gen, dtype, *, KV, qpk):
+def check_chunk(torch, gen, dtype, *, KV, qpk, int8=False):
     from repro_torch.kernels import decode_attn as da
     hd, page, maxp, Sc = 128, 16, 64, 64
     starts = [0, 64, 448, 0]
@@ -147,31 +188,48 @@ def check_chunk(torch, gen, dtype, *, KV, qpk):
     st = torch.tensor(starts, dtype=torch.int32, device="cuda")
     tot = torch.tensor(totals, dtype=torch.int32, device="cuda")
     q = torch.randn((B, KV, Sc * qpk, hd), generator=gen, device="cuda").to(dtype)
-    got = da.chunked_prefill_attention_kernel(q, kp, vp, tot, st, bt, qpk=qpk)
-    want = da.chunked_prefill_attention_plain(q, kp, vp, tot, st, bt, qpk=qpk)
+    fp_call = lambda: da.chunked_prefill_attention_kernel(q, kp, vp, tot, st, bt, qpk=qpk)
+    if int8:
+        k8, ks, v8, vs = _quant_pools(kp, vp)
+        args = (q, k8, ks, v8, vs, tot, st, bt)
+        kernel, plain = (da.chunked_prefill_attention_int8_kernel,
+                         da.chunked_prefill_attention_int8_plain)
+    else:
+        args = (q, kp, vp, tot, st, bt)
+        kernel, plain = (da.chunked_prefill_attention_kernel,
+                         da.chunked_prefill_attention_plain)
+    got = kernel(*args, qpk=qpk)
+    want = plain(*args, qpk=qpk)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    ms = time_ms(lambda: da.chunked_prefill_attention_kernel(q, kp, vp, tot, st, bt, qpk=qpk))
-    plain_ms = time_ms(lambda: da.chunked_prefill_attention_plain(
-        q, kp, vp, tot, st, bt, qpk=qpk))
+    out = dict(err=(got.float() - want.float()).abs().max().item(),
+               scale=want.float().abs().max().item(),
+               ms=time_ms(lambda: kernel(*args, qpk=qpk)),
+               plain_ms=time_ms(lambda: plain(*args, qpk=qpk)), lib_ms=None)
     item = q.element_size()
-    nbytes = sum(totals) * KV * hd * 2 * item + 2 * q.numel() * item
+    if int8:
+        pages = sum(-(-t // page) for t in totals)
+        out["nbytes"] = (pages * 2 * KV * page * (hd + 4) + 2 * q.numel() * item
+                         + pages * 4)
+        out["ops_type"] = "int8"
+        out["fp_ms"] = time_ms(fp_call)
+    else:
+        out["nbytes"] = sum(totals) * KV * hd * 2 * item + 2 * q.numel() * item
+        kd = da._gather_pages(kp, bt)
+        vd = da._gather_pages(vp, bt)
+        R = Sc * qpk
+        qpos = st.long()[:, None] + torch.arange(R, device="cuda")[None] // qpk
+        kpos = torch.arange(maxp * page, device="cuda")
+        mask = ((kpos[None, None] <= qpos[:, :, None])
+                & (kpos[None, None] < tot.long()[:, None, None]))[:, None]
+        out["lib_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kd, vd, attn_mask=mask))
     # live (row, key) pairs: row at chunk position i attends keys <= start+i
     pairs = 0
     for s, c, t in zip(starts, clens, totals):
         for i in range(Sc):
             pairs += min(s + i + 1, t)
-    flops = pairs * KV * qpk * hd * 4
-    kd = da._gather_pages(kp, bt)
-    vd = da._gather_pages(vp, bt)
-    R = Sc * qpk
-    qpos = st.long()[:, None] + torch.arange(R, device="cuda")[None] // qpk
-    kpos = torch.arange(maxp * page, device="cuda")
-    mask = ((kpos[None, None] <= qpos[:, :, None])
-            & (kpos[None, None] < tot.long()[:, None, None]))[:, None]
-    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, kd, vd, attn_mask=mask))
-    return err, want.float().abs().max().item(), ms, plain_ms, lib_ms, nbytes, flops
+    out["flops"] = pairs * KV * qpk * hd * 4
+    return out
 
 
 def _experts(torch, gen, dtype, E, d, f):
@@ -181,9 +239,10 @@ def _experts(torch, gen, dtype, E, d, f):
     return w(E, d, f, fan_in=d), w(E, d, f, fan_in=d), w(E, f, d, fan_in=f)
 
 
-def check_moe(torch, gen, dtype, *, hot: bool, C: int = 48):
+def check_moe(torch, gen, dtype, *, hot: bool, C: int = 48, padded: bool = False):
     """hot: E - k_cold = 32 hot experts with capacity C; cold: 48 cold
-    experts with capacity 48 (a 272-token stage at k_cold 48)."""
+    experts with capacity 48 (a 272-token stage at k_cold 48). ``padded``:
+    the capacity-padded kernels, every slot live and computed."""
     from repro_torch.kernels import moe_gemm, moe_gemv
     E, d, f = 64, 2048, 1024
     if hot:
@@ -191,28 +250,33 @@ def check_moe(torch, gen, dtype, *, hot: bool, C: int = 48):
         # at C=128 (c_block 64) C//2 and C//2 + 1 are c_block and c_block + 1
         base = [0, 1, 2, 3, C // 2, C // 2 + 1, C - 1, C]
         kernel, plain = moe_gemm.ragged_moe_gemm_kernel, moe_gemm.ragged_moe_gemm_plain
+        if padded:
+            kernel, plain = moe_gemm.moe_gemm_kernel, moe_gemm.moe_gemm_plain
     else:
         n, C = 48, 48
         base = [0, 1, 48, 0, 5, 2, 47, 3]
         kernel, plain = moe_gemv.ragged_moe_gemv_kernel, moe_gemv.ragged_moe_gemv_plain
+        if padded:
+            kernel, plain = moe_gemv.moe_gemv_kernel, moe_gemv.moe_gemv_plain
     rest = torch.randint(0, C + 1, (n - len(base),), generator=gen, device="cuda").tolist()
-    counts_l = base + rest
+    counts_l = [C] * n if padded else base + rest
     counts = torch.tensor(counts_l, dtype=torch.int32, device="cuda")
     perm = torch.randperm(E, generator=gen, device="cuda")[:n].to(torch.int32)
     wg, wu, wo = _experts(torch, gen, dtype, E, d, f)
     x = torch.randn((n, C, d), generator=gen, device="cuda").to(dtype)
-    got = kernel(x, wg, wu, wo, perm, counts)
-    want = plain(x, wg, wu, wo, perm, counts)
+    args = (x, wg, wu, wo, perm) if padded else (x, wg, wu, wo, perm, counts)
+    got = kernel(*args)
+    want = plain(*args)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    ms = time_ms(lambda: kernel(x, wg, wu, wo, perm, counts))
-    plain_ms = time_ms(lambda: plain(x, wg, wu, wo, perm, counts), iters=5)
     item = x.element_size()
     live_experts = sum(1 for c in counts_l if c > 0)
-    nbytes = (live_experts * 3 * d * f * item + sum(counts_l) * d * item
-              + x.numel() * item + 2 * n * 4)
-    flops = 2 * 3 * d * f * sum(counts_l)
-    return err, want.float().abs().max().item(), ms, plain_ms, None, nbytes, flops
+    return dict(err=(got.float() - want.float()).abs().max().item(),
+                scale=want.float().abs().max().item(),
+                ms=time_ms(lambda: kernel(*args)),
+                plain_ms=time_ms(lambda: plain(*args), iters=5), lib_ms=None,
+                nbytes=(live_experts * 3 * d * f * item + sum(counts_l) * d * item
+                        + x.numel() * item + (1 if padded else 2) * n * 4),
+                flops=2 * 3 * d * f * sum(counts_l))
 
 
 KERNELS = [
@@ -242,6 +306,25 @@ KERNELS = [
      "src/repro/kernels/moe_gemv.py:114",
      "src/repro_torch/kernels/csrc/moe_gemv.cu",
      [("olmoe cold Ec=48 Cc=48", check_moe, dict(hot=False))]),
+    ("paged_decode_attention_int8",
+     "src/repro/kernels/decode_attn.py:222",
+     "src/repro_torch/kernels/csrc/decode_attn.cu",
+     [("olmoe qpk=1 int8", check_decode, dict(KV=16, qpk=1, int8=True)),
+      ("gqa qpk=4 window=200 softcap=30 int8", check_decode,
+       dict(KV=4, qpk=4, window=200, softcap=30.0, int8=True))]),
+    ("chunked_prefill_attention_int8",
+     "src/repro/kernels/decode_attn.py:446",
+     "src/repro_torch/kernels/csrc/decode_attn.cu",
+     [("olmoe qpk=1 Sc=64 int8", check_chunk, dict(KV=16, qpk=1, int8=True)),
+      ("gqa qpk=4 Sc=64 int8", check_chunk, dict(KV=4, qpk=4, int8=True))]),
+    ("moe_gemm",
+     "src/repro/kernels/moe_gemm.py:65",
+     "src/repro_torch/kernels/csrc/moe_gemm.cu",
+     [("olmoe hot padded E=32 C=64", check_moe, dict(hot=True, C=64, padded=True))]),
+    ("moe_gemv",
+     "src/repro/kernels/moe_gemv.py:57",
+     "src/repro_torch/kernels/csrc/moe_gemv.cu",
+     [("olmoe cold padded Ec=48 Cc=48", check_moe, dict(hot=False, padded=True))]),
 ]
 
 
@@ -256,16 +339,17 @@ def kernel_phase(torch):
     for name, replaces, source, cases in KERNELS:
         for dtype in ("bfloat16", "float32"):
             for i, (label, fn, kw) in enumerate(cases):
-                err, scale, ms, plain_ms, lib_ms, nbytes, flops = fn(
-                    torch, gen, getattr(torch, dtype), **kw)
-                bms, by = bound_ms(nbytes, flops, dtype)
+                r = fn(torch, gen, getattr(torch, dtype), **kw)
+                err, lib_ms = r["err"], r["lib_ms"]
+                bms, by = bound_ms(r["nbytes"], r["flops"], r.get("ops_type", dtype))
                 tol = TOL[dtype]
                 ok = err <= tol
                 lib = f"{lib_ms:.4f}" if lib_ms is not None else "none"
+                fp = f" fp_kernel_ms={r['fp_ms']:.4f}" if "fp_ms" in r else ""
                 log(f"kernel {name} [{label} {dtype}]: max_abs_err={err:.3e} "
-                    f"tol={tol:g} (plain max |out|={scale:.3g}) "
-                    f"{'OK' if ok else 'FAIL'}; ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                    f"library_ms={lib} bound_ms={bms:.4f} ({by})")
+                    f"tol={tol:g} (plain max |out|={r['scale']:.3g}) "
+                    f"{'OK' if ok else 'FAIL'}; ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                    f"library_ms={lib} bound_ms={bms:.4f} ({by}){fp}")
                 if not ok:
                     failed.append(f"{name} [{label} {dtype}]")
                 if dtype != "bfloat16":
@@ -273,9 +357,9 @@ def kernel_phase(torch):
                 if i == 0:             # the main path's shape is the row
                     rows[name] = {"name": name, "route": "cuda", "source": source,
                                   "replaces": replaces, "launches": None,
-                                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                  "bound_ms": bms, "bound_by": by,
-                                  "library_ms": lib_ms}
+                                  "max_abs_err": err, "ms": r["ms"],
+                                  "plain_ms": r["plain_ms"], "bound_ms": bms,
+                                  "bound_by": by, "library_ms": lib_ms}
                 else:
                     rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     if failed:
@@ -284,18 +368,27 @@ def kernel_phase(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the paths
 # ---------------------------------------------------------------------------
 
+# (label, engine flags, the kernels the path must launch)
+PATHS = [
+    ("bf16 KV + ragged MoE", dict(),
+     ("paged_decode_attention", "chunked_prefill_attention", "ragged_moe_gemm",
+      "ragged_moe_gemv")),
+    ("int8 KV + padded MoE", dict(kv_quant=True, moe_ragged=False),
+     ("paged_decode_attention_int8", "chunked_prefill_attention_int8", "moe_gemm",
+      "moe_gemv")),
+]
+ENGINE_KW = dict(max_slots=16, max_len=1024, kv_page_size=16, prefill_chunk_tokens=64)
+
+
 def serve_phase(torch):
-    """Serve 16 seeded requests on OLMoE-1B-7B; returns the launch counts of
-    the run. Raises on any failed check."""
-    import numpy as np
+    """Serve 16 seeded requests on OLMoE-1B-7B down each path; returns
+    {kernel: launches} with each kernel's count from its own path's run.
+    Raises on any failed check."""
     from repro_torch.configs import resolve_config
-    from repro_torch.kernels import build
     from repro_torch.models.params import init_model
-    from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.request import Request
 
     cfg = resolve_config("olmoe-1b-7b")
     t0 = time.perf_counter()
@@ -304,13 +397,38 @@ def serve_phase(torch):
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"serve: {cfg.name} random init (seed 0) {n_params / 1e9:.2f}B params "
         f"in {time.perf_counter() - t0:.1f}s")
+    launches, pool_bytes = {}, {}
+    for label, flags, kernels in PATHS:
+        counts, pool_bytes[label] = serve_path(torch, cfg, params, label, flags)
+        missing = [k for k in kernels if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"[{label}] kernels never launched on the path: {missing}")
+        launches.update({k: counts[k] for k in kernels})
+        check_against_plain(torch, cfg, params, label, flags)
+        profile_stages(torch, cfg, params, label, flags)
+    from repro_torch.serving.kvmanager import kv_token_bytes
+    (a, na), (b, nb) = pool_bytes.items()
+    want = kv_token_bytes(cfg) / kv_token_bytes(cfg, kv_quant=True)
+    log(f"serve: KV pool bytes [{a}] {na / 2**20:.1f} MiB, [{b}] {nb / 2**20:.1f} MiB, "
+        f"ratio {na / nb:.3f} ({want:.3f} expected: 2*KV*hd*2 over 2*KV*(hd + 4) bytes "
+        f"per token)")
+    return launches
+
+
+def serve_path(torch, cfg, params, label, flags):
+    """One path's run: every launch count set to 0 just before it and read
+    just after. Returns (launch counts, KV pool bytes)."""
+    import numpy as np
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
     rng = np.random.default_rng(0)
     n_req, l_out = 16, 32
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
                                                int(rng.integers(128, 513))).tolist(),
                     max_new_tokens=l_out) for i in range(n_req)]
-    eng = ServingEngine(cfg, params, max_slots=16, max_len=1024, kv_page_size=16,
-                        prefill_chunk_tokens=64, device="cuda")
+    eng = ServingEngine(cfg, params, device="cuda", **ENGINE_KW, **flags)
+    pool = sum(t.numel() * t.element_size() for t in _leaves(eng.kv.cache))
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -331,35 +449,32 @@ def serve_phase(torch):
     dec_tps = (sum(r.num_decode for r in dec_only)
                / max(sum(r.wall_time for r in dec_only), 1e-9))
     kc = [r.k_cold for r in reps]
-    log(f"serve: {done}/{n_req} completed, {sum(len(r.prompt) for r in reqs)} prompt "
-        f"tokens, {gen} generated, stages={len(reps)} (mixed={mixed}, "
+    log(f"serve [{label}]: {done}/{n_req} completed, {sum(len(r.prompt) for r in reqs)} "
+        f"prompt tokens, {gen} generated, stages={len(reps)} (mixed={mixed}, "
         f"decode-only={len(dec_only)}) in {wall:.2f}s; generated tokens/s="
         f"{gen / wall:.1f}; decode-only stage tokens/s={dec_tps:.1f}; "
-        f"k_cold min={min(kc)} max={max(kc)}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        f"k_cold min={min(kc)} max={max(kc)} (stages with k_cold>0: "
+        f"{sum(k > 0 for k in kc)}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; KV pool {pool / 2**20:.1f} MiB")
     tbt = [t for r in reqs for t in r.tbts()]
     st = [r.stage_tokens for r in reps]
     kvb = [r.kv_bytes_streamed for r in reps]
     live = sum(r.moe_flops_live for r in reps)
     padded = sum(r.moe_flops_padded for r in reps)
-    log(f"serve: median TBT={np.median(tbt) * 1e3:.1f}ms, median TTFT="
+    which = "padded" if flags.get("moe_ragged") is False else "ragged"
+    log(f"serve [{label}]: median TBT={np.median(tbt) * 1e3:.1f}ms, median TTFT="
         f"{np.median([r.t2ft() for r in reqs]) * 1e3:.0f}ms; per-stage tokens "
         f"mean={np.mean(st):.1f} std={np.std(st):.1f} max={max(st)}; modelled MoE "
         f"streamed bytes={sum(r.moe_bytes_streamed for r in reps) / 1e9:.2f}GB "
-        f"(ragged kernels), live/padded FLOPs={live / max(padded, 1):.2f}; streamed KV "
+        f"({which} kernels), live/padded FLOPs={live / max(padded, 1):.2f}; streamed KV "
         f"bytes/stage mean={np.mean(kvb) / 1e6:.1f}MB max={max(kvb) / 1e6:.1f}MB")
-    log(f"serve: kernel launches on the main path: {json.dumps(launches)}")
+    log(f"serve [{label}]: kernel launches on the path: {json.dumps(launches)}")
     if done != n_req or not ok_tokens:
-        raise AssertionError(f"main path: {done}/{n_req} completed, tokens valid={ok_tokens}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-    check_against_plain(torch, cfg, params)
-    profile_stages(torch, cfg, params)
-    return launches
+        raise AssertionError(f"[{label}]: {done}/{n_req} completed, tokens valid={ok_tokens}")
+    return launches, pool
 
 
-def profile_stages(torch, cfg, params, top: int = 12):
+def profile_stages(torch, cfg, params, label, flags, top: int = 12):
     """A short profiled run (4 requests, 8 new tokens each) through
     torch.profiler, device activity only (each kernel counted once, no
     host-op events): device time by kernel and the device's busy share of
@@ -373,8 +488,7 @@ def profile_stages(torch, cfg, params, top: int = 12):
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
                                                int(rng.integers(128, 257))).tolist(),
                     max_new_tokens=8) for i in range(4)]
-    eng = ServingEngine(cfg, params, max_slots=16, max_len=1024, kv_page_size=16,
-                        prefill_chunk_tokens=64, device="cuda")
+    eng = ServingEngine(cfg, params, device="cuda", **ENGINE_KW, **flags)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run(reqs)
@@ -386,12 +500,12 @@ def profile_stages(torch, cfg, params, top: int = 12):
               if dev(e) > 0 and str(getattr(e, "device_type", "CUDA")).endswith("CUDA")]
     busy_ms = sum(dev(e) for e in events) / 1e3
     if not events:
-        log("profile: the profiler recorded no device events; no breakdown")
+        log(f"profile [{label}]: the profiler recorded no device events; no breakdown")
         return
-    log(f"profile: {len(eng.reports)} stages in {wall * 1e3:.1f} ms host wall, "
+    log(f"profile [{label}]: {len(eng.reports)} stages in {wall * 1e3:.1f} ms host wall, "
         f"device busy {busy_ms:.1f} ms ({100 * busy_ms / (wall * 1e3):.1f}%)")
     for e in sorted(events, key=dev, reverse=True)[:top]:
-        log(f"profile: {dev(e) / 1e3:9.2f} ms {100 * dev(e) / 1e3 / busy_ms:5.1f}% "
+        log(f"profile [{label}]: {dev(e) / 1e3:9.2f} ms {100 * dev(e) / 1e3 / busy_ms:5.1f}% "
             f"x{e.count:<6d} {e.key[:110]}")
 
 
@@ -406,11 +520,13 @@ def _leaves(tree):
         yield tree
 
 
-def check_against_plain(torch, cfg, params):
+def check_against_plain(torch, cfg, params, label, flags):
     """One mixed stage (a 64-token chunk after a written 64-token prefix,
-    plus two decode rows) through the kernels and through the plain torch
-    path, each on its own fresh cache: logits must agree within bf16 noise
-    and every argmax whose top-2 margin exceeds twice that noise must
+    plus two decode rows) through the path's kernels and through the plain
+    torch path, each on its own fresh cache: logits must agree within 5% of
+    the logit scale (bf16 noise; with int8 pages also the kernels' per-page
+    against the plain path's whole-row requantization of p*v_scale) and
+    every argmax whose top-2 margin exceeds twice that difference must
     match."""
     from repro_torch.core.execution import ExecutionPlan
     from repro_torch.models.model import init_cache, mixed_step
@@ -427,10 +543,12 @@ def check_against_plain(torch, cfg, params):
     bt_dec = torch.zeros((2, maxp), dtype=torch.int32, device="cuda")
     bt_dec[0, 0] = 9                          # a decode row; row 1 is padding
     out = {}
+    ragged = flags.get("moe_ragged", True)
     for use_kernels in (True, False):
         plan = ExecutionPlan(moe_impl="duplex", k_cold=32, c_hot=64, c_cold=16,
-                             moe_ragged=use_kernels, use_kernels=use_kernels)
-        cache = init_cache(cfg, page_size=page, num_pages=32, device="cuda")
+                             moe_ragged=ragged and use_kernels, use_kernels=use_kernels)
+        cache = init_cache(cfg, page_size=page, num_pages=32, device="cuda",
+                           kv_quant=flags.get("kv_quant", False))
         # write the prefix, then run the chunk with two decode rows
         mixed_step(params, cfg, dec[:1], prefix, cache,
                    attn_ctx={"lengths": i32([0]), "block_tables": bt_dec[:1],
@@ -450,11 +568,13 @@ def check_against_plain(torch, cfg, params):
     top2 = b.topk(2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > 2 * diff
     agree = (a.argmax(-1) == b.argmax(-1)) | ~clear
-    log(f"serve: kernels vs plain path on one mixed stage: max |dlogit|={diff:.4f} "
-        f"(logit scale {scale:.2f}), argmax agree on {int(agree.sum())}/{len(agree)} "
-        f"rows ({int(clear.sum())} with a clear top-2 margin)")
+    equal = int((a.argmax(-1) == b.argmax(-1)).sum())
+    log(f"serve [{label}]: kernels vs plain path on one mixed stage: max |dlogit|="
+        f"{diff:.4f} (tolerance {0.05 * scale:.4f} = 5% of the logit scale {scale:.2f}); "
+        f"argmax equal on {equal}/{len(agree)} rows, agree on {int(agree.sum())}/"
+        f"{len(agree)} ({int(clear.sum())} with a clear top-2 margin)")
     if not bool(torch.isfinite(a).all()) or diff > 0.05 * scale or not bool(agree.all()):
-        raise AssertionError("kernel path disagrees with the plain path")
+        raise AssertionError(f"[{label}] kernel path disagrees with the plain path")
 
 
 def main(argv=None) -> int:

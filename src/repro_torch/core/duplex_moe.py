@@ -1,5 +1,6 @@
-"""Dual-path (duplex) MoE: hot experts through the ragged grouped GEMM, the
-``k_cold`` least-loaded experts through the gather GEMV (paper §V-B).
+"""Dual-path (duplex) MoE: hot experts through the grouped GEMM, the
+``k_cold`` least-loaded experts through the gather GEMV (paper §V-B), each
+either ragged (per-expert live counts threaded in) or capacity-padded.
 
 Port of ``repro/core/duplex_moe.py`` for one dispatch shard. ``k_cold`` and
 the two capacities are host-side choices (the planner); which experts are
@@ -88,11 +89,13 @@ def duplex_dispatch(router: RouterOut, m: MoEConfig, T: int, *, k_cold: int,
 
 def duplex_moe_apply(params, cfg: ModelConfig, x, *, k_cold: int,
                      c_hot: Optional[int] = None, c_cold: Optional[int] = None,
-                     use_kernels: bool = False, token_valid=None):
+                     use_kernels: bool = False, ragged: bool = False,
+                     token_valid=None):
     """Duplex MoE layer over x (T, d) or (B, S, d). With ``use_kernels`` the
-    count-threaded ragged kernels run (cold: GEMV, hot: grouped GEMM);
-    without, the plain grouped FFN over the rank-permuted weights. Tokens
-    over capacity are dropped. Returns (y, router)."""
+    kernels run (cold: GEMV, hot: grouped GEMM): with ``ragged`` the
+    count-threaded ones, else the capacity-padded ones over every slot;
+    without kernels, the plain grouped FFN over the rank-permuted weights.
+    Tokens over capacity are dropped. Returns (y, router)."""
     m = cfg.moe
     E = m.num_experts
     shape = x.shape
@@ -105,21 +108,25 @@ def duplex_moe_apply(params, cfg: ModelConfig, x, *, k_cold: int,
     n_cold = kc * cc
     x_slots = gather_slots(x_flat, disp.src_token)              # (n_slots, d)
     w = {key: params[key] for key in ("wi_gate", "wi_up", "wo")}
-    counts_rank = disp.counts[disp.perm]
+    counts_rank = disp.counts[disp.perm] if ragged else None
     parts = []
     if kc > 0:
         x_cold = x_slots[:n_cold].reshape(kc, cc, d)
         if use_kernels:
             from repro_torch.kernels.ops import moe_gemv
-            parts.append(moe_gemv(w, x_cold, counts_rank[:kc], disp.perm[:kc]))
+            parts.append(moe_gemv(w, x_cold, None if counts_rank is None
+                                  else counts_rank[:kc], disp.perm[:kc]))
         else:
             idx = disp.perm[:kc]
             parts.append(grouped_expert_ffn({key: v[idx] for key, v in w.items()}, x_cold))
     if kc < E:
         x_hot = x_slots[n_cold:].reshape(E - kc, ch, d)
-        if use_kernels:
+        if use_kernels and ragged:
             from repro_torch.kernels.ops import ragged_moe_gemm
             parts.append(ragged_moe_gemm(w, x_hot, counts_rank[kc:], disp.perm[kc:]))
+        elif use_kernels:
+            from repro_torch.kernels.ops import moe_gemm
+            parts.append(moe_gemm(w, x_hot, disp.perm[kc:]))
         else:
             idx = disp.perm[kc:]
             parts.append(grouped_expert_ffn({key: v[idx] for key, v in w.items()}, x_hot))

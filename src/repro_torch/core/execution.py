@@ -19,7 +19,7 @@ class ExecutionPlan:
     c_hot: Optional[int] = None      # duplex: hot capacity (None = auto)
     c_cold: Optional[int] = None     # duplex: cold capacity (None = auto)
     # duplex + kernels: thread per-expert live counts into the ragged MoE
-    # kernels (the only MoE kernels the port has)
+    # kernels; off, the capacity-padded MoE kernels run
     moe_ragged: bool = False
     use_kernels: bool = False        # CUDA kernels (plain versions on CPU)
 
@@ -33,14 +33,11 @@ def moe_execute(params, cfg: ModelConfig, x, plan: ExecutionPlan = DEFAULT_PLAN,
     # the ragged kernels live on the count-threaded duplex path, so a duplex
     # plan with k_cold == 0 still routes there when ragged is on
     if plan.moe_impl == "duplex" and (plan.k_cold > 0 or plan.moe_ragged):
-        if plan.use_kernels and not plan.moe_ragged:
-            raise NotImplementedError(
-                "the capacity-padded MoE kernels (moe_gemm_kernel / "
-                "moe_gemv_kernel) are not ported yet; use moe_ragged=True")
         from repro_torch.core.duplex_moe import duplex_moe_apply
         return duplex_moe_apply(params, cfg, x, k_cold=plan.k_cold,
                                 c_hot=plan.c_hot, c_cold=plan.c_cold,
                                 use_kernels=plan.use_kernels,
+                                ragged=plan.moe_ragged,
                                 token_valid=token_valid)
     from repro_torch.models.moe import moe_apply
     return moe_apply(params, cfg, x, token_valid=token_valid)

@@ -37,6 +37,10 @@ launch_counts: Dict[str, int] = {
     "chunked_prefill_attention": 0,
     "ragged_moe_gemm": 0,
     "ragged_moe_gemv": 0,
+    "paged_decode_attention_int8": 0,
+    "chunked_prefill_attention_int8": 0,
+    "moe_gemm": 0,
+    "moe_gemv": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -293,6 +293,334 @@ int launch_chunk(const void* q, const void* k, const void* v, const void* totals
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// int8 bodies: int8 page pools with float32 per-(token, KV head) scale pools
+// (P, KV, page). Per page, exactly as the TPU kernels' int8 bodies:
+//   s  = ((float(q8 . k8) * q_scale) * k_scale) * scale   (int32 dot)
+//   p  = exp(s - m_new), gated by the mask
+//   pv = requantize(p * v_scale) per row OVER THIS PAGE, then pv8 . v8
+//   acc = acc * alpha + float(pv8 . v8) * pv_scale
+// One page is one requantization step: pages are never fused or split,
+// because the per-page requantization is part of the function (a per-row
+// requantization over the whole context gives other values). q is
+// quantized per row once per block. Products that feed a requantization
+// use __fmul_rn so the compiler cannot contract them into an FMA with
+// another rounding than the plain version's.
+// ---------------------------------------------------------------------------
+
+constexpr int I8_ROWS = 16;        // chunk query rows per block
+
+__device__ __forceinline__ float i8_scale(float amax) { return fmaxf(amax / 127.f, 1e-8f); }
+
+// round half to even (rintf) of x / sc, clamped to +-127: int8_quantize
+__device__ __forceinline__ int8_t quant_i8(float x, float sc) {
+  return (int8_t)fminf(fmaxf(rintf(x / sc), -127.f), 127.f);
+}
+
+__device__ __forceinline__ int dot16(uint4 a, uint4 b, int acc) {
+  acc = __dp4a((int)a.x, (int)b.x, acc);
+  acc = __dp4a((int)a.y, (int)b.y, acc);
+  acc = __dp4a((int)a.z, (int)b.z, acc);
+  return __dp4a((int)a.w, (int)b.w, acc);
+}
+
+// Quantize rows [0, nvalid) of src (row stride hd) into dst (int8, row
+// stride hd) and sc; rows [nvalid, nrows) become zeros. One warp per row.
+template <typename T>
+__device__ void quantize_rows(const T* __restrict__ src, int nvalid, int nrows, int hd,
+                              int8_t* dst, float* sc) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  for (int r = warp; r < nrows; r += nwarps) {
+    const bool ok = r < nvalid;
+    float amax = 0.f;
+    for (int c = lane; c < hd; c += 32)
+      if (ok) amax = fmaxf(amax, fabsf(to_f(src[(size_t)r * hd + c])));
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float s = i8_scale(amax);
+    for (int c = lane; c < hd; c += 32)
+      dst[r * hd + c] = ok ? quant_i8(to_f(src[(size_t)r * hd + c]), s) : (int8_t)0;
+    if (lane == 0) sc[r] = s;
+  }
+}
+
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+// Shared memory of an int8 block of `rows` query rows: float32 acc (rows,
+// hd), scores (rows, page), five per-row values, the page's K and V scales
+// (page each); then int8 q (rows, hd), pv (rows, page), and `kv_pages`
+// staged pages (page, hd).
+__host__ __device__ inline size_t i8_float_count(int rows, int hd, int page) {
+  return (size_t)rows * hd + (size_t)rows * page + 5 * (size_t)rows + 2 * (size_t)page;
+}
+
+__host__ __device__ inline size_t i8_smem_bytes(int rows, int hd, int page, int kv_pages) {
+  return align16(i8_float_count(rows, hd, page) * sizeof(float)) + (size_t)rows * hd +
+         align16((size_t)rows * page) + (size_t)kv_pages * page * hd;
+}
+
+struct I8Smem {
+  float *acc, *p, *m, *l, *alpha, *q_sc, *pv_sc, *ks, *vs;
+  int8_t *q8, *pv8, *kv;
+};
+
+__device__ inline I8Smem i8_smem(unsigned char* base, int rows, int hd, int page) {
+  I8Smem s;
+  s.acc = reinterpret_cast<float*>(base);
+  s.p = s.acc + rows * hd;
+  s.m = s.p + rows * page;
+  s.l = s.m + rows;
+  s.alpha = s.l + rows;
+  s.q_sc = s.alpha + rows;
+  s.pv_sc = s.q_sc + rows;
+  s.ks = s.pv_sc + rows;
+  s.vs = s.ks + page;
+  s.q8 = reinterpret_cast<int8_t*>(base + align16(i8_float_count(rows, hd, page) * sizeof(float)));
+  s.pv8 = s.q8 + rows * hd;
+  s.kv = s.pv8 + align16((size_t)rows * page);
+  return s;
+}
+
+// Online-softmax statistics and the per-page requantization of one row:
+// p = exp(s - m_new) where valid (else 0) into l; pv = p * v_scale
+// requantized over the page into pv8 / pv_sc (v_scale staged in s.vs). One
+// thread per row.
+template <typename Valid>
+__device__ __forceinline__ void i8_row_stats(const I8Smem& s, int r, int page, Valid valid) {
+  float* pr = s.p + r * page;
+  float mx = NEG_INF;
+  for (int t = 0; t < page; ++t) mx = fmaxf(mx, pr[t]);
+  const float m_old = s.m[r];
+  const float m_new = fmaxf(m_old, mx);
+  const float alpha = expf(m_old - m_new);
+  float sum = 0.f, amax = 0.f;
+  for (int t = 0; t < page; ++t) {
+    const float p = valid(t) ? expf(pr[t] - m_new) : 0.f;
+    sum += p;
+    const float pv = __fmul_rn(p, s.vs[t]);
+    pr[t] = pv;
+    amax = fmaxf(amax, fabsf(pv));
+  }
+  const float sc = i8_scale(amax);
+  for (int t = 0; t < page; ++t) s.pv8[r * page + t] = quant_i8(pr[t], sc);
+  s.l[r] = s.l[r] * alpha + sum;
+  s.m[r] = m_new;
+  s.alpha[r] = alpha;
+  s.pv_sc[r] = sc;
+}
+
+// acc[r, d] = acc * alpha + float(sum_t pv8[r, t] v8[t, d]) * pv_sc over
+// the first `nlive` keys of the staged V page.
+__device__ __forceinline__ void i8_pv(const I8Smem& s, const int8_t* v_s, int rows, int hd,
+                                      int page, int nlive) {
+  for (int e = threadIdx.x; e < rows * hd; e += blockDim.x) {
+    const int r = e / hd, d = e - r * hd;
+    int a = 0;
+    for (int t = 0; t < nlive; ++t) a += (int)s.pv8[r * page + t] * (int)v_s[t * hd + d];
+    s.acc[e] = __fadd_rn(__fmul_rn(s.acc[e], s.alpha[r]), __fmul_rn((float)a, s.pv_sc[r]));
+  }
+}
+
+__device__ __forceinline__ float i8_score(int dot, float q_sc, float k_sc, float scale,
+                                          float softcap) {
+  float s = __fmul_rn(__fmul_rn(__fmul_rn((float)dot, q_sc), k_sc), scale);
+  if (softcap > 0.f) s = __fmul_rn(softcap, tanhf(s / softcap));
+  return s;
+}
+
+// grid (B, KV); q (B, KV, qpk, hd); pools (P, KV, page, hd) int8; scale
+// pools (P, KV, page) float32; out like q. hd / 16 lanes read one key row
+// with 16-byte loads, so a warp covers 32 / (hd / 16) rows per load and the
+// block a whole page of K in one wave.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+paged_decode_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_pages,
+                         const float* __restrict__ k_scales, const int8_t* __restrict__ v_pages,
+                         const float* __restrict__ v_scales, const int* __restrict__ lengths,
+                         const int* __restrict__ block_tables, T* __restrict__ out, int KV,
+                         int qpk, int hd, int page, int maxp, int window, float softcap,
+                         float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const I8Smem s = i8_smem(smem_raw, qpk, hd, page);
+  int8_t* v_s = s.kv;
+  const int b = blockIdx.x, g = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
+  const int length = lengths[b];
+  const size_t head_off = ((size_t)b * KV + g) * qpk * hd;
+  const int G = hd / 16;             // lanes per key row
+  const int rpw = 32 / G;            // key rows per warp per load
+
+  quantize_rows(q + head_off, qpk, qpk, hd, s.q8, s.q_sc);
+  for (int e = tid; e < qpk * hd; e += blockDim.x) s.acc[e] = 0.f;
+  if (tid < qpk) {
+    s.m[tid] = NEG_INF;
+    s.l[tid] = 0.f;
+  }
+  __syncthreads();
+
+  int first = 0;
+  if (window > 0 && length - window > 0) first = length - window;
+  const int pg_lo = first / page;
+  const int pg_hi = min((length + page - 1) / page, maxp);
+
+  for (int pg = pg_lo; pg < pg_hi; ++pg) {
+    const int pid = block_tables[(size_t)b * maxp + pg];
+    const size_t base = ((size_t)pid * KV + g) * (size_t)page * hd;
+    const int8_t* kp = k_pages + base;
+    const float* ksp = k_scales + ((size_t)pid * KV + g) * page;
+    const int k0 = pg * page;
+    // V page and V scales to shared memory, issued with the K loads below
+    for (int i = tid; i < page * hd / 16; i += blockDim.x)
+      reinterpret_cast<uint4*>(v_s)[i] = reinterpret_cast<const uint4*>(v_pages + base)[i];
+    for (int t = tid; t < page; t += blockDim.x) s.vs[t] = v_scales[((size_t)pid * KV + g) * page + t];
+
+    for (int t0 = warp * rpw; t0 < page; t0 += nwarps * rpw) {   // warp-uniform
+      const int t = t0 + lane / G, w = lane % G;
+      const bool row_ok = t < page;
+      const uint4 kw = row_ok ? reinterpret_cast<const uint4*>(kp + (size_t)t * hd)[w]
+                              : make_uint4(0u, 0u, 0u, 0u);
+      const bool valid = row_ok && decode_valid(k0 + t, length, window);
+      const float ks = row_ok ? ksp[t] : 0.f;
+      for (int h = 0; h < qpk; ++h) {
+        int part = dot16(reinterpret_cast<const uint4*>(s.q8 + h * hd)[w], kw, 0);
+        for (int o = G / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+        if (row_ok && w == 0)
+          s.p[h * page + t] = valid ? i8_score(part, s.q_sc[h], ks, scale, softcap) : NEG_INF;
+      }
+    }
+    __syncthreads();
+    if (tid < qpk)
+      i8_row_stats(s, tid, page, [&](int t) { return decode_valid(k0 + t, length, window); });
+    __syncthreads();
+    i8_pv(s, v_s, qpk, hd, page, min(page, length - k0));
+    __syncthreads();
+  }
+
+  for (int e = tid; e < qpk * hd; e += blockDim.x)
+    out[head_off + e] = from_f<T>(s.acc[e] / fmaxf(s.l[e / hd], 1e-37f));
+}
+
+// grid (B, KV, ceil(R / I8_ROWS)); q (B, KV, R, hd), heads innermost; int8
+// pools and float32 scale pools as the decode kernel; out like q. K and V
+// pages are staged in shared memory; a thread's dot walks the 16-byte words
+// of its key row starting at word t (mod hd / 16), so the threads of one
+// load phase hit different banks.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+chunked_prefill_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_pages,
+                            const float* __restrict__ k_scales,
+                            const int8_t* __restrict__ v_pages,
+                            const float* __restrict__ v_scales, const int* __restrict__ totals,
+                            const int* __restrict__ starts,
+                            const int* __restrict__ block_tables, T* __restrict__ out, int KV,
+                            int R, int qpk, int hd, int page, int maxp, float softcap,
+                            float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const I8Smem s = i8_smem(smem_raw, I8_ROWS, hd, page);
+  int8_t* k_s = s.kv;
+  int8_t* v_s = s.kv + page * hd;
+  const int b = blockIdx.x, g = blockIdx.y, tid = threadIdx.x;
+  const int r0 = blockIdx.z * I8_ROWS;
+  const int nrows = min(I8_ROWS, R - r0);
+  const int total = totals[b];
+  const int start = starts[b];
+  const size_t row_off = (((size_t)b * KV + g) * R + r0) * hd;
+  const int W = hd / 16;             // 16-byte words per row
+
+  quantize_rows(q + row_off, nrows, I8_ROWS, hd, s.q8, s.q_sc);
+  for (int e = tid; e < I8_ROWS * hd; e += blockDim.x) s.acc[e] = 0.f;
+  if (tid < I8_ROWS) {
+    s.m[tid] = NEG_INF;
+    s.l[tid] = 0.f;
+  }
+  __syncthreads();
+
+  const int qmax = start + (r0 + nrows - 1) / qpk;
+  const int kend = min(total, qmax + 1);
+  const int pg_hi = kend > 0 ? min((kend + page - 1) / page, maxp) : 0;
+
+  for (int pg = 0; pg < pg_hi; ++pg) {
+    const int pid = block_tables[(size_t)b * maxp + pg];
+    const size_t base = ((size_t)pid * KV + g) * (size_t)page * hd;
+    for (int i = tid; i < page * W; i += blockDim.x) {
+      reinterpret_cast<uint4*>(k_s)[i] = reinterpret_cast<const uint4*>(k_pages + base)[i];
+      reinterpret_cast<uint4*>(v_s)[i] = reinterpret_cast<const uint4*>(v_pages + base)[i];
+    }
+    for (int t = tid; t < page; t += blockDim.x) {
+      s.ks[t] = k_scales[((size_t)pid * KV + g) * page + t];
+      s.vs[t] = v_scales[((size_t)pid * KV + g) * page + t];
+    }
+    __syncthreads();
+
+    const int k0 = pg * page;
+    for (int pr = tid; pr < I8_ROWS * page; pr += blockDim.x) {
+      const int r = pr / page, t = pr - r * page;
+      const uint4* qr = reinterpret_cast<const uint4*>(s.q8 + r * hd);
+      const uint4* kr = reinterpret_cast<const uint4*>(k_s + t * hd);
+      int dot = 0;
+      for (int i = 0; i < W; ++i) {
+        const int w = (i + t) % W;
+        dot = dot16(qr[w], kr[w], dot);
+      }
+      const int qpos = start + (r0 + r) / qpk;
+      const bool valid = r < nrows && chunk_valid(k0 + t, qpos, total);
+      s.p[pr] = valid ? i8_score(dot, s.q_sc[r], s.ks[t], scale, softcap) : NEG_INF;
+    }
+    __syncthreads();
+    if (tid < I8_ROWS) {
+      const int r = tid;
+      const int qpos = start + (r0 + r) / qpk;
+      // p is gated by the mask: a padded row, or a row before every key of
+      // this page, adds exactly 0
+      i8_row_stats(s, r, page,
+                   [&](int t) { return r < nrows && chunk_valid(k0 + t, qpos, total); });
+    }
+    __syncthreads();
+    i8_pv(s, v_s, I8_ROWS, hd, page, page);
+    __syncthreads();
+  }
+
+  for (int e = tid; e < nrows * hd; e += blockDim.x)
+    out[row_off + e] = from_f<T>(s.acc[e] / fmaxf(s.l[e / hd], 1e-37f));
+}
+
+inline bool i8_shape_ok(int hd, int page) {
+  // hd / 16 lanes per key row must divide a warp; 16-byte rows
+  return hd >= 16 && hd <= MAX_HD && hd % 16 == 0 && (32 % (hd / 16)) == 0 && page > 0;
+}
+
+template <typename T>
+int launch_decode_int8(const void* q, const void* k, const void* ks, const void* v,
+                       const void* vs, const void* lengths, const void* bt, void* out, int B,
+                       int KV, int qpk, int hd, int page, int maxp, int window, float softcap,
+                       float scale, cudaStream_t stream) {
+  if (!i8_shape_ok(hd, page)) return (int)cudaErrorInvalidValue;
+  const size_t smem = i8_smem_bytes(qpk, hd, page, 1);
+  cudaError_t err = port::allow_smem(paged_decode_int8_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  paged_decode_int8_kernel<T><<<dim3(B, KV), THREADS, smem, stream>>>(
+      (const T*)q, (const int8_t*)k, (const float*)ks, (const int8_t*)v, (const float*)vs,
+      (const int*)lengths, (const int*)bt, (T*)out, KV, qpk, hd, page, maxp, window, softcap,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_chunk_int8(const void* q, const void* k, const void* ks, const void* v,
+                      const void* vs, const void* totals, const void* starts, const void* bt,
+                      void* out, int B, int KV, int R, int qpk, int hd, int page, int maxp,
+                      float softcap, float scale, cudaStream_t stream) {
+  if (!i8_shape_ok(hd, page)) return (int)cudaErrorInvalidValue;
+  const size_t smem = i8_smem_bytes(I8_ROWS, hd, page, 2);
+  cudaError_t err = port::allow_smem(chunked_prefill_int8_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B, KV, (R + I8_ROWS - 1) / I8_ROWS);
+  chunked_prefill_int8_kernel<T><<<grid, THREADS, smem, stream>>>(
+      (const T*)q, (const int8_t*)k, (const float*)ks, (const int8_t*)v, (const float*)vs,
+      (const int*)totals, (const int*)starts, (const int*)bt, (T*)out, KV, R, qpk, hd, page,
+      maxp, softcap, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -327,6 +655,45 @@ int chunked_prefill_attention(int dtype, const void* q, const void* k_pages,
     return launch_chunk<__nv_bfloat16>(q, k_pages, v_pages, totals, starts, block_tables,
                                        out, B, KV, R, qpk, hd, page, maxp, softcap,
                                        scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// int8 pools (P, KV, page, hd) with float32 scale pools (P, KV, page); q and
+// out in `dtype`. hd a multiple of 16 with hd / 16 dividing 32, pools
+// 16-byte aligned. Returns a cudaError_t code (0 = launched).
+int paged_decode_attention_int8(int dtype, const void* q, const void* k_pages,
+                                const void* k_scales, const void* v_pages,
+                                const void* v_scales, const void* lengths,
+                                const void* block_tables, void* out, int B, int KV, int qpk,
+                                int hd, int page, int maxp, int window, float softcap,
+                                float scale, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == DTYPE_F32)
+    return launch_decode_int8<float>(q, k_pages, k_scales, v_pages, v_scales, lengths,
+                                     block_tables, out, B, KV, qpk, hd, page, maxp, window,
+                                     softcap, scale, s);
+  if (dtype == DTYPE_BF16)
+    return launch_decode_int8<__nv_bfloat16>(q, k_pages, k_scales, v_pages, v_scales, lengths,
+                                             block_tables, out, B, KV, qpk, hd, page, maxp,
+                                             window, softcap, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int chunked_prefill_attention_int8(int dtype, const void* q, const void* k_pages,
+                                   const void* k_scales, const void* v_pages,
+                                   const void* v_scales, const void* totals, const void* starts,
+                                   const void* block_tables, void* out, int B, int KV, int R,
+                                   int qpk, int hd, int page, int maxp, float softcap,
+                                   float scale, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == DTYPE_F32)
+    return launch_chunk_int8<float>(q, k_pages, k_scales, v_pages, v_scales, totals, starts,
+                                    block_tables, out, B, KV, R, qpk, hd, page, maxp, softcap,
+                                    scale, s);
+  if (dtype == DTYPE_BF16)
+    return launch_chunk_int8<__nv_bfloat16>(q, k_pages, k_scales, v_pages, v_scales, totals,
+                                            starts, block_tables, out, B, KV, R, qpk, hd, page,
+                                            maxp, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,8 +3,14 @@
 // over only the live rows (count[e]) of each expert's slot buffer.
 //
 // Replaces (TPU / Pallas): src/repro/kernels/moe_gemm.py:
-//   ragged_moe_gemm_kernel (body _ragged_moe_gemm_kernel, operands from
-//   _live_block_operands).
+//   * ragged_moe_gemm <- ragged_moe_gemm_kernel (body
+//     _ragged_moe_gemm_kernel, operands from _live_block_operands);
+//   * moe_gemm        <- moe_gemm_kernel (body _moe_gemm_kernel), the
+//     capacity-padded variant: the same kernels with no counts, so every
+//     (expert, token tile) of the capacity is loaded and computed, as the
+//     TPU kernel's full (E, nC, nF) grid does. Its output equals the
+//     ragged one's wherever the dead slots hold zeros; what differs is the
+//     work, which follows the capacity instead of the routed tokens.
 //
 // What bounds it on the card: at decode-sized stages (a few tokens per hot
 // expert) the bytes of the three weight matrices, read once per live token
@@ -53,7 +59,7 @@ gate_up_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __res
   __shared__ float us[TK][TN];
   const int e = blockIdx.z;
   const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  const int cnt = counts[e];
+  const int cnt = counts ? counts[e] : C;   // null: every slot live
   if (m0 >= cnt) return;                      // dead token tile: no loads
   const size_t woff = (size_t)perm[e] * d * f;
   const T* xe = x + (size_t)e * C * d;
@@ -112,7 +118,7 @@ down_kernel(const T* __restrict__ h, const T* __restrict__ wo, const int* __rest
   __shared__ float ws[TK][TN];
   const int e = blockIdx.z;
   const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  const int cnt = counts[e];
+  const int cnt = counts ? counts[e] : C;   // null: every slot live
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   T* ye = y + (size_t)e * C * d;
 
@@ -192,6 +198,13 @@ int ragged_moe_gemm(int dtype, const void* x, const void* wg, const void* wu, co
   if (dtype == DTYPE_BF16)
     return launch<__nv_bfloat16>(x, wg, wu, wo, perm, counts, h, y, Eh, C, d, f, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The capacity-padded variant: as ragged_moe_gemm with every one of the C
+// slots of every expert live (no counts).
+int moe_gemm(int dtype, const void* x, const void* wg, const void* wu, const void* wo,
+             const void* perm, void* h, void* y, int Eh, int C, int d, int f, void* stream) {
+  return ragged_moe_gemm(dtype, x, wg, wu, wo, perm, nullptr, h, y, Eh, C, d, f, stream);
 }
 
 }  // extern "C"

@@ -4,7 +4,10 @@
 // whose small (Cc, d) token slabs hold a handful of live rows each.
 //
 // Replaces (TPU / Pallas): src/repro/kernels/moe_gemv.py:
-//   ragged_moe_gemv_kernel (body _ragged_moe_gemv_kernel).
+//   * ragged_moe_gemv <- ragged_moe_gemv_kernel (body _ragged_moe_gemv_kernel);
+//   * moe_gemv        <- moe_gemv_kernel (body _moe_gemv_kernel), the
+//     capacity-padded variant: no counts, every cold expert streams its
+//     weights and computes all Cc slots of its slab.
 //
 // What bounds it on the card: bytes. Each occupied cold expert streams its
 // three d x d_ff weight matrices once and does 2 FLOPs per weight per live
@@ -62,7 +65,7 @@ cold_gate_up_kernel(const T* __restrict__ x, const T* __restrict__ wg,
   __shared__ __align__(16) T gs[KC * FS];
   __shared__ __align__(16) T us[KC * FS];
   const int e = blockIdx.y, n0 = blockIdx.x * FS;
-  const int cnt = counts[e];
+  const int cnt = counts ? counts[e] : Cc;   // null: every slot live
   if (cnt == 0) return;                       // empty cold expert: no loads
   const size_t woff = (size_t)perm[e] * d * f;
   const T* xe = x + (size_t)e * Cc * d;
@@ -115,7 +118,7 @@ cold_down_kernel(const T* __restrict__ h, const T* __restrict__ wo,
   __shared__ float hs[RT][KC + 1];
   __shared__ __align__(16) T ws[KC * FS];
   const int e = blockIdx.y, n0 = blockIdx.x * FS;
-  const int cnt = counts[e];
+  const int cnt = counts ? counts[e] : Cc;   // null: every slot live
   const int tid = threadIdx.x, cg = tid % 8, rg = tid / 8;
   T* ye = y + (size_t)e * Cc * d;
 
@@ -195,6 +198,13 @@ int ragged_moe_gemv(int dtype, const void* x, const void* wg, const void* wu, co
   if (dtype == DTYPE_BF16)
     return launch<__nv_bfloat16>(x, wg, wu, wo, perm, counts, h, y, Ec, Cc, d, f, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The capacity-padded variant: as ragged_moe_gemv with every one of the Cc
+// slots of every cold expert live (no counts).
+int moe_gemv(int dtype, const void* x, const void* wg, const void* wu, const void* wo,
+             const void* perm, void* h, void* y, int Ec, int Cc, int d, int f, void* stream) {
+  return ragged_moe_gemv(dtype, x, wg, wu, wo, perm, nullptr, h, y, Ec, Cc, d, f, stream);
 }
 
 }  // extern "C"

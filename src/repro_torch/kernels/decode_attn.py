@@ -10,6 +10,14 @@ PyTorch versions, in the kernel layouts.
   r = position ``start + r // qpk``) against the paged prefix plus the chunk
   just written; mask ``kpos <= qpos and kpos < total``. Port of
   ``chunked_prefill_attention_kernel`` (fp body).
+* ``paged_decode_attention_int8_kernel`` / ``chunked_prefill_attention_int8_
+  kernel`` — the same two functions over int8 page pools with float32
+  per-(token, KV head) scale pools: int8 dots with the scales folded in and
+  p * v_scale requantized per row over each page, as the TPU kernels' int8
+  bodies (``_paged_decode_kernel_int8``, ``_chunked_prefill_kernel_int8``).
+  Their plain versions walk the page columns with a running max exactly as
+  those bodies do; they are not the model-level paths of
+  ``models/attention.py``, which requantize once over the whole row.
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
@@ -21,6 +29,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.quant import int8_quantize
 
 NEG_INF = -1e30
 
@@ -80,18 +89,33 @@ def chunked_prefill_attention_plain(q, k_pages, v_pages, totals, starts,
     return _attend(q, k, v, valid[:, None], softcap)
 
 
-def _check_pools(q, k_pages, v_pages, block_tables, *ints):
+def _check_pools(q, k_pages, v_pages, block_tables, *ints, scales=None):
+    """Refuse what the kernels do not take. ``scales`` (k, v scale pools)
+    marks int8 pools: int8 values, 16-byte aligned, float32 scales
+    (P, KV, page)."""
     if q.device.type != "cuda":
         raise ValueError(f"paged attention kernels run on CUDA tensors, got {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"paged attention kernels take float32/bfloat16, got {q.dtype}")
+    pool_dtype = q.dtype if scales is None else torch.int8
     for t in (k_pages, v_pages):
-        if t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
-            raise ValueError("page pools must be contiguous, on q's device, in q's dtype")
+        if t.dtype != pool_dtype or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"page pools must be contiguous {pool_dtype} on q's device")
     if k_pages.shape != v_pages.shape or k_pages.shape[1] != q.shape[1] \
             or k_pages.shape[3] != q.shape[3]:
         raise ValueError(f"pool shape {tuple(k_pages.shape)} does not match q "
                          f"{tuple(q.shape)}")
+    if scales is not None:
+        hd = q.shape[3]
+        if hd % 16 or hd > 256 or 32 % (hd // 16):
+            raise ValueError(f"int8 kernels take head_dim 16, 32, 64, 128 or 256, got {hd}")
+        if any(t.data_ptr() % 16 for t in (k_pages, v_pages)):
+            raise ValueError("int8 page pools must be 16-byte aligned")
+        for t in scales:
+            if t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous() \
+                    or t.shape != k_pages.shape[:3]:
+                raise ValueError("scale pools must be contiguous float32 (P, KV, page) "
+                                 "on q's device")
     for t in (block_tables, *ints):
         if t.dtype != torch.int32 or t.device != q.device or not t.is_contiguous():
             raise ValueError("lengths/block tables must be contiguous int32 on q's device")
@@ -152,4 +176,145 @@ def chunked_prefill_attention_kernel(q, k_pages, v_pages, totals, starts,
              1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "chunked_prefill_attention")
     build.launch_counts["chunked_prefill_attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# int8 page pools
+# ---------------------------------------------------------------------------
+
+def _attend_int8_paged(q, k_pages, k_scales, v_pages, v_scales, block_tables,
+                       valid, needed, softcap):
+    """The TPU int8 bodies' page loop, vectorised over sequences, heads and
+    rows. q (B, KV, R, hd); valid (B, R or 1, maxp*page) the mask; needed
+    (B, maxp) the pages the TPU kernel computes (others leave the running
+    state as it is). Per page: folded-scale int8 QK^T, online softmax, p
+    gated by the mask, p * v_scale requantized per row over this page, an
+    int8 PV. The int8 products are taken in float32, which is exact while
+    every sum stays below 2^24 (hd <= 256 and page <= 1040: n * 127^2)."""
+    B, KV, R, hd = q.shape
+    page = k_pages.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    q8, q_sc = int8_quantize(q, keepdims=True)            # (B,KV,R,hd), (B,KV,R,1)
+    q8 = q8.float()
+    m = torch.full((B, KV, R, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KV, R, hd), device=q.device)
+    bt = block_tables.long()
+    for j in range(bt.shape[1]):
+        pid = bt[:, j]
+        ok = valid[:, None, :, j * page:(j + 1) * page]   # (B, 1, R|1, page)
+        s = (torch.matmul(q8, k_pages[pid].float().transpose(-1, -2)) * q_sc
+             * k_scales[pid][:, :, None, :] * scale)
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new) * ok
+        pv8, pv_sc = int8_quantize(p * v_scales[pid][:, :, None, :], keepdims=True)
+        pv = torch.matmul(pv8.float(), v_pages[pid].float())
+        live = needed[:, j][:, None, None, None]
+        l = torch.where(live, l * alpha + p.sum(dim=-1, keepdim=True), l)
+        acc = torch.where(live, acc * alpha + pv * pv_sc, acc)
+        m = torch.where(live, m_new, m)
+    return (acc / l.clamp_min(1e-37)).to(q.dtype)
+
+
+def paged_decode_attention_int8_plain(q, k_pages, k_scales, v_pages, v_scales,
+                                      lengths, block_tables, *, window: int = 0,
+                                      softcap: float = 0.0):
+    """q (B, KV, qpk, hd); int8 pools (P, KV, page, hd); float32 scale pools
+    (P, KV, page); lengths (B,); block_tables (B, maxp). -> (B, KV, qpk, hd)
+    in q's dtype."""
+    page = k_pages.shape[2]
+    maxp = block_tables.shape[1]
+    lens = lengths.long()[:, None]
+    kpos = torch.arange(maxp * page, device=q.device)[None]
+    valid = kpos < lens
+    k_start = torch.arange(maxp, device=q.device)[None] * page
+    needed = k_start < lens
+    if window > 0:
+        valid = valid & (kpos > lens - 1 - window)
+        needed = needed & (k_start + page - 1 > lens - 1 - window)
+    return _attend_int8_paged(q, k_pages, k_scales, v_pages, v_scales,
+                              block_tables, valid[:, None], needed, softcap)
+
+
+def chunked_prefill_attention_int8_plain(q, k_pages, k_scales, v_pages,
+                                         v_scales, totals, starts, block_tables,
+                                         *, qpk: int, softcap: float = 0.0):
+    """q (B, KV, R, hd), R = Sc*qpk heads innermost; int8 pools and float32
+    scale pools as the decode version; totals, starts (B,); block_tables
+    (B, maxp). -> (B, KV, R, hd) in q's dtype."""
+    page = k_pages.shape[2]
+    maxp = block_tables.shape[1]
+    R = q.shape[2]
+    tot = totals.long()[:, None]
+    qpos = starts.long()[:, None] + torch.arange(R, device=q.device)[None] // qpk
+    kpos = torch.arange(maxp * page, device=q.device)
+    valid = ((kpos[None, None, :] <= qpos[:, :, None])
+             & (kpos[None, None, :] < tot[:, :, None]))
+    needed = torch.arange(maxp, device=q.device)[None] * page < tot
+    return _attend_int8_paged(q, k_pages, k_scales, v_pages, v_scales,
+                              block_tables, valid, needed, softcap)
+
+
+def paged_decode_attention_int8_kernel(q, k_pages, k_scales, v_pages, v_scales,
+                                       lengths, block_tables, *, window: int = 0,
+                                       softcap: float = 0.0):
+    """Layout as ``paged_decode_attention_int8_plain``; runs the CUDA kernel
+    for CUDA tensors and the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_int8_plain(
+            q, k_pages, k_scales, v_pages, v_scales, lengths, block_tables,
+            window=window, softcap=softcap)
+    _check_pools(q, k_pages, v_pages, block_tables, lengths,
+                 scales=(k_scales, v_scales))
+    B, KV, qpk, hd = q.shape
+    page = k_pages.shape[2]
+    smem = 4 * (qpk * (hd + page + 5) + 2 * page) + qpk * (hd + page) + page * hd + 32
+    if smem > 227 * 1024:
+        raise ValueError("qpk/head_dim/page too large for one block's shared memory")
+    out = torch.empty_like(q)
+    fn = build.bind("decode_attn.cu", "paged_decode_attention_int8", 8, 7, 2)
+    err = fn(build.DTYPE_CODES[str(q.dtype).split(".")[1]], q.data_ptr(),
+             k_pages.data_ptr(), k_scales.data_ptr(), v_pages.data_ptr(),
+             v_scales.data_ptr(), lengths.data_ptr(), block_tables.data_ptr(),
+             out.data_ptr(), B, KV, qpk, hd, page, block_tables.shape[1],
+             int(window), float(softcap), 1.0 / math.sqrt(hd),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "paged_decode_attention_int8")
+    build.launch_counts["paged_decode_attention_int8"] += 1
+    return out
+
+
+def chunked_prefill_attention_int8_kernel(q, k_pages, k_scales, v_pages,
+                                          v_scales, totals, starts, block_tables,
+                                          *, qpk: int, softcap: float = 0.0):
+    """Layout as ``chunked_prefill_attention_int8_plain``; runs the CUDA
+    kernel for CUDA tensors and the plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return chunked_prefill_attention_int8_plain(
+            q, k_pages, k_scales, v_pages, v_scales, totals, starts,
+            block_tables, qpk=qpk, softcap=softcap)
+    _check_pools(q, k_pages, v_pages, block_tables, totals, starts,
+                 scales=(k_scales, v_scales))
+    B, KV, R, hd = q.shape
+    page = k_pages.shape[2]
+    if R % qpk:
+        raise ValueError(f"rows {R} not a multiple of qpk {qpk}")
+    smem = 4 * (16 * (hd + page + 5) + 2 * page) + 16 * (hd + page) + 2 * page * hd + 32
+    if smem > 227 * 1024:
+        raise ValueError("page/head_dim too large for one block's shared memory")
+    out = torch.empty_like(q)
+    fn = build.bind("decode_attn.cu", "chunked_prefill_attention_int8", 9, 7, 2)
+    err = fn(build.DTYPE_CODES[str(q.dtype).split(".")[1]], q.data_ptr(),
+             k_pages.data_ptr(), k_scales.data_ptr(), v_pages.data_ptr(),
+             v_scales.data_ptr(), totals.data_ptr(), starts.data_ptr(),
+             block_tables.data_ptr(), out.data_ptr(), B, KV, R, qpk, hd, page,
+             block_tables.shape[1], float(softcap), 1.0 / math.sqrt(hd),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "chunked_prefill_attention_int8")
+    build.launch_counts["chunked_prefill_attention_int8"] += 1
     return out

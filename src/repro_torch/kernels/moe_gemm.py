@@ -1,5 +1,6 @@
-"""Ragged grouped GEMM for hot experts (CUDA, ``csrc/moe_gemm.cu``) and its
-plain PyTorch version.
+"""Grouped GEMMs for hot experts (CUDA, ``csrc/moe_gemm.cu``) and their
+plain PyTorch versions: ragged (``ragged_moe_gemm_kernel``) and
+capacity-padded (``moe_gemm_kernel``).
 
 Computes, per hot rank e with expert id ``perm[e]``, the SwiGLU FFN
 ``(silu(x Wg) * (x Wu)) Wo`` over the live rows ``c < counts[e]`` of its slot
@@ -8,6 +9,10 @@ activation dtype before ``Wo`` (the TPU kernel's rounding point); rows at or
 past each count come back zeroed. Port of ``repro/kernels/moe_gemm.py::
 ragged_moe_gemm_kernel``. The expert weights are read in place through
 ``perm`` — no permuted weight copy is built.
+
+The capacity-padded ``moe_gemm_kernel`` (port of ``moe_gemm.py::
+moe_gemm_kernel``) computes the same FFN over every slot of the capacity:
+no counts, nothing skipped or zeroed.
 """
 from __future__ import annotations
 
@@ -33,16 +38,23 @@ def zero_dead_rows(y, counts):
                                                        device=y.device))
 
 
-def ragged_moe_gemm_plain(x, w_gate, w_up, w_out, perm, counts):
-    """x (Eh, C, d) slot buffers in rank order; w_gate/w_up (E, d, f) and
-    w_out (E, f, d) for all experts; perm (Eh,) expert id per rank; counts
-    (Eh,) live rows. -> (Eh, C, d)."""
+def moe_gemm_plain(x, w_gate, w_up, w_out, perm):
+    """Capacity-padded: x (Eh, C, d) slot buffers in rank order; w_gate/w_up
+    (E, d, f) and w_out (E, f, d) for all experts; perm (Eh,) expert id per
+    rank. Every slot is computed. -> (Eh, C, d)."""
     idx = perm.long()
-    y = swiglu_ffn_plain(x, w_gate[idx], w_up[idx], w_out[idx])
-    return zero_dead_rows(y, counts.long())
+    return swiglu_ffn_plain(x, w_gate[idx], w_up[idx], w_out[idx])
 
 
-def check_expert_operands(x, w_gate, w_up, w_out, perm, counts):
+def ragged_moe_gemm_plain(x, w_gate, w_up, w_out, perm, counts):
+    """As ``moe_gemm_plain`` with counts (Eh,) live rows: slots at or past
+    each count come back zeroed."""
+    return zero_dead_rows(moe_gemm_plain(x, w_gate, w_up, w_out, perm), counts.long())
+
+
+def check_expert_operands(x, w_gate, w_up, w_out, perm, counts=None):
+    """Refuse what the MoE kernels do not take (``counts`` None: the padded
+    variants)."""
     if x.device.type != "cuda":
         raise ValueError(f"MoE kernels run on CUDA tensors, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -55,7 +67,7 @@ def check_expert_operands(x, w_gate, w_up, w_out, perm, counts):
     for t in (x, w_gate, w_up, w_out):
         if t.dtype != x.dtype or t.device != x.device or not t.is_contiguous():
             raise ValueError("x and expert weights must be contiguous, one dtype, one device")
-    for t in (perm, counts):
+    for t in (perm,) if counts is None else (perm, counts):
         if t.dtype != torch.int32 or t.device != x.device or not t.is_contiguous() \
                 or t.shape != (x.shape[0],):
             raise ValueError("perm/counts must be contiguous int32 (experts,) on x's device")
@@ -79,4 +91,24 @@ def ragged_moe_gemm_kernel(x, w_gate, w_up, w_out, perm, counts):
              Eh, C, d, f, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "ragged_moe_gemm")
     build.launch_counts["ragged_moe_gemm"] += 1
+    return y
+
+
+def moe_gemm_kernel(x, w_gate, w_up, w_out, perm):
+    """Layout as ``moe_gemm_plain``; runs the CUDA kernel for CUDA tensors
+    and the plain version for CPU tensors."""
+    if x.device.type == "cpu":
+        return moe_gemm_plain(x, w_gate, w_up, w_out, perm)
+    check_expert_operands(x, w_gate, w_up, w_out, perm)
+    Eh, C, d = x.shape
+    f = w_gate.shape[2]
+    h = torch.empty((Eh, C, f), dtype=x.dtype, device=x.device)
+    y = torch.empty_like(x)
+    fn = build.bind("moe_gemm.cu", "moe_gemm", 7, 4)
+    err = fn(build.DTYPE_CODES[str(x.dtype).split(".")[1]], x.data_ptr(),
+             w_gate.data_ptr(), w_up.data_ptr(), w_out.data_ptr(),
+             perm.data_ptr(), h.data_ptr(), y.data_ptr(), Eh, C, d, f,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "moe_gemm")
+    build.launch_counts["moe_gemm"] += 1
     return y

@@ -7,49 +7,67 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.decode_attn import (chunked_prefill_attention_kernel,
-                                             paged_decode_attention_kernel)
-from repro_torch.kernels.moe_gemm import ragged_moe_gemm_kernel
-from repro_torch.kernels.moe_gemv import ragged_moe_gemv_kernel
+from repro_torch.kernels.decode_attn import (
+    chunked_prefill_attention_int8_kernel, chunked_prefill_attention_kernel,
+    paged_decode_attention_int8_kernel, paged_decode_attention_kernel)
+from repro_torch.kernels.moe_gemm import moe_gemm_kernel, ragged_moe_gemm_kernel
+from repro_torch.kernels.moe_gemv import moe_gemv_kernel, ragged_moe_gemv_kernel
+
+
+def _i32(t):
+    return t.to(torch.int32).contiguous()
 
 
 def paged_decode_attention(q, k_pages, v_pages, lengths, block_tables, *,
-                           window: int = 0, softcap: float = 0.0):
+                           k_scales=None, v_scales=None, window: int = 0,
+                           softcap: float = 0.0):
     """q (B, 1, H, hd); page pools (P, KV, page, hd); lengths (B,);
-    block_tables (B, maxp). -> (B, 1, H, hd)."""
+    block_tables (B, maxp). With ``k_scales``/``v_scales`` ((P, KV, page)
+    float32) the pools are int8 and the int8 kernel runs. -> (B, 1, H, hd)."""
     B, _, H, hd = q.shape
     KV = k_pages.shape[1]
     qg = q.reshape(B, KV, H // KV, hd).contiguous()
-    out = paged_decode_attention_kernel(
-        qg, k_pages, v_pages, lengths.to(torch.int32).contiguous(),
-        block_tables.to(torch.int32).contiguous(), window=window,
-        softcap=softcap)
+    kw = dict(window=window, softcap=softcap)
+    if k_scales is None:
+        out = paged_decode_attention_kernel(qg, k_pages, v_pages, _i32(lengths),
+                                            _i32(block_tables), **kw)
+    else:
+        out = paged_decode_attention_int8_kernel(qg, k_pages, k_scales, v_pages,
+                                                 v_scales, _i32(lengths),
+                                                 _i32(block_tables), **kw)
     return out.reshape(B, 1, H, hd)
 
 
 def chunked_prefill_attention(q, k_pages, v_pages, totals, starts,
-                              block_tables, *, softcap: float = 0.0):
+                              block_tables, *, k_scales=None, v_scales=None,
+                              softcap: float = 0.0):
     """q (B, Sc, H, hd) chunk queries (their K/V already written); pools
-    (P, KV, page, hd); totals/starts (B,); block_tables (B, maxp).
-    -> (B, Sc, H, hd)."""
+    (P, KV, page, hd); totals/starts (B,); block_tables (B, maxp);
+    ``k_scales``/``v_scales`` select the int8 kernel as in
+    ``paged_decode_attention``. -> (B, Sc, H, hd)."""
     B, Sc, H, hd = q.shape
     KV = k_pages.shape[1]
     qpk = H // KV
     # (B, KV, Sc*qpk, hd), heads innermost so row r = chunk position r // qpk
     qg = q.reshape(B, Sc, KV, qpk, hd).permute(0, 2, 1, 3, 4)
     qg = qg.reshape(B, KV, Sc * qpk, hd).contiguous()
-    out = chunked_prefill_attention_kernel(
-        qg, k_pages, v_pages, totals.to(torch.int32).contiguous(),
-        starts.to(torch.int32).contiguous(),
-        block_tables.to(torch.int32).contiguous(), qpk=qpk, softcap=softcap)
+    ctx = (_i32(totals), _i32(starts), _i32(block_tables))
+    if k_scales is None:
+        out = chunked_prefill_attention_kernel(qg, k_pages, v_pages, *ctx,
+                                               qpk=qpk, softcap=softcap)
+    else:
+        out = chunked_prefill_attention_int8_kernel(qg, k_pages, k_scales, v_pages,
+                                                    v_scales, *ctx, qpk=qpk,
+                                                    softcap=softcap)
     out = out.reshape(B, KV, Sc, qpk, hd).permute(0, 2, 1, 3, 4)
     return out.reshape(B, Sc, H, hd)
 
 
-def _expert_args(w, x, perm, counts):
-    counts = torch.clamp(counts, max=x.shape[1]).to(torch.int32).contiguous()
-    return (x.contiguous(), w["wi_gate"], w["wi_up"], w["wo"],
-            perm.to(torch.int32).contiguous(), counts)
+def _expert_args(w, x, perm, counts=None):
+    args = (x.contiguous(), w["wi_gate"], w["wi_up"], w["wo"], _i32(perm))
+    if counts is None:
+        return args
+    return args + (_i32(torch.clamp(counts, max=x.shape[1])),)
 
 
 def ragged_moe_gemm(w, x, counts, perm):
@@ -61,7 +79,17 @@ def ragged_moe_gemm(w, x, counts, perm):
     return ragged_moe_gemm_kernel(*_expert_args(w, x, perm, counts))
 
 
+def moe_gemm(w, x, perm):
+    """Capacity-padded hot-expert grouped GEMM: every slot of the capacity
+    is computed. Arguments as ``ragged_moe_gemm`` without counts."""
+    return moe_gemm_kernel(*_expert_args(w, x, perm))
+
+
 def moe_gemv(w, x, counts, perm):
-    """Count-aware cold-expert GEMV, arguments as ``ragged_moe_gemm``
-    (x (Ec, Cc, d)): empty experts stream no weights, dead rows zeroed."""
+    """Cold-expert GEMV, arguments as ``ragged_moe_gemm`` (x (Ec, Cc, d)).
+    With counts, empty experts stream no weights and dead rows come back
+    zeroed; with ``counts=None`` the capacity-padded kernel computes every
+    slot."""
+    if counts is None:
+        return moe_gemv_kernel(*_expert_args(w, x, perm))
     return ragged_moe_gemv_kernel(*_expert_args(w, x, perm, counts))

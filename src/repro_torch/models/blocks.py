@@ -24,14 +24,22 @@ def _check_kind(kind: LayerKind) -> None:
 
 
 def block_init_cache(cfg: ModelConfig, kind: LayerKind, *, page_size: int,
-                     num_pages: int, dtype, device, layers: int = 1) -> dict:
+                     num_pages: int, dtype, device, layers: int = 1,
+                     kv_quant: bool = False) -> dict:
     """The page pools of ``layers`` stacked copies of this block:
-    (layers, num_pages, KV, page, hd) each; page 0 is the null page."""
+    (layers, num_pages, KV, page, hd) each; page 0 is the null page. With
+    ``kv_quant`` the value pools are int8 and float32 per-(token, KV head)
+    scale pools (layers, num_pages, KV, page) ride beside them."""
     _check_kind(kind)
     shape = (layers, num_pages, cfg.num_kv_heads, page_size,
              cfg.resolved_head_dim)
-    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
-            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    if not kv_quant:
+        return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+                "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k_pages": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v_pages": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale_pages": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            "v_scale_pages": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
 
 
 def _layer(tree, i):
@@ -98,10 +106,11 @@ def block_mixed_step(params, cfg: ModelConfig, kind: LayerKind, xd, xc, cache,
 
 
 def segment_init_cache(cfg: ModelConfig, seg, *, page_size: int, num_pages: int,
-                       dtype, device) -> dict:
+                       dtype, device, kv_quant: bool = False) -> dict:
     return {"blocks": tuple(
         block_init_cache(cfg, kind, page_size=page_size, num_pages=num_pages,
-                         dtype=dtype, device=device, layers=seg.repeats)
+                         dtype=dtype, device=device, layers=seg.repeats,
+                         kv_quant=kv_quant)
         for kind in seg.pattern)}
 
 

@@ -3,7 +3,8 @@
 Port of the serving entry points of ``repro/models/model.py`` on the paged
 KV layout: ``init_cache`` (paged), ``decode_step`` and ``mixed_step``.
 The cache is a list (one entry per segment) of ``{"blocks": ({"k_pages",
-"v_pages"}, ...)}`` with stacked (layers, P, KV, page, hd) pools, updated in
+"v_pages"}, ...)}`` with stacked (layers, P, KV, page, hd) pools (int8 pools
+add "k_scale_pages"/"v_scale_pages" (layers, P, KV, page)), updated in
 place; the functions still return it so call sites read like the
 reference's.
 """
@@ -31,13 +32,15 @@ def _lm_head(params, cfg: ModelConfig, x):
 
 
 def init_cache(cfg: ModelConfig, *, page_size: int, num_pages: int,
-               device="cuda") -> list:
+               device="cuda", kv_quant: bool = False) -> list:
     """The paged KV cache (the only layout the port serves): each attention
     layer holds a (num_pages, KV, page_size, hd) pool share in the model's
-    dtype; capacity is owned by the KVManager."""
+    dtype, or with ``kv_quant`` in int8 plus float32 (num_pages, KV,
+    page_size) scale pools; capacity is owned by the KVManager."""
     dtype = DTYPES[cfg.dtype]
     return [segment_init_cache(cfg, seg, page_size=page_size,
-                               num_pages=num_pages, dtype=dtype, device=device)
+                               num_pages=num_pages, dtype=dtype, device=device,
+                               kv_quant=kv_quant)
             for seg in cfg.segments]
 
 

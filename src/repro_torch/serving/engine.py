@@ -9,7 +9,9 @@ runs ``mixed_step`` (any chunk this stage) or ``decode_step`` once, samples
 greedily, and commits. The Duplex planner picks the stage's ``k_cold`` from
 an EMA of the previous stages' actual router counts; on the device the
 experts are re-ranked by the live counts and the cold / hot paths run the
-GEMV / ragged GEMM kernels.
+GEMV / ragged GEMM kernels (or, with ``moe_ragged=False``, the
+capacity-padded GEMV / GEMM kernels). With ``kv_quant`` the page pools hold
+int8 K/V with float32 scales and the int8 attention kernels run.
 
 Where the reference keys one jitted function per bucketed shape, the port
 simply calls the model with the same bucketed shapes. The engine runs on
@@ -81,17 +83,16 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int, max_len: int,
                  kv_page_size: int, prefill_chunk_tokens: int,
                  use_duplex: bool = True, use_kernels: bool = True,
-                 moe_ragged: bool = True, moe_c_block: int = 256, device="cuda"):
+                 kv_quant: bool = False, moe_ragged: bool = True,
+                 moe_c_block: int = 256, device="cuda"):
         """Greedy sampling only; the page pool holds every slot at max_len
-        (plus the null page). With ``use_kernels`` an MoE model needs the
-        duplex ragged path: the capacity-padded MoE kernels the reference
-        runs otherwise are not ported."""
+        (plus the null page). ``kv_quant`` keeps the pages in int8 with
+        float32 per-(token, KV head) scales. With ``use_kernels`` the
+        attention kernels run, and the MoE runs the duplex ragged kernels,
+        or with ``moe_ragged=False`` the capacity-padded ones; without
+        ``use_duplex`` the MoE is the plain grouped path, as the reference
+        runs XLA there."""
         self.device = torch.device(device)
-        if (use_kernels and cfg.moe is not None
-                and not (use_duplex and moe_ragged)):
-            raise NotImplementedError(
-                "use_kernels with use_duplex=False or moe_ragged=False needs the "
-                "capacity-padded MoE kernels, which are not ported yet")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServingEngine(device='cuda') but no CUDA device "
                                "is available; pass device='cpu' explicitly")
@@ -105,7 +106,7 @@ class ServingEngine:
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
         self.params = dict(params, lm_head_f32=head["table"].float())
         self.kv = KVManager(cfg, max_slots, max_len, page_size=kv_page_size,
-                            device=self.device)
+                            kv_quant=kv_quant, device=self.device)
         self.scheduler = ContinuousBatchingScheduler(
             max_prefill_seqs=MAX_PREFILL_SEQS,
             prefill_chunk_tokens=prefill_chunk_tokens, max_prefill_target=max_len)
@@ -132,7 +133,9 @@ class ServingEngine:
             self.planner = DuplexPlanner(lut_x, lut_p, cfg.moe.num_experts)
         self._ema_counts: Optional[np.ndarray] = None
         self._count_ema_decay = 0.5
-        self._kv_bytes_per_token = kv_token_bytes(cfg) * cfg.num_layers
+        # streamed K+V bytes per live token over all layers, in the pools'
+        # actual storage (int8 values plus their float32 scales when quantized)
+        self._kv_bytes_per_token = kv_token_bytes(cfg, kv_quant=kv_quant) * cfg.num_layers
         self._moe_layers = sum(seg.repeats for seg in cfg.segments
                                for kind in seg.pattern if kind.ffn == MOE)
         self._param_itemsize = DTYPES[cfg.param_dtype].itemsize

@@ -7,7 +7,9 @@ demand by ``ensure_len`` and returned on ``free``. Page 0 is the reserved
 null page: tables are zero-filled and padded rows write there, so a dummy
 row never touches a live sequence. Slot and page ids are handed out lowest
 first from heaps. Every page has one owner in this slice (no prefix
-sharing, no copy-on-write).
+sharing, no copy-on-write). With ``kv_quant`` the pools hold int8 values
+plus float32 per-(token, KV head) scales (``kv_token_bytes`` is the byte
+factor either way).
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MAMBA, ModelConfig
 from repro_torch.models.model import init_cache
 from repro_torch.models.params import DTYPES
 
@@ -25,10 +27,24 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def kv_token_bytes(cfg: ModelConfig) -> int:
-    """K+V bytes one cached token occupies in one attention layer."""
-    item = DTYPES[cfg.dtype].itemsize
-    return 2 * cfg.num_kv_heads * cfg.resolved_head_dim * item
+def kv_token_bytes(cfg: ModelConfig, *, kv_quant: bool = False) -> int:
+    """K+V bytes one cached token occupies in one attention layer, the fp32
+    per-(token, KV head) scales included when quantized: ``2*KV*hd*itemsize``
+    in the model's dtype, ``2*KV*(hd + 4)`` in int8."""
+    item = 1 if kv_quant else DTYPES[cfg.dtype].itemsize
+    scale_bytes = 4 if kv_quant else 0
+    return 2 * cfg.num_kv_heads * (cfg.resolved_head_dim * item + scale_bytes)
+
+
+def pages_for_budget(cfg: ModelConfig, page_size: int, budget_bytes: int, *,
+                     kv_quant: bool = False) -> int:
+    """How many pool pages (the null page not counted) fit ``budget_bytes``
+    across all attention layers; int8 pools admit about twice the pages of
+    bf16 ones at one budget."""
+    n_attn = sum(seg.repeats for seg in cfg.segments
+                 for kind in seg.pattern if kind.mixer != MAMBA)
+    per_page = n_attn * page_size * kv_token_bytes(cfg, kv_quant=kv_quant)
+    return max(budget_bytes // per_page, 0)
 
 
 class KVManager:
@@ -38,8 +54,9 @@ class KVManager:
 
     def __init__(self, cfg: ModelConfig, max_slots: int, max_len: int, *,
                  page_size: int = 64, num_pages: Optional[int] = None,
-                 device="cuda"):
+                 kv_quant: bool = False, device="cuda"):
         self.cfg = cfg
+        self.kv_quant = kv_quant
         self.max_slots = max_slots
         self.max_len = max_len
         self.page_size = page_size
@@ -50,7 +67,7 @@ class KVManager:
         assert num_pages >= 2, "need at least the null page + one page"
         self.num_pages = num_pages
         self.cache = init_cache(cfg, page_size=page_size, num_pages=num_pages,
-                                device=device)
+                                device=device, kv_quant=kv_quant)
         self._free: List[int] = list(range(max_slots))
         self._active: set = set()
         self._page_free: List[int] = list(range(1, num_pages))

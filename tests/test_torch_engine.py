@@ -74,14 +74,3 @@ def test_engine_refuses_oversized_prompt():
     eng = ServingEngine(resolve_config("tiny-moe"), params, device="cpu", **KW)
     with pytest.raises(ValueError, match="never silently truncated"):
         eng.submit(Request(rid=0, prompt=list(range(64)), max_new_tokens=2))
-
-
-@pytest.mark.parametrize("flags", [dict(use_duplex=False), dict(moe_ragged=False)])
-def test_engine_refuses_unported_moe_kernels(flags):
-    """With the kernels on, an MoE model runs only the duplex ragged path:
-    the capacity-padded MoE kernels are not ported, and the engine says so
-    when it is built instead of at the first MoE layer."""
-    cfg = resolve_config("tiny-moe")
-    params = {"embed": {"table": torch.zeros((cfg.vocab_size, cfg.d_model))}}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServingEngine(cfg, params, device="cpu", use_kernels=True, **flags, **KW)

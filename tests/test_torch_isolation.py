@@ -18,6 +18,10 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for n in names:
     importlib.import_module(n)
+for n in ("repro_torch.kernels.quant", "repro_torch.kernels.decode_attn",
+          "repro_torch.kernels.moe_gemm", "repro_torch.kernels.moe_gemv",
+          "repro_torch.models.attention", "repro_torch.serving.kvmanager"):
+    assert n in names, n
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
 assert "jax" not in [m for m in sys.modules if sys.modules[m] is not None]
@@ -34,13 +38,14 @@ except RuntimeError:
 else:
     raise AssertionError("init_model ran without a card")
 params = init_model(cfg, device="cpu")
-try:
-    ServingEngine(cfg, params, max_slots=2, max_len=32, kv_page_size=8,
-                  prefill_chunk_tokens=16)
-except RuntimeError as e:
-    assert "cuda" in str(e).lower()
-else:
-    raise AssertionError("ServingEngine ran without a card")
+for flags in ({}, {"kv_quant": True, "moe_ragged": False}):
+    try:
+        ServingEngine(cfg, params, max_slots=2, max_len=32, kv_page_size=8,
+                      prefill_chunk_tokens=16, **flags)
+    except RuntimeError as e:
+        assert "cuda" in str(e).lower()
+    else:
+        raise AssertionError("ServingEngine ran without a card")
 print("OK", len(names))
 """
 

@@ -88,7 +88,8 @@ def test_duplex_moe_apply_matches(ffn_params, k_cold, use_kernels):
         p, CFG_J, x, use_kernels=use_kernels, ragged=use_kernels, return_stats=True,
         token_valid=v, **kw))(jp, jax.numpy.asarray(x), jax.numpy.asarray(valid))
     y_t, r_t = tdm.duplex_moe_apply(tp, CFG_T, torch.tensor(x), use_kernels=use_kernels,
-                                    token_valid=torch.tensor(valid), **kw)
+                                    ragged=use_kernels, token_valid=torch.tensor(valid),
+                                    **kw)
     np.testing.assert_array_equal(r_t.counts.numpy(), np.asarray(r_j.counts))
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), atol=ATOL)
 
