@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py            # every phase, OLMoE-1B-7B at full width
+    python3 chip_smoke.py            # every phase: OLMoE-1B-7B, then Jamba-v0.1
     python3 chip_smoke.py --kernels-only
 
 Phases, each printing a line:
   1. environment: torch / CUDA versions and the card's name and power limit;
   2. kernel build (nvcc, all sources in parallel) and its time;
   3. each hand-written kernel against its plain PyTorch version on the card
-     at OLMoE-1B-7B shapes (plus a GQA shape for the attention kernels), in
+     at OLMoE-1B-7B shapes (plus a GQA shape for the attention kernels;
+     the ragged MoE pair also at Jamba-v0.1's widths and path c's decode
+     capacities; the dense decode attention and the SSD decode at
+     Jamba-v0.1's shapes, the SSD decode also at Mamba2-2.7B's), in
      bfloat16 within its rounding band and again in float32 within 1e-4:
-     max error and tolerance, kernel / plain / library time, and the
+     max error and tolerance, kernel / plain / library time (the kernel
+     also from a CUDA-graph replay: its device time without the wrapper's
+     host work), and the
      kernel's bound (least bytes / 3.35 TB/s or operations over the peak
      rate of the inputs' type: 989 TFLOP/s bf16, 67 TFLOP/s float32, 1979
      TOP/s int8); the int8 attention rows also print the float kernel's
@@ -26,7 +31,18 @@ Phases, each printing a line:
      that each of its kernels was launched, and that one mixed stage's
      logits through the kernels agree with the plain (kernel-free) torch
      path, then profiles a short run; b also prints both paths' KV pool
-     bytes.
+     bytes. Then, with the OLMoE model freed,
+       c. Jamba-v0.1 (Mamba-2 + GQA attention + MoE) at full width, depth
+          cut to 16 of its 32 layers (two of four periods; the whole model,
+          ~103 GB in bf16, does not fit one 80 GB card), the same 16
+          requests on the dense KV layout (the engine's layout for a hybrid
+          stack) with the legacy whole-prompt prefill
+          (``prefill_chunk_tokens=None``) and
+          the duplex ragged MoE; it checks completion, the launches of the
+          dense decode attention, SSD decode and ragged MoE kernels, one
+          decode stage through the kernels against the plain path, prints
+          the dense KV and SSM state bytes and the peak memory, and
+          profiles a short run.
 
 Prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as the
 last line. Any failure raises, and the exit code is non-zero. Without a CUDA
@@ -36,6 +52,7 @@ printing any result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import re
 import subprocess
@@ -81,6 +98,31 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time per call: ``iters`` calls captured in one CUDA graph and
+    replayed, so the wrappers' host work (argument checks, allocation, the
+    ctypes call) is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                               # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def bound_ms(nbytes: float, flops: float, ops_type: str):
@@ -143,6 +185,7 @@ def check_decode(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0, int8=Fals
     out = dict(err=(got.float() - want.float()).abs().max().item(),
                scale=want.float().abs().max().item(),
                ms=time_ms(lambda: kernel(*args, **kw)),
+               graph_ms=graph_ms(torch, lambda: kernel(*args, **kw)),
                plain_ms=time_ms(lambda: plain(*args, **kw)), lib_ms=None)
     live = [min(n, maxp * page) if not window else min(n, window) for n in lens]
     item = q.element_size()
@@ -204,6 +247,7 @@ def check_chunk(torch, gen, dtype, *, KV, qpk, int8=False):
     out = dict(err=(got.float() - want.float()).abs().max().item(),
                scale=want.float().abs().max().item(),
                ms=time_ms(lambda: kernel(*args, qpk=qpk)),
+               graph_ms=graph_ms(torch, lambda: kernel(*args, qpk=qpk)),
                plain_ms=time_ms(lambda: plain(*args, qpk=qpk)), lib_ms=None)
     item = q.element_size()
     if int8:
@@ -232,6 +276,75 @@ def check_chunk(torch, gen, dtype, *, KV, qpk, int8=False):
     return out
 
 
+def check_dense(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0):
+    """Decode attention over a dense (B, Smax, KV, hd) cache, read in place:
+    16 sequences, Smax 1024, seeded lengths 0-1024 (one at 0, one at 1024)."""
+    from repro_torch.kernels import decode_attn as da
+    B, hd, Smax = 16, 128, 1024
+    lens = torch.randint(0, Smax + 1, (B,), generator=gen, device="cuda").to(torch.int32)
+    lens[0], lens[1] = 0, Smax
+    k = torch.randn((B, Smax, KV, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Smax, KV, hd), generator=gen, device="cuda").to(dtype)
+    q = torch.randn((B, KV, qpk, hd), generator=gen, device="cuda").to(dtype)
+    kw = dict(window=window, softcap=softcap)
+    got = da.decode_attention_kernel(q, k, v, lens, **kw)
+    want = da.decode_attention_plain(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    out = dict(err=(got.float() - want.float()).abs().max().item(),
+               scale=want.float().abs().max().item(),
+               ms=time_ms(lambda: da.decode_attention_kernel(q, k, v, lens, **kw)),
+               graph_ms=graph_ms(torch, lambda: da.decode_attention_kernel(q, k, v, lens, **kw)),
+               plain_ms=time_ms(lambda: da.decode_attention_plain(q, k, v, lens, **kw)),
+               lib_ms=None)
+    lens_l = lens.tolist()
+    live = [min(n, Smax) - (max(n - window, 0) if window else 0) for n in lens_l]
+    live = [max(n, 0) for n in live]
+    item = q.element_size()
+    out["nbytes"] = sum(live) * KV * hd * 2 * item + 2 * q.numel() * item + B * 4
+    out["flops"] = sum(live) * KV * qpk * hd * 4
+    if not softcap:
+        # library yardstick: SDPA over the same dense cache with the length mask
+        kpos = torch.arange(Smax, device="cuda")[None]
+        valid = kpos < lens.long()[:, None]
+        if window:
+            valid &= kpos > lens.long()[:, None] - 1 - window
+        mask = valid[:, None, None, :]
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        out["lib_ms"] = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kt, vt, attn_mask=mask))
+    return out
+
+
+def check_ssd(torch, gen, dtype, *, H, N, P):
+    """The Mamba-2 decode state update for 16 sequences; the kernel updates
+    its (cloned) state in place. The error is the larger of y's and the
+    new state's."""
+    from repro_torch.kernels import ssd_decode as sd
+    B = 16
+    state = torch.randn((B, H, N, P), generator=gen, device="cuda")
+    x = torch.randn((B, H, P), generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((B, H), generator=gen, device="cuda"))
+    a_log = torch.rand((H,), generator=gen, device="cuda")
+    b = torch.randn((B, N), generator=gen, device="cuda")
+    c = torch.randn((B, N), generator=gen, device="cuda")
+    d = torch.randn((H,), generator=gen, device="cuda")
+    y_p, s_p = sd.ssd_decode_plain(state, x, dt, a_log, b, c, d)
+    y_k, s_k = sd.ssd_decode_kernel(state.clone(), x, dt, a_log, b, c, d)
+    torch.cuda.synchronize()
+    err = max((y_k.float() - y_p.float()).abs().max().item(), (s_k - s_p).abs().max().item())
+    work = state.clone()
+    item = x.element_size()
+    return dict(err=err, scale=y_p.float().abs().max().item(),
+                ms=time_ms(lambda: sd.ssd_decode_kernel(work, x, dt, a_log, b, c, d)),
+                graph_ms=graph_ms(torch, lambda: sd.ssd_decode_kernel(work, x, dt, a_log, b,
+                                                                      c, d)),
+                plain_ms=time_ms(lambda: sd.ssd_decode_plain(state, x, dt, a_log, b, c, d)),
+                lib_ms=None,
+                nbytes=2 * state.numel() * 4 + 2 * x.numel() * item + (B * H + 2 * B * N
+                                                                      + 2 * H) * 4,
+                flops=6 * state.numel(), ops_type="float32")
+
+
 def _experts(torch, gen, dtype, E, d, f):
     def w(*shape, fan_in):
         return (torch.randn(shape, generator=gen, device="cuda")
@@ -239,25 +352,28 @@ def _experts(torch, gen, dtype, E, d, f):
     return w(E, d, f, fan_in=d), w(E, d, f, fan_in=d), w(E, f, d, fan_in=f)
 
 
-def check_moe(torch, gen, dtype, *, hot: bool, C: int = 48, padded: bool = False):
-    """hot: E - k_cold = 32 hot experts with capacity C; cold: 48 cold
-    experts with capacity 48 (a 272-token stage at k_cold 48). ``padded``:
-    the capacity-padded kernels, every slot live and computed."""
+def check_moe(torch, gen, dtype, *, hot: bool, E: int = 64, d: int = 2048, f: int = 1024,
+              n: int = 0, C: int = 48, padded: bool = False):
+    """n experts (in rank order, some empty) of E with capacity C each. hot:
+    the ragged GEMM, by default E - k_cold = 32 hot experts; cold: the
+    ragged GEMV, by default 48 cold experts with capacity 48 (a 272-token
+    OLMoE stage at k_cold 48). ``padded``: the capacity-padded kernels,
+    every slot live and computed."""
     from repro_torch.kernels import moe_gemm, moe_gemv
-    E, d, f = 64, 2048, 1024
     if hot:
-        n = E - 32
+        n = n or E - 32
         # at C=128 (c_block 64) C//2 and C//2 + 1 are c_block and c_block + 1
         base = [0, 1, 2, 3, C // 2, C // 2 + 1, C - 1, C]
         kernel, plain = moe_gemm.ragged_moe_gemm_kernel, moe_gemm.ragged_moe_gemm_plain
         if padded:
             kernel, plain = moe_gemm.moe_gemm_kernel, moe_gemm.moe_gemm_plain
     else:
-        n, C = 48, 48
-        base = [0, 1, 48, 0, 5, 2, 47, 3]
+        n = n or 48
+        base = [0, 1, C, 0, min(5, C), 2, C - 1, 3]
         kernel, plain = moe_gemv.ragged_moe_gemv_kernel, moe_gemv.ragged_moe_gemv_plain
         if padded:
             kernel, plain = moe_gemv.moe_gemv_kernel, moe_gemv.moe_gemv_plain
+    base = base[:n]
     rest = torch.randint(0, C + 1, (n - len(base),), generator=gen, device="cuda").tolist()
     counts_l = [C] * n if padded else base + rest
     counts = torch.tensor(counts_l, dtype=torch.int32, device="cuda")
@@ -273,11 +389,16 @@ def check_moe(torch, gen, dtype, *, hot: bool, C: int = 48, padded: bool = False
     return dict(err=(got.float() - want.float()).abs().max().item(),
                 scale=want.float().abs().max().item(),
                 ms=time_ms(lambda: kernel(*args)),
+                graph_ms=graph_ms(torch, lambda: kernel(*args)),
                 plain_ms=time_ms(lambda: plain(*args), iters=5), lib_ms=None,
                 nbytes=(live_experts * 3 * d * f * item + sum(counts_l) * d * item
                         + x.numel() * item + (1 if padded else 2) * n * 4),
                 flops=2 * 3 * d * f * sum(counts_l))
 
+
+# Jamba-v0.1's MoE widths; on path c a decode stage is 16 bucketed tokens,
+# so the engine's capacities are C_hot 8 and C_cold 8 (16 at k_cold 16)
+JAMBA_MOE = dict(E=16, d=4096, f=14336)
 
 KERNELS = [
     # name, TPU kernel it replaces, source, [(case label, check fn, kwargs)];
@@ -301,11 +422,17 @@ KERNELS = [
      # C=64: the hot capacity of a 272-token stage (16 decode rows + 4 chunks
      # of 64); C=128 puts counts at c_block 64 and c_block + 1
      [("olmoe hot E=32 C=64", check_moe, dict(hot=True, C=64)),
-      ("olmoe hot E=32 C=128", check_moe, dict(hot=True, C=128))]),
+      ("olmoe hot E=32 C=128", check_moe, dict(hot=True, C=128)),
+      # path c's decode stages: k_cold 8, and k_cold 0 (every expert hot)
+      ("jamba hot E=8 C=8", check_moe, dict(hot=True, n=8, C=8, **JAMBA_MOE)),
+      ("jamba hot E=16 C=8", check_moe, dict(hot=True, n=16, C=8, **JAMBA_MOE))]),
     ("ragged_moe_gemv",
      "src/repro/kernels/moe_gemv.py:114",
      "src/repro_torch/kernels/csrc/moe_gemv.cu",
-     [("olmoe cold Ec=48 Cc=48", check_moe, dict(hot=False))]),
+     [("olmoe cold Ec=48 Cc=48", check_moe, dict(hot=False)),
+      # path c's decode stages: k_cold 8, and k_cold 16 (every expert cold)
+      ("jamba cold Ec=8 Cc=8", check_moe, dict(hot=False, n=8, C=8, **JAMBA_MOE)),
+      ("jamba cold Ec=16 Cc=16", check_moe, dict(hot=False, n=16, C=16, **JAMBA_MOE))]),
     ("paged_decode_attention_int8",
      "src/repro/kernels/decode_attn.py:222",
      "src/repro_torch/kernels/csrc/decode_attn.cu",
@@ -325,6 +452,17 @@ KERNELS = [
      "src/repro/kernels/moe_gemv.py:57",
      "src/repro_torch/kernels/csrc/moe_gemv.cu",
      [("olmoe cold padded Ec=48 Cc=48", check_moe, dict(hot=False, padded=True))]),
+    ("decode_attention",
+     "src/repro/kernels/decode_attn.py:127",
+     "src/repro_torch/kernels/csrc/decode_attn.cu",
+     [("jamba KV=8 qpk=4 Smax=1024", check_dense, dict(KV=8, qpk=4)),
+      ("KV=8 qpk=1 window=200 softcap=30", check_dense,
+       dict(KV=8, qpk=1, window=200, softcap=30.0))]),
+    ("ssd_decode",
+     "src/repro/kernels/ssd_decode.py:46",
+     "src/repro_torch/kernels/csrc/ssd_decode.cu",
+     [("jamba H=128 N=16 P=64", check_ssd, dict(H=128, N=16, P=64)),
+      ("mamba2-2.7b H=80 N=128 P=64", check_ssd, dict(H=80, N=128, P=64))]),
 ]
 
 
@@ -348,7 +486,8 @@ def kernel_phase(torch):
                 fp = f" fp_kernel_ms={r['fp_ms']:.4f}" if "fp_ms" in r else ""
                 log(f"kernel {name} [{label} {dtype}]: max_abs_err={err:.3e} "
                     f"tol={tol:g} (plain max |out|={r['scale']:.3g}) "
-                    f"{'OK' if ok else 'FAIL'}; ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                    f"{'OK' if ok else 'FAIL'}; ms={r['ms']:.4f} graph_ms={r['graph_ms']:.4f} "
+                    f"plain_ms={r['plain_ms']:.4f} "
                     f"library_ms={lib} bound_ms={bms:.4f} ({by}){fp}")
                 if not ok:
                     failed.append(f"{name} [{label} {dtype}]")
@@ -381,6 +520,14 @@ PATHS = [
       "moe_gemv")),
 ]
 ENGINE_KW = dict(max_slots=16, max_len=1024, kv_page_size=16, prefill_chunk_tokens=64)
+# path c: Jamba-v0.1 at full width, 16 of its 32 layers (two 8-layer
+# periods): the whole model (~51.5B parameters, ~103 GB in bf16) does not
+# fit one 80 GB card; the cut one is ~26.0B (~52 GB)
+HYBRID_LABEL = "jamba dense KV + ragged MoE"
+HYBRID_LAYERS = 16
+# the engine takes the dense KV layout, the one a hybrid stack has
+HYBRID_KW = dict(max_slots=16, max_len=1024, prefill_chunk_tokens=None)
+HYBRID_KERNELS = ("decode_attention", "ssd_decode", "ragged_moe_gemm", "ragged_moe_gemv")
 
 
 def serve_phase(torch):
@@ -388,24 +535,27 @@ def serve_phase(torch):
     {kernel: launches} with each kernel's count from its own path's run.
     Raises on any failed check."""
     from repro_torch.configs import resolve_config
-    from repro_torch.models.params import init_model
+    from repro_torch.models.params import init_model, tree_leaves
 
     cfg = resolve_config("olmoe-1b-7b")
     t0 = time.perf_counter()
     params = init_model(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     log(f"serve: {cfg.name} random init (seed 0) {n_params / 1e9:.2f}B params "
         f"in {time.perf_counter() - t0:.1f}s")
     launches, pool_bytes = {}, {}
     for label, flags, kernels in PATHS:
-        counts, pool_bytes[label] = serve_path(torch, cfg, params, label, flags)
+        engine_kw = {**ENGINE_KW, **flags}
+        counts, eng = serve_path(torch, cfg, params, label, engine_kw)
+        pool_bytes[label] = eng.kv._total_bytes()
+        del eng
         missing = [k for k in kernels if counts[k] == 0]
         if missing:
             raise AssertionError(f"[{label}] kernels never launched on the path: {missing}")
         launches.update({k: counts[k] for k in kernels})
         check_against_plain(torch, cfg, params, label, flags)
-        profile_stages(torch, cfg, params, label, flags)
+        profile_stages(torch, cfg, params, label, engine_kw)
     from repro_torch.serving.kvmanager import kv_token_bytes
     (a, na), (b, nb) = pool_bytes.items()
     want = kv_token_bytes(cfg) / kv_token_bytes(cfg, kv_quant=True)
@@ -415,9 +565,9 @@ def serve_phase(torch):
     return launches
 
 
-def serve_path(torch, cfg, params, label, flags):
+def serve_path(torch, cfg, params, label, engine_kw):
     """One path's run: every launch count set to 0 just before it and read
-    just after. Returns (launch counts, KV pool bytes)."""
+    just after. Returns (launch counts, the engine)."""
     import numpy as np
     from repro_torch.kernels import build
     from repro_torch.serving.engine import ServingEngine
@@ -427,8 +577,8 @@ def serve_path(torch, cfg, params, label, flags):
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
                                                int(rng.integers(128, 513))).tolist(),
                     max_new_tokens=l_out) for i in range(n_req)]
-    eng = ServingEngine(cfg, params, device="cuda", **ENGINE_KW, **flags)
-    pool = sum(t.numel() * t.element_size() for t in _leaves(eng.kv.cache))
+    eng = ServingEngine(cfg, params, device="cuda", **engine_kw)
+    pool = eng.kv._total_bytes()
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -455,13 +605,13 @@ def serve_path(torch, cfg, params, label, flags):
         f"{gen / wall:.1f}; decode-only stage tokens/s={dec_tps:.1f}; "
         f"k_cold min={min(kc)} max={max(kc)} (stages with k_cold>0: "
         f"{sum(k > 0 for k in kc)}); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; KV pool {pool / 2**20:.1f} MiB")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; KV cache {pool / 2**20:.1f} MiB")
     tbt = [t for r in reqs for t in r.tbts()]
     st = [r.stage_tokens for r in reps]
     kvb = [r.kv_bytes_streamed for r in reps]
     live = sum(r.moe_flops_live for r in reps)
     padded = sum(r.moe_flops_padded for r in reps)
-    which = "padded" if flags.get("moe_ragged") is False else "ragged"
+    which = "padded" if engine_kw.get("moe_ragged") is False else "ragged"
     log(f"serve [{label}]: median TBT={np.median(tbt) * 1e3:.1f}ms, median TTFT="
         f"{np.median([r.t2ft() for r in reqs]) * 1e3:.0f}ms; per-stage tokens "
         f"mean={np.mean(st):.1f} std={np.std(st):.1f} max={max(st)}; modelled MoE "
@@ -471,10 +621,91 @@ def serve_path(torch, cfg, params, label, flags):
     log(f"serve [{label}]: kernel launches on the path: {json.dumps(launches)}")
     if done != n_req or not ok_tokens:
         raise AssertionError(f"[{label}]: {done}/{n_req} completed, tokens valid={ok_tokens}")
-    return launches, pool
+    return launches, eng
 
 
-def profile_stages(torch, cfg, params, label, flags, top: int = 12):
+def hybrid_phase(torch):
+    """Path c: Jamba-v0.1 at full width and 16 layers, random weights from
+    seed 0, the same 16 requests on the dense KV layout with the legacy
+    prefill. Returns {kernel: launches} for the dense decode attention and
+    the SSD decode; raises if any of the path's kernels was not launched or
+    a check fails."""
+    import dataclasses
+    from repro_torch.configs import resolve_config
+    from repro_torch.configs.base import Segment
+    from repro_torch.models.params import init_model, tree_leaves
+    full = resolve_config("jamba-v0.1-52b")
+    pattern = full.segments[0].pattern
+    cfg = dataclasses.replace(
+        full, num_layers=HYBRID_LAYERS,
+        segments=(Segment(pattern, HYBRID_LAYERS // len(pattern)),)).validate()
+    log(f"serve: before {cfg.name}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"still allocated")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    p_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"serve: {cfg.name} cut to {cfg.num_layers} of {full.num_layers} layers, random "
+        f"init (seed 0) {n_params / 1e9:.2f}B params ({p_bytes / 2**30:.1f} GiB) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    counts, eng = serve_path(torch, cfg, params, HYBRID_LABEL, HYBRID_KW)
+    missing = [k for k in HYBRID_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"[{HYBRID_LABEL}] kernels never launched on the path: "
+                             f"{missing}")
+    kv_b = sum(t.numel() * t.element_size() for seg in eng.kv.cache
+               for blk in seg["blocks"] if "k" in blk for t in blk.values())
+    ssm_b = sum(t.numel() * t.element_size() for seg in eng.kv.cache
+                for blk in seg["blocks"] if "mamba" in blk for t in blk["mamba"].values())
+    n_attn = sum(k.mixer != "mamba" for k in cfg.layer_kinds())
+    slots, max_len = HYBRID_KW["max_slots"], HYBRID_KW["max_len"]
+    log(f"serve [{HYBRID_LABEL}]: dense KV cache {kv_b / 2**20:.1f} MiB ({n_attn} attention "
+        f"layers x {slots} slots x {max_len} positions, k/v/pos/len), SSM state "
+        f"{ssm_b / 2**20:.1f} MiB ({cfg.num_layers - n_attn} Mamba layers x {slots} slots, "
+        f"conv tail + float32 state); streamed KV bytes per decode stage "
+        f"{eng._dense_kv_bytes_per_stage / 2**20:.1f} MiB")
+    del eng
+    check_decode_against_plain(torch, cfg, params, HYBRID_LABEL)
+    profile_stages(torch, cfg, params, HYBRID_LABEL, HYBRID_KW)
+    log(f"serve [{HYBRID_LABEL}]: peak memory since the weights were made "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return {k: counts[k] for k in ("decode_attention", "ssd_decode")}
+
+
+def check_decode_against_plain(torch, cfg, params, label):
+    """One dense decode stage (four rows after a prefill of 320, 257, 130
+    and 64 tokens, the fourth row dead) through the kernels (dense decode
+    attention, SSD decode, ragged MoE at k_cold 8) and through the plain
+    torch path, each on its own copy of the prefilled cache; the live rows'
+    logits are held to ``compare_logits``."""
+    from repro_torch.core.execution import ExecutionPlan
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    from repro_torch.models.params import tree_map
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    B, S = 4, 320
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+    true_len = torch.tensor([320, 257, 130, 64], dtype=torch.int32, device="cuda")
+    cache = init_cache(cfg, B, 1024, device="cuda")
+    with torch.no_grad():
+        prefill(params, cfg, {"tokens": toks}, cache, true_len,
+                plan=ExecutionPlan(moe_impl="grouped", use_kernels=True))
+    nxt = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device="cuda")
+    valid = torch.tensor([True, True, True, False], device="cuda")
+    out = {}
+    for use_kernels in (True, False):
+        own = tree_map(cache, lambda t: t.clone())
+        plan = ExecutionPlan(moe_impl="duplex", k_cold=8, c_hot=8, c_cold=8,
+                             moe_ragged=use_kernels, use_kernels=use_kernels)
+        with torch.no_grad():
+            logits, _, _ = decode_step(params, cfg, nxt, own, {"valid": valid}, plan=plan)
+        out[use_kernels] = logits[:3, 0].float()
+    compare_logits(torch, label, "one decode stage", out[True], out[False])
+
+
+def profile_stages(torch, cfg, params, label, engine_kw, top: int = 12):
     """A short profiled run (4 requests, 8 new tokens each) through
     torch.profiler, device activity only (each kernel counted once, no
     host-op events): device time by kernel and the device's busy share of
@@ -488,7 +719,7 @@ def profile_stages(torch, cfg, params, label, flags, top: int = 12):
     reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
                                                int(rng.integers(128, 257))).tolist(),
                     max_new_tokens=8) for i in range(4)]
-    eng = ServingEngine(cfg, params, device="cuda", **ENGINE_KW, **flags)
+    eng = ServingEngine(cfg, params, device="cuda", **engine_kw)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run(reqs)
@@ -509,25 +740,13 @@ def profile_stages(torch, cfg, params, label, flags, top: int = 12):
             f"x{e.count:<6d} {e.key[:110]}")
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (tuple, list)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def check_against_plain(torch, cfg, params, label, flags):
     """One mixed stage (a 64-token chunk after a written 64-token prefix,
     plus two decode rows) through the path's kernels and through the plain
-    torch path, each on its own fresh cache: logits must agree within 5% of
-    the logit scale (bf16 noise; with int8 pages also the kernels' per-page
-    against the plain path's whole-row requantization of p*v_scale) and
-    every argmax whose top-2 margin exceeds twice that difference must
-    match."""
+    torch path, each on its own fresh cache; the logits are held to
+    ``compare_logits`` (its 5% band also covers, with int8 pages, the
+    kernels' per-page against the plain path's whole-row requantization of
+    p*v_scale)."""
     from repro_torch.core.execution import ExecutionPlan
     from repro_torch.models.model import init_cache, mixed_step
     gen = torch.Generator(device="cuda")
@@ -562,14 +781,20 @@ def check_against_plain(torch, cfg, params, label, flags):
             chunk_ctx={"starts": i32([64]), "chunk_lens": i32([64]),
                        "block_tables": bt}, plan=plan)
         out[use_kernels] = torch.cat([dl[:1, 0], cl[:, 0]]).float()
-    a, b = out[True], out[False]
+    compare_logits(torch, label, "one mixed stage", out[True], out[False])
+
+
+def compare_logits(torch, label, what, a, b):
+    """Kernel-path logits ``a`` against plain-path logits ``b`` (rows,
+    vocab): finite, within 5% of the logit scale (bf16 noise), and every
+    argmax whose top-2 margin exceeds twice the difference must match."""
     diff = (a - b).abs().max().item()
     scale = b.abs().max().item()
     top2 = b.topk(2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > 2 * diff
     agree = (a.argmax(-1) == b.argmax(-1)) | ~clear
     equal = int((a.argmax(-1) == b.argmax(-1)).sum())
-    log(f"serve [{label}]: kernels vs plain path on one mixed stage: max |dlogit|="
+    log(f"serve [{label}]: kernels vs plain path on {what}: max |dlogit|="
         f"{diff:.4f} (tolerance {0.05 * scale:.4f} = 5% of the logit scale {scale:.2f}); "
         f"argmax equal on {equal}/{len(agree)} rows, agree on {int(agree.sum())}/"
         f"{len(agree)} ({int(clear.sum())} with a clear top-2 margin)")
@@ -617,6 +842,10 @@ def main(argv=None) -> int:
     rows = kernel_phase(torch)
     if not args.kernels_only:
         for name, n in serve_phase(torch).items():
+            rows[name]["launches"] = n
+        gc.collect()                      # the OLMoE model and its caches go
+        torch.cuda.empty_cache()
+        for name, n in hybrid_phase(torch).items():
             rows[name]["launches"] = n
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

@@ -1,6 +1,7 @@
 """Configurations the port serves, and ``resolve_config`` by name."""
-from repro_torch.configs.base import (ATTN, MOE, LayerKind, ModelConfig,
-                                      MoEConfig, Segment, small_test_config)
+from repro_torch.configs.base import (ATTN, MAMBA, MOE, LayerKind, ModelConfig,
+                                      MoEConfig, Segment, SSMConfig,
+                                      small_test_config)
 
 
 def resolve_config(name: str) -> ModelConfig:
@@ -15,9 +16,12 @@ def resolve_config(name: str) -> ModelConfig:
     if name == "olmoe-1b-7b":
         from repro_torch.configs.olmoe_1b_7b import CONFIG
         return CONFIG
+    if name == "jamba-v0.1-52b":
+        from repro_torch.configs.jamba_v0_1_52b import CONFIG
+        return CONFIG
     raise KeyError(f"unknown config {name!r}: the port serves tiny-moe, "
-                   f"tiny-dense and olmoe-1b-7b")
+                   f"tiny-dense, olmoe-1b-7b and jamba-v0.1-52b")
 
 
-__all__ = ["ATTN", "MOE", "LayerKind", "ModelConfig", "MoEConfig", "Segment",
-           "resolve_config", "small_test_config"]
+__all__ = ["ATTN", "MAMBA", "MOE", "LayerKind", "ModelConfig", "MoEConfig",
+           "SSMConfig", "Segment", "resolve_config", "small_test_config"]

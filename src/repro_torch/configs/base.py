@@ -1,7 +1,8 @@
 """Model configuration dataclasses (the subset the port serves).
 
 Own copy of ``repro/configs/base.py``'s ``LayerKind`` / ``Segment`` /
-``MoEConfig`` / ``ModelConfig`` / ``small_test_config`` with the same field
+``MoEConfig`` / ``SSMConfig`` / ``ModelConfig`` / ``small_test_config`` with
+the same field
 names and defaults, so a configuration reads the same in both packages.
 Layer stacking is described by *segments*: each segment is ``repeats``
 copies of a pattern, and its parameters carry a leading stacked ``layers``
@@ -61,6 +62,22 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    headdim: int = 64
+    chunk_size: int = 256
+    ngroups: int = 1
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def nheads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.headdim
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str
@@ -73,6 +90,7 @@ class ModelConfig:
     head_dim: int = 0               # 0 -> d_model // num_heads
     segments: Tuple[Segment, ...] = ()
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     qk_norm: bool = False
     sliding_window: int = 0
     attn_logit_softcap: float = 0.0
@@ -103,6 +121,8 @@ class ModelConfig:
             f"{self.name}: segments give {len(kinds)} layers, want {self.num_layers}")
         if any(k.ffn == MOE for k in kinds):
             assert self.moe is not None
+        if any(k.mixer == MAMBA for k in kinds):
+            assert self.ssm is not None
         assert self.num_heads % self.num_kv_heads == 0
         return self
 
@@ -110,12 +130,15 @@ class ModelConfig:
 def small_test_config(name: str = "tiny", *, family: str = "dense",
                       num_layers: int = 2, d_model: int = 64, num_heads: int = 4,
                       num_kv_heads: int = 2, d_ff: int = 128, vocab_size: int = 256,
-                      moe: Optional[MoEConfig] = None, **kw) -> ModelConfig:
-    """Reduced config helper used by tests (float32, as the reference's)."""
-    ffn_kind = MOE if moe is not None else DENSE
-    seg = Segment((LayerKind(ATTN, ffn_kind),), num_layers)
+                      moe: Optional[MoEConfig] = None,
+                      ssm: Optional[SSMConfig] = None, **kw) -> ModelConfig:
+    """Reduced config helper used by tests (float32, as the reference's):
+    ``family="ssm"`` stacks Mamba mixers without an FFN."""
+    ffn_kind = MOE if moe is not None else (NONE if family == "ssm" else DENSE)
+    mixer = MAMBA if family == "ssm" else ATTN
+    seg = Segment((LayerKind(mixer, ffn_kind),), num_layers)
     return ModelConfig(
         name=name, family=family, num_layers=num_layers, d_model=d_model,
         num_heads=num_heads, num_kv_heads=num_kv_heads, d_ff=d_ff,
-        vocab_size=vocab_size, segments=(seg,), moe=moe,
+        vocab_size=vocab_size, segments=(seg,), moe=moe, ssm=ssm,
         dtype="float32", param_dtype="float32", **kw).validate()

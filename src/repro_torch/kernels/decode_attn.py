@@ -1,6 +1,13 @@
-"""Paged attention kernels (CUDA, ``csrc/decode_attn.cu``) and their plain
-PyTorch versions, in the kernel layouts.
+"""Attention kernels (CUDA, ``csrc/decode_attn.cu``) and their plain PyTorch
+versions, in the kernel layouts.
 
+* ``decode_attention_kernel`` — GQA decode on the dense cache: one query
+  token per sequence, ``qpk`` query heads per KV head, online softmax over
+  the positions ``< lengths[b]`` of the sequence's (Smax, KV, hd) cache row;
+  optional sliding window and tanh softcap. Port of ``repro/kernels/
+  decode_attn.py::decode_attention_kernel``. The cache stays in the model
+  layout (B, Smax, KV, hd): the kernel reads it through its strides, where
+  the reference's wrapper transposes and pads the whole cache per call.
 * ``paged_decode_attention_kernel`` — GQA decode: one query token per
   sequence, ``qpk`` query heads per KV head, online softmax over the pages
   ``block_tables[b]`` names up to ``lengths[b]``; optional sliding window and
@@ -57,6 +64,21 @@ def _attend(q, k, v, valid, softcap):
     l = p.sum(dim=-1, keepdim=True)
     acc = torch.matmul(p.to(v.dtype).float(), v.float())
     return (acc / l.clamp_min(1e-37)).to(q.dtype)
+
+
+def decode_attention_plain(q, k_cache, v_cache, lengths, *, window: int = 0,
+                           softcap: float = 0.0):
+    """q (B, KV, qpk, hd); caches (B, Smax, KV, hd); lengths (B,) valid
+    positions, the current token's included. -> (B, KV, qpk, hd); a row
+    with no valid position comes back 0, as the TPU kernel's does."""
+    k = k_cache.permute(0, 2, 1, 3)                 # (B, KV, Smax, hd) views
+    v = v_cache.permute(0, 2, 1, 3)
+    kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+    lens = lengths.long()[:, None]
+    valid = kpos < lens
+    if window > 0:
+        valid = valid & (kpos > lens - 1 - window)
+    return _attend(q, k, v, valid[:, None, None, :], softcap)
 
 
 def paged_decode_attention_plain(q, k_pages, v_pages, lengths, block_tables, *,
@@ -121,6 +143,56 @@ def _check_pools(q, k_pages, v_pages, block_tables, *ints, scales=None):
             raise ValueError("lengths/block tables must be contiguous int32 on q's device")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
+
+
+def decode_attention_kernel(q, k_cache, v_cache, lengths, *, window: int = 0,
+                            softcap: float = 0.0):
+    """Layout as ``decode_attention_plain``; runs the CUDA kernel for CUDA
+    tensors and the plain version for CPU tensors. The caches may be views
+    (a layer of a stacked cache): each needs its last two dimensions
+    contiguous, k and v the same strides, and head_dim, the strides and the
+    base in whole 16-byte words."""
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, lengths, window=window,
+                                      softcap=softcap)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"decode attention kernel takes float32/bfloat16, got {q.dtype}")
+    B, KV, qpk, hd = q.shape
+    Smax = k_cache.shape[1]
+    for t in (k_cache, v_cache):
+        if t.dtype != q.dtype or t.device != q.device \
+                or tuple(t.shape) != (B, Smax, KV, hd):
+            raise ValueError(f"caches must be {q.dtype} (B, Smax, KV, hd) = "
+                             f"{(B, Smax, KV, hd)} on q's device, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if k_cache.stride() != v_cache.stride() or k_cache.stride()[2:] != (hd, 1):
+        raise ValueError(f"caches need equal strides with (KV, hd) contiguous, got "
+                         f"{k_cache.stride()} and {v_cache.stride()}")
+    sb, ss = k_cache.stride(0), k_cache.stride(1)
+    if max(sb, ss) >= 2 ** 31:
+        raise ValueError(f"cache strides {sb}, {ss} do not fit the kernel's int32")
+    if lengths.dtype != torch.int32 or lengths.device != q.device \
+            or not lengths.is_contiguous() or not q.is_contiguous():
+        raise ValueError("q must be contiguous and lengths contiguous int32 on q's device")
+    if hd > 256:
+        raise ValueError(f"head_dim {hd} > 256 is not supported by the kernel")
+    item = q.element_size()
+    if any(n * item % 16 for n in (hd, sb, ss)) \
+            or any(t.data_ptr() % 16 for t in (k_cache, v_cache)):
+        raise ValueError("the kernel reads K and V in 16-byte words: head_dim, the "
+                         "cache strides and the cache base must be whole 16-byte words")
+    smem = (2 * qpk * hd + 67 * qpk + 3) * 4 + 64 * (2 * hd + 16 // item) * item
+    if smem > 227 * 1024:
+        raise ValueError("qpk/head_dim too large for one block's shared memory")
+    out = torch.empty_like(q)
+    fn = build.bind("decode_attn.cu", "dense_decode_attention", 5, 8, 2)
+    err = fn(build.DTYPE_CODES[str(q.dtype).split(".")[1]], q.data_ptr(),
+             k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+             B, Smax, KV, qpk, hd, sb, ss, int(window), float(softcap),
+             1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "dense_decode_attention")
+    build.launch_counts["decode_attention"] += 1
+    return out
 
 
 def paged_decode_attention_kernel(q, k_pages, v_pages, lengths, block_tables, *,
@@ -207,7 +279,8 @@ def _attend_int8_paged(q, k_pages, k_scales, v_pages, v_scales, block_tables,
         s = (torch.matmul(q8, k_pages[pid].float().transpose(-1, -2)) * q_sc
              * k_scales[pid][:, :, None, :] * scale)
         if softcap > 0.0:
-            s = softcap * torch.tanh(s / softcap)
+            # a tensor divisor, as in int8_quantize: p feeds a requantization
+            s = softcap * torch.tanh(s / torch.full_like(s, softcap))
         s = torch.where(ok, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)

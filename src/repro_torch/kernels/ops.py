@@ -9,13 +9,36 @@ import torch
 
 from repro_torch.kernels.decode_attn import (
     chunked_prefill_attention_int8_kernel, chunked_prefill_attention_kernel,
-    paged_decode_attention_int8_kernel, paged_decode_attention_kernel)
+    decode_attention_kernel, paged_decode_attention_int8_kernel,
+    paged_decode_attention_kernel)
 from repro_torch.kernels.moe_gemm import moe_gemm_kernel, ragged_moe_gemm_kernel
 from repro_torch.kernels.moe_gemv import moe_gemv_kernel, ragged_moe_gemv_kernel
+from repro_torch.kernels.ssd_decode import ssd_decode_kernel
 
 
 def _i32(t):
     return t.to(torch.int32).contiguous()
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
+                     softcap: float = 0.0):
+    """q (B, 1, H, hd); dense caches (B, Smax, KV, hd) read in place (no
+    transpose or padding of the cache); lengths (B,). -> (B, 1, H, hd)."""
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    qg = q.reshape(B, KV, H // KV, hd).contiguous()
+    out = decode_attention_kernel(qg, k_cache, v_cache, _i32(lengths), window=window,
+                                  softcap=softcap)
+    return out.reshape(B, 1, H, hd)
+
+
+def ssd_decode(state, x, dt, a_log, b, c, d):
+    """Mamba-2 decode state update: state (B, H, N, P) float32 (updated in
+    place on the card); x (B, H, P); dt (B, H); a_log, d (H,); b, c (B, N).
+    Returns (y (B, H, P) in x's dtype, new state)."""
+    f32 = lambda t: t.float().contiguous()
+    return ssd_decode_kernel(state, x.contiguous(), f32(dt), f32(a_log), f32(b),
+                             f32(c), f32(d))
 
 
 def paged_decode_attention(q, k_pages, v_pages, lengths, block_tables, *,

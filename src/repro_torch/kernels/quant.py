@@ -16,6 +16,8 @@ def int8_quantize(x, *, keepdims: bool = False):
     with ``keepdims``)."""
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp_min(amax / 127.0, 1e-8)
+    # a tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
+    # multiplication by its reciprocal, off by one ulp for some amax
+    scale = torch.clamp_min(amax / torch.full_like(amax, 127.0), 1e-8)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, (scale if keepdims else scale[..., 0])

@@ -1,6 +1,14 @@
-"""Attention on the paged KV layout: decode rows and prefill-chunk rows.
+"""Attention: the paged KV layout (decode rows and prefill-chunk rows), the
+dense KV layout (decode rows, prefill cache writes) and the prefill
+attention over whole prompts.
 
-Port of the paged subset of ``repro/models/attention.py``. The page pools
+Port of ``repro/models/attention.py`` without ring (sliding-window) caches,
+cross-attention, int8 dense caches, segment ids and the backward pass. The
+prefill attention (``attention_forward``: ``full_attention``, or
+``blockwise_attention`` — the forward of the reference's ``_flash_core``)
+is plain PyTorch, the counterpart of the reference's XLA path. Dense
+caches ({"k", "v"} (B, Smax, KV, hd), "pos" (B, Smax), "len" (B,)) are
+updated in place like the page pools. The page pools
 are updated IN PLACE (advanced-index assignment, i.e. ``index_put_``) —
 unlike JAX's functional ``.at[].set()``, which builds a new pool per layer,
 the port never copies a pool. Write rules kept from the reference:
@@ -23,14 +31,17 @@ the cache is built.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.quant import int8_quantize
 from repro_torch.models.layers import apply_rope, rmsnorm
 
 NEG_INF = -1e30
+POS_EMPTY = 2 ** 31 - 1     # "pos" of a dense-cache slot never written
 
 
 def _linear(params, x):
@@ -142,16 +153,19 @@ def chunk_attention_int8(q, k_q, k_scale, v_q, v_scale, q_positions,
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
-                     softcap: float = 0.0):
+                     softcap: float = 0.0, kv_positions=None):
     """Plain decode path. q (B,1,H,hd); caches (B,Smax,KV,hd); cache_len (B,)
-    valid entries including the current token. -> (B,1,H,hd)."""
+    valid entries including the current token; ``kv_positions`` (B,Smax)
+    the absolute position each slot holds (a dense cache's "pos" leaf),
+    default the slot index. -> (B,1,H,hd)."""
     B, _, H, hd = q.shape
     Smax, KV = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(B, KV, H // KV, hd)
     s = torch.einsum("bgph,bkgh->bgpk", qg.float(), k_cache.float()) / math.sqrt(hd)
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
-    pos = torch.arange(Smax, device=q.device)[None]
+    pos = (torch.arange(Smax, device=q.device)[None] if kv_positions is None
+           else kv_positions.long())
     lens = cache_len.long()[:, None]
     valid = pos < lens
     if window > 0:
@@ -283,4 +297,199 @@ def paged_attention_chunk_step(params, cfg: ModelConfig, x, cache, chunk_ctx,
                               paged_gather_kv(v_pages, bt), positions, kv_pos,
                               total, softcap=cfg.attn_logit_softcap)
     y = torch.matmul(out.reshape(Bc, Sc, -1), params["wo"]["kernel"])
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Prefill attention over whole prompts (the reference's XLA path)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class AttnCall:
+    causal: bool = True
+    window: int = 0          # > 0 for sliding-window layers
+    q_block: int = 512
+    kv_block: int = 512
+
+
+def _block_pairs(n_q: int, n_kv: int, *, causal: bool, window_blocks: int):
+    """Static (qi, ki) schedule of the blocks that intersect the mask."""
+    pairs = []
+    for qi in range(n_q):
+        for ki in range(n_kv):
+            if causal and ki > qi:
+                continue
+            if window_blocks > 0 and ki < qi - window_blocks:
+                continue
+            pairs.append((qi, ki))
+    return pairs
+
+
+def _pair_mask(qi, ki, q_block, kv_block, S, causal, window, device):
+    qpos = qi * q_block + torch.arange(q_block, device=device)
+    kpos = ki * kv_block + torch.arange(kv_block, device=device)
+    mask = torch.ones((q_block, kv_block), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window > 0:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    mask &= (kpos < S)[None, :] & (qpos < S)[:, None]
+    return mask
+
+
+def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
+                        softcap: float = 0.0, q_block: int = 512,
+                        kv_block: int = 512):
+    """q (B,S,H,hd); k, v (B,S,KV,hd) -> (B,S,H,hd) in q's dtype. Online
+    softmax over the static triangular / banded block schedule, the forward
+    of the reference's ``_flash_core`` (no segment ids): float32 scores and
+    accumulators, p rounded to v's dtype before PV, p not gated by the mask
+    (a row masked out of a whole block is reset by the next block's max)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qpk = H // KV
+    q_block = min(q_block, S + (-S) % 8)
+    kv_block = min(kv_block, S + (-S) % 8)
+    scale = 1.0 / math.sqrt(hd)
+    pad_q, pad_kv = (-S) % q_block, (-S) % kv_block
+    nq, nkv = (S + pad_q) // q_block, (S + pad_kv) // kv_block
+    # (B, KV, qpk, nq, q_block, hd) / (B, KV, nkv, kv_block, hd)
+    qb = F.pad(q, (0, 0, 0, 0, 0, pad_q)).reshape(B, nq, q_block, KV, qpk, hd)
+    qb = qb.permute(0, 3, 4, 1, 2, 5)
+    kb = F.pad(k, (0, 0, 0, 0, 0, pad_kv)).reshape(B, nkv, kv_block, KV, hd)
+    kb = kb.permute(0, 3, 1, 2, 4)
+    vb = F.pad(v, (0, 0, 0, 0, 0, pad_kv)).reshape(B, nkv, kv_block, KV, hd)
+    vb = vb.permute(0, 3, 1, 2, 4)
+    window_blocks = (window + q_block - 1) // kv_block + 1 if window > 0 else 0
+    pairs = _block_pairs(nq, nkv, causal=causal, window_blocks=window_blocks)
+    acc = torch.zeros(qb.shape, dtype=torch.float32, device=q.device)
+    m = torch.full(qb.shape[:5], NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros(qb.shape[:5], dtype=torch.float32, device=q.device)
+    for qi, ki in pairs:
+        qt, kt, vt = qb[:, :, :, qi], kb[:, :, ki], vb[:, :, ki]
+        s = torch.einsum("bgpqh,bgkh->bgpqk", qt.float(), kt.float()) * scale
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        mask = _pair_mask(qi, ki, q_block, kv_block, S, causal, window, q.device)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_old, l_old = m[:, :, :, qi], l[:, :, :, qi]
+        m_new = torch.maximum(m_old, s.amax(dim=-1))
+        alpha = torch.exp(m_old - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l[:, :, :, qi] = l_old * alpha + p.sum(dim=-1)
+        acc[:, :, :, qi] = acc[:, :, :, qi] * alpha[..., None] + torch.einsum(
+            "bgpqk,bgkh->bgpqh", p.to(vt.dtype).float(), vt.float())
+        m[:, :, :, qi] = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-37)
+    out = out.permute(0, 3, 4, 1, 2, 5).reshape(B, nq * q_block, H, hd)[:, :S]
+    return out.to(q.dtype)
+
+
+def full_attention(q, k, v, *, causal: bool, window: int = 0,
+                   softcap: float = 0.0):
+    """Unblocked prefill attention (materializes the scores). q (B,S,H,hd);
+    k, v (B,Skv,KV,hd) -> (B,S,H,hd) in v's dtype."""
+    B, S, H, hd = q.shape
+    KV, Skv = k.shape[2], k.shape[1]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    s = torch.einsum("bqgph,bkgh->bgpqk", qg.float(), k.float()) / math.sqrt(hd)
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(S, device=q.device)
+    kpos = torch.arange(Skv, device=q.device)
+    mask = torch.ones((S, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window > 0:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgpqk,bkgh->bqgph", p.to(v.dtype), v)
+    return out.reshape(B, S, H, hd)
+
+
+def attention_forward(params, cfg: ModelConfig, x, positions, call: AttnCall,
+                      return_kv: bool = False):
+    """Prefill attention over whole sequences. x (B,S,D); positions (B,S).
+    The blockwise path for S > ``call.q_block``, else the unblocked one.
+    Returns y (B,S,D), and (k, v) (B,S,KV,hd) with ``return_kv``."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    if S > call.q_block:
+        out = blockwise_attention(q, k, v, causal=call.causal, window=call.window,
+                                  softcap=cfg.attn_logit_softcap,
+                                  q_block=call.q_block, kv_block=call.kv_block)
+    else:
+        out = full_attention(q, k, v, causal=call.causal, window=call.window,
+                             softcap=cfg.attn_logit_softcap)
+    y = torch.matmul(out.reshape(B, S, -1), params["wo"]["kernel"])
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Dense KV layout
+# ---------------------------------------------------------------------------
+
+def _dense_only(cache, window: int, what: str) -> None:
+    if window > 0 and cache["k"].shape[1] == window + 1:
+        raise NotImplementedError(
+            f"{what}: ring (sliding-window) caches are not ported yet; they come "
+            f"with the ATTN_LOCAL slice (ROADMAP queue 1, item 2)")
+    if "k_scale" in cache:
+        raise NotImplementedError(
+            f"{what}: int8 dense caches are not ported yet; they come with the "
+            f"int8 dense-cache slice (ROADMAP queue 1, item 3)")
+
+
+def write_prefill_cache(cache, k, v, true_len, *, window: int = 0):
+    """Write prefill K/V (B,S,KV,hd) into a dense decode cache in place:
+    token t at slot t ("pos" gets t for t < true_len, the empty marker
+    past it; the padding's K/V is written too and is never read as live),
+    "len" = true_len. Returns the cache."""
+    _dense_only(cache, window, "write_prefill_cache")
+    B, S = k.shape[0], k.shape[1]
+    size = cache["k"].shape[1]
+    pos = torch.arange(S, device=k.device)[None].expand(B, S)
+    valid = pos < true_len.long()[:, None]
+    idx = torch.clamp(pos, max=size - 1)
+    bidx = torch.arange(B, device=k.device)[:, None]
+    cache["pos"][bidx, idx] = torch.where(valid, pos, torch.full_like(pos, POS_EMPTY)
+                                          ).to(cache["pos"].dtype)
+    cache["k"][bidx, idx] = k.to(cache["k"].dtype)
+    cache["v"][bidx, idx] = v.to(cache["v"].dtype)
+    cache["len"].copy_(true_len)
+    return cache
+
+
+def attention_decode_step(params, cfg: ModelConfig, x, cache, *, window: int = 0,
+                          use_kernels: bool = False):
+    """One-token decode against a dense cache (updated in place). x (B,1,D);
+    cache {"k", "v"} (B,Smax,KV,hd), "pos" (B,Smax), "len" (B,) — the new
+    token's position. K/V are cast to the cache dtype before the write, which
+    clamps to slot Smax-1 past the end. With ``use_kernels`` the dense decode
+    kernel attends the positions < len + 1; the plain path masks by "pos".
+    Returns (y, cache)."""
+    _dense_only(cache, window, "attention_decode_step")
+    B = x.shape[0]
+    positions = cache["len"].long()                      # (B,)
+    q, k, v = _project_qkv(params, cfg, x, positions[:, None])
+    Smax = cache["k"].shape[1]
+    write_idx = torch.clamp(positions, max=Smax - 1)
+    bidx = torch.arange(B, device=x.device)
+    cache["pos"][bidx, write_idx] = positions.to(cache["pos"].dtype)
+    new_len = positions + 1
+    cache["k"][bidx, write_idx] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][bidx, write_idx] = v[:, 0].to(cache["v"].dtype)
+    if use_kernels:
+        from repro_torch.kernels.ops import decode_attention as decode_attn_kernel
+        out = decode_attn_kernel(q, cache["k"], cache["v"], new_len, window=window,
+                                 softcap=cfg.attn_logit_softcap)
+    else:
+        out = decode_attention(q, cache["k"], cache["v"], new_len, window=window,
+                               softcap=cfg.attn_logit_softcap,
+                               kv_positions=cache["pos"])
+    cache["len"].copy_(new_len)
+    y = torch.matmul(out.reshape(B, 1, -1), params["wo"]["kernel"])
     return y, cache

@@ -1,12 +1,15 @@
 """Model assembly for serving: embeddings -> segments -> final norm -> LM head.
 
-Port of the serving entry points of ``repro/models/model.py`` on the paged
-KV layout: ``init_cache`` (paged), ``decode_step`` and ``mixed_step``.
-The cache is a list (one entry per segment) of ``{"blocks": ({"k_pages",
-"v_pages"}, ...)}`` with stacked (layers, P, KV, page, hd) pools (int8 pools
-add "k_scale_pages"/"v_scale_pages" (layers, P, KV, page)), updated in
-place; the functions still return it so call sites read like the
-reference's.
+Port of the serving entry points of ``repro/models/model.py``:
+``init_cache`` (dense or paged), ``prefill`` (whole prompts into a dense
+cache), ``decode_step`` (either layout) and ``mixed_step`` (paged). The
+cache is a list (one entry per segment) of ``{"blocks": (block cache, ...)}``
+with stacked leaves: paged (layers, P, KV, page, hd) pools (int8 pools add
+"k_scale_pages"/"v_scale_pages" (layers, P, KV, page)); dense attention
+"k"/"v" (layers, B, Smax, KV, hd), "pos" (layers, B, Smax), "len" (layers,
+B); Mamba {"mamba": {"conv" (layers, B, K-1, conv_dim), "ssm" (layers, B,
+H, N, P)}}. Caches are updated in place; the functions still return them so
+call sites read like the reference's.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.execution import DEFAULT_PLAN, ExecutionPlan
 from repro_torch.models.blocks import (segment_decode_step, segment_init_cache,
-                                       segment_mixed_step)
+                                       segment_mixed_step, segment_prefill)
 from repro_torch.models.layers import embed_lookup, rmsnorm
 from repro_torch.models.params import DTYPES
 
@@ -31,17 +34,37 @@ def _lm_head(params, cfg: ModelConfig, x):
     return torch.matmul(x.float(), table.t())
 
 
-def init_cache(cfg: ModelConfig, *, page_size: int, num_pages: int,
-               device="cuda", kv_quant: bool = False) -> list:
-    """The paged KV cache (the only layout the port serves): each attention
-    layer holds a (num_pages, KV, page_size, hd) pool share in the model's
-    dtype, or with ``kv_quant`` in int8 plus float32 (num_pages, KV,
-    page_size) scale pools; capacity is owned by the KVManager."""
+def init_cache(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
+               page_size: int = 0, num_pages: int = 0, device="cuda",
+               kv_quant: bool = False) -> list:
+    """Decode cache. Dense (no ``page_size``): per-slot (batch, max_len)
+    attention leaves and per-slot Mamba state. Paged (``page_size`` > 0):
+    each attention layer holds a (num_pages, KV, page_size, hd) pool share in
+    the model's dtype, or with ``kv_quant`` in int8 plus float32 (num_pages,
+    KV, page_size) scale pools; capacity is owned by the KVManager."""
     dtype = DTYPES[cfg.dtype]
-    return [segment_init_cache(cfg, seg, page_size=page_size,
-                               num_pages=num_pages, dtype=dtype, device=device,
-                               kv_quant=kv_quant)
+    return [segment_init_cache(cfg, seg, batch, max_len, dtype=dtype, device=device,
+                               kv_quant=kv_quant, page_size=page_size,
+                               num_pages=num_pages)
             for seg in cfg.segments]
+
+
+def prefill(params, cfg: ModelConfig, batch, cache, true_len, *,
+            plan: ExecutionPlan = DEFAULT_PLAN):
+    """Process whole prompts, fill the dense cache (in place) and return the
+    logits at each sequence's last valid position. batch {"tokens" (B,S)};
+    true_len (B,). Returns (logits (B,1,V), cache)."""
+    tokens = batch["tokens"]
+    x = embed_lookup(params["embed"], tokens).to(DTYPES[cfg.dtype])
+    B, S = tokens.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    for seg, seg_params, seg_cache in zip(cfg.segments, params["segments"], cache):
+        x = segment_prefill(seg_params, cfg, seg, x, positions, true_len, seg_cache,
+                            plan)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    last = torch.clamp(true_len.long() - 1, min=0)
+    x_last = x[torch.arange(B, device=x.device), last][:, None, :]
+    return _lm_head(params, cfg, x_last), cache
 
 
 def _counts(cfg, device):
@@ -51,9 +74,11 @@ def _counts(cfg, device):
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, attn_ctx, *,
                 plan: ExecutionPlan = DEFAULT_PLAN):
-    """tokens (B,1) -> logits (B,1,V). ``attn_ctx`` = {"lengths" (B,),
+    """tokens (B,1) -> logits (B,1,V). Paged: ``attn_ctx`` = {"lengths" (B,),
     "block_tables" (B,maxp), optional "valid" (B,)} maps the stage's rows
-    onto the page pool. Returns (logits, cache, counts) where counts are the
+    onto the page pool. Dense: the rows are the cache's rows and
+    ``attn_ctx`` = {"valid" (B,)} marks the live ones (dead rows are kept out
+    of MoE routing). Returns (logits, cache, counts) where counts are the
     per-expert routed-token counts summed over MoE layers ((E,) float32)."""
     x = embed_lookup(params["embed"], tokens).to(DTYPES[cfg.dtype])
     counts = _counts(cfg, x.device)

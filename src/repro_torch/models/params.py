@@ -7,8 +7,9 @@ leading stacked ``layers`` axis, so layer i of a segment is ``leaf[i]``.
 
 * :func:`init_model` draws a fresh tree from its own ``torch.Generator``
   with the reference's init kinds (``normal`` scaled by 1/sqrt(fan-in),
-  ``small_normal`` = 0.02, ``ones``) and dtypes (router in float32). Its
-  numbers differ from ``jax.random``'s for the same seed.
+  ``small_normal`` = 0.02, ``ones``, ``zeros``, and the Mamba-2 ``ssm_a`` /
+  ``ssm_dt``) and dtypes (router and the SSM's A_log / D / dt_bias in
+  float32). Its numbers differ from ``jax.random``'s for the same seed.
 * :func:`from_numpy_tree` converts a tree of numpy arrays — e.g. the JAX
   package's parameters passed through ``np.asarray`` — into the port's.
 """
@@ -20,7 +21,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import DENSE, MOE, NONE, ModelConfig
+from repro_torch.configs.base import DENSE, MAMBA, MOE, NONE, ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -28,7 +29,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class Spec(NamedTuple):
     shape: Tuple[int, ...]
     dtype: str
-    init: str = "normal"       # normal | small_normal | ones | zeros
+    init: str = "normal"       # normal | small_normal | ones | zeros | ssm_a | ssm_dt
 
 
 def _dense(d_in, d_out, pd, bias=False):
@@ -38,8 +39,29 @@ def _dense(d_in, d_out, pd, bias=False):
     return out
 
 
+def mamba_specs(cfg: ModelConfig) -> dict:
+    """The Mamba-2 mixer (``repro/models/ssm.py::mamba_specs``): in_proj
+    emits z, xBC and dt; a depthwise causal conv over xBC; per-head A_log,
+    D and dt_bias in float32; a gated RMSNorm over d_inner; out_proj."""
+    s, d, pd = cfg.ssm, cfg.d_model, cfg.param_dtype
+    d_in, nheads = s.d_inner(d), s.nheads(d)
+    conv_dim = d_in + 2 * s.ngroups * s.d_state
+    d_proj = 2 * d_in + 2 * s.ngroups * s.d_state + nheads
+    return {"in_proj": Spec((d, d_proj), pd),
+            "conv_w": Spec((s.d_conv, conv_dim), pd),
+            "conv_b": Spec((conv_dim,), pd, "zeros"),
+            "A_log": Spec((nheads,), "float32", "ssm_a"),
+            "D": Spec((nheads,), "float32", "ones"),
+            "dt_bias": Spec((nheads,), "float32", "ssm_dt"),
+            "norm": {"scale": Spec((d_in,), pd, "ones")},
+            "out_proj": Spec((d_in, d), pd)}
+
+
 def _block_specs(cfg: ModelConfig, kind) -> dict:
     d, hd, pd = cfg.d_model, cfg.resolved_head_dim, cfg.param_dtype
+    if kind.mixer == MAMBA:
+        return _ffn_specs(cfg, kind, {"norm1": {"scale": Spec((d,), pd, "ones")},
+                                      "mixer": mamba_specs(cfg)})
     mixer = {"wq": _dense(d, cfg.num_heads * hd, pd, cfg.attn_bias),
              "wk": _dense(d, cfg.num_kv_heads * hd, pd, cfg.attn_bias),
              "wv": _dense(d, cfg.num_kv_heads * hd, pd, cfg.attn_bias),
@@ -47,8 +69,14 @@ def _block_specs(cfg: ModelConfig, kind) -> dict:
     if cfg.qk_norm:
         mixer["q_norm"] = {"scale": Spec((hd,), pd, "ones")}
         mixer["k_norm"] = {"scale": Spec((hd,), pd, "ones")}
-    specs: Dict[str, Any] = {"norm1": {"scale": Spec((d,), pd, "ones")},
-                             "mixer": mixer}
+    return _ffn_specs(cfg, kind, {"norm1": {"scale": Spec((d,), pd, "ones")},
+                                  "mixer": mixer})
+
+
+def _ffn_specs(cfg: ModelConfig, kind, specs: Dict[str, Any]) -> dict:
+    """Add norm2 and the FFN (dense or MoE); a block with ffn NONE has
+    neither, as in the reference."""
+    d, pd = cfg.d_model, cfg.param_dtype
     if kind.ffn != NONE and not cfg.parallel_block:
         specs["norm2"] = {"scale": Spec((d,), pd, "ones")}
     if kind.ffn == DENSE:
@@ -93,6 +121,13 @@ def model_specs(cfg: ModelConfig) -> dict:
 
 def _materialize(spec: Spec, gen: torch.Generator, device) -> torch.Tensor:
     dtype = DTYPES[spec.dtype]
+    if spec.init == "ssm_a":         # A_log = log of uniform [1, 16] (Mamba-2)
+        u = torch.rand(spec.shape, generator=gen, device=device) * 15.0 + 1.0
+        return torch.log(u).to(dtype)
+    if spec.init == "ssm_dt":        # inverse softplus of log-uniform [1e-3, 0.1]
+        u = torch.rand(spec.shape, generator=gen, device=device)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
     if spec.init == "zeros":
@@ -108,12 +143,21 @@ def _materialize(spec: Spec, gen: torch.Generator, device) -> torch.Tensor:
     return out
 
 
-def _map(tree, fn):
+def tree_map(tree, fn):
+    """``fn`` over the leaves of a tree of dicts / tuples / lists, keeping
+    its nesting (a :class:`Spec` is a leaf)."""
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
+        return {k: tree_map(v, fn) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)) and not isinstance(tree, Spec):
-        return type(tree)(_map(v, fn) for v in tree)
+        return type(tree)(tree_map(v, fn) for v in tree)
     return fn(tree)
+
+
+def tree_leaves(tree):
+    """The leaves of a tree of dicts / tuples / lists, in its order."""
+    out = []
+    tree_map(tree, out.append)
+    return out
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
@@ -125,7 +169,7 @@ def init_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
                            "available; pass device='cpu' explicitly")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    return _map(model_specs(cfg), lambda s: _materialize(s, gen, device))
+    return tree_map(model_specs(cfg), lambda s: _materialize(s, gen, device))
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -142,4 +186,4 @@ def from_numpy_tree(tree, device="cuda"):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("from_numpy_tree(device='cuda') but no CUDA device "
                            "is available; pass device='cpu' explicitly")
-    return _map(tree, lambda a: _to_tensor(a, device))
+    return tree_map(tree, lambda a: _to_tensor(a, device))

@@ -1,17 +1,31 @@
-"""Continuous-batching serving engine on the paged KV layout with the duplex
-MoE (port of the synchronous, paged core of ``repro/serving/engine.py``).
+"""Continuous-batching serving engine with the duplex MoE (port of the
+synchronous core of ``repro/serving/engine.py``), on the paged or the dense
+KV layout.
 
-Each stage is one unified token stream: the scheduler picks decode rows and
-prefill chunk spans; the engine grows block tables on the host, stages the
-inputs into bucketed shapes (powers of two, exactly the reference's
-buckets — they decide the MoE capacities and so which tokens overflow),
-runs ``mixed_step`` (any chunk this stage) or ``decode_step`` once, samples
-greedily, and commits. The Duplex planner picks the stage's ``k_cold`` from
-an EMA of the previous stages' actual router counts; on the device the
-experts are re-ranked by the live counts and the cold / hot paths run the
-GEMV / ragged GEMM kernels (or, with ``moe_ragged=False``, the
-capacity-padded GEMV / GEMM kernels). With ``kv_quant`` the page pools hold
-int8 K/V with float32 scales and the int8 attention kernels run.
+Each stage is one token stream: the scheduler picks decode rows and prefill
+spans; the engine stages the inputs into bucketed shapes (powers of two,
+exactly the reference's buckets — they decide the MoE capacities and so
+which tokens overflow), runs the model, samples greedily, and commits. The
+Duplex planner picks the stage's ``k_cold`` from an EMA of the previous
+stages' actual router counts; on the device the experts are re-ranked by
+the live counts and the cold / hot paths run the GEMV / ragged GEMM kernels
+(or, with ``moe_ragged=False``, the capacity-padded GEMV / GEMM kernels).
+
+Two routes, as the reference chooses them (``kv_layout`` defaults to the
+one each has):
+
+* full self-attention stacks (``kv_layout="paged"``): chunked (or, with
+  ``prefill_chunk_tokens=None``, whole-prompt) spans and decode rows run
+  ``mixed_step`` together, or ``decode_step`` when there is no span; block
+  tables grow on the host. With ``kv_quant`` the page pools hold int8 K/V
+  with float32 scales and the int8 attention kernels run.
+* every other stack (Mamba or hybrid, ``kv_layout="dense"``,
+  ``prefill_chunk_tokens=None``): a stage runs the dense decode over all
+  ``max_slots`` rows (dead rows masked out of MoE routing) first, then the
+  legacy monolithic prefill of the admitted prompts, padded to a
+  ``prefill_len_buckets`` length, into a fresh local cache under the
+  grouped MoE plan; at commit the prompts claim slots and their cache rows
+  are scattered in.
 
 Where the reference keys one jitted function per bucketed shape, the port
 simply calls the model with the same bucketed shapes. The engine runs on
@@ -27,13 +41,13 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import MOE, ModelConfig
+from repro_torch.configs.base import ATTN, MAMBA, MOE, ModelConfig
 from repro_torch.core.costmodel import DUPLEX
 from repro_torch.core.duplex_moe import default_capacities, moe_traffic_model
 from repro_torch.core.execution import ExecutionPlan
 from repro_torch.core.partition import DuplexPlanner, build_luts
-from repro_torch.models.model import decode_step, mixed_step
-from repro_torch.models.params import DTYPES
+from repro_torch.models.model import decode_step, init_cache, mixed_step, prefill
+from repro_torch.models.params import DTYPES, tree_map
 from repro_torch.serving.kvmanager import KVManager, kv_token_bytes
 from repro_torch.serving.request import Request
 from repro_torch.serving.sampling import sample
@@ -41,6 +55,9 @@ from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                            StageDecision)
 
 MAX_PREFILL_SEQS = 4     # chunk spans per stage (the reference's default)
+MAX_PREFILL_TOKENS = 8192   # whole-prompt tokens per stage (the reference's default)
+# legacy prefill lengths (the reference's default buckets; max_len joins them)
+PREFILL_LEN_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096)
 
 
 def _bucket(n: int, buckets) -> int:
@@ -81,17 +98,24 @@ class StageReport:
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int, max_len: int,
-                 kv_page_size: int, prefill_chunk_tokens: int,
+                 kv_layout: Optional[str] = None, kv_page_size: int = 64,
+                 prefill_chunk_tokens: Optional[int] = None,
                  use_duplex: bool = True, use_kernels: bool = True,
                  kv_quant: bool = False, moe_ragged: bool = True,
                  moe_c_block: int = 256, device="cuda"):
-        """Greedy sampling only; the page pool holds every slot at max_len
-        (plus the null page). ``kv_quant`` keeps the pages in int8 with
-        float32 per-(token, KV head) scales. With ``use_kernels`` the
-        attention kernels run, and the MoE runs the duplex ragged kernels,
-        or with ``moe_ragged=False`` the capacity-padded ones; without
-        ``use_duplex`` the MoE is the plain grouped path, as the reference
-        runs XLA there."""
+        """Greedy sampling only. ``kv_layout`` None takes the one layout
+        the stack has: "paged" for full self-attention stacks, "dense" for
+        the others. Paged: the page pool holds every slot at
+        max_len (plus the null page); ``kv_quant`` keeps the pages in int8
+        with float32 per-(token, KV head) scales. Dense: every slot owns a
+        max_len cache row (and, for Mamba layers, a state). With
+        ``use_kernels`` the attention and SSD kernels run, and the MoE runs
+        the duplex ragged kernels, or with ``moe_ragged=False`` the
+        capacity-padded ones; without ``use_duplex`` the MoE is the plain
+        grouped path, as the reference runs XLA there. Chunked prefill
+        (``prefill_chunk_tokens``) needs a full self-attention stack, as in
+        the reference; the dense layout is ported for the other stacks
+        (the legacy prefill) only."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServingEngine(device='cuda') but no CUDA device "
@@ -105,20 +129,48 @@ class ServingEngine:
         # every stage (models/model.py::_lm_head)
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
         self.params = dict(params, lm_head_f32=head["table"].float())
-        self.kv = KVManager(cfg, max_slots, max_len, page_size=kv_page_size,
-                            kv_quant=kv_quant, device=self.device)
+        # the unified token stream covers full self-attention stacks; Mamba
+        # needs a state carried across chunks, so those stacks keep the
+        # legacy monolithic prefill (the reference's rule)
+        self._unified = all(kind.mixer == ATTN
+                            for seg in cfg.segments for kind in seg.pattern)
+        if prefill_chunk_tokens is not None and not self._unified:
+            raise NotImplementedError(
+                "chunked prefill needs a full self-attention decoder stack "
+                "(mamba/windowed/cross mixers still prefill monolithically)")
+        if kv_layout is None:
+            kv_layout = "paged" if self._unified else "dense"
+        if not self._unified and kv_layout == "paged":
+            raise ValueError("a Mamba or hybrid stack has no paged KV cache; use "
+                             "kv_layout='dense' (the default for such a stack)")
+        if self._unified and kv_layout == "dense":
+            raise NotImplementedError(
+                "the dense layout for full self-attention stacks (dense "
+                "attention_chunk_step and mixed_step) is not ported yet: the "
+                "next slice (ROADMAP queue 1, item 1); use kv_layout='paged'")
+        self.kv = KVManager(cfg, max_slots, max_len, layout=kv_layout,
+                            page_size=kv_page_size, kv_quant=kv_quant,
+                            device=self.device)
+        self.paged = self.kv.paged
         self.scheduler = ContinuousBatchingScheduler(
             max_prefill_seqs=MAX_PREFILL_SEQS,
-            prefill_chunk_tokens=prefill_chunk_tokens, max_prefill_target=max_len)
+            prefill_chunk_tokens=prefill_chunk_tokens, max_prefill_target=max_len,
+            max_prefill_tokens=MAX_PREFILL_TOKENS)
         self.use_duplex = use_duplex and cfg.moe is not None
         self.use_kernels = use_kernels
         self.moe_ragged = bool(moe_ragged and use_kernels and self.use_duplex)
         self.moe_c_block = moe_c_block
         self.seq_buckets = tuple(sorted({1, 2, MAX_PREFILL_SEQS}
                                         | set(_pow2_buckets(MAX_PREFILL_SEQS))))
-        self.chunk_len_buckets = _pow2_buckets(min(prefill_chunk_tokens, max_len))
+        self.chunk_len_buckets = _pow2_buckets(
+            min(prefill_chunk_tokens, max_len) if prefill_chunk_tokens else max_len)
+        # legacy prefill lengths: max_len is always a bucket, so no prompt
+        # within the KV capacity is truncated
+        self.prefill_len_buckets = tuple(sorted(
+            {b for b in PREFILL_LEN_BUCKETS if b < max_len} | {max_len}))
         self.decode_bs_buckets = _pow2_buckets(max_slots)
-        self.pages_buckets = _pow2_buckets(self.kv.max_pages_per_slot)
+        if self.paged:
+            self.pages_buckets = _pow2_buckets(self.kv.max_pages_per_slot)
         self.planner: Optional[DuplexPlanner] = None
         if self.use_duplex:
             # the xPU LUT models what the hot kernel executes: ragged ->
@@ -133,9 +185,15 @@ class ServingEngine:
             self.planner = DuplexPlanner(lut_x, lut_p, cfg.moe.num_experts)
         self._ema_counts: Optional[np.ndarray] = None
         self._count_ema_decay = 0.5
-        # streamed K+V bytes per live token over all layers, in the pools'
-        # actual storage (int8 values plus their float32 scales when quantized)
-        self._kv_bytes_per_token = kv_token_bytes(cfg, kv_quant=kv_quant) * cfg.num_layers
+        # streamed K+V bytes per live token over the attention layers, in the
+        # cache's actual storage (int8 values plus their float32 scales when
+        # quantized); Mamba layers hold O(1) state and are not counted. The
+        # dense decode streams every slot's whole max_len row.
+        n_attn = sum(seg.repeats for seg in cfg.segments
+                     for kind in seg.pattern if kind.mixer != MAMBA)
+        per_tok = kv_token_bytes(cfg, kv_quant=kv_quant)
+        self._kv_bytes_per_token = per_tok * n_attn
+        self._dense_kv_bytes_per_stage = max_slots * per_tok * n_attn * max_len
         self._moe_layers = sum(seg.repeats for seg in cfg.segments
                                for kind in seg.pattern if kind.ffn == MOE)
         self._param_itemsize = DTYPES[cfg.param_dtype].itemsize
@@ -259,6 +317,38 @@ class ServingEngine:
             plan=self._moe_plan(k_cold, caps[0], caps[1]))
         return sample(logits), None, counts, kv_bytes, caps
 
+    def _run_dense_decode(self, decision: StageDecision, k_cold: int):
+        """Dense decode over ALL slots: inactive rows' outputs are discarded
+        (and masked out of MoE routing), their cache rows are overwritten on
+        reuse, and every row's whole cache is streamed."""
+        valid = np.zeros((self.kv.max_slots,), bool)
+        for r in decision.decoding:
+            valid[r.slot] = True
+        caps = self._moe_caps(self.kv.max_slots, k_cold)
+        logits, _, counts = decode_step(
+            self.params, self.cfg, self._t(self._tokens[:, None].copy()), self.kv.cache,
+            {"valid": self._t(valid)}, plan=self._moe_plan(k_cold, caps[0], caps[1]))
+        return sample(logits), counts, self._dense_kv_bytes_per_stage, caps
+
+    def _run_legacy_prefill(self, decision: StageDecision):
+        """Monolithic whole-prompt prefill into a fresh local cache (stacks
+        the unified stream cannot serve): prompts padded to a length bucket,
+        rows to a row bucket, the grouped MoE plan. Returns (first tokens,
+        local cache); slots are claimed at commit."""
+        seqs = [c.req.token_stream(c.end) for c in decision.chunks]
+        n_b = _bucket(len(seqs), self.seq_buckets)
+        l_b = _bucket(max(len(sq) for sq in seqs), self.prefill_len_buckets)
+        tokens = np.zeros((n_b, l_b), np.int32)
+        true_len = np.zeros((n_b,), np.int32)
+        for i, sq in enumerate(seqs):
+            tokens[i, :len(sq)] = sq
+            true_len[i] = len(sq)
+        plan = ExecutionPlan(moe_impl="grouped", use_kernels=self.use_kernels)
+        cache = init_cache(self.cfg, n_b, self.kv.max_len, device=self.device)
+        logits, cache = prefill(self.params, self.cfg, {"tokens": self._t(tokens)},
+                                cache, self._t(true_len), plan=plan)
+        return sample(logits), cache
+
     def _run_mixed(self, decision: StageDecision, k_cold: int):
         chunks = decision.chunks
         for c in chunks:                       # the first chunk claims the slot
@@ -297,21 +387,37 @@ class ServingEngine:
             plan=self._moe_plan(k_cold, caps[0], caps[1]))
         return sample(dl), sample(cl), counts, kv_bytes, caps
 
-    def _commit(self, decision: StageDecision, nxt, cn, tnow: float) -> None:
+    def _commit(self, decision: StageDecision, nxt, cn, tnow: float,
+                legacy=None) -> None:
+        """Apply a stage's sampled tokens. Paged: decode rows are the stage's
+        rows, lengths advance and chunks set theirs. Dense: decode rows are
+        the slots; ``legacy`` = (first tokens, local cache) of a legacy
+        prefill, whose prompts claim slots here and get their rows."""
         adv = []
         for i, r in enumerate(decision.decoding):
-            tok = int(nxt[i])
+            tok = int(nxt[r.slot if not self.paged else i])
             self._tokens[r.slot] = tok
             r.record_token(tok, tnow)
             adv.append(r.slot)
-        if adv:
+        if adv and self.paged:
             self.kv.lens[np.asarray(adv)] += 1
-        for i, c in enumerate(decision.chunks):
-            self.kv.lens[c.req.slot] = c.end
-            if c.is_last:                      # final chunk -> first token
-                tok = int(cn[i])
-                self._tokens[c.req.slot] = tok
+        if legacy is not None:
+            first, local = legacy
+            n = len(decision.chunks)
+            slots = [self.kv.allocate() for _ in range(n)]
+            self.kv.scatter(tree_map(local, lambda a: a[:, :n]), slots)
+            for i, (c, s) in enumerate(zip(decision.chunks, slots)):
+                c.req.slot = s
+                tok = int(first[i])
+                self._tokens[s] = tok
                 c.req.record_token(tok, tnow)
+        else:
+            for i, c in enumerate(decision.chunks):
+                self.kv.lens[c.req.slot] = c.end
+                if c.is_last:                  # final chunk -> first token
+                    tok = int(cn[i])
+                    self._tokens[c.req.slot] = tok
+                    c.req.record_token(tok, tnow)
         for r in [c.req for c in decision.chunks] + decision.decoding:
             if r.done and r.slot >= 0:
                 self.kv.free(r.slot)
@@ -322,7 +428,8 @@ class ServingEngine:
         counts_layer = self._update_counts(counts)
         live = len(decision.decoding) + sum(c.tokens for c in decision.chunks)
         moe_bytes = moe_live = moe_padded = 0
-        if self.use_duplex and live and (k_cold > 0 or self.moe_ragged):
+        if (self.use_duplex and live and self._moe_layers and caps is not None
+                and (k_cold > 0 or self.moe_ragged)):
             if counts_layer is not None and counts_layer.sum() > 0:
                 dcounts = np.round(counts_layer).astype(np.int64)
             else:
@@ -359,21 +466,34 @@ class ServingEngine:
     def step(self) -> Optional[StageReport]:
         """Plan, run and commit one stage; None when nothing can run."""
         t0 = time.monotonic()
-        free = min(self.kv.free_slots, self._page_admission_cap())
+        free = self.kv.free_slots
+        if self.paged:
+            free = min(free, self._page_admission_cap())
         decision = self.scheduler.next_stage(free)
         if decision is None:
             return None
         k_cold = self._k_cold(decision)
+        nxt = cn = counts = caps = legacy = None
+        kv_bytes = 0
         with torch.no_grad():
-            if decision.chunks:
+            if decision.chunks and self._unified:
                 nxt, cn, counts, kv_bytes, caps = self._run_mixed(decision, k_cold)
-            else:
+            elif self.paged:
                 nxt, cn, counts, kv_bytes, caps = self._run_decode(decision, k_cold)
+            else:
+                # a dense stage: the decode over every slot first, then the
+                # legacy prefill (the reference's dispatch order)
+                if decision.decoding:
+                    nxt, counts, kv_bytes, caps = self._run_dense_decode(decision, k_cold)
+                if decision.chunks:
+                    legacy = self._run_legacy_prefill(decision)
             # the stage's only device sync: tokens and router counts
-            nxt = nxt.cpu().numpy()
+            nxt = nxt.cpu().numpy() if nxt is not None else None
             cn = cn.cpu().numpy() if cn is not None else None
             counts = counts.cpu().numpy() if counts is not None else None
-        self._commit(decision, nxt, cn, time.monotonic())
+            if legacy is not None:
+                legacy = (legacy[0].cpu().numpy(), legacy[1])
+            self._commit(decision, nxt, cn, time.monotonic(), legacy)
         return self._report(decision, k_cold, counts, kv_bytes, caps, t0)
 
     def run(self, requests: List[Request], *, max_stages: int = 100_000) -> List[Request]:

@@ -1,11 +1,15 @@
-"""KV-cache manager for the paged layout (port of the paged core of
-``repro/serving/kvmanager.py``).
+"""KV-cache manager: slot bookkeeping plus the paged or the dense cache (port
+of the paged and dense cores of ``repro/serving/kvmanager.py``).
 
-K/V live in a shared pool of fixed-size pages on the device; each sequence
-slot owns a block table (the page ids holding its context), grown on
-demand by ``ensure_len`` and returned on ``free``. Page 0 is the reserved
-null page: tables are zero-filled and padded rows write there, so a dummy
-row never touches a live sequence. Slot and page ids are handed out lowest
+Dense (``layout="dense"``): one cache sized ``max_slots x max_len`` for every
+slot (Mamba layers: one state per slot); the manager tracks slot occupancy
+and ``scatter``s freshly prefilled per-request caches into slot rows.
+
+Paged (``layout="paged"``): K/V live in a shared pool of fixed-size pages on
+the device; each sequence slot owns a block table (the page ids holding its
+context), grown on demand by ``ensure_len`` and returned on ``free``. Page
+0 is the reserved null page: tables are zero-filled and padded rows write
+there, so a dummy row never touches a live sequence. Slot and page ids are handed out lowest
 first from heaps. Every page has one owner in this slice (no prefix
 sharing, no copy-on-write). With ``kv_quant`` the pools hold int8 values
 plus float32 per-(token, KV head) scales (``kv_token_bytes`` is the byte
@@ -14,13 +18,14 @@ factor either way).
 from __future__ import annotations
 
 import heapq
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import MAMBA, ModelConfig
 from repro_torch.models.model import init_cache
-from repro_torch.models.params import DTYPES
+from repro_torch.models.params import DTYPES, tree_leaves
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -48,17 +53,29 @@ def pages_for_budget(cfg: ModelConfig, page_size: int, budget_bytes: int, *,
 
 
 class KVManager:
-    """Slots + the page pool. ``block_tables`` (max_slots, max_pages_per_slot)
-    int32 and ``lens`` (max_slots,) int32 are host arrays the engine stages
-    into each stage's inputs; ``cache`` is the device pool."""
+    """Slots + the cache. Paged: ``block_tables`` (max_slots,
+    max_pages_per_slot) int32 and ``lens`` (max_slots,) int32 are host arrays
+    the engine stages into each stage's inputs; ``cache`` is the device pool.
+    Dense: ``cache`` holds every slot's row; there are no pages."""
 
     def __init__(self, cfg: ModelConfig, max_slots: int, max_len: int, *,
-                 page_size: int = 64, num_pages: Optional[int] = None,
-                 kv_quant: bool = False, device="cuda"):
+                 layout: str = "paged", page_size: int = 64,
+                 num_pages: Optional[int] = None, kv_quant: bool = False,
+                 device="cuda"):
+        if layout not in ("dense", "paged"):
+            raise ValueError(f"layout must be 'dense' or 'paged', got {layout!r}")
         self.cfg = cfg
         self.kv_quant = kv_quant
         self.max_slots = max_slots
         self.max_len = max_len
+        self.layout = layout
+        self.paged = layout == "paged"
+        self._free: List[int] = list(range(max_slots))
+        self._active: set = set()
+        if not self.paged:
+            self.cache = init_cache(cfg, max_slots, max_len, device=device,
+                                    kv_quant=kv_quant)
+            return
         self.page_size = page_size
         self.max_pages_per_slot = _cdiv(max_len, page_size)
         if num_pages is None:
@@ -68,8 +85,6 @@ class KVManager:
         self.num_pages = num_pages
         self.cache = init_cache(cfg, page_size=page_size, num_pages=num_pages,
                                 device=device, kv_quant=kv_quant)
-        self._free: List[int] = list(range(max_slots))
-        self._active: set = set()
         self._page_free: List[int] = list(range(1, num_pages))
         self._slot_pages: Dict[int, List[int]] = {}
         self.block_tables = np.zeros((max_slots, self.max_pages_per_slot), np.int32)
@@ -81,11 +96,11 @@ class KVManager:
 
     @property
     def free_pages(self) -> int:
-        return len(self._page_free)
+        return len(self._page_free) if self.paged else 0
 
     @property
     def live_pages(self) -> int:
-        return self.num_pages - 1 - len(self._page_free)
+        return self.num_pages - 1 - len(self._page_free) if self.paged else 0
 
     def slot_page_count(self, slot: int) -> int:
         return len(self._slot_pages.get(slot, ()))
@@ -94,7 +109,8 @@ class KVManager:
         """Claim the lowest free slot, with an empty block table."""
         slot = heapq.heappop(self._free)
         self._active.add(slot)
-        self._slot_pages[slot] = []
+        if self.paged:
+            self._slot_pages[slot] = []
         return slot
 
     def free(self, slot: int) -> None:
@@ -103,6 +119,8 @@ class KVManager:
             return
         self._active.discard(slot)
         heapq.heappush(self._free, slot)
+        if not self.paged:
+            return
         for pid in self._slot_pages.pop(slot, []):
             heapq.heappush(self._page_free, pid)
         self.block_tables[slot] = 0
@@ -111,7 +129,7 @@ class KVManager:
     def ensure_len(self, slot: int, target_len: int) -> None:
         """Grow ``slot``'s block table to cover ``target_len`` positions
         (monotonic). Raises RuntimeError when the pool is exhausted."""
-        assert slot in self._active, slot
+        assert self.paged and slot in self._active, slot
         pages = self._slot_pages[slot]
         need = _cdiv(max(target_len, 1), self.page_size)
         assert need <= self.max_pages_per_slot, (target_len, self.max_len)
@@ -121,3 +139,30 @@ class KVManager:
             pid = heapq.heappop(self._page_free)
             self.block_tables[slot, len(pages)] = pid
             pages.append(pid)
+
+    def scatter(self, local_cache, slots: Sequence[int]) -> None:
+        """Dense layout: copy per-request caches (batch = len(slots)) into the
+        slot rows ``slots``. Every cache leaf is laid out (layers, batch,
+        ...)."""
+        assert not self.paged, "paged prefill writes its pages in-stage"
+        leaves = tree_leaves(self.cache)
+        local = tree_leaves(local_cache)
+        assert len(leaves) == len(local), (len(leaves), len(local))
+        idx = torch.as_tensor(list(slots), dtype=torch.long, device=leaves[0].device)
+        for g, l in zip(leaves, local):
+            g[:, idx] = l.to(g.dtype)
+
+    def _total_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in tree_leaves(self.cache))
+
+    def bytes_per_slot(self) -> int:
+        """Dense: the configured per-slot footprint. Paged: the live
+        per-sequence footprint (live pages over active slots; one full-length
+        slot's worth when idle)."""
+        total = self._total_bytes()
+        if not self.paged:
+            return total // self.max_slots
+        per_page = total // self.num_pages
+        if self._active:
+            return per_page * max(self.live_pages, 1) // len(self._active)
+        return per_page * self.max_pages_per_slot

@@ -5,11 +5,13 @@ of ``repro/serving/scheduler.py``).
 decoding request contributes one token, and prefill work comes as chunk
 spans — in-flight chunked prefills continue first (FIFO), then queued
 prompts are admitted into free slots, within ``prefill_chunk_tokens`` per
-stage and at most ``max_prefill_seqs`` spans. The composition rules are the
-reference's, step for step: the stage composition decides the bucketed
-shapes, the MoE capacities and therefore which tokens an expert drops.
-Unchunked whole-prompt spans, shedding, deadlines, priorities, aging,
-drafts and the async plan/activate split are not ported in this slice.
+stage and at most ``max_prefill_seqs`` spans. With ``prefill_chunk_tokens``
+None each admitted prompt comes as one whole-prompt span, within a
+``max_prefill_tokens`` budget per stage (a single over-budget prompt still
+runs alone). The composition rules are the reference's, step for step: the
+stage composition decides the bucketed shapes, the MoE capacities and
+therefore which tokens an expert drops. Shedding, deadlines, priorities,
+aging, drafts and the async plan/activate split are not ported yet.
 """
 from __future__ import annotations
 
@@ -58,9 +60,9 @@ class StageDecision:
 
 
 class ContinuousBatchingScheduler:
-    def __init__(self, *, max_prefill_seqs: int, prefill_chunk_tokens: int,
-                 max_prefill_target: int):
-        if prefill_chunk_tokens < 1:
+    def __init__(self, *, max_prefill_seqs: int, prefill_chunk_tokens: Optional[int],
+                 max_prefill_target: int, max_prefill_tokens: int):
+        if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
             raise ValueError(f"prefill_chunk_tokens must be >= 1, got {prefill_chunk_tokens}")
         self.max_prefill_target = max_prefill_target   # the KV capacity
         self.queue: Deque[Request] = deque()
@@ -68,6 +70,7 @@ class ContinuousBatchingScheduler:
         self.prefilling: List[Request] = []
         self.max_prefill_seqs = max_prefill_seqs
         self.prefill_chunk_tokens = prefill_chunk_tokens
+        self.max_prefill_tokens = max_prefill_tokens
 
     def submit(self, req: Request) -> None:
         self.queue.append(req)
@@ -79,7 +82,8 @@ class ContinuousBatchingScheduler:
     def next_stage(self, free_slots: int) -> Optional[StageDecision]:
         """Form the next stage and admit its new requests."""
         chunks: List[ChunkSpan] = []
-        budget = self.prefill_chunk_tokens
+        chunked = self.prefill_chunk_tokens is not None
+        budget = self.prefill_chunk_tokens if chunked else self.max_prefill_tokens
         used = 0
         for r in self.prefilling:          # in-flight prefills continue first
             if len(chunks) >= self.max_prefill_seqs or used >= budget:
@@ -91,12 +95,19 @@ class ContinuousBatchingScheduler:
             used += n
         free = free_slots
         for r in self.queue:               # the head blocks everything behind it
-            if free <= 0 or len(chunks) >= self.max_prefill_seqs or used >= budget:
+            if free <= 0 or len(chunks) >= self.max_prefill_seqs:
                 break
             total = min(len(r.prompt) + len(r.output), self.max_prefill_target)
             start = min(r.prefill_pos, total - 1) if total > 0 else 0
-            span = ChunkSpan(r, start, min(total, start + budget - used),
-                             first=True, target=total)
+            if chunked:
+                if used >= budget:
+                    break
+                span = ChunkSpan(r, start, min(total, start + budget - used),
+                                 first=True, target=total)
+            else:
+                if used + (total - start) > budget and used > 0:
+                    break
+                span = ChunkSpan(r, start, total, first=True, target=total)
             chunks.append(span)
             used += span.tokens
             free -= 1

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import decode_attn, moe_gemm, moe_gemv
+from repro_torch.kernels import decode_attn, moe_gemm, moe_gemv, ssd_decode
 from repro_torch.kernels.quant import int8_quantize
 
 torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
@@ -79,6 +79,19 @@ def test_cuda_kernels_match_plain(card, dtype, tol):
 
 
 @pytest.mark.cuda
+def test_int8_quantize_on_the_card_is_bit_equal_to_the_cpu(card):
+    """The int8 recipe gives the same scales and values on the card as on
+    the CPU (true divisions), so the kernels' requantization and the plain
+    versions' agree bit for bit: 4096 rows of 64 at scales 0.1-10."""
+    rng = np.random.default_rng(2)
+    x = (rng.standard_normal((4096, 64)) * rng.uniform(0.1, 10.0, (4096, 1))).astype(np.float32)
+    q_cpu, s_cpu = int8_quantize(torch.tensor(x))
+    q_card, s_card = int8_quantize(torch.tensor(x, device=card))
+    assert torch.equal(s_card.cpu(), s_cpu)
+    assert torch.equal(q_card.cpu(), q_cpu)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_cuda_int8_and_padded_kernels_match_plain(card, dtype, tol):
     """The int8 attention kernels against their per-page plain versions and
@@ -118,3 +131,36 @@ def test_cuda_int8_and_padded_kernels_match_plain(card, dtype, tol):
         got = kern(x, w["wi_gate"], w["wi_up"], w["wo"], perm)
         want = plain(x, w["wi_gate"], w["wi_up"], w["wo"], perm)
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_cuda_dense_decode_and_ssd_kernels_match_plain(card, dtype, tol):
+    """The dense-cache decode attention kernel (qpk 1 and 4, a window and a
+    softcap, lengths 0 to past Smax, a layer view of a stacked cache) and the
+    SSD decode kernel (headdim 16 and 64; its state updated in place)
+    against their plain versions on the card."""
+    rng = np.random.default_rng(2)
+    t = lambda a: torch.tensor(a, device=card)
+    B, KV, hd, Smax = 6, 2, 32, 80
+    lens = t(np.asarray([0, 1, 17, 64, 80, 95], np.int32))
+    stacked = t(rng.standard_normal((2, 2, B, Smax, KV, hd)).astype(np.float32)).to(dtype)
+    k, v = stacked[0, 1], stacked[1, 1]          # layer views, as the model passes them
+    for qpk, kw in ((1, dict()), (4, dict()), (4, dict(window=20, softcap=5.0))):
+        q = t(rng.standard_normal((B, KV, qpk, hd)).astype(np.float32)).to(dtype)
+        got = decode_attn.decode_attention_kernel(q, k, v, lens, **kw)
+        want = decode_attn.decode_attention_plain(q, k, v, lens, **kw)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    for (Bs, H, N, P) in ((2, 8, 16, 16), (3, 12, 16, 64)):
+        state = t(rng.standard_normal((Bs, H, N, P)).astype(np.float32))
+        x = t(rng.standard_normal((Bs, H, P)).astype(np.float32)).to(dtype)
+        dt = t(np.log1p(np.exp(rng.standard_normal((Bs, H)))).astype(np.float32))
+        a_log = t(rng.uniform(size=(H,)).astype(np.float32))
+        b, c = (t(rng.standard_normal((Bs, N)).astype(np.float32)) for _ in range(2))
+        d = t(rng.standard_normal((H,)).astype(np.float32))
+        y_p, s_p = ssd_decode.ssd_decode_plain(state, x, dt, a_log, b, c, d)
+        inplace = state.clone()
+        y_k, s_k = ssd_decode.ssd_decode_kernel(inplace, x, dt, a_log, b, c, d)
+        assert s_k is inplace
+        torch.testing.assert_close(y_k.float(), y_p.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(s_k, s_p, atol=1e-4, rtol=1e-4)

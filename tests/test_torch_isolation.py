@@ -20,7 +20,9 @@ for n in names:
     importlib.import_module(n)
 for n in ("repro_torch.kernels.quant", "repro_torch.kernels.decode_attn",
           "repro_torch.kernels.moe_gemm", "repro_torch.kernels.moe_gemv",
-          "repro_torch.models.attention", "repro_torch.serving.kvmanager"):
+          "repro_torch.kernels.ssd_decode", "repro_torch.models.ssm",
+          "repro_torch.models.attention", "repro_torch.serving.kvmanager",
+          "repro_torch.configs.jamba_v0_1_52b"):
     assert n in names, n
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
@@ -38,10 +40,14 @@ except RuntimeError:
 else:
     raise AssertionError("init_model ran without a card")
 params = init_model(cfg, device="cpu")
-for flags in ({}, {"kv_quant": True, "moe_ragged": False}):
+hybrid = resolve_config("jamba-v0.1-52b")
+for flags in ({"kv_page_size": 8, "prefill_chunk_tokens": 16},
+              {"kv_page_size": 8, "prefill_chunk_tokens": 16, "kv_quant": True,
+               "moe_ragged": False},
+              {"kv_layout": "dense"}):
     try:
-        ServingEngine(cfg, params, max_slots=2, max_len=32, kv_page_size=8,
-                      prefill_chunk_tokens=16, **flags)
+        ServingEngine(hybrid if "kv_layout" in flags else cfg, params, max_slots=2,
+                      max_len=32, **flags)
     except RuntimeError as e:
         assert "cuda" in str(e).lower()
     else:
