@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py            # every phase: OLMoE-1B-7B, then Jamba-v0.1
+    python3 chip_smoke.py            # every phase: OLMoE-1B-7B, Jamba-v0.1, training
     python3 chip_smoke.py --kernels-only
 
 Phases, each printing a line:
@@ -11,8 +11,12 @@ Phases, each printing a line:
      at OLMoE-1B-7B shapes (plus a GQA shape for the attention kernels;
      the ragged MoE pair also at Jamba-v0.1's widths and path c's decode
      capacities; the dense decode attention and the SSD decode at
-     Jamba-v0.1's shapes, the SSD decode also at Mamba2-2.7B's), in
-     bfloat16 within its rounding band and again in float32 within 1e-4:
+     Jamba-v0.1's shapes, the SSD decode also at Mamba2-2.7B's; the flash
+     forward and backward at path d's shape, Jamba-v0.1's GQA heads, and a
+     window with a softcap), in
+     bfloat16 within its rounding band and again in float32 within 1e-4
+     (the backward's dq, dk, dv each within the band times max(1, its
+     largest entry)):
      max error and tolerance, kernel / plain / library time (the kernel
      also from a CUDA-graph replay: its device time without the wrapper's
      host work), and the
@@ -42,7 +46,16 @@ Phases, each printing a line:
           dense decode attention, SSD decode and ragged MoE kernels, one
           decode stage through the kernels against the plain path, prints
           the dense KV and SSM state bytes and the peak memory, and
-          profiles a short run.
+          profiles a short run. Then, with the Jamba model freed,
+       d. training: OLMoE-1B-7B at full width, depth cut to 8 of its 16
+          layers (its training state, 12 bytes a parameter, is 83 GB at
+          full depth), 5 steps of ``make_step`` driven by ``train_loop`` on
+          ``SyntheticLMData`` batches of 4 x 2048 tokens; it checks that
+          each flash kernel launched layers x steps times, that losses and
+          grad norms are finite and the parameters moved, one step's loss
+          and layer 0's attention gradients through the kernels against
+          the plain path, prints step times, tokens/s, the parameter and
+          optimizer bytes and the peak memory, and profiles one step.
 
 Prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as the
 last line. Any failure raises, and the exit code is non-zero. Without a CUDA
@@ -54,6 +67,8 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
+import os
 import re
 import subprocess
 import sys
@@ -345,6 +360,100 @@ def check_ssd(torch, gen, dtype, *, H, N, P):
                 flops=6 * state.numel(), ops_type="float32")
 
 
+def _live_pairs(S, causal, window):
+    """(query, key) pairs the masks leave live, per (sequence, head)."""
+    n = 0
+    for i in range(S):
+        lo = max(0, i - window + 1) if window else 0
+        n += (i + 1 if causal else S) - lo
+    return n
+
+
+def _flash_inputs(torch, gen, dtype, B, S, H, KV, hd=128):
+    r = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return r(B, S, H, hd), r(B, S, KV, hd), r(B, S, KV, hd)
+
+
+def _sdpa(torch, q, k, v, causal):
+    """The library yardstick in (B, H, S, hd) views; K/V of a GQA shape go
+    in by ``enable_gqa`` where the installed PyTorch has it, else repeated
+    here, outside any timed region. Returns a call."""
+    F = torch.nn.functional
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if q.shape[2] == k.shape[2]:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                      enable_gqa=True)
+    except TypeError:
+        rep = q.shape[2] // k.shape[2]
+        kt, vt = kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+
+def check_flash(torch, gen, dtype, *, B, S, H, KV, causal=True, window=0, softcap=0.0):
+    """The flash forward on the model layout: out and lse against the plain
+    version (the error is the larger of the two)."""
+    from repro_torch.kernels import flash_attn as fa
+    q, k, v = _flash_inputs(torch, gen, dtype, B, S, H, KV)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got, lse = fa.flash_attention_kernel(q, k, v, **kw)
+    want, lse_p = fa.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = max((got.float() - want.float()).abs().max().item(), (lse - lse_p).abs().max().item())
+    hd, item = q.shape[3], q.element_size()
+    out = dict(err=err, scale=want.float().abs().max().item(),
+               ms=time_ms(lambda: fa.flash_attention_kernel(q, k, v, **kw)),
+               graph_ms=graph_ms(torch, lambda: fa.flash_attention_kernel(q, k, v, **kw)),
+               plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), iters=5),
+               lib_ms=None,
+               nbytes=(2 * q.numel() + k.numel() + v.numel()) * item + lse.numel() * 4,
+               flops=4 * hd * B * H * _live_pairs(S, causal, window))
+    if not window and not softcap:
+        out["lib_ms"] = time_ms(_sdpa(torch, q, k, v, causal))
+    return out
+
+
+def check_flash_bwd(torch, gen, dtype, *, B, S, H, KV, causal=True, window=0, softcap=0.0):
+    """The flash backward (one wrapper, three launches) from the plain
+    forward's out and lse and a seeded dout: each of dq, dk, dv against the
+    plain version within the band times max(1, its largest |entry|) (dk and
+    dv sum over every query row and the group's heads, so they grow with S).
+    ``err`` is the largest absolute error, ``rel_err`` what the band
+    judges."""
+    from repro_torch.kernels import flash_attn as fa
+    q, k, v = _flash_inputs(torch, gen, dtype, B, S, H, KV)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = fa.flash_attention_plain(q, k, v, **kw)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    args = (q, k, v, o, lse, dout)
+    got = fa.flash_attention_bwd_kernel(*args, **kw)
+    want = fa.flash_attention_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+    scales = [w.float().abs().max().item() for w in want]
+    hd, item = q.shape[3], q.element_size()
+    out = dict(err=max(errs), rel_err=max(e / max(1.0, s) for e, s in zip(errs, scales)),
+               scale=max(scales),
+               detail=" ".join(f"{n}: err={e:.3e} max|plain|={s:.3g};"
+                               for n, e, s in zip(("dq", "dk", "dv"), errs, scales)),
+               ms=time_ms(lambda: fa.flash_attention_bwd_kernel(*args, **kw)),
+               graph_ms=graph_ms(torch, lambda: fa.flash_attention_bwd_kernel(*args, **kw)),
+               plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(*args, **kw), iters=5),
+               lib_ms=None,
+               nbytes=(3 * q.numel() + 2 * (k.numel() + v.numel())) * item
+               + lse.numel() * 4 + dout.numel() * item,
+               flops=2.5 * 4 * hd * B * H * _live_pairs(S, causal, window))
+    if not window and not softcap:
+        # library yardstick: SDPA forward + backward on the same inputs
+        qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        fwd = _sdpa(torch, qg, kg, vg, causal)
+        dt = dout.transpose(1, 2)
+        out["lib_ms"] = time_ms(lambda: fwd().backward(dt))
+    return out
+
+
 def _experts(torch, gen, dtype, E, d, f):
     def w(*shape, fan_in):
         return (torch.randn(shape, generator=gen, device="cuda")
@@ -463,6 +572,23 @@ KERNELS = [
      "src/repro_torch/kernels/csrc/ssd_decode.cu",
      [("jamba H=128 N=16 P=64", check_ssd, dict(H=128, N=16, P=64)),
       ("mamba2-2.7b H=80 N=128 P=64", check_ssd, dict(H=80, N=128, P=64))]),
+    # path d's shape (OLMoE-1B-7B, 4 x 2048 tokens, causal), Jamba-v0.1's GQA
+    # heads, and a window with a softcap
+    ("flash_attention",
+     "src/repro/kernels/flash_attn.py:87",
+     "src/repro_torch/kernels/csrc/flash_attn.cu",
+     [("olmoe B=4 S=2048 H=16 KV=16 causal", check_flash, dict(B=4, S=2048, H=16, KV=16)),
+      ("gqa B=1 S=4096 H=32 KV=8 causal", check_flash, dict(B=1, S=4096, H=32, KV=8)),
+      ("B=1 S=2048 H=16 KV=16 window=1000 softcap=50", check_flash,
+       dict(B=1, S=2048, H=16, KV=16, window=1000, softcap=50.0))]),
+    ("flash_attention_bwd",
+     "src/repro/models/attention.py:349",
+     "src/repro_torch/kernels/csrc/flash_attn.cu",
+     [("olmoe B=4 S=2048 H=16 KV=16 causal", check_flash_bwd,
+       dict(B=4, S=2048, H=16, KV=16)),
+      ("gqa B=1 S=4096 H=32 KV=8 causal", check_flash_bwd, dict(B=1, S=4096, H=32, KV=8)),
+      ("B=1 S=2048 H=16 KV=16 window=1000 softcap=50", check_flash_bwd,
+       dict(B=1, S=2048, H=16, KV=16, window=1000, softcap=50.0))]),
 ]
 
 
@@ -481,11 +607,13 @@ def kernel_phase(torch):
                 err, lib_ms = r["err"], r["lib_ms"]
                 bms, by = bound_ms(r["nbytes"], r["flops"], r.get("ops_type", dtype))
                 tol = TOL[dtype]
-                ok = err <= tol
+                ok = r.get("rel_err", err) <= tol
                 lib = f"{lib_ms:.4f}" if lib_ms is not None else "none"
                 fp = f" fp_kernel_ms={r['fp_ms']:.4f}" if "fp_ms" in r else ""
+                band = (f" ({r['detail']} band tol x max(1, max|plain|))" if "detail" in r
+                        else "")
                 log(f"kernel {name} [{label} {dtype}]: max_abs_err={err:.3e} "
-                    f"tol={tol:g} (plain max |out|={r['scale']:.3g}) "
+                    f"tol={tol:g}{band} (plain max |out|={r['scale']:.3g}) "
                     f"{'OK' if ok else 'FAIL'}; ms={r['ms']:.4f} graph_ms={r['graph_ms']:.4f} "
                     f"plain_ms={r['plain_ms']:.4f} "
                     f"library_ms={lib} bound_ms={bms:.4f} ({by}){fp}")
@@ -725,6 +853,12 @@ def profile_stages(torch, cfg, params, label, engine_kw, top: int = 12):
         eng.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    log_profile(prof, label, f"{len(eng.reports)} stages", wall, top)
+
+
+def log_profile(prof, label, what, wall, top):
+    """Device time by kernel from a CUDA-only profile, and the device's busy
+    share of ``wall`` (host seconds)."""
     dev = lambda e: getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0.0))
     events = [e for e in prof.key_averages()
@@ -733,11 +867,148 @@ def profile_stages(torch, cfg, params, label, engine_kw, top: int = 12):
     if not events:
         log(f"profile [{label}]: the profiler recorded no device events; no breakdown")
         return
-    log(f"profile [{label}]: {len(eng.reports)} stages in {wall * 1e3:.1f} ms host wall, "
+    log(f"profile [{label}]: {what} in {wall * 1e3:.1f} ms host wall, "
         f"device busy {busy_ms:.1f} ms ({100 * busy_ms / (wall * 1e3):.1f}%)")
     for e in sorted(events, key=dev, reverse=True)[:top]:
         log(f"profile [{label}]: {dev(e) / 1e3:9.2f} ms {100 * dev(e) / 1e3 / busy_ms:5.1f}% "
             f"x{e.count:<6d} {e.key[:110]}")
+
+
+# path d: OLMoE-1B-7B trained at full width and 8 of its 16 layers: the
+# training state costs 12 bytes a parameter (bf16 params and grads, float32
+# mu and nu), 83 GB for the whole 6.92B-parameter model, more than one 80 GB
+# card; 8 layers are 3.56B parameters, 42.8 GB of state
+TRAIN_LABEL = "olmoe training"
+TRAIN_LAYERS = 8
+TRAIN_STEPS = 5
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048         # 8192 tokens a step; S > 512 runs the flash core
+TRAIN_REMAT = "none"
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd")
+
+
+def train_phase(torch):
+    """Path d: ``make_train_state`` -> ``make_step`` -> ``train_loop`` on
+    OLMoE-1B-7B at full width and TRAIN_LAYERS layers, random weights from
+    seed 0, ``SyntheticLMData`` batches (seed 0, 4 x 2048), the reference
+    CLI's optimizer defaults (lr 1e-3, warmup max(steps // 10, 1)). Returns
+    {kernel: launches}; raises if a check fails."""
+    import dataclasses
+    from repro_torch.configs import RunConfig, resolve_config
+    from repro_torch.configs.base import Segment
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import make_step
+    from repro_torch.models.params import init_model, tree_leaves
+    from repro_torch.training.data import DataConfig, SyntheticLMData
+    from repro_torch.training.loop import LoopConfig, train_loop
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_state import make_train_state
+    full = resolve_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS, segments=(
+        Segment(full.segments[0].pattern, TRAIN_LAYERS),)).validate()
+    log(f"train: before {cfg.name}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"still allocated")
+    torch.cuda.reset_peak_memory_stats()
+    opt = OptConfig(learning_rate=1e-3, total_steps=TRAIN_STEPS,
+                    warmup_steps=max(TRAIN_STEPS // 10, 1))
+    t0 = time.perf_counter()
+    state = make_train_state(init_model(cfg, seed=0, device="cuda"), opt)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(state["params"])
+    n_params = sum(t.numel() for t in leaves)
+    p_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    o_bytes = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(state["opt"]["mu"]) + tree_leaves(state["opt"]["nu"]))
+    log(f"train: {cfg.name} cut to {cfg.num_layers} of {full.num_layers} layers, random init "
+        f"(seed 0) {n_params / 1e9:.2f}B params in {time.perf_counter() - t0:.1f}s; "
+        f"parameters {p_bytes / 2**30:.2f} GiB, optimizer state (mu, nu) "
+        f"{o_bytes / 2**30:.2f} GiB")
+    data = SyntheticLMData(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    batch_fn = lambda step: {"tokens": torch.from_numpy(data.batch_at(step)["tokens"]).cuda()}
+    step_fn = make_step(cfg, opt, RunConfig(remat_policy=TRAIN_REMAT))
+    record = []
+
+    def timed_step(state, batch):
+        t = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        record.append((time.perf_counter() - t, m["loss"], m["grad_norm"], m["lr"]))
+        return state, m
+
+    watch = state["params"]["segments"][0]["blocks"][0]["mixer"]["wq"]["kernel"]
+    before = watch.detach().clone()
+    build.reset_launch_counts()
+    loop = train_loop(state, timed_step, batch_fn, LoopConfig(total_steps=TRAIN_STEPS,
+                                                              log_every=1), log=log)
+    torch.cuda.synchronize()
+    launches = dict(build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    times = [r[0] for r in record]
+    losses = [float(r[1]) for r in record]
+    norms = [float(r[2]) for r in record]
+    med = sorted(times)[len(times) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"train [{TRAIN_LABEL}]: {loop.step} steps of {tokens} tokens, remat={TRAIN_REMAT}; "
+        f"losses {[round(x, 4) for x in losses]}; grad norms {[round(x, 4) for x in norms]}; "
+        f"lr {[r[3] for r in record]}; step times (s) {[round(x, 3) for x in times]}, median "
+        f"{med:.3f} s, {tokens / med:.0f} tokens/s; stragglers={loop.stragglers}; peak "
+        f"memory {peak / 2**30:.1f} GiB")
+    log(f"train [{TRAIN_LABEL}]: kernel launches on the path: {json.dumps(launches)}")
+    fwd_per_layer = 2 if TRAIN_REMAT == "full" else 1   # the recompute runs the forward again
+    want = {"flash_attention": TRAIN_LAYERS * TRAIN_STEPS * fwd_per_layer,
+            "flash_attention_bwd": TRAIN_LAYERS * TRAIN_STEPS}
+    bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    if bad:
+        raise AssertionError(f"[{TRAIN_LABEL}] launches (got, want): {bad}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"[{TRAIN_LABEL}] non-finite loss or grad norm")
+    if torch.equal(before, watch.detach()):
+        raise AssertionError(f"[{TRAIN_LABEL}] the parameters did not move")
+    batch = batch_fn(TRAIN_STEPS)
+    check_train_against_plain(torch, cfg, state["params"], batch)
+    profile_train_step(torch, step_fn, state, batch)
+    log(f"train [{TRAIN_LABEL}]: peak memory since the weights were made "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return {k: launches[k] for k in TRAIN_KERNELS}
+
+
+def check_train_against_plain(torch, cfg, params, batch):
+    """The loss and the gradients of layer 0's attention projections from
+    the same parameters and batch through the kernels and through the plain
+    path (``use_kernels=False``): the loss within 1e-2 relative, each
+    gradient within 5e-2 of its largest entry (bf16 activations; the MoE's
+    gather and index-put backward on CUDA adds in no fixed order)."""
+    from repro_torch.core.execution import ExecutionPlan
+    from repro_torch.models.model import loss_fn
+    mixer = params["segments"][0]["blocks"][0]["mixer"]
+    names = ("wq", "wk", "wv", "wo")
+    out = {}
+    for use_kernels in (True, False):
+        plan = ExecutionPlan(moe_impl="grouped", use_kernels=use_kernels)
+        loss, _ = loss_fn(params, cfg, batch, plan=plan, remat=TRAIN_REMAT)
+        grads = torch.autograd.grad(loss, [mixer[n]["kernel"] for n in names])
+        out[use_kernels] = (loss.item(), [g[0].float() for g in grads])
+        del loss, grads
+    (lk, gk), (lp, gp) = out[True], out[False]
+    rel = abs(lk - lp) / abs(lp)
+    errs = [((a - b).abs().max().item(), b.abs().max().item()) for a, b in zip(gk, gp)]
+    log(f"train [{TRAIN_LABEL}]: kernels vs plain path on one step: loss {lk:.5f} vs "
+        f"{lp:.5f} (rel {rel:.2e}, tolerance 1e-2); layer 0 attention gradients "
+        + ", ".join(f"{n}: max|d|={e:.3e} of max|g|={m:.3e}" for n, (e, m) in zip(names, errs))
+        + " (tolerance 5e-2 x max|g|)")
+    if not math.isfinite(lk) or rel > 1e-2 or any(e > 5e-2 * m for e, m in errs):
+        raise AssertionError(f"[{TRAIN_LABEL}] kernel path disagrees with the plain path")
+
+
+def profile_train_step(torch, step_fn, state, batch, top: int = 12):
+    """One more step under torch.profiler (device activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = step_fn(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log_profile(prof, TRAIN_LABEL, "one training step", wall, top)
 
 
 def check_against_plain(torch, cfg, params, label, flags):
@@ -814,6 +1085,9 @@ def main(argv=None) -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(root / "src"))
+    # path d allocates and frees multi-GB activations: growable segments keep
+    # the allocator from fragmenting (read when CUDA initialises)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script measures the "
@@ -846,6 +1120,10 @@ def main(argv=None) -> int:
         gc.collect()                      # the OLMoE model and its caches go
         torch.cuda.empty_cache()
         for name, n in hybrid_phase(torch).items():
+            rows[name]["launches"] = n
+        gc.collect()                      # the Jamba model and its caches go
+        torch.cuda.empty_cache()
+        for name, n in train_phase(torch).items():
             rows[name]["launches"] = n
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)

@@ -10,6 +10,7 @@ axis that the port walks with a Python loop.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -125,6 +126,42 @@ class ModelConfig:
             assert self.ssm is not None
         assert self.num_heads % self.num_kv_heads == 0
         return self
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """The training run's knobs the port takes from the reference's
+    ``RunConfig``: activation rematerialisation per super-block, "none" or
+    "full" ("dots" is not ported)."""
+    remat_policy: str = "full"
+
+
+def reduced_config(cfg: ModelConfig, *, layers: int = 2, d_model: int = 128,
+                   d_ff: int = 256, vocab: int = 512) -> ModelConfig:
+    """Scale an architecture down to CPU size, keeping its structure (the
+    reference's ``launch/train.py::reduced_config``)."""
+    scale = d_model / cfg.d_model
+    heads = max(2, int(cfg.num_heads * scale))
+    kv = max(1, min(cfg.num_kv_heads, heads))
+    while heads % kv:
+        kv -= 1
+    moe = cfg.moe
+    if moe is not None:
+        moe = dataclasses.replace(moe, d_ff_expert=max(32, int(moe.d_ff_expert * scale)))
+    segs = []
+    need = layers
+    for seg in cfg.segments:
+        if need <= 0:
+            break
+        reps = max(1, min(seg.repeats, need // max(len(seg.pattern), 1) or 1))
+        segs.append(Segment(seg.pattern, reps))
+        need -= reps * len(seg.pattern)
+    total = sum(s.num_layers for s in segs)
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-reduced", num_layers=total, d_model=d_model,
+        num_heads=heads, num_kv_heads=kv, head_dim=max(16, d_model // heads),
+        d_ff=d_ff, vocab_size=vocab, segments=tuple(segs), moe=moe,
+        dtype="float32", param_dtype="float32").validate()
 
 
 def small_test_config(name: str = "tiny", *, family: str = "dense",

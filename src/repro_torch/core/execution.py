@@ -22,6 +22,10 @@ class ExecutionPlan:
     # kernels; off, the capacity-padded MoE kernels run
     moe_ragged: bool = False
     use_kernels: bool = False        # CUDA kernels (plain versions on CPU)
+    # flash-core tile shapes of the plain attention path; the flash core runs
+    # for sequences longer than attn_q_block (the kernels tile by themselves)
+    attn_q_block: int = 512
+    attn_kv_block: int = 512
 
 
 DEFAULT_PLAN = ExecutionPlan()

@@ -25,7 +25,8 @@ from typing import Dict
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("decode_attn.cu", "moe_gemm.cu", "moe_gemv.cu", "ssd_decode.cu")
+SOURCES = ("decode_attn.cu", "moe_gemm.cu", "moe_gemv.cu", "ssd_decode.cu",
+           "flash_attn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +44,8 @@ launch_counts: Dict[str, int] = {
     "moe_gemv": 0,
     "decode_attention": 0,
     "ssd_decode": 0,
+    "flash_attention": 0,
+    "flash_attention_bwd": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

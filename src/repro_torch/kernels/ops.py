@@ -11,6 +11,8 @@ from repro_torch.kernels.decode_attn import (
     chunked_prefill_attention_int8_kernel, chunked_prefill_attention_kernel,
     decode_attention_kernel, paged_decode_attention_int8_kernel,
     paged_decode_attention_kernel)
+from repro_torch.kernels.flash_attn import (flash_attention_bwd_kernel,
+                                            flash_attention_kernel)
 from repro_torch.kernels.moe_gemm import moe_gemm_kernel, ragged_moe_gemm_kernel
 from repro_torch.kernels.moe_gemv import moe_gemv_kernel, ragged_moe_gemv_kernel
 from repro_torch.kernels.ssd_decode import ssd_decode_kernel
@@ -18,6 +20,26 @@ from repro_torch.kernels.ssd_decode import ssd_decode_kernel
 
 def _i32(t):
     return t.to(torch.int32).contiguous()
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, q_block: int = 512, kv_block: int = 512):
+    """q (B, S, H, hd); k, v (B, S, KV, hd), read in place (no transpose or
+    padding: the kernel takes the model layout). -> (out (B, S, H, hd),
+    lse (B, H, S) float32). ``q_block``/``kv_block`` reach only the plain
+    version (CPU tensors)."""
+    return flash_attention_kernel(q, k, v, causal=causal, window=window, softcap=softcap,
+                                  q_block=q_block, kv_block=kv_block)
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, q_block: int = 512, kv_block: int = 512):
+    """Gradients of ``flash_attention`` from its inputs, output, lse and the
+    output's gradient ``dout`` (made contiguous here: autograd may hand a
+    strided one). -> (dq, dk, dv)."""
+    return flash_attention_bwd_kernel(q, k, v, out, lse, dout.contiguous(), causal=causal,
+                                      window=window, softcap=softcap, q_block=q_block,
+                                      kv_block=kv_block)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,

@@ -1,12 +1,14 @@
 """Attention: the paged KV layout (decode rows and prefill-chunk rows), the
-dense KV layout (decode rows, prefill cache writes) and the prefill
-attention over whole prompts.
+dense KV layout (decode rows, prefill cache writes) and the attention over
+whole sequences (training, and whole-prompt prefill).
 
 Port of ``repro/models/attention.py`` without ring (sliding-window) caches,
-cross-attention, int8 dense caches, segment ids and the backward pass. The
-prefill attention (``attention_forward``: ``full_attention``, or
-``blockwise_attention`` — the forward of the reference's ``_flash_core``)
-is plain PyTorch, the counterpart of the reference's XLA path. Dense
+cross-attention, int8 dense caches and segment ids. Over whole sequences
+(``attention_forward``) the port runs ``full_attention`` (plain PyTorch,
+differentiated by autograd) or, past ``q_block`` positions,
+``blockwise_attention``: the reference's flash core with its hand-written
+backward, as a ``torch.autograd.Function`` whose forward and backward are
+the flash kernels (``kernels/flash_attn.py``) or their plain versions. Dense
 caches ({"k", "v"} (B, Smax, KV, hd), "pos" (B, Smax), "len" (B,)) are
 updated in place like the page pools. The page pools
 are updated IN PLACE (advanced-index assignment, i.e. ``index_put_``) —
@@ -34,9 +36,10 @@ import math
 from dataclasses import dataclass
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attn import (flash_attention_bwd_plain,
+                                            flash_attention_plain)
 from repro_torch.kernels.quant import int8_quantize
 from repro_torch.models.layers import apply_rope, rmsnorm
 
@@ -301,7 +304,7 @@ def paged_attention_chunk_step(params, cfg: ModelConfig, x, cache, chunk_ctx,
 
 
 # ---------------------------------------------------------------------------
-# Prefill attention over whole prompts (the reference's XLA path)
+# Attention over whole sequences: training and whole-prompt prefill
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -312,77 +315,47 @@ class AttnCall:
     kv_block: int = 512
 
 
-def _block_pairs(n_q: int, n_kv: int, *, causal: bool, window_blocks: int):
-    """Static (qi, ki) schedule of the blocks that intersect the mask."""
-    pairs = []
-    for qi in range(n_q):
-        for ki in range(n_kv):
-            if causal and ki > qi:
-                continue
-            if window_blocks > 0 and ki < qi - window_blocks:
-                continue
-            pairs.append((qi, ki))
-    return pairs
+class _FlashCore(torch.autograd.Function):
+    """The reference's ``_flash_core`` (its ``jax.custom_vjp``): the forward
+    saves (q, k, v, out, lse) and the backward recomputes the scores from
+    them. With ``use_kernels`` both run through ``kernels/ops.py`` (the
+    CUDA kernels for CUDA tensors, their plain versions for CPU tensors);
+    without, through the plain versions directly."""
 
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_block, kv_block, use_kernels):
+        kw = dict(causal=causal, window=window, softcap=softcap, q_block=q_block,
+                  kv_block=kv_block)
+        if use_kernels:
+            from repro_torch.kernels.ops import flash_attention
+            out, lse = flash_attention(q, k, v, **kw)
+        else:
+            out, lse = flash_attention_plain(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw, ctx.use_kernels = kw, use_kernels
+        return out
 
-def _pair_mask(qi, ki, q_block, kv_block, S, causal, window, device):
-    qpos = qi * q_block + torch.arange(q_block, device=device)
-    kpos = ki * kv_block + torch.arange(kv_block, device=device)
-    mask = torch.ones((q_block, kv_block), dtype=torch.bool, device=device)
-    if causal:
-        mask &= qpos[:, None] >= kpos[None, :]
-    if window > 0:
-        mask &= kpos[None, :] > qpos[:, None] - window
-    mask &= (kpos < S)[None, :] & (qpos < S)[:, None]
-    return mask
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if ctx.use_kernels:
+            from repro_torch.kernels.ops import flash_attention_bwd
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.kw)
+        else:
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
                         softcap: float = 0.0, q_block: int = 512,
-                        kv_block: int = 512):
-    """q (B,S,H,hd); k, v (B,S,KV,hd) -> (B,S,H,hd) in q's dtype. Online
-    softmax over the static triangular / banded block schedule, the forward
-    of the reference's ``_flash_core`` (no segment ids): float32 scores and
-    accumulators, p rounded to v's dtype before PV, p not gated by the mask
-    (a row masked out of a whole block is reset by the next block's max)."""
-    B, S, H, hd = q.shape
-    KV = k.shape[2]
-    qpk = H // KV
-    q_block = min(q_block, S + (-S) % 8)
-    kv_block = min(kv_block, S + (-S) % 8)
-    scale = 1.0 / math.sqrt(hd)
-    pad_q, pad_kv = (-S) % q_block, (-S) % kv_block
-    nq, nkv = (S + pad_q) // q_block, (S + pad_kv) // kv_block
-    # (B, KV, qpk, nq, q_block, hd) / (B, KV, nkv, kv_block, hd)
-    qb = F.pad(q, (0, 0, 0, 0, 0, pad_q)).reshape(B, nq, q_block, KV, qpk, hd)
-    qb = qb.permute(0, 3, 4, 1, 2, 5)
-    kb = F.pad(k, (0, 0, 0, 0, 0, pad_kv)).reshape(B, nkv, kv_block, KV, hd)
-    kb = kb.permute(0, 3, 1, 2, 4)
-    vb = F.pad(v, (0, 0, 0, 0, 0, pad_kv)).reshape(B, nkv, kv_block, KV, hd)
-    vb = vb.permute(0, 3, 1, 2, 4)
-    window_blocks = (window + q_block - 1) // kv_block + 1 if window > 0 else 0
-    pairs = _block_pairs(nq, nkv, causal=causal, window_blocks=window_blocks)
-    acc = torch.zeros(qb.shape, dtype=torch.float32, device=q.device)
-    m = torch.full(qb.shape[:5], NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros(qb.shape[:5], dtype=torch.float32, device=q.device)
-    for qi, ki in pairs:
-        qt, kt, vt = qb[:, :, :, qi], kb[:, :, ki], vb[:, :, ki]
-        s = torch.einsum("bgpqh,bgkh->bgpqk", qt.float(), kt.float()) * scale
-        if softcap > 0.0:
-            s = softcap * torch.tanh(s / softcap)
-        mask = _pair_mask(qi, ki, q_block, kv_block, S, causal, window, q.device)
-        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-        m_old, l_old = m[:, :, :, qi], l[:, :, :, qi]
-        m_new = torch.maximum(m_old, s.amax(dim=-1))
-        alpha = torch.exp(m_old - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l[:, :, :, qi] = l_old * alpha + p.sum(dim=-1)
-        acc[:, :, :, qi] = acc[:, :, :, qi] * alpha[..., None] + torch.einsum(
-            "bgpqk,bgkh->bgpqh", p.to(vt.dtype).float(), vt.float())
-        m[:, :, :, qi] = m_new
-    out = acc / torch.clamp(l[..., None], min=1e-37)
-    out = out.permute(0, 3, 4, 1, 2, 5).reshape(B, nq * q_block, H, hd)[:, :S]
-    return out.to(q.dtype)
+                        kv_block: int = 512, use_kernels: bool = False):
+    """q (B,S,H,hd); k, v (B,S,KV,hd) -> (B,S,H,hd) in q's dtype, through
+    the flash core (``_FlashCore``): its forward is the reference's
+    ``_flash_core`` forward (``kernels/flash_attn.py::flash_attention_plain``
+    or, with ``use_kernels``, the flash kernel), and autograd takes its
+    hand-written backward."""
+    return _FlashCore.apply(q, k, v, causal, window, softcap, q_block, kv_block,
+                            use_kernels)
 
 
 def full_attention(q, k, v, *, causal: bool, window: int = 0,
@@ -409,16 +382,19 @@ def full_attention(q, k, v, *, causal: bool, window: int = 0,
 
 
 def attention_forward(params, cfg: ModelConfig, x, positions, call: AttnCall,
-                      return_kv: bool = False):
-    """Prefill attention over whole sequences. x (B,S,D); positions (B,S).
-    The blockwise path for S > ``call.q_block``, else the unblocked one.
-    Returns y (B,S,D), and (k, v) (B,S,KV,hd) with ``return_kv``."""
+                      return_kv: bool = False, use_kernels: bool = False):
+    """Train/prefill attention over whole sequences. x (B,S,D); positions
+    (B,S). The flash core for S > ``call.q_block`` (with ``use_kernels``
+    through the flash kernels), else the unblocked path, which autograd
+    differentiates. Returns y (B,S,D), and (k, v) (B,S,KV,hd) with
+    ``return_kv``."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, positions)
     if S > call.q_block:
         out = blockwise_attention(q, k, v, causal=call.causal, window=call.window,
                                   softcap=cfg.attn_logit_softcap,
-                                  q_block=call.q_block, kv_block=call.kv_block)
+                                  q_block=call.q_block, kv_block=call.kv_block,
+                                  use_kernels=use_kernels)
     else:
         out = full_attention(q, k, v, causal=call.causal, window=call.window,
                              softcap=cfg.attn_logit_softcap)

@@ -1,16 +1,22 @@
-"""Decoder blocks and the segment loops: decode steps on the paged and
-dense KV layouts, unified mixed stages (paged), and whole-prompt prefill.
+"""Decoder blocks and the segment loops: the training forward, decode
+steps on the paged and dense KV layouts, unified mixed stages (paged), and
+whole-prompt prefill.
 
 Port of ``repro/models/blocks.py`` for full self-attention and Mamba-2
 mixers with a dense, MoE or no FFN. A segment's parameters and cache carry
 a stacked ``layers`` axis; where the reference ``jax.lax.scan``s over it,
 the port loops over it in Python and hands each block the layer's slices
 (views, so cache writes land in the stacked leaves). Cache leaves are laid
-out (layers, batch or pages, ...), as the reference's.
+out (layers, batch or pages, ...), as the reference's. The training
+forward takes the layers from one ``torch.unbind`` per leaf, so the
+backward builds each stacked gradient with one ``stack`` (indexing
+``leaf[i]`` per layer would make autograd add a full-size zero gradient
+per layer).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MOE, NONE, LayerKind,
                                       ModelConfig)
@@ -74,19 +80,90 @@ def block_init_cache(cfg: ModelConfig, kind: LayerKind, batch: int = 0,
             "v_scale_pages": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
 
 
+def _attn_call(plan: ExecutionPlan) -> AttnCall:
+    """The attention call of a (full self-attention) block: causal, with the
+    plan's flash-core tiles."""
+    return AttnCall(causal=True, q_block=plan.attn_q_block, kv_block=plan.attn_kv_block)
+
+
+def block_forward(params, cfg: ModelConfig, kind: LayerKind, x, positions,
+                  plan: ExecutionPlan):
+    """Training forward of one block over whole sequences. x (B,S,d).
+    Returns (x, aux) with aux the MoE layer's load-balance loss (a float32
+    zero for other FFNs)."""
+    _check_kind(kind)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    if kind.mixer == MAMBA:
+        mixer_out = mamba_forward(params["mixer"], cfg, h)
+    else:
+        mixer_out = attention_forward(params["mixer"], cfg, h, positions, _attn_call(plan),
+                                      use_kernels=plan.use_kernels)
+    if cfg.parallel_block and kind.ffn != NONE:
+        ffn_out, aux = _ffn(params, cfg, kind, h, plan)
+        return x + mixer_out + ffn_out, zero if aux is None else aux
+    x = x + mixer_out
+    if kind.ffn == NONE:
+        return x, zero
+    ffn_out, aux = _ffn(params, cfg, kind, rmsnorm(params["norm2"], x, cfg.norm_eps), plan)
+    return x + ffn_out, zero if aux is None else aux
+
+
+def _unbind_layers(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked tree, one ``torch.unbind`` of
+    the layer axis per leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind_layers(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if isinstance(tree, (tuple, list)):
+        parts = [_unbind_layers(v, n) for v in tree]
+        return [type(tree)(p[i] for p in parts) for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def segment_forward(params, cfg: ModelConfig, seg, x, positions, plan: ExecutionPlan,
+                    *, remat: str = "full"):
+    """Training forward over the segment's stacked super-blocks, a loop where
+    the reference scans. ``remat="full"`` recomputes each super-block in the
+    backward (``torch.utils.checkpoint``, non-reentrant), keeping only its
+    input; "none" keeps every activation. Returns (x, aux summed over the
+    segment's layers)."""
+    if remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat={remat!r}: the port rematerialises 'none' or 'full'; 'dots' comes "
+            f"later (ROADMAP queue 1)")
+
+    def super_block(x, blk):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, kind in enumerate(seg.pattern):
+            x, a = block_forward(blk["blocks"][i], cfg, kind, x, positions, plan)
+            aux = aux + a
+        return x, aux
+
+    auxs = []
+    for blk in _unbind_layers(params, seg.repeats):
+        if remat == "full":
+            x, aux = checkpoint(super_block, x, blk, use_reentrant=False)
+        else:
+            x, aux = super_block(x, blk)
+        auxs.append(aux)
+    return x, torch.stack(auxs).sum()
+
+
 def _layer(tree, i):
     return {k: _layer(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
-def _ffn(params, cfg, kind, h, plan, valid, counts):
-    """The block's FFN; an MoE layer adds its routed counts into ``counts``
-    unless that is None (prefill collects none)."""
+def _ffn(params, cfg, kind, h, plan, valid=None, counts=None):
+    """The block's FFN -> (out, the MoE layer's load-balance loss, or None
+    for a dense FFN); an MoE layer adds its routed counts into ``counts``
+    unless that is None (prefill and training collect none)."""
     if kind.ffn != MOE:
-        return ffn_apply(params["ffn"], h)
+        return ffn_apply(params["ffn"], h), None
     out, router = moe_execute(params["ffn"], cfg, h, plan, token_valid=valid)
     if counts is not None:
         counts += router.counts.float()
-    return out
+    return out, router.aux_loss
 
 
 def block_decode_step(params, cfg: ModelConfig, kind: LayerKind, x, cache,
@@ -107,12 +184,12 @@ def block_decode_step(params, cfg: ModelConfig, kind: LayerKind, x, cache,
         mixer_out, _ = attention_decode_step(params["mixer"], cfg, h, cache,
                                              use_kernels=plan.use_kernels)
     if cfg.parallel_block and kind.ffn != NONE:
-        return x + mixer_out + _ffn(params, cfg, kind, h, plan, valid, counts)
+        return x + mixer_out + _ffn(params, cfg, kind, h, plan, valid, counts)[0]
     x = x + mixer_out
     if kind.ffn == NONE:
         return x
     h = rmsnorm(params["norm2"], x, cfg.norm_eps)
-    return x + _ffn(params, cfg, kind, h, plan, valid, counts)
+    return x + _ffn(params, cfg, kind, h, plan, valid, counts)[0]
 
 
 def block_prefill(params, cfg: ModelConfig, kind: LayerKind, x, positions,
@@ -130,15 +207,16 @@ def block_prefill(params, cfg: ModelConfig, kind: LayerKind, x, positions,
         cache["mamba"]["ssm"].copy_(mcache["ssm"])
     else:
         mixer_out, (k, v) = attention_forward(params["mixer"], cfg, h, positions,
-                                              AttnCall(causal=True), return_kv=True)
+                                              _attn_call(plan), return_kv=True,
+                                              use_kernels=plan.use_kernels)
         write_prefill_cache(cache, k, v, true_len)
     if cfg.parallel_block and kind.ffn != NONE:
-        return x + mixer_out + _ffn(params, cfg, kind, h, plan, None, None)
+        return x + mixer_out + _ffn(params, cfg, kind, h, plan)[0]
     x = x + mixer_out
     if kind.ffn == NONE:
         return x
     h = rmsnorm(params["norm2"], x, cfg.norm_eps)
-    return x + _ffn(params, cfg, kind, h, plan, None, None)
+    return x + _ffn(params, cfg, kind, h, plan)[0]
 
 
 def block_mixed_step(params, cfg: ModelConfig, kind: LayerKind, xd, xc, cache,
@@ -177,7 +255,7 @@ def block_mixed_step(params, cfg: ModelConfig, kind: LayerKind, xd, xc, cache,
     chunk_valid = (torch.arange(Sc, device=xc.device)[None]
                    < chunk_ctx["chunk_lens"].long()[:, None])
     valid = torch.cat([dec_valid, chunk_valid.reshape(-1)])
-    y = _ffn(params, cfg, kind, flat, plan, valid, counts)
+    y, _ = _ffn(params, cfg, kind, flat, plan, valid, counts)
     return base_d + y[:Bd].reshape(Bd, 1, d), base_c + y[Bd:].reshape(Bc, Sc, d)
 
 

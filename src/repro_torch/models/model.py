@@ -1,8 +1,10 @@
-"""Model assembly for serving: embeddings -> segments -> final norm -> LM head.
+"""Model assembly: embeddings -> segments -> final norm -> LM head.
 
-Port of the serving entry points of ``repro/models/model.py``:
-``init_cache`` (dense or paged), ``prefill`` (whole prompts into a dense
-cache), ``decode_step`` (either layout) and ``mixed_step`` (paged). The
+Port of ``repro/models/model.py``: for training ``forward`` (full-sequence
+logits) and ``loss_fn`` (next-token cross-entropy plus the MoE load-balance
+loss); for serving ``init_cache`` (dense or paged), ``prefill`` (whole
+prompts into a dense cache), ``decode_step`` (either layout) and
+``mixed_step`` (paged). The
 cache is a list (one entry per segment) of ``{"blocks": (block cache, ...)}``
 with stacked leaves: paged (layers, P, KV, page, hd) pools (int8 pools add
 "k_scale_pages"/"v_scale_pages" (layers, P, KV, page)); dense attention
@@ -17,8 +19,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.execution import DEFAULT_PLAN, ExecutionPlan
-from repro_torch.models.blocks import (segment_decode_step, segment_init_cache,
-                                       segment_mixed_step, segment_prefill)
+from repro_torch.models.blocks import (segment_decode_step, segment_forward,
+                                       segment_init_cache, segment_mixed_step,
+                                       segment_prefill)
 from repro_torch.models.layers import embed_lookup, rmsnorm
 from repro_torch.models.params import DTYPES
 
@@ -32,6 +35,79 @@ def _lm_head(params, cfg: ModelConfig, x):
         table = (params["embed"]["table"] if cfg.tie_embeddings
                  else params["lm_head"]["table"]).float()
     return torch.matmul(x.float(), table.t())
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    """Token embedding in the activation dtype, and positions (B, S) (the
+    batch's "positions", else 0..S-1). Returns (x, positions)."""
+    if cfg.is_encoder_decoder or (cfg.family == "vlm" and "patch_embeds" in batch):
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder and vision-language inputs are not ported; "
+            f"they come with their serving slices (ROADMAP queue 1)")
+    x = embed_lookup(params["embed"], batch["tokens"]).to(DTYPES[cfg.dtype])
+    B, S = x.shape[0], x.shape[1]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    return x, positions
+
+
+def _stack(params, cfg: ModelConfig, x, positions, plan, remat):
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for seg, seg_params in zip(cfg.segments, params["segments"]):
+        x, aux = segment_forward(seg_params, cfg, seg, x, positions, plan, remat=remat)
+        aux_total = aux_total + aux
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux_total
+
+
+def forward(params, cfg: ModelConfig, batch, *, plan: ExecutionPlan = DEFAULT_PLAN,
+            remat: str = "none"):
+    """Full-sequence float32 logits (B, S, V) and the summed MoE aux loss.
+    batch {"tokens" (B, S)[, "positions"]}."""
+    x, positions = _embed_inputs(params, cfg, batch)
+    x, aux_total = _stack(params, cfg, x, positions, plan, remat)
+    return _lm_head(params, cfg, x), aux_total
+
+
+def _chunked_ce(logits_fn, x, labels, mask, chunk: int = 1024):
+    """Mean cross-entropy over the mask, in sequence chunks of ``chunk``
+    positions so only one chunk's (B, chunk, V) float32 logits exists at a
+    time (autograd keeps each chunk's for the backward). The gold logit is
+    gathered, where the reference sums logits times a one-hot: the same
+    number (one product and zeros), without the (B, chunk, V) one-hot."""
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, x.shape[1], chunk):
+        logits = logits_fn(x[:, s0:s0 + chunk])                   # (B, c, V) float32
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, s0:s0 + chunk, None])[..., 0]
+        ms = mask[:, s0:s0 + chunk]
+        total = total + ((lse - gold) * ms).sum()
+        count = count + ms.sum()
+    return total / torch.clamp(count, min=1.0)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, plan: ExecutionPlan = DEFAULT_PLAN,
+            remat: str = "none"):
+    """Next-token cross-entropy plus the MoE aux loss. batch {"tokens" (B,
+    S)[, "labels" (B, S)]}; labels default to the tokens shifted by one,
+    and label -100 is ignored. Returns (loss, {"ce", "aux"})."""
+    tokens = batch["tokens"]
+    x, positions = _embed_inputs(params, cfg, batch)
+    x, aux_total = _stack(params, cfg, x, positions, plan, remat)
+    labels = batch.get("labels")
+    if labels is None:
+        labels = torch.nn.functional.pad(tokens[:, 1:].long(), (0, 1), value=-100)
+    labels = labels.long()
+    mask = (labels >= 0).float()
+    table = (params["embed"]["table"] if cfg.tie_embeddings
+             else params["lm_head"]["table"]).float()
+
+    def logits_fn(xs):
+        return torch.matmul(xs.float(), table.t())
+
+    ce = _chunked_ce(logits_fn, x, torch.clamp(labels, min=0), mask)
+    return ce + aux_total, {"ce": ce, "aux": aux_total}
 
 
 def init_cache(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,

@@ -7,7 +7,10 @@ every function here works on the one shard's flat (T, ...) arrays.
 
 The combine is deterministic: instead of the reference's scatter-add
 (``index_add_`` on CUDA adds in no fixed order), each token gathers its
-``top_k`` slots and sums them in choice order.
+``top_k`` slots and sums them in choice order. Under autograd the
+gather's backward is such a scatter-add (``index_add_``), so a training
+step's input gradient of the MoE layer is summed in no fixed order on
+CUDA; the forward is unchanged.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ class RouterOut(NamedTuple):
     expert_idx: torch.Tensor   # (T, top_k) int64
     gates: torch.Tensor        # (T, top_k) float32
     counts: torch.Tensor       # (E,) int64 live tokens per expert
+    aux_loss: torch.Tensor     # () float32 load-balance loss (training)
 
 
 def route(params, m: MoEConfig, x_flat, valid: Optional[torch.Tensor] = None) -> RouterOut:
@@ -42,7 +46,11 @@ def route(params, m: MoEConfig, x_flat, valid: Optional[torch.Tensor] = None) ->
     if valid is not None:
         gates = torch.where(valid[:, None], gates, torch.zeros_like(gates))
         one_hot = one_hot * valid[:, None, None]
-    return RouterOut(expert_idx, gates, one_hot.sum(dim=(0, 1)))
+    # Switch-style load-balance loss
+    density = one_hot.float().mean(dim=(0, 1)) * m.num_experts
+    density_proxy = probs.mean(dim=0) * m.num_experts
+    aux = m.aux_loss_coef * torch.mean(density * density_proxy)
+    return RouterOut(expert_idx, gates, one_hot.sum(dim=(0, 1)), aux)
 
 
 def _capacity(T: int, m: MoEConfig, align: int = 8) -> int:
@@ -53,10 +61,13 @@ def _capacity(T: int, m: MoEConfig, align: int = 8) -> int:
 def group_positions(flat_expert, E: int):
     """pos[i] = #{j < i : expert[j] == expert[i]} by an exclusive cumsum of
     the one-hot mask (ids may include the out-of-range id E for invalid
-    assignments)."""
-    onehot = torch.nn.functional.one_hot(flat_expert, E + 1)
-    pos = torch.cumsum(onehot, dim=0) - 1
-    return torch.gather(pos, 1, flat_expert[:, None])[:, 0]
+    assignments). The mask is built transposed, (E + 1, N), so the cumsum
+    runs along the contiguous axis: on CUDA a cumsum down the long axis of
+    an (N, E + 1) mask is a slow, poorly parallel scan (``PERF.md``)."""
+    ids = torch.arange(E + 1, device=flat_expert.device)
+    onehot = (flat_expert[None, :] == ids[:, None]).long()
+    pos = torch.cumsum(onehot, dim=1) - 1
+    return torch.gather(pos, 0, flat_expert[None, :])[0]
 
 
 class Dispatch(NamedTuple):
@@ -90,9 +101,12 @@ def shard_dispatch(expert_idx, gates, T: int, E: int, caps, bases, n_slots: int,
 
 def gather_slots(x_flat, src):
     """Token -> slot gather: x (T, d), src (n_slots,) -> (n_slots, d); empty
-    slots (src == T) read a zero row."""
+    slots (src == T) read a zero row. ``index_select``, whose backward is
+    one pass of ``index_add_`` (advanced indexing's is a sort-based
+    ``index_put_``, half of a training step's device time at OLMoE's widths;
+    ``PERF.md``)."""
     x_pad = torch.cat([x_flat, x_flat.new_zeros((1, x_flat.shape[1]))])
-    return x_pad[src]
+    return x_pad.index_select(0, src)
 
 
 def combine_slots(y_slots, slot, T: int):
@@ -100,7 +114,7 @@ def combine_slots(y_slots, slot, T: int):
     (T*k,) each assignment's slot (n_slots = dropped). Each token sums its k
     slots in choice order in float32 -> (T, d) in y_slots' dtype."""
     y_pad = torch.cat([y_slots, y_slots.new_zeros((1, y_slots.shape[1]))])
-    picked = y_pad[slot].float().reshape(T, -1, y_slots.shape[1])
+    picked = y_pad.index_select(0, slot).float().reshape(T, -1, y_slots.shape[1])
     out = picked[:, 0]
     for j in range(1, picked.shape[1]):
         out = out + picked[:, j]
@@ -118,7 +132,8 @@ def grouped_expert_ffn(params, x_grouped):
 def moe_apply(params, cfg: ModelConfig, x, *, capacity: Optional[int] = None,
               token_valid=None):
     """Grouped (capacity-padded) path for x (T, d) or (B, S, d). Returns
-    (y, router)."""
+    (y, router); training takes the load-balance loss from
+    ``router.aux_loss``."""
     m = cfg.moe
     E, k = m.num_experts, m.top_k
     shape = x.shape

@@ -11,7 +11,9 @@ leading stacked ``layers`` axis, so layer i of a segment is ``leaf[i]``.
   ``ssm_dt``) and dtypes (router and the SSM's A_log / D / dt_bias in
   float32). Its numbers differ from ``jax.random``'s for the same seed.
 * :func:`from_numpy_tree` converts a tree of numpy arrays — e.g. the JAX
-  package's parameters passed through ``np.asarray`` — into the port's.
+  package's parameters passed through ``np.asarray`` — into the port's, and
+  :func:`to_numpy_tree` converts back.
+* :func:`trainable` marks every leaf as one that takes a gradient.
 """
 from __future__ import annotations
 
@@ -187,3 +189,24 @@ def from_numpy_tree(tree, device="cuda"):
         raise RuntimeError("from_numpy_tree(device='cuda') but no CUDA device "
                            "is available; pass device='cpu' explicitly")
     return tree_map(tree, lambda a: _to_tensor(a, device))
+
+
+def trainable(tree):
+    """Mark every leaf of a parameter tree as one that takes a gradient (in
+    place) and return the tree."""
+    tree_map(tree, lambda t: t.requires_grad_(True))
+    return tree
+
+
+def _to_array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes                       # numpy's bfloat16, as JAX uses
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def to_numpy_tree(tree):
+    """The inverse of :func:`from_numpy_tree`: a tree of tensors as numpy
+    arrays on the host, bfloat16 as ``ml_dtypes.bfloat16``."""
+    return tree_map(tree, _to_array)

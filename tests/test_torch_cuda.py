@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import decode_attn, moe_gemm, moe_gemv, ssd_decode
+from repro_torch.kernels import decode_attn, flash_attn, moe_gemm, moe_gemv, ssd_decode
 from repro_torch.kernels.quant import int8_quantize
 
 torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
@@ -164,3 +164,35 @@ def test_cuda_dense_decode_and_ssd_kernels_match_plain(card, dtype, tol):
         assert s_k is inplace
         torch.testing.assert_close(y_k.float(), y_p.float(), atol=tol, rtol=tol)
         torch.testing.assert_close(s_k, s_p, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_cuda_flash_kernels_match_plain(card, dtype, tol):
+    """The flash forward (out, lse) and backward (dq, dk, dv) against their
+    plain versions on the card, hd 64: causal MHA, causal GQA with a window
+    narrower than a tile, and non-causal GQA with a window and a softcap, at
+    lengths that are not tile multiples. Gradients are held to the band
+    times max(1, the plain gradient's largest entry) (dk and dv sum over
+    rows and the group's heads); the backward is the same bit for bit on a
+    second run (no atomics)."""
+    rng = np.random.default_rng(3)
+    t = lambda a: torch.tensor(a, device=card)
+    for B, S, H, KV, kw in ((2, 40, 2, 2, dict(causal=True)),
+                            (1, 130, 4, 2, dict(causal=True, window=10)),
+                            (1, 70, 4, 1, dict(causal=False, window=20, softcap=5.0))):
+        q = t(rng.standard_normal((B, S, H, 64)).astype(np.float32)).to(dtype)
+        k, v = (t(rng.standard_normal((B, S, KV, 64)).astype(np.float32)).to(dtype)
+                for _ in range(2))
+        dout = t(rng.standard_normal((B, S, H, 64)).astype(np.float32)).to(dtype)
+        out, lse = flash_attn.flash_attention_kernel(q, k, v, **kw)
+        out_p, lse_p = flash_attn.flash_attention_plain(q, k, v, **kw)
+        torch.testing.assert_close(out.float(), out_p.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-4)
+        got = flash_attn.flash_attention_bwd_kernel(q, k, v, out_p, lse_p, dout, **kw)
+        want = flash_attn.flash_attention_bwd_plain(q, k, v, out_p, lse_p, dout, **kw)
+        for g, w in zip(got, want):
+            band = tol * max(1.0, w.float().abs().max().item())
+            torch.testing.assert_close(g.float(), w.float(), atol=band, rtol=0)
+        again = flash_attn.flash_attention_bwd_kernel(q, k, v, out_p, lse_p, dout, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))

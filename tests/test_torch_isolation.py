@@ -22,7 +22,10 @@ for n in ("repro_torch.kernels.quant", "repro_torch.kernels.decode_attn",
           "repro_torch.kernels.moe_gemm", "repro_torch.kernels.moe_gemv",
           "repro_torch.kernels.ssd_decode", "repro_torch.models.ssm",
           "repro_torch.models.attention", "repro_torch.serving.kvmanager",
-          "repro_torch.configs.jamba_v0_1_52b"):
+          "repro_torch.configs.jamba_v0_1_52b", "repro_torch.kernels.flash_attn",
+          "repro_torch.training.optimizer", "repro_torch.training.data",
+          "repro_torch.training.train_state", "repro_torch.training.loop",
+          "repro_torch.launch.train"):
     assert n in names, n
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
@@ -32,7 +35,14 @@ assert not torch.cuda.is_available()
 from repro_torch.configs import resolve_config
 from repro_torch.models.params import init_model
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.launch.train import main as train_main
 cfg = resolve_config("tiny-moe")
+try:
+    train_main(["--arch", "tiny-moe", "--steps", "1"])
+except RuntimeError:
+    pass
+else:
+    raise AssertionError("the trainer ran without a card")
 try:
     init_model(cfg)
 except RuntimeError:
