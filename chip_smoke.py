@@ -6,20 +6,24 @@
 
 Phases, each printing a line:
   1. environment: torch / CUDA versions and the card's name and power limit;
-  2. kernel build (nvcc, all sources in parallel) and its time;
+  2. kernel build (nvcc, all sources in parallel) and its time, each
+     source's ptxas registers and spills, and the count of tensor-core
+     instructions (HGMMA, HMMA) in each library's SASS (``cuobjdump``;
+     the bf16 flash forward must hold HGMMA);
   3. each hand-written kernel against its plain PyTorch version on the card
      at OLMoE-1B-7B shapes (plus a GQA shape for the attention kernels;
      the ragged MoE pair also at Jamba-v0.1's widths and path c's decode
      capacities; the dense decode attention and the SSD decode at
      Jamba-v0.1's shapes, the SSD decode also at Mamba2-2.7B's; the flash
      forward and backward at path d's shape, Jamba-v0.1's GQA heads, and a
-     window with a softcap), in
+     window with a softcap, the forward also at 96 heads over 8 and at a
+     length that is not a tile multiple), in
      bfloat16 within its rounding band and again in float32 within 1e-4
      (the backward's dq, dk, dv each within the band times max(1, its
      largest entry)):
      max error and tolerance, kernel / plain / library time (the kernel
      also from a CUDA-graph replay: its device time without the wrapper's
-     host work), and the
+     host work, and the TFLOP/s it reaches there), and the
      kernel's bound (least bytes / 3.35 TB/s or operations over the peak
      rate of the inputs' type: 989 TFLOP/s bf16, 67 TFLOP/s float32, 1979
      TOP/s int8); the int8 attention rows also print the float kernel's
@@ -50,12 +54,14 @@ Phases, each printing a line:
        d. training: OLMoE-1B-7B at full width, depth cut to 8 of its 16
           layers (its training state, 12 bytes a parameter, is 83 GB at
           full depth), 5 steps of ``make_step`` driven by ``train_loop`` on
-          ``SyntheticLMData`` batches of 4 x 2048 tokens; it checks that
-          each flash kernel launched layers x steps times, that losses and
-          grad norms are finite and the parameters moved, one step's loss
-          and layer 0's attention gradients through the kernels against
-          the plain path, prints step times, tokens/s, the parameter and
-          optimizer bytes and the peak memory, and profiles one step.
+          ``SyntheticLMData`` batches of 4 x 2048 tokens, run twice from
+          the same seed; each run checks that each flash kernel launched
+          layers x steps times, that losses and grad norms are finite and
+          the parameters moved, and prints its losses, step times,
+          tokens/s, the parameter and optimizer bytes and the peak memory;
+          the two runs' losses must be equal at every step. Then one
+          step's loss and layer 0's attention gradients through the
+          kernels against the plain path, and a profile of one step.
 
 Prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as the
 last line. Any failure raises, and the exit code is non-zero. Without a CUDA
@@ -393,22 +399,26 @@ def _sdpa(torch, q, k, v, causal):
 
 
 def check_flash(torch, gen, dtype, *, B, S, H, KV, causal=True, window=0, softcap=0.0):
-    """The flash forward on the model layout: out and lse against the plain
-    version (the error is the larger of the two)."""
+    """The flash forward on the model layout, called as the training path
+    calls it (``f32_out=True``: bf16 runs the tensor-core kernel, which also
+    writes the float32 output): out, lse and the float32 output against the
+    plain version (the error is the largest of the three)."""
     from repro_torch.kernels import flash_attn as fa
     q, k, v = _flash_inputs(torch, gen, dtype, B, S, H, KV)
-    kw = dict(causal=causal, window=window, softcap=softcap)
-    got, lse = fa.flash_attention_kernel(q, k, v, **kw)
-    want, lse_p = fa.flash_attention_plain(q, k, v, **kw)
+    kw = dict(causal=causal, window=window, softcap=softcap, f32_out=True)
+    got, lse, o32 = fa.flash_attention_kernel(q, k, v, **kw)
+    want, lse_p, o32_p = fa.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
-    err = max((got.float() - want.float()).abs().max().item(), (lse - lse_p).abs().max().item())
+    err = max((got.float() - want.float()).abs().max().item(), (lse - lse_p).abs().max().item(),
+              (o32 - o32_p).abs().max().item())
     hd, item = q.shape[3], q.element_size()
+    out_bytes = q.numel() * (item + (4 if dtype != torch.float32 else 0))
     out = dict(err=err, scale=want.float().abs().max().item(),
                ms=time_ms(lambda: fa.flash_attention_kernel(q, k, v, **kw)),
                graph_ms=graph_ms(torch, lambda: fa.flash_attention_kernel(q, k, v, **kw)),
                plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), iters=5),
                lib_ms=None,
-               nbytes=(2 * q.numel() + k.numel() + v.numel()) * item + lse.numel() * 4,
+               nbytes=(q.numel() + k.numel() + v.numel()) * item + out_bytes + lse.numel() * 4,
                flops=4 * hd * B * H * _live_pairs(S, causal, window))
     if not window and not softcap:
         out["lib_ms"] = time_ms(_sdpa(torch, q, k, v, causal))
@@ -425,7 +435,7 @@ def check_flash_bwd(torch, gen, dtype, *, B, S, H, KV, causal=True, window=0, so
     from repro_torch.kernels import flash_attn as fa
     q, k, v = _flash_inputs(torch, gen, dtype, B, S, H, KV)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    o, lse = fa.flash_attention_plain(q, k, v, **kw)
+    _, lse, o = fa.flash_attention_plain(q, k, v, f32_out=True, **kw)   # o: float32
     dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
     args = (q, k, v, o, lse, dout)
     got = fa.flash_attention_bwd_kernel(*args, **kw)
@@ -442,7 +452,7 @@ def check_flash_bwd(torch, gen, dtype, *, B, S, H, KV, causal=True, window=0, so
                graph_ms=graph_ms(torch, lambda: fa.flash_attention_bwd_kernel(*args, **kw)),
                plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(*args, **kw), iters=5),
                lib_ms=None,
-               nbytes=(3 * q.numel() + 2 * (k.numel() + v.numel())) * item
+               nbytes=(2 * q.numel() + 2 * (k.numel() + v.numel())) * item + o.numel() * 4
                + lse.numel() * 4 + dout.numel() * item,
                flops=2.5 * 4 * hd * B * H * _live_pairs(S, causal, window))
     if not window and not softcap:
@@ -573,14 +583,18 @@ KERNELS = [
      [("jamba H=128 N=16 P=64", check_ssd, dict(H=128, N=16, P=64)),
       ("mamba2-2.7b H=80 N=128 P=64", check_ssd, dict(H=80, N=128, P=64))]),
     # path d's shape (OLMoE-1B-7B, 4 x 2048 tokens, causal), Jamba-v0.1's GQA
-    # heads, and a window with a softcap
+    # heads, a window with a softcap, mistral-large-123b's 96 heads over 8
+    # (qpk 12 does not divide the kernel's 128 rows), and a length that is
+    # not a tile multiple; bf16 runs flash_fwd_sm90.cu, float32 flash_attn.cu
     ("flash_attention",
      "src/repro/kernels/flash_attn.py:87",
-     "src/repro_torch/kernels/csrc/flash_attn.cu",
+     "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
      [("olmoe B=4 S=2048 H=16 KV=16 causal", check_flash, dict(B=4, S=2048, H=16, KV=16)),
       ("gqa B=1 S=4096 H=32 KV=8 causal", check_flash, dict(B=1, S=4096, H=32, KV=8)),
       ("B=1 S=2048 H=16 KV=16 window=1000 softcap=50", check_flash,
-       dict(B=1, S=2048, H=16, KV=16, window=1000, softcap=50.0))]),
+       dict(B=1, S=2048, H=16, KV=16, window=1000, softcap=50.0)),
+      ("qpk=12 B=1 S=2048 H=96 KV=8 causal", check_flash, dict(B=1, S=2048, H=96, KV=8)),
+      ("ragged B=2 S=2047 H=16 KV=16 causal", check_flash, dict(B=2, S=2047, H=16, KV=16))]),
     ("flash_attention_bwd",
      "src/repro/models/attention.py:349",
      "src/repro_torch/kernels/csrc/flash_attn.cu",
@@ -616,7 +630,8 @@ def kernel_phase(torch):
                     f"tol={tol:g}{band} (plain max |out|={r['scale']:.3g}) "
                     f"{'OK' if ok else 'FAIL'}; ms={r['ms']:.4f} graph_ms={r['graph_ms']:.4f} "
                     f"plain_ms={r['plain_ms']:.4f} "
-                    f"library_ms={lib} bound_ms={bms:.4f} ({by}){fp}")
+                    f"library_ms={lib} bound_ms={bms:.4f} ({by}) "
+                    f"TFLOP/s={r['flops'] / r['graph_ms'] / 1e9:.1f} (graph){fp}")
                 if not ok:
                     failed.append(f"{name} [{label} {dtype}]")
                 if dtype != "bfloat16":
@@ -856,9 +871,10 @@ def profile_stages(torch, cfg, params, label, engine_kw, top: int = 12):
     log_profile(prof, label, f"{len(eng.reports)} stages", wall, top)
 
 
-def log_profile(prof, label, what, wall, top):
+def log_profile(prof, label, what, wall, top, also=()):
     """Device time by kernel from a CUDA-only profile, and the device's busy
-    share of ``wall`` (host seconds)."""
+    share of ``wall`` (host seconds): the ``top`` items, then any other
+    whose name holds one of the words in ``also``."""
     dev = lambda e: getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0.0))
     events = [e for e in prof.key_averages()
@@ -869,9 +885,11 @@ def log_profile(prof, label, what, wall, top):
         return
     log(f"profile [{label}]: {what} in {wall * 1e3:.1f} ms host wall, "
         f"device busy {busy_ms:.1f} ms ({100 * busy_ms / (wall * 1e3):.1f}%)")
-    for e in sorted(events, key=dev, reverse=True)[:top]:
-        log(f"profile [{label}]: {dev(e) / 1e3:9.2f} ms {100 * dev(e) / 1e3 / busy_ms:5.1f}% "
-            f"x{e.count:<6d} {e.key[:110]}")
+    ranked = sorted(events, key=dev, reverse=True)
+    for i, e in enumerate(ranked):
+        if i < top or any(w in e.key for w in also):
+            log(f"profile [{label}]: {dev(e) / 1e3:9.2f} ms {100 * dev(e) / 1e3 / busy_ms:5.1f}% "
+                f"x{e.count:<6d} {e.key[:110]}")
 
 
 # path d: OLMoE-1B-7B trained at full width and 8 of its 16 layers: the
@@ -890,26 +908,60 @@ def train_phase(torch):
     """Path d: ``make_train_state`` -> ``make_step`` -> ``train_loop`` on
     OLMoE-1B-7B at full width and TRAIN_LAYERS layers, random weights from
     seed 0, ``SyntheticLMData`` batches (seed 0, 4 x 2048), the reference
-    CLI's optimizer defaults (lr 1e-3, warmup max(steps // 10, 1)). Returns
-    {kernel: launches}; raises if a check fails."""
+    CLI's optimizer defaults (lr 1e-3, warmup max(steps // 10, 1)). Runs
+    twice from the same seed, each run with the launch counts set to 0 just
+    before it and read just after; the two runs' losses must be equal at
+    every step (the MoE input gradient is summed in a fixed order). Returns
+    {kernel: launches} of the first run; raises if a check fails."""
     import dataclasses
     from repro_torch.configs import RunConfig, resolve_config
     from repro_torch.configs.base import Segment
-    from repro_torch.kernels import build
     from repro_torch.launch.train import make_step
-    from repro_torch.models.params import init_model, tree_leaves
     from repro_torch.training.data import DataConfig, SyntheticLMData
-    from repro_torch.training.loop import LoopConfig, train_loop
     from repro_torch.training.optimizer import OptConfig
-    from repro_torch.training.train_state import make_train_state
     full = resolve_config("olmoe-1b-7b")
     cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS, segments=(
         Segment(full.segments[0].pattern, TRAIN_LAYERS),)).validate()
-    log(f"train: before {cfg.name}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-        f"still allocated")
-    torch.cuda.reset_peak_memory_stats()
     opt = OptConfig(learning_rate=1e-3, total_steps=TRAIN_STEPS,
                     warmup_steps=max(TRAIN_STEPS // 10, 1))
+    data = SyntheticLMData(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    batch_fn = lambda step: {"tokens": torch.from_numpy(data.batch_at(step)["tokens"]).cuda()}
+    step_fn = make_step(cfg, opt, RunConfig(remat_policy=TRAIN_REMAT))
+    runs = []
+    for run in range(2):
+        if runs:                          # the first run's state goes
+            runs[-1].pop("state")
+            gc.collect()
+            torch.cuda.empty_cache()
+        runs.append(train_run(torch, cfg, full, opt, step_fn, batch_fn, run))
+    losses = [r["losses"] for r in runs]
+    log(f"train [{TRAIN_LABEL}]: losses of the two runs equal at all {TRAIN_STEPS} steps: "
+        f"{losses[0] == losses[1]}; median steps {runs[0]['median']:.3f} and "
+        f"{runs[1]['median']:.3f} s")
+    if losses[0] != losses[1]:
+        raise AssertionError(f"[{TRAIN_LABEL}] two runs from one seed differ: {losses}")
+    state = runs[-1]["state"]
+    batch = batch_fn(TRAIN_STEPS)
+    check_train_against_plain(torch, cfg, state["params"], batch)
+    profile_train_step(torch, step_fn, state, batch)
+    log(f"train [{TRAIN_LABEL}]: peak memory since the second run's weights were made "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return {k: runs[0]["launches"][k] for k in TRAIN_KERNELS}
+
+
+def train_run(torch, cfg, full, opt, step_fn, batch_fn, run):
+    """One run of path d from fresh seed-0 weights: TRAIN_STEPS steps, each
+    timed to a device sync. Checks the launches, finite losses and grad
+    norms, and that the parameters moved; returns {state, launches, losses,
+    median}."""
+    from repro_torch.kernels import build
+    from repro_torch.models.params import init_model, tree_leaves
+    from repro_torch.training.loop import LoopConfig, train_loop
+    from repro_torch.training.train_state import make_train_state
+    label = f"{TRAIN_LABEL} run {run + 1}"
+    log(f"train [{label}]: before {cfg.name}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"still allocated")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = make_train_state(init_model(cfg, seed=0, device="cuda"), opt)
     torch.cuda.synchronize()
@@ -918,13 +970,10 @@ def train_phase(torch):
     p_bytes = sum(t.numel() * t.element_size() for t in leaves)
     o_bytes = sum(t.numel() * t.element_size()
                   for t in tree_leaves(state["opt"]["mu"]) + tree_leaves(state["opt"]["nu"]))
-    log(f"train: {cfg.name} cut to {cfg.num_layers} of {full.num_layers} layers, random init "
-        f"(seed 0) {n_params / 1e9:.2f}B params in {time.perf_counter() - t0:.1f}s; "
+    log(f"train [{label}]: {cfg.name} cut to {cfg.num_layers} of {full.num_layers} layers, "
+        f"random init (seed 0) {n_params / 1e9:.2f}B params in {time.perf_counter() - t0:.1f}s; "
         f"parameters {p_bytes / 2**30:.2f} GiB, optimizer state (mu, nu) "
         f"{o_bytes / 2**30:.2f} GiB")
-    data = SyntheticLMData(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
-    batch_fn = lambda step: {"tokens": torch.from_numpy(data.batch_at(step)["tokens"]).cuda()}
-    step_fn = make_step(cfg, opt, RunConfig(remat_policy=TRAIN_REMAT))
     record = []
 
     def timed_step(state, batch):
@@ -947,36 +996,31 @@ def train_phase(torch):
     norms = [float(r[2]) for r in record]
     med = sorted(times)[len(times) // 2]
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    log(f"train [{TRAIN_LABEL}]: {loop.step} steps of {tokens} tokens, remat={TRAIN_REMAT}; "
-        f"losses {[round(x, 4) for x in losses]}; grad norms {[round(x, 4) for x in norms]}; "
-        f"lr {[r[3] for r in record]}; step times (s) {[round(x, 3) for x in times]}, median "
-        f"{med:.3f} s, {tokens / med:.0f} tokens/s; stragglers={loop.stragglers}; peak "
-        f"memory {peak / 2**30:.1f} GiB")
-    log(f"train [{TRAIN_LABEL}]: kernel launches on the path: {json.dumps(launches)}")
+    log(f"train [{label}]: {loop.step} steps of {tokens} tokens, remat={TRAIN_REMAT}; "
+        f"losses {losses}; grad norms {[round(x, 4) for x in norms]}; "
+        f"lr {[r[3] for r in record]}; step times (s) {[round(x, 4) for x in times]}, median "
+        f"{med:.4f} s, {tokens / med:.0f} tokens/s; stragglers={loop.stragglers}; peak "
+        f"memory {peak / 2**30:.2f} GiB")
+    log(f"train [{label}]: kernel launches on the path: {json.dumps(launches)}")
     fwd_per_layer = 2 if TRAIN_REMAT == "full" else 1   # the recompute runs the forward again
     want = {"flash_attention": TRAIN_LAYERS * TRAIN_STEPS * fwd_per_layer,
             "flash_attention_bwd": TRAIN_LAYERS * TRAIN_STEPS}
     bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
     if bad:
-        raise AssertionError(f"[{TRAIN_LABEL}] launches (got, want): {bad}")
+        raise AssertionError(f"[{label}] launches (got, want): {bad}")
     if not all(math.isfinite(x) for x in losses + norms):
-        raise AssertionError(f"[{TRAIN_LABEL}] non-finite loss or grad norm")
+        raise AssertionError(f"[{label}] non-finite loss or grad norm")
     if torch.equal(before, watch.detach()):
-        raise AssertionError(f"[{TRAIN_LABEL}] the parameters did not move")
-    batch = batch_fn(TRAIN_STEPS)
-    check_train_against_plain(torch, cfg, state["params"], batch)
-    profile_train_step(torch, step_fn, state, batch)
-    log(f"train [{TRAIN_LABEL}]: peak memory since the weights were made "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    return {k: launches[k] for k in TRAIN_KERNELS}
+        raise AssertionError(f"[{label}] the parameters did not move")
+    return dict(state=state, launches=launches, losses=losses, median=med)
 
 
 def check_train_against_plain(torch, cfg, params, batch):
     """The loss and the gradients of layer 0's attention projections from
     the same parameters and batch through the kernels and through the plain
     path (``use_kernels=False``): the loss within 1e-2 relative, each
-    gradient within 5e-2 of its largest entry (bf16 activations; the MoE's
-    gather and index-put backward on CUDA adds in no fixed order)."""
+    gradient within 5e-2 of its largest entry (bf16 activations, summed
+    in other orders by the two paths' attention)."""
     from repro_torch.core.execution import ExecutionPlan
     from repro_torch.models.model import loss_fn
     mixer = params["segments"][0]["blocks"][0]["mixer"]
@@ -1008,7 +1052,7 @@ def profile_train_step(torch, step_fn, state, batch, top: int = 12):
         float(m["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    log_profile(prof, TRAIN_LABEL, "one training step", wall, top)
+    log_profile(prof, TRAIN_LABEL, "one training step", wall, top, also=("flash", "index"))
 
 
 def check_against_plain(torch, cfg, params, label, flags):
@@ -1073,6 +1117,22 @@ def compare_logits(torch, label, what, a, b):
         raise AssertionError(f"[{label}] kernel path disagrees with the plain path")
 
 
+def tensor_core_sass(build) -> None:
+    """Counts the tensor-core instructions in each built library's SASS
+    (``cuobjdump -sass``): warpgroup products (HGMMA) and warp ones (HMMA).
+    The bf16 flash forward must hold HGMMA."""
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    for src in build.SOURCES:
+        sass = subprocess.run([str(tool), "-sass", str(build._lib_path(src))],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        hgmma = len(re.findall(r"\bHGMMA\.", sass))
+        hmma = len(re.findall(r"\bHMMA\.", sass))
+        log(f"sass {src}: {hgmma} HGMMA and {hmma} HMMA instructions "
+            f"({'tensor cores' if hgmma or hmma else 'no tensor-core instruction'})")
+        if src == "flash_fwd_sm90.cu" and not hgmma:
+            raise AssertionError("the bf16 flash forward's SASS holds no HGMMA")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1112,6 +1172,7 @@ def main(argv=None) -> int:
         spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", text))
         log(f"ptxas {src}: {len(regs)} kernels, at most {max(regs, default=0)} "
             f"registers, {spills} bytes of spill stores and loads")
+    tensor_core_sass(build)
 
     rows = kernel_phase(torch)
     if not args.kernels_only:

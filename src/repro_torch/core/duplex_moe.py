@@ -106,7 +106,7 @@ def duplex_moe_apply(params, cfg: ModelConfig, x, *, k_cold: int,
                            c_cold=c_cold, token_valid=token_valid)
     kc, ch, cc = disp.k_cold, disp.c_hot, disp.c_cold
     n_cold = kc * cc
-    x_slots = gather_slots(x_flat, disp.src_token)              # (n_slots, d)
+    x_slots = gather_slots(x_flat, disp.src_token, disp.slot)   # (n_slots, d)
     w = {key: params[key] for key in ("wi_gate", "wi_up", "wo")}
     counts_rank = disp.counts[disp.perm] if ragged else None
     parts = []

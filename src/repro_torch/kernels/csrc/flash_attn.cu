@@ -1,9 +1,11 @@
-// Flash attention for the training path: the forward with its row
-// log-sum-exp, and the backward that recomputes the scores from it.
+// Flash attention for the training path: the float32 forward with its row
+// log-sum-exp, and the backward (float32 and bf16) that recomputes the
+// scores from it. The bf16 forward is the tensor-core kernel of
+// flash_fwd_sm90.cu.
 //
 //   * flash_fwd_kernel        <- src/repro/kernels/flash_attn.py:
 //                                flash_attention_kernel (body _flash_kernel),
-//                                which is the forward of _flash_core
+//                                which is the forward of _flash_core, in float32
 //   * flash_bwd_delta_kernel, flash_bwd_dkdv_kernel, flash_bwd_dq_kernel
 //                             <- src/repro/models/attention.py: _flash_core_bwd
 //                                (the custom VJP's backward; the JAX package
@@ -34,13 +36,13 @@
 // max(l, 1e-37), lse = m + log(l) (0 where l == 0). p is gated by the mask
 // (the reference's is not; its final result is the gated one, since a
 // row's last tile always holds a live key). Backward: D = rowsum(dO * O)
-// from the stored output (the reference takes the float32 output before
-// its cast: in bf16 the two differ by that rounding only), p = exp(s -
+// from the float32 output (the reference takes the float32 output before
+// its cast, and so does the port: out arrives in float32), p = exp(s -
 // lse), dV = p^T dO, dP = dO V^T, dS = p (dP - D) (times 1 - t^2 under
 // softcap, zero outside the mask), dQ = dS K * scale, dK = dS^T Q * scale.
 // No float atomics: dK/dV blocks own their key rows, dQ blocks their query
 // rows, so the gradients are the same from run to run.
-// Later work: mma.sync / wgmma tiles, TMA loads, and one fused backward.
+// Later work for the backward: wgmma tiles, TMA loads, and one fused pass.
 #include "common.cuh"
 
 using port::from_f;
@@ -225,18 +227,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 // ---------------------------------------------------------------------------
 // Backward pass 1: D[b, h, s] = sum_c dO[b, s, h, c] * O[b, s, h, c]; one
-// warp per (b, s, h) row of the contiguous (B, S, H, hd) out and dout.
+// warp per (b, s, h) row of the contiguous (B, S, H, hd) float32 out and
+// dout.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+flash_bwd_delta_kernel(const float* __restrict__ o, const T* __restrict__ dout,
                        float* __restrict__ delta, int rows, int S, int H, int hd) {
   const int row = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;                       // whole warps leave together
   const size_t off = (size_t)row * hd;
   float acc = 0.f;
-  for (int c = lane; c < hd; c += 32) acc += to_f(dout[off + c]) * to_f(o[off + c]);
+  for (int c = lane; c < hd; c += 32) acc += to_f(dout[off + c]) * o[off + c];
   acc = warp_sum(acc);
   if (lane == 0) {
     const int h = row % H, s = (row / H) % S, b = row / (H * S);
@@ -480,7 +483,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   const int qpk = a.H / a.KV;
   const int rows = a.B * a.S * a.H;
   flash_bwd_delta_kernel<T><<<(rows * 32 + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
-      (const T*)out, (const T*)dout, (float*)delta, rows, a.S, a.H, HD);
+      (const float*)out, (const T*)dout, (float*)delta, rows, a.S, a.H, HD);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -508,11 +511,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
 
 extern "C" {
 
-// q (B, S, H, hd) with element strides qsb, qss of its first two dimensions;
-// k, v (B, S, KV, hd) with strides ksb, kss (the same for both); heads hd
-// apart and hd contiguous. out (B, S, H, hd) and lse (B, H, S) float32
-// contiguous. hd 64 or 128; H / KV <= 64. Returns a cudaError_t code (0 =
-// launched).
+// float32 only (bf16 runs flash_fwd_sm90.cu). q (B, S, H, hd) with element
+// strides qsb, qss of its first two dimensions; k, v (B, S, KV, hd) with
+// strides ksb, kss (the same for both); heads hd apart and hd contiguous.
+// out (B, S, H, hd) and lse (B, H, S) float32 contiguous. hd 64 or 128;
+// H / KV <= 64. Returns a cudaError_t code (0 = launched).
 int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* out,
                         void* lse, int B, int S, int H, int KV, int hd, int qsb, int qss,
                         int ksb, int kss, int causal, int window, float softcap, float scale,
@@ -522,15 +525,12 @@ int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, 
   if (H % KV || H / KV > TM) return (int)cudaErrorInvalidValue;
   if (dtype == DTYPE_F32 && hd == 64) return launch_fwd<float, 64>(q, k, v, out, lse, a, s);
   if (dtype == DTYPE_F32 && hd == 128) return launch_fwd<float, 128>(q, k, v, out, lse, a, s);
-  if (dtype == DTYPE_BF16 && hd == 64)
-    return launch_fwd<__nv_bfloat16, 64>(q, k, v, out, lse, a, s);
-  if (dtype == DTYPE_BF16 && hd == 128)
-    return launch_fwd<__nv_bfloat16, 128>(q, k, v, out, lse, a, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// Layouts as flash_attention_fwd; out, dout, dq (B, S, H, hd) and dk, dv
-// (B, S, KV, hd) contiguous; lse and the scratch delta (B, H, S) float32.
+// Layouts as flash_attention_fwd; out (B, S, H, hd) float32 (the forward's
+// output before its cast), dout, dq (B, S, H, hd) and dk, dv (B, S, KV, hd)
+// contiguous; lse and the scratch delta (B, H, S) float32.
 // Three launches: delta, dK/dV, dQ. Returns a cudaError_t code (0 = launched).
 int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                         const void* out, const void* dout, const void* lse, void* delta,

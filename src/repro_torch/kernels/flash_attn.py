@@ -1,24 +1,28 @@
-"""Flash attention for the training path (CUDA, ``csrc/flash_attn.cu``)
-and its plain PyTorch versions, in the model layout: q (B, S, H, hd), k, v
-(B, S, KV, hd), heads ``g*qpk .. g*qpk + qpk - 1`` sharing KV head g.
+"""Flash attention for the training path (CUDA, ``csrc/flash_fwd_sm90.cu``
+and ``csrc/flash_attn.cu``) and its plain PyTorch versions, in the model
+layout: q (B, S, H, hd), k, v (B, S, KV, hd), heads ``g*qpk .. g*qpk + qpk
+- 1`` sharing KV head g.
 
-* ``flash_attention_kernel`` -> (out (B, S, H, hd), lse (B, H, S) float32)
-  — causal / windowed / softcapped GQA attention with online softmax.
-  Port of ``repro/kernels/flash_attn.py::flash_attention_kernel`` (the
-  forward of ``repro/models/attention.py::_flash_core``); it also writes
-  the row log-sum-exp ``m + log(l)`` (0 where l == 0), which the backward
-  needs and the Pallas kernel does not emit.
+* ``flash_attention_kernel`` -> (out (B, S, H, hd), lse (B, H, S) float32
+  [, out_f32]) — causal / windowed / softcapped GQA attention with online
+  softmax. Port of ``repro/kernels/flash_attn.py::flash_attention_kernel``
+  (the forward of ``repro/models/attention.py::_flash_core``); it also
+  writes the row log-sum-exp ``m + log(l)`` (0 where l == 0), which the
+  backward needs and the Pallas kernel does not emit, and, when asked, the
+  float32 output before its cast, from which the backward takes D. Two
+  kernels, one a dtype: bfloat16 runs the tensor-core (wgmma) kernel of
+  ``flash_fwd_sm90.cu``, float32 the scalar kernel of ``flash_attn.cu``.
 * ``flash_attention_bwd_kernel`` -> (dq, dk, dv) in the inputs' dtype —
   ``_flash_core_bwd``: the scores recomputed from (q, k, v, lse), three
-  launches (D = rowsum(dO * O), dK/dV, dQ), no float atomics.
+  launches (D = rowsum(dO * O) from the float32 output, dK/dV, dQ), no
+  float atomics.
 
 The plain versions are the reference's blockwise loops over a static
 (q block, kv block) schedule: ``flash_attention_plain`` is ``_flash_core``'s
 forward (p not gated by the mask, as there), ``flash_attention_bwd_plain``
-a line-for-line port of ``_flash_core_bwd``. Both take D from the output
-they are given, so in bf16 they (and the kernel) differ from the reference,
-which keeps its float32 output, by that rounding only. The block sizes are
-the plain versions' own; the kernel tiles by itself.
+a line-for-line port of ``_flash_core_bwd``, which takes D from the float32
+output ``out_b`` as the reference does. The block sizes are the plain
+versions' own; the kernels tile by themselves.
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
@@ -100,9 +104,12 @@ def _unblock_kv(x, S):
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          softcap: float = 0.0, q_block: int = 512, kv_block: int = 512):
+                          softcap: float = 0.0, q_block: int = 512, kv_block: int = 512,
+                          f32_out: bool = False):
     """q (B, S, H, hd); k, v (B, S, KV, hd) -> (out (B, S, H, hd) in q's
-    dtype, lse (B, H, S) float32). Online softmax over the static
+    dtype, lse (B, H, S) float32), and with ``f32_out`` also the float32
+    output ``acc / max(l, 1e-37)`` before the cast (the reference's
+    ``out_b``, from which the backward takes D). Online softmax over the static
     triangular / banded block schedule, the forward of the reference's
     ``_flash_core``: float32 scores and accumulators, p rounded to v's dtype
     before PV, p not gated by the mask (a row masked out of a whole block
@@ -130,9 +137,11 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         acc[:, :, :, qi] = acc[:, :, :, qi] * alpha[..., None] + torch.einsum(
             "bgpqk,bgkh->bgpqh", p.to(vt.dtype).float(), vt.float())
         m[:, :, :, qi] = m_new
-    out = _unblock_q(acc / torch.clamp(l[..., None], min=1e-37), S).to(q.dtype).contiguous()
+    out32 = _unblock_q(acc / torch.clamp(l[..., None], min=1e-37), S).contiguous()
+    out = out32.to(q.dtype)
     lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-37)), torch.zeros_like(l))
-    return out, lse.reshape(B, H, nq * q_block)[:, :, :S].contiguous()
+    lse = lse.reshape(B, H, nq * q_block)[:, :, :S].contiguous()
+    return (out, lse, out32) if f32_out else (out, lse)
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
@@ -140,16 +149,20 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
                               kv_block: int = 512):
     """The reference's ``_flash_core_bwd``: per (q block, kv block) pair,
     recompute the scores, p = exp(s - lse), and accumulate dq, dk, dv in
-    float32. out (B, S, H, hd) is the forward's output (D = rowsum(dout *
-    out) is taken from it), lse (B, H, S) float32, dout like q.
+    float32. out (B, S, H, hd) is the forward's float32 output (D =
+    rowsum(dout * out) is taken from it, as the reference takes it from
+    ``out_b``), lse (B, H, S) float32, dout like q.
     -> (dq, dk, dv) in dout's dtype."""
+    if out.dtype != torch.float32:
+        raise TypeError(f"the flash backward takes D from the forward's float32 output, "
+                        f"got out in {out.dtype}")
     B, S, H, hd = q.shape
     KV = k.shape[2]
     scale = 1.0 / math.sqrt(hd)
     q_block, kv_block, nq, nkv, pairs = _schedule(S, q_block, kv_block, causal, window)
     qb, kb, vb = _q_blocks(q, KV, q_block), _kv_blocks(k, kv_block), _kv_blocks(v, kv_block)
     dout_b = _q_blocks(dout.float(), KV, q_block)          # (B, KV, qpk, nq, qb, hd)
-    out_b = _q_blocks(out.float(), KV, q_block)
+    out_b = _q_blocks(out, KV, q_block)
     lse_b = _q_blocks(F.pad(lse, (0, nq * q_block - S)).transpose(1, 2).reshape(
         B, nq * q_block, H), KV, q_block)                   # (B, KV, qpk, nq, qb)
     D = torch.sum(dout_b * out_b, dim=-1)
@@ -188,6 +201,17 @@ def _dtype_code(t):
     return build.DTYPE_CODES[str(t.dtype).split(".")[1]]
 
 
+def _check_aligned(q, k, v):
+    """The bf16 forward reads q, k, v by TMA, whose base address and
+    strides must be multiples of 16 bytes: every row must start on a
+    16-byte boundary."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
+            raise ValueError(f"the bf16 flash forward needs {name}'s rows 16-byte aligned "
+                             f"(data pointer and batch / sequence strides), got strides "
+                             f"{t.stride()}")
+
+
 def _check(q, k, v):
     """Shapes, strides and the card; returns the kernels' integer arguments
     (B, S, H, KV, hd, qsb, qss, ksb, kss)."""
@@ -214,33 +238,50 @@ def _check(q, k, v):
 
 
 def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
-                           softcap: float = 0.0, q_block: int = 512, kv_block: int = 512):
-    """Layout as ``flash_attention_plain`` -> (out, lse). Runs the CUDA
-    kernel for CUDA tensors (its own tiles; ``q_block``/``kv_block`` are
-    the plain version's) and the plain version for CPU tensors."""
+                           softcap: float = 0.0, q_block: int = 512, kv_block: int = 512,
+                           f32_out: bool = False):
+    """Layout and outputs as ``flash_attention_plain``. For CUDA tensors it
+    runs one of two kernels, chosen by dtype (their own tiles;
+    ``q_block``/``kv_block`` are the plain version's): bfloat16 the
+    tensor-core kernel (``flash_fwd_sm90.cu``: wgmma products, TMA loads,
+    persistent blocks), which writes the float32 output in its epilogue
+    when ``f32_out`` asks; float32 the scalar kernel
+    (``flash_attn.cu``), whose output is already float32 and is returned
+    for both. CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap, q_block=q_block, kv_block=kv_block)
+                                     softcap=softcap, q_block=q_block, kv_block=kv_block,
+                                     f32_out=f32_out)
     code = _dtype_code(q)
     ints = _check(q, k, v)
     B, S, H = ints[:3]
     out = torch.empty((B, S, H, q.shape[3]), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    fn = build.bind("flash_attn.cu", "flash_attention_fwd", 5, 11, 2)
-    err = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-             *ints, int(causal), int(window), float(softcap), 1.0 / math.sqrt(q.shape[3]),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_attention_fwd")
+    tail = (*ints, int(causal), int(window), float(softcap), 1.0 / math.sqrt(q.shape[3]),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q, k, v)
+        out32 = torch.empty(out.shape, dtype=torch.float32, device=q.device) if f32_out else None
+        fn = build.bind("flash_fwd_sm90.cu", "flash_attention_fwd_sm90", 6, 11, 2)
+        err = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if out32 is None else out32.data_ptr(), lse.data_ptr(), *tail)
+        build.check(err, "flash_attention_fwd_sm90")
+    else:
+        out32 = out
+        fn = build.bind("flash_attn.cu", "flash_attention_fwd", 5, 11, 2)
+        err = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), *tail)
+        build.check(err, "flash_attention_fwd")
     build.launch_counts["flash_attention"] += 1
-    return out, lse
+    return (out, lse, out32) if f32_out else (out, lse)
 
 
 def flash_attention_bwd_kernel(q, k, v, out, lse, dout, *, causal: bool = True,
                                window: int = 0, softcap: float = 0.0, q_block: int = 512,
                                kv_block: int = 512):
     """Arguments as ``flash_attention_bwd_plain`` -> (dq, dk, dv). Runs the
-    three CUDA launches for CUDA tensors (out and dout contiguous, in q's
-    dtype) and the plain version for CPU tensors."""
+    three CUDA launches for CUDA tensors (out contiguous float32, dout
+    contiguous in q's dtype) and the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
                                          window=window, softcap=softcap, q_block=q_block,
@@ -248,14 +289,14 @@ def flash_attention_bwd_kernel(q, k, v, out, lse, dout, *, causal: bool = True,
     code = _dtype_code(q)
     ints = _check(q, k, v)
     B, S, H = ints[:3]
-    for name, t in (("out", out), ("dout", dout)):
-        if t.dtype != q.dtype or t.shape != q.shape or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous {q.dtype} {tuple(q.shape)}, got "
+    for name, t, dtype in (("out", out, torch.float32), ("dout", dout, q.dtype)):
+        if t.dtype != dtype or t.shape != q.shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} {tuple(q.shape)}, got "
                              f"{t.dtype} {tuple(t.shape)}")
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, S) or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 (B, H, S) = {(B, H, S)}")
     delta = torch.empty_like(lse)
-    dq = torch.empty_like(out)
+    dq = torch.empty_like(dout)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     fn = build.bind("flash_attn.cu", "flash_attention_bwd", 10, 11, 2)

@@ -23,19 +23,20 @@ def _i32(t):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, q_block: int = 512, kv_block: int = 512):
+                    softcap: float = 0.0, q_block: int = 512, kv_block: int = 512,
+                    f32_out: bool = False):
     """q (B, S, H, hd); k, v (B, S, KV, hd), read in place (no transpose or
-    padding: the kernel takes the model layout). -> (out (B, S, H, hd),
-    lse (B, H, S) float32). ``q_block``/``kv_block`` reach only the plain
-    version (CPU tensors)."""
+    padding: the kernels take the model layout). -> (out (B, S, H, hd),
+    lse (B, H, S) float32), and with ``f32_out`` the float32 output too.
+    ``q_block``/``kv_block`` reach only the plain version (CPU tensors)."""
     return flash_attention_kernel(q, k, v, causal=causal, window=window, softcap=softcap,
-                                  q_block=q_block, kv_block=kv_block)
+                                  q_block=q_block, kv_block=kv_block, f32_out=f32_out)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,
                         softcap: float = 0.0, q_block: int = 512, kv_block: int = 512):
-    """Gradients of ``flash_attention`` from its inputs, output, lse and the
-    output's gradient ``dout`` (made contiguous here: autograd may hand a
+    """Gradients of ``flash_attention`` from its inputs, float32 output, lse
+    and the output's gradient ``dout`` (made contiguous here: autograd may hand a
     strided one). -> (dq, dk, dv)."""
     return flash_attention_bwd_kernel(q, k, v, out, lse, dout.contiguous(), causal=causal,
                                       window=window, softcap=softcap, q_block=q_block,

@@ -315,34 +315,41 @@ class AttnCall:
     kv_block: int = 512
 
 
+def _flash_forward(q, k, v, kw, use_kernels, f32_out):
+    """The flash forward through ``kernels/ops.py`` (``use_kernels``) or the
+    plain version directly."""
+    if use_kernels:
+        from repro_torch.kernels.ops import flash_attention
+        return flash_attention(q, k, v, f32_out=f32_out, **kw)
+    return flash_attention_plain(q, k, v, f32_out=f32_out, **kw)
+
+
 class _FlashCore(torch.autograd.Function):
     """The reference's ``_flash_core`` (its ``jax.custom_vjp``): the forward
-    saves (q, k, v, out, lse) and the backward recomputes the scores from
-    them. With ``use_kernels`` both run through ``kernels/ops.py`` (the
-    CUDA kernels for CUDA tensors, their plain versions for CPU tensors);
-    without, through the plain versions directly."""
+    saves (q, k, v, the float32 output before its cast, lse), as the
+    reference saves ``out_b``, and the backward recomputes the scores from
+    them and takes D from that float32 output. With ``use_kernels`` both
+    run through ``kernels/ops.py`` (the CUDA kernels for CUDA tensors,
+    their plain versions for CPU tensors); without, through the plain
+    versions directly."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, q_block, kv_block, use_kernels):
         kw = dict(causal=causal, window=window, softcap=softcap, q_block=q_block,
                   kv_block=kv_block)
-        if use_kernels:
-            from repro_torch.kernels.ops import flash_attention
-            out, lse = flash_attention(q, k, v, **kw)
-        else:
-            out, lse = flash_attention_plain(q, k, v, **kw)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, lse, out32 = _flash_forward(q, k, v, kw, use_kernels, f32_out=True)
+        ctx.save_for_backward(q, k, v, out32, lse)
         ctx.kw, ctx.use_kernels = kw, use_kernels
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out32, lse = ctx.saved_tensors
         if ctx.use_kernels:
             from repro_torch.kernels.ops import flash_attention_bwd
-            dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, **ctx.kw)
+            dq, dk, dv = flash_attention_bwd(q, k, v, out32, lse, dout, **ctx.kw)
         else:
-            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, lse, dout, **ctx.kw)
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out32, lse, dout, **ctx.kw)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -353,7 +360,14 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
     the flash core (``_FlashCore``): its forward is the reference's
     ``_flash_core`` forward (``kernels/flash_attn.py::flash_attention_plain``
     or, with ``use_kernels``, the flash kernel), and autograd takes its
-    hand-written backward."""
+    hand-written backward. Where no backward can run (grad mode off, or no
+    input that requires grad, as in serving prefill) the forward runs
+    alone and writes no float32 output."""
+    if not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                         or v.requires_grad)):
+        kw = dict(causal=causal, window=window, softcap=softcap, q_block=q_block,
+                  kv_block=kv_block)
+        return _flash_forward(q, k, v, kw, use_kernels, f32_out=False)[0]
     return _FlashCore.apply(q, k, v, causal, window, softcap, q_block, kv_block,
                             use_kernels)
 

@@ -7,10 +7,9 @@ every function here works on the one shard's flat (T, ...) arrays.
 
 The combine is deterministic: instead of the reference's scatter-add
 (``index_add_`` on CUDA adds in no fixed order), each token gathers its
-``top_k`` slots and sums them in choice order. Under autograd the
-gather's backward is such a scatter-add (``index_add_``), so a training
-step's input gradient of the MoE layer is summed in no fixed order on
-CUDA; the forward is unchanged.
+``top_k`` slots and sums them in choice order. The token->slot gather's
+backward is that same combine (``_GatherSlots``), so a training step's
+input gradient of the MoE layer is summed in a fixed order too.
 """
 from __future__ import annotations
 
@@ -99,22 +98,44 @@ def shard_dispatch(expert_idx, gates, T: int, E: int, caps, bases, n_slots: int,
     return Dispatch(src[:-1], gate[:-1], slot)
 
 
-def gather_slots(x_flat, src):
+class _GatherSlots(torch.autograd.Function):
+    """Token -> slot gather whose backward is ``combine_slots``: each token
+    sums its own ``top_k`` slot gradients in choice order, in float32, with
+    no atomics, so the input gradient is the same from run to run on CUDA
+    (``index_select``'s own backward, an ``index_add_``, adds in atomic
+    order there)."""
+
+    @staticmethod
+    def forward(ctx, x_flat, src, slot):
+        ctx.save_for_backward(slot)
+        ctx.T = x_flat.shape[0]
+        x_pad = torch.cat([x_flat, x_flat.new_zeros((1, x_flat.shape[1]))])
+        return x_pad.index_select(0, src)
+
+    @staticmethod
+    def backward(ctx, grad):
+        slot, = ctx.saved_tensors
+        return combine_slots(grad, slot, ctx.T), None, None
+
+
+def gather_slots(x_flat, src, slot):
     """Token -> slot gather: x (T, d), src (n_slots,) -> (n_slots, d); empty
-    slots (src == T) read a zero row. ``index_select``, whose backward is
-    one pass of ``index_add_`` (advanced indexing's is a sort-based
-    ``index_put_``, half of a training step's device time at OLMoE's widths;
-    ``PERF.md``)."""
-    x_pad = torch.cat([x_flat, x_flat.new_zeros((1, x_flat.shape[1]))])
-    return x_pad.index_select(0, src)
+    slots (src == T) read a zero row. ``slot`` (T*k,) is the dispatch's
+    slot per assignment (n_slots = dropped), the inverse map the backward
+    sums through (``_GatherSlots``). The forward is ``index_select``
+    (advanced indexing's backward is a sort-based ``index_put_``, half of a
+    training step's device time at OLMoE's widths; ``PERF.md``)."""
+    return _GatherSlots.apply(x_flat, src, slot)
 
 
 def combine_slots(y_slots, slot, T: int):
     """Slot -> token combine: y_slots (n_slots, d) gated slot outputs; slot
     (T*k,) each assignment's slot (n_slots = dropped). Each token sums its k
-    slots in choice order in float32 -> (T, d) in y_slots' dtype."""
+    slots in choice order in float32 (float64 for float64 slots) -> (T, d)
+    in y_slots' dtype."""
     y_pad = torch.cat([y_slots, y_slots.new_zeros((1, y_slots.shape[1]))])
-    picked = y_pad.index_select(0, slot).float().reshape(T, -1, y_slots.shape[1])
+    picked = y_pad.index_select(0, slot).to(torch.promote_types(y_slots.dtype, torch.float32))
+    picked = picked.reshape(T, -1, y_slots.shape[1])
     out = picked[:, 0]
     for j in range(1, picked.shape[1]):
         out = out + picked[:, j]
@@ -147,7 +168,7 @@ def moe_apply(params, cfg: ModelConfig, x, *, capacity: Optional[int] = None,
     fv = token_valid.repeat_interleave(k) if token_valid is not None else None
     disp = shard_dispatch(router.expert_idx.reshape(-1), router.gates.reshape(-1),
                           T, E, caps, bases, E * C, valid=fv)
-    x_slots = gather_slots(x_flat, disp.src_token)
+    x_slots = gather_slots(x_flat, disp.src_token, disp.slot)
     y = grouped_expert_ffn(params, x_slots.reshape(E, C, d)).reshape(E * C, d)
     y = y * disp.slot_gate[:, None].to(y.dtype)
     return combine_slots(y, disp.slot, T).reshape(shape), router

@@ -186,13 +186,104 @@ def test_cuda_flash_kernels_match_plain(card, dtype, tol):
                 for _ in range(2))
         dout = t(rng.standard_normal((B, S, H, 64)).astype(np.float32)).to(dtype)
         out, lse = flash_attn.flash_attention_kernel(q, k, v, **kw)
-        out_p, lse_p = flash_attn.flash_attention_plain(q, k, v, **kw)
+        out_p, lse_p, o32 = flash_attn.flash_attention_plain(q, k, v, f32_out=True, **kw)
         torch.testing.assert_close(out.float(), out_p.float(), atol=tol, rtol=tol)
         torch.testing.assert_close(lse, lse_p, atol=1e-4, rtol=1e-4)
-        got = flash_attn.flash_attention_bwd_kernel(q, k, v, out_p, lse_p, dout, **kw)
-        want = flash_attn.flash_attention_bwd_plain(q, k, v, out_p, lse_p, dout, **kw)
+        got = flash_attn.flash_attention_bwd_kernel(q, k, v, o32, lse_p, dout, **kw)
+        want = flash_attn.flash_attention_bwd_plain(q, k, v, o32, lse_p, dout, **kw)
         for g, w in zip(got, want):
             band = tol * max(1.0, w.float().abs().max().item())
             torch.testing.assert_close(g.float(), w.float(), atol=band, rtol=0)
-        again = flash_attn.flash_attention_bwd_kernel(q, k, v, out_p, lse_p, dout, **kw)
+        again = flash_attn.flash_attention_bwd_kernel(q, k, v, o32, lse_p, dout, **kw)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# (S, KV, qpk, causal, window, softcap): S 1000 and 2047 are not multiples
+# of the 128-row tiles; qpk 12 does not divide them (mistral-large-123b's
+# 96 heads over 8)
+BF16_FWD_CASES = [(2048, 2, 1, True, 0, 0.0), (2048, 2, 4, False, 0, 0.0),
+                  (1000, 1, 12, True, 0, 0.0), (2047, 1, 12, False, 0, 0.0),
+                  (2047, 2, 4, True, 0, 0.0), (2048, 2, 1, True, 1000, 50.0),
+                  (1000, 1, 12, False, 1000, 50.0)]
+
+
+def _fused_qkv(rng, card, B, S, H, KV, hd):
+    """q, k, v as strided views of one fused (B, S, (H + 2 KV) hd) bf16
+    projection, as a model's fused QKV matmul hands them over."""
+    qkv = torch.tensor(rng.standard_normal((B, S, (H + 2 * KV) * hd)).astype(np.float32),
+                       device=card).to(torch.bfloat16)
+    q = qkv[..., :H * hd].unflatten(-1, (H, hd))
+    k = qkv[..., H * hd:(H + KV) * hd].unflatten(-1, (KV, hd))
+    v = qkv[..., (H + KV) * hd:].unflatten(-1, (KV, hd))
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S,KV,qpk,causal,window,softcap", BF16_FWD_CASES)
+def test_cuda_bf16_flash_forward_matches_plain(card, S, KV, qpk, causal, window, softcap, hd):
+    """The tensor-core bf16 forward (``flash_fwd_sm90.cu``) against the
+    plain version: out and its float32 copy within the bf16 band (2e-2),
+    lse within 2e-2, with q, k, v read as strided views of one fused
+    projection; a second call gives the same bits."""
+    rng = np.random.default_rng(S + qpk + hd)
+    q, k, v = _fused_qkv(rng, card, 1, S, KV * qpk, KV, hd)
+    assert not q.is_contiguous() and not k.is_contiguous()
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse, o32 = flash_attn.flash_attention_kernel(q, k, v, f32_out=True, **kw)
+    out_p, lse_p, o32_p = flash_attn.flash_attention_plain(q, k, v, f32_out=True, **kw)
+    assert out.dtype == torch.bfloat16 and o32.dtype == torch.float32
+    torch.testing.assert_close(out.float(), out_p.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o32, o32_p, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, lse_p, atol=2e-2, rtol=2e-2)
+    assert torch.equal(o32.to(torch.bfloat16), out)
+    again = flash_attn.flash_attention_kernel(q, k, v, f32_out=True, **kw)
+    assert all(torch.equal(a, b) for a, b in zip((out, lse, o32), again))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_flash_forward_rejects_what_it_does_not_take(card):
+    """A CUDA tensor the bf16 kernel cannot read raises (no plain fallback):
+    float16, head_dim 96, and rows off the 16-byte grid."""
+    x = torch.zeros((1, 64, 2, 64), device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attn.flash_attention_kernel(x, x, x)
+    x = torch.zeros((1, 64, 2, 96), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attn.flash_attention_kernel(x, x, x)
+    base = torch.zeros((1, 64, 2 * 64 + 4), device=card, dtype=torch.bfloat16)
+    x = base[..., 4:].unflatten(-1, (2, 64))     # rows start 8 bytes in
+    with pytest.raises(ValueError):
+        flash_attn.flash_attention_kernel(x, x, x)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_input_gradient_is_the_same_from_run_to_run(card):
+    """Two backward passes of the grouped and the duplex MoE layer on the
+    same input give bit-equal input gradients on the card: the token ->
+    slot gather's backward sums each token's top-k slot gradients in
+    choice order (top-8 of 16 experts, as OLMoE routes, bf16)."""
+    import dataclasses
+    from repro_torch.configs import resolve_config
+    from repro_torch.core.duplex_moe import duplex_moe_apply
+    from repro_torch.models.moe import moe_apply
+    base = resolve_config("tiny-moe")
+    E, d, f = 16, 256, 128
+    cfg = dataclasses.replace(base, d_model=d, moe=dataclasses.replace(
+        base.moe, num_experts=E, top_k=8, d_ff_expert=f))
+    rng = np.random.default_rng(7)
+    w = lambda *shape: torch.tensor(rng.standard_normal(shape).astype(np.float32) / shape[-2]
+                                    ** 0.5, device=card).to(torch.bfloat16)
+    params = {"router": w(d, E), "wi_gate": w(E, d, f), "wi_up": w(E, d, f), "wo": w(E, f, d)}
+    x = torch.tensor(rng.standard_normal((4096, d)).astype(np.float32),
+                     device=card).to(torch.bfloat16)
+    g = torch.tensor(rng.standard_normal((4096, d)).astype(np.float32),
+                     device=card).to(torch.bfloat16)
+    layers = (lambda xi: moe_apply(params, cfg, xi)[0],
+              lambda xi: duplex_moe_apply(params, cfg, xi, k_cold=E // 2)[0])
+    for layer in layers:
+        grads = []
+        for _ in range(2):
+            xi = x.clone().requires_grad_(True)
+            grads.append(torch.autograd.grad(layer(xi), xi, g)[0])
+        assert torch.equal(grads[0], grads[1])

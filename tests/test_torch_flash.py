@@ -99,3 +99,85 @@ def test_flash_core_and_vjp_match_reference(reference_vjp, use_kernels):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
     _, lse_t = tops.flash_attention(tq.detach(), tk.detach(), tv.detach(), **kw)
     np.testing.assert_allclose(lse_t.numpy(), lse_j, **tol)
+
+
+@pytest.fixture(scope="module", params=CASES, ids=lambda c: "-".join(map(str, c)))
+def reference_vjp_bf16(request):
+    """As ``reference_vjp`` in bfloat16: the same numpy inputs and dO cast
+    to bf16 on both sides; the reference keeps its float32 output ``out_b``
+    as the residual and takes D from it."""
+    S, KV, qpk, causal, window, softcap = request.param
+    q, k, v = _inputs(S, KV, qpk, seed=4)
+    dout = np.random.default_rng(5).standard_normal(q.shape).astype(np.float32)
+    bf = lambda a: jnp.asarray(a).astype(jnp.bfloat16)
+    args = (causal, window, softcap, BLK, BLK, False)
+    out_j, vjp = jax.vjp(lambda a, b, c: jattn._flash_core(a, b, c, *args),
+                         *map(bf, (q, k, v)))
+    grads_j = vjp(bf(dout))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_block=BLK, kv_block=BLK)
+    f32 = lambda a: np.asarray(a.astype(jnp.float32))
+    return (q, k, v, dout), kw, (f32(out_j), [f32(g) for g in grads_j])
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_flash_core_and_vjp_match_reference_bf16(reference_vjp_bf16, use_kernels):
+    """bf16 forward and (dq, dk, dv) against ``jax.vjp`` of the reference's
+    ``_flash_core`` at the bf16 band (2e-2): the port saves the float32
+    output for its backward and takes D = rowsum(dO * O) from it, as the
+    reference does from ``out_b``."""
+    (q, k, v, dout), kw, (out_j, grads_j) = reference_vjp_bf16
+    tq, tk, tv = (torch.tensor(a).to(torch.bfloat16).requires_grad_(True) for a in (q, k, v))
+    out_t = tattn.blockwise_attention(tq, tk, tv, use_kernels=use_kernels, **kw)
+    out_t.backward(torch.tensor(dout).to(torch.bfloat16))
+    assert out_t.dtype == torch.bfloat16 and tq.grad.dtype == torch.bfloat16
+    tol = _tol("bfloat16")
+    np.testing.assert_allclose(out_t.detach().float().numpy(), out_j, **tol)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), grads_j):
+        np.testing.assert_allclose(got.float().numpy(), want, **tol)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_flash_backward_refuses_an_output_not_in_float32(use_kernels):
+    """The backward takes D = rowsum(dO * O) from the forward's float32
+    output, as the reference takes it from ``out_b``: a bf16 output is
+    refused, here as on the card, and the flash core saves the float32
+    one."""
+    q, k, v = (torch.tensor(a).to(torch.bfloat16) for a in _inputs(40, 2, 2, seed=6))
+    kw = dict(causal=True, q_block=BLK, kv_block=BLK)
+    out, lse, out32 = flash_attention_plain(q, k, v, f32_out=True, **kw)
+    assert out32.dtype == torch.float32 and torch.equal(out32.to(torch.bfloat16), out)
+    bwd = tops.flash_attention_bwd if use_kernels else tattn.flash_attention_bwd_plain
+    with pytest.raises(TypeError, match="float32 output"):
+        bwd(q, k, v, out, lse, torch.ones_like(q), **kw)
+    tq = q.clone().requires_grad_(True)
+    got = tattn.blockwise_attention(tq, k, v, use_kernels=use_kernels, **kw)
+    saved = got.grad_fn.saved_tensors
+    assert saved[3].dtype == torch.float32 and torch.equal(saved[3], out32)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_flash_forward_without_grad_writes_no_float32_output(use_kernels, monkeypatch):
+    """Where no backward can run (grad mode off, or no input that requires
+    grad) the forward runs alone, without the float32 output, and gives
+    the flash core's values."""
+    q, k, v = (torch.tensor(a).to(torch.bfloat16) for a in _inputs(40, 1, 4, seed=7))
+    kw = dict(causal=False, window=12, softcap=5.0, q_block=BLK, kv_block=BLK)
+    want = tattn.blockwise_attention(q.clone().requires_grad_(True), k, v,
+                                     use_kernels=use_kernels, **kw).detach()
+    import repro_torch.kernels.flash_attn as fa
+    asked = []
+    real = fa.flash_attention_plain
+
+    def spy(*a, f32_out=False, **kw_):
+        asked.append(f32_out)
+        return real(*a, f32_out=f32_out, **kw_)
+
+    monkeypatch.setattr(fa, "flash_attention_plain", spy)
+    monkeypatch.setattr(tattn, "flash_attention_plain", spy)
+    plain = tattn.blockwise_attention(q, k, v, use_kernels=use_kernels, **kw)
+    with torch.no_grad():
+        quiet = tattn.blockwise_attention(q.clone().requires_grad_(True), k, v,
+                                          use_kernels=use_kernels, **kw)
+    assert asked == [False, False]
+    assert plain.grad_fn is None and quiet.grad_fn is None
+    assert torch.equal(plain, want) and torch.equal(quiet, want)

@@ -135,3 +135,37 @@ def test_planner_picks_the_reference_k_cold():
         for _ in range(5):
             counts = rng.multinomial(T * 8, rng.dirichlet(np.ones(E64)))
             assert tp.k_cold_static(counts) == jp.k_cold_static(counts)
+
+
+@pytest.mark.parametrize("dispatch", ["grouped", "duplex"])
+def test_gather_backward_is_the_slot_combine(ffn_params, dispatch):
+    """The token -> slot gather's hand-written backward (each token sums its
+    own slots in choice order, no atomics) against autograd of the plain
+    ``x_pad[src]`` in float64, for both dispatches, with tight capacities
+    (dropped assignments), invalid tokens and empty slots that read the
+    padding row."""
+    _, tp = ffn_params
+    x, valid = _tokens(13)
+    T, d = x.shape
+    k = CFG_T.moe.top_k
+    r = tmoe.route(tp, CFG_T.moe, torch.tensor(x), valid=torch.tensor(valid))
+    if dispatch == "grouped":
+        C = 4
+        disp = tmoe.shard_dispatch(r.expert_idx.reshape(-1), r.gates.reshape(-1), T, E,
+                                   torch.full((E,), C), torch.arange(E) * C, E * C,
+                                   valid=torch.tensor(valid).repeat_interleave(k))
+    else:
+        disp = tdm.duplex_dispatch(r, CFG_T.moe, T, k_cold=E // 2, c_hot=8, c_cold=4,
+                                   token_valid=torch.tensor(valid))
+    n_slots = disp.src_token.shape[0]
+    assert bool((disp.slot == n_slots).any()) and bool((disp.src_token == T).any())
+    rng = np.random.default_rng(14)
+    xs = torch.tensor(rng.standard_normal((T, d)), requires_grad=True)
+    g = torch.tensor(rng.standard_normal((n_slots, d)))
+    y = tmoe.gather_slots(xs, disp.src_token, disp.slot)
+    x_pad = torch.cat([xs, xs.new_zeros((1, d))])
+    want_y = x_pad[disp.src_token]
+    assert torch.equal(y, want_y)
+    got, = torch.autograd.grad(y, xs, g)
+    want, = torch.autograd.grad(want_y, xs, g)
+    torch.testing.assert_close(got, want, atol=1e-12, rtol=1e-12)
