@@ -9,15 +9,15 @@ Phases, each printing a line:
   2. kernel build (nvcc, all sources in parallel) and its time, each
      source's ptxas registers and spills, and the count of tensor-core
      instructions (HGMMA, HMMA) in each library's SASS (``cuobjdump``;
-     the bf16 flash forward must hold HGMMA);
+     the bf16 flash forward and backward must hold HGMMA);
   3. each hand-written kernel against its plain PyTorch version on the card
      at OLMoE-1B-7B shapes (plus a GQA shape for the attention kernels;
      the ragged MoE pair also at Jamba-v0.1's widths and path c's decode
      capacities; the dense decode attention and the SSD decode at
      Jamba-v0.1's shapes, the SSD decode also at Mamba2-2.7B's; the flash
-     forward and backward at path d's shape, Jamba-v0.1's GQA heads, and a
-     window with a softcap, the forward also at 96 heads over 8 and at a
-     length that is not a tile multiple), in
+     forward and backward at path d's shape, Jamba-v0.1's GQA heads, a
+     window with a softcap, 96 heads over 8 and a length that is not a
+     tile multiple), in
      bfloat16 within its rounding band and again in float32 within 1e-4
      (the backward's dq, dk, dv each within the band times max(1, its
      largest entry)):
@@ -27,7 +27,8 @@ Phases, each printing a line:
      kernel's bound (least bytes / 3.35 TB/s or operations over the peak
      rate of the inputs' type: 989 TFLOP/s bf16, 67 TFLOP/s float32, 1979
      TOP/s int8); the int8 attention rows also print the float kernel's
-     time at the same shape;
+     time at the same shape, the flash backward's SDPA's forward +
+     backward beside its backward alone (its library time);
   4. the paths, each driven with every launch count set to 0 just before
      it and read just after: ``ServingEngine`` serving 16 seeded requests
      on OLMoE-1B-7B at full width and depth with random weights, paged KV
@@ -431,7 +432,10 @@ def check_flash_bwd(torch, gen, dtype, *, B, S, H, KV, causal=True, window=0, so
     plain version within the band times max(1, its largest |entry|) (dk and
     dv sum over every query row and the group's heads, so they grow with S).
     ``err`` is the largest absolute error, ``rel_err`` what the band
-    judges."""
+    judges. The library time is SDPA's backward alone: forward +
+    ``autograd.grad`` less the forward, timed in turns in this call
+    (forward + ``backward()``, which also accumulates into ``.grad``, is
+    printed beside it)."""
     from repro_torch.kernels import flash_attn as fa
     q, k, v = _flash_inputs(torch, gen, dtype, B, S, H, KV)
     kw = dict(causal=causal, window=window, softcap=softcap)
@@ -456,11 +460,16 @@ def check_flash_bwd(torch, gen, dtype, *, B, S, H, KV, causal=True, window=0, so
                + lse.numel() * 4 + dout.numel() * item,
                flops=2.5 * 4 * hd * B * H * _live_pairs(S, causal, window))
     if not window and not softcap:
-        # library yardstick: SDPA forward + backward on the same inputs
+        # library yardstick: SDPA's backward on the same inputs
         qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
         fwd = _sdpa(torch, qg, kg, vg, causal)
         dt = dout.transpose(1, 2)
-        out["lib_ms"] = time_ms(lambda: fwd().backward(dt))
+        grads = lambda: torch.autograd.grad(fwd(), (qg, kg, vg), dt)
+        fwd_bwd = time_ms(lambda: fwd().backward(dt))
+        fwd_ms, grad_ms = time_ms(fwd), time_ms(grads)
+        out["lib_ms"] = grad_ms - fwd_ms
+        out["lib_detail"] = (f" (SDPA fwd={fwd_ms:.4f} fwd+grad={grad_ms:.4f} "
+                             f"fwd+backward()={fwd_bwd:.4f})")
     return out
 
 
@@ -584,8 +593,9 @@ KERNELS = [
       ("mamba2-2.7b H=80 N=128 P=64", check_ssd, dict(H=80, N=128, P=64))]),
     # path d's shape (OLMoE-1B-7B, 4 x 2048 tokens, causal), Jamba-v0.1's GQA
     # heads, a window with a softcap, mistral-large-123b's 96 heads over 8
-    # (qpk 12 does not divide the kernel's 128 rows), and a length that is
-    # not a tile multiple; bf16 runs flash_fwd_sm90.cu, float32 flash_attn.cu
+    # (qpk 12 does not divide the kernels' 128 rows), and a length that is
+    # not a tile multiple; bf16 runs flash_fwd_sm90.cu and flash_bwd_sm90.cu,
+    # float32 flash_attn.cu
     ("flash_attention",
      "src/repro/kernels/flash_attn.py:87",
      "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
@@ -597,12 +607,15 @@ KERNELS = [
       ("ragged B=2 S=2047 H=16 KV=16 causal", check_flash, dict(B=2, S=2047, H=16, KV=16))]),
     ("flash_attention_bwd",
      "src/repro/models/attention.py:349",
-     "src/repro_torch/kernels/csrc/flash_attn.cu",
+     "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
      [("olmoe B=4 S=2048 H=16 KV=16 causal", check_flash_bwd,
        dict(B=4, S=2048, H=16, KV=16)),
       ("gqa B=1 S=4096 H=32 KV=8 causal", check_flash_bwd, dict(B=1, S=4096, H=32, KV=8)),
       ("B=1 S=2048 H=16 KV=16 window=1000 softcap=50", check_flash_bwd,
-       dict(B=1, S=2048, H=16, KV=16, window=1000, softcap=50.0))]),
+       dict(B=1, S=2048, H=16, KV=16, window=1000, softcap=50.0)),
+      ("qpk=12 B=1 S=2048 H=96 KV=8 causal", check_flash_bwd, dict(B=1, S=2048, H=96, KV=8)),
+      ("ragged B=2 S=2047 H=16 KV=16 causal", check_flash_bwd,
+       dict(B=2, S=2047, H=16, KV=16))]),
 ]
 
 
@@ -624,6 +637,7 @@ def kernel_phase(torch):
                 ok = r.get("rel_err", err) <= tol
                 lib = f"{lib_ms:.4f}" if lib_ms is not None else "none"
                 fp = f" fp_kernel_ms={r['fp_ms']:.4f}" if "fp_ms" in r else ""
+                fp += r.get("lib_detail", "")
                 band = (f" ({r['detail']} band tol x max(1, max|plain|))" if "detail" in r
                         else "")
                 log(f"kernel {name} [{label} {dtype}]: max_abs_err={err:.3e} "
@@ -1120,7 +1134,7 @@ def compare_logits(torch, label, what, a, b):
 def tensor_core_sass(build) -> None:
     """Counts the tensor-core instructions in each built library's SASS
     (``cuobjdump -sass``): warpgroup products (HGMMA) and warp ones (HMMA).
-    The bf16 flash forward must hold HGMMA."""
+    The bf16 flash forward and backward must hold HGMMA."""
     tool = Path(build._nvcc()).with_name("cuobjdump")
     for src in build.SOURCES:
         sass = subprocess.run([str(tool), "-sass", str(build._lib_path(src))],
@@ -1129,8 +1143,8 @@ def tensor_core_sass(build) -> None:
         hmma = len(re.findall(r"\bHMMA\.", sass))
         log(f"sass {src}: {hgmma} HGMMA and {hmma} HMMA instructions "
             f"({'tensor cores' if hgmma or hmma else 'no tensor-core instruction'})")
-        if src == "flash_fwd_sm90.cu" and not hgmma:
-            raise AssertionError("the bf16 flash forward's SASS holds no HGMMA")
+        if src in ("flash_fwd_sm90.cu", "flash_bwd_sm90.cu") and not hgmma:
+            raise AssertionError(f"the SASS of {src} holds no HGMMA")
 
 
 def main(argv=None) -> int:

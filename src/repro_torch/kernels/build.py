@@ -26,7 +26,7 @@ from typing import Dict
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("decode_attn.cu", "moe_gemm.cu", "moe_gemv.cu", "ssd_decode.cu",
-           "flash_attn.cu", "flash_fwd_sm90.cu")
+           "flash_attn.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

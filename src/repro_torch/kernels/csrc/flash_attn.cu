@@ -1,7 +1,8 @@
-// Flash attention for the training path: the float32 forward with its row
-// log-sum-exp, and the backward (float32 and bf16) that recomputes the
-// scores from it. The bf16 forward is the tensor-core kernel of
-// flash_fwd_sm90.cu.
+// Flash attention for the training path in float32: the forward with its
+// row log-sum-exp, and the backward that recomputes the scores from it.
+// bfloat16 runs the tensor-core kernels of flash_fwd_sm90.cu and
+// flash_bwd_sm90.cu (a TF32 product would leave the float32 band, so
+// float32 stays on scalar FMAs).
 //
 //   * flash_fwd_kernel        <- src/repro/kernels/flash_attn.py:
 //                                flash_attention_kernel (body _flash_kernel),
@@ -9,10 +10,11 @@
 //   * flash_bwd_delta_kernel, flash_bwd_dkdv_kernel, flash_bwd_dq_kernel
 //                             <- src/repro/models/attention.py: _flash_core_bwd
 //                                (the custom VJP's backward; the JAX package
-//                                runs it through XLA, with no Pallas kernel)
+//                                runs it through XLA, with no Pallas kernel),
+//                                in float32
 //
 // What bounds them on the card: operations. A (q tile, k tile) pair does
-// 4*hd FLOPs per score (QK^T and PV; the backward 2.5x that) on data that
+// 4*hd FLOPs per score (QK^T and PV; the backward 3.5x that) on data that
 // stays in shared memory, far above the H100's ~295 Op/B knee.
 //
 // What the design does about it, kept simple: scalar float32 FMAs from
@@ -32,17 +34,14 @@
 // Numerics follow the reference: float32 scores, scale, then softcap
 // (softcap * tanh(s / softcap)), the masks kpos < S, qpos >= kpos (causal)
 // and kpos > qpos - window, online softmax with float32 m, l and
-// accumulator, p rounded to the input dtype before PV, out = acc /
-// max(l, 1e-37), lse = m + log(l) (0 where l == 0). p is gated by the mask
-// (the reference's is not; its final result is the gated one, since a
-// row's last tile always holds a live key). Backward: D = rowsum(dO * O)
-// from the float32 output (the reference takes the float32 output before
-// its cast, and so does the port: out arrives in float32), p = exp(s -
+// accumulator, out = acc / max(l, 1e-37), lse = m + log(l) (0 where
+// l == 0). p is gated by the mask (the reference's is not; its final
+// result is the gated one, since a row's last tile always holds a live
+// key). Backward: D = rowsum(dO * O) from the forward's output, p = exp(s -
 // lse), dV = p^T dO, dP = dO V^T, dS = p (dP - D) (times 1 - t^2 under
 // softcap, zero outside the mask), dQ = dS K * scale, dK = dS^T Q * scale.
 // No float atomics: dK/dV blocks own their key rows, dQ blocks their query
 // rows, so the gradients are the same from run to run.
-// Later work for the backward: wgmma tiles, TMA loads, and one fused pass.
 #include "common.cuh"
 
 using port::from_f;
@@ -528,9 +527,9 @@ int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, 
   return (int)cudaErrorInvalidValue;
 }
 
-// Layouts as flash_attention_fwd; out (B, S, H, hd) float32 (the forward's
-// output before its cast), dout, dq (B, S, H, hd) and dk, dv (B, S, KV, hd)
-// contiguous; lse and the scratch delta (B, H, S) float32.
+// float32 only (bf16 runs flash_bwd_sm90.cu). Layouts as
+// flash_attention_fwd; out, dout, dq (B, S, H, hd) and dk, dv (B, S, KV,
+// hd) contiguous; lse and the scratch delta (B, H, S) float32.
 // Three launches: delta, dK/dV, dQ. Returns a cudaError_t code (0 = launched).
 int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                         const void* out, const void* dout, const void* lse, void* delta,
@@ -544,10 +543,6 @@ int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
     return launch_bwd<float, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv, a, s);
   if (dtype == DTYPE_F32 && hd == 128)
     return launch_bwd<float, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv, a, s);
-  if (dtype == DTYPE_BF16 && hd == 64)
-    return launch_bwd<__nv_bfloat16, 64>(q, k, v, out, dout, lse, delta, dq, dk, dv, a, s);
-  if (dtype == DTYPE_BF16 && hd == 128)
-    return launch_bwd<__nv_bfloat16, 128>(q, k, v, out, dout, lse, delta, dq, dk, dv, a, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,6 @@
-"""Flash attention for the training path (CUDA, ``csrc/flash_fwd_sm90.cu``
-and ``csrc/flash_attn.cu``) and its plain PyTorch versions, in the model
+"""Flash attention for the training path (CUDA, ``csrc/flash_fwd_sm90.cu``,
+``csrc/flash_bwd_sm90.cu`` and ``csrc/flash_attn.cu``) and its plain
+PyTorch versions, in the model
 layout: q (B, S, H, hd), k, v (B, S, KV, hd), heads ``g*qpk .. g*qpk + qpk
 - 1`` sharing KV head g.
 
@@ -15,7 +16,10 @@ layout: q (B, S, H, hd), k, v (B, S, KV, hd), heads ``g*qpk .. g*qpk + qpk
 * ``flash_attention_bwd_kernel`` -> (dq, dk, dv) in the inputs' dtype —
   ``_flash_core_bwd``: the scores recomputed from (q, k, v, lse), three
   launches (D = rowsum(dO * O) from the float32 output, dK/dV, dQ), no
-  float atomics.
+  float atomics. Two routes, one a dtype, as the forward's: bfloat16 runs
+  the tensor-core (wgmma) kernels of ``flash_bwd_sm90.cu``, which round P
+  and dS to bf16 as the operands of the dV, dK and dQ products, float32
+  the scalar kernels of ``flash_attn.cu``.
 
 The plain versions are the reference's blockwise loops over a static
 (q block, kv block) schedule: ``flash_attention_plain`` is ``_flash_core``'s
@@ -201,15 +205,21 @@ def _dtype_code(t):
     return build.DTYPE_CODES[str(t.dtype).split(".")[1]]
 
 
-def _check_aligned(q, k, v):
-    """The bf16 forward reads q, k, v by TMA, whose base address and
-    strides must be multiples of 16 bytes: every row must start on a
-    16-byte boundary."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
-            raise ValueError(f"the bf16 flash forward needs {name}'s rows 16-byte aligned "
+def _check_aligned(**tensors):
+    """The bf16 kernels read q, k, v (and the backward dout) by TMA, whose
+    base address and strides must be multiples of 16 bytes: every row must
+    start on a 16-byte boundary."""
+    for name, t in tensors.items():
+        step = 16 // t.element_size()
+        if t.data_ptr() % 16 or t.stride(0) % step or t.stride(1) % step:
+            raise ValueError(f"the bf16 flash kernels need {name}'s rows 16-byte aligned "
                              f"(data pointer and batch / sequence strides), got strides "
                              f"{t.stride()}")
+
+
+# flash_bwd_sm90.cu pads the rows of D and lse to a multiple of this many
+# positions (its PAD), so that a tile of either is one aligned bulk copy
+BWD_PAD = 64
 
 
 def _check(q, k, v):
@@ -260,7 +270,7 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
     tail = (*ints, int(causal), int(window), float(softcap), 1.0 / math.sqrt(q.shape[3]),
             torch.cuda.current_stream(q.device).cuda_stream)
     if q.dtype == torch.bfloat16:
-        _check_aligned(q, k, v)
+        _check_aligned(q=q, k=k, v=v)
         out32 = torch.empty(out.shape, dtype=torch.float32, device=q.device) if f32_out else None
         fn = build.bind("flash_fwd_sm90.cu", "flash_attention_fwd_sm90", 6, 11, 2)
         err = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -279,9 +289,12 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
 def flash_attention_bwd_kernel(q, k, v, out, lse, dout, *, causal: bool = True,
                                window: int = 0, softcap: float = 0.0, q_block: int = 512,
                                kv_block: int = 512):
-    """Arguments as ``flash_attention_bwd_plain`` -> (dq, dk, dv). Runs the
-    three CUDA launches for CUDA tensors (out contiguous float32, dout
-    contiguous in q's dtype) and the plain version for CPU tensors."""
+    """Arguments as ``flash_attention_bwd_plain`` -> (dq, dk, dv). For
+    CUDA tensors (out contiguous float32, dout contiguous in q's dtype) it
+    runs three launches of one of two routes, chosen by dtype: bfloat16 the
+    tensor-core kernels (``flash_bwd_sm90.cu``: wgmma products, TMA loads),
+    float32 the scalar ones (``flash_attn.cu``). CPU tensors run the plain
+    version."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
                                          window=window, softcap=softcap, q_block=q_block,
@@ -295,15 +308,23 @@ def flash_attention_bwd_kernel(q, k, v, out, lse, dout, *, causal: bool = True,
                              f"{t.dtype} {tuple(t.shape)}")
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, S) or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 (B, H, S) = {(B, H, S)}")
-    delta = torch.empty_like(lse)
     dq = torch.empty_like(dout)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    fn = build.bind("flash_attn.cu", "flash_attention_bwd", 10, 11, 2)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q=q, k=k, v=v, dout=dout, out=out)
+        s_pad = -(-S // BWD_PAD) * BWD_PAD
+        scratch = torch.empty(2 * B * H * s_pad, dtype=torch.float32, device=q.device)
+        name = "flash_attention_bwd_sm90"
+        fn = build.bind("flash_bwd_sm90.cu", name, 10, 11, 2)
+    else:
+        scratch = torch.empty_like(lse)            # D
+        name = "flash_attention_bwd"
+        fn = build.bind("flash_attn.cu", name, 10, 11, 2)
     err = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              *ints, int(causal), int(window), float(softcap), 1.0 / math.sqrt(q.shape[3]),
              torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "flash_attention_bwd")
+    build.check(err, name)
     build.launch_counts["flash_attention_bwd"] += 1
     return dq, dk, dv

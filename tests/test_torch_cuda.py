@@ -258,6 +258,57 @@ def test_cuda_bf16_flash_forward_rejects_what_it_does_not_take(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("S,KV,qpk,causal,window,softcap", BF16_FWD_CASES)
+def test_cuda_bf16_flash_backward_matches_plain(card, S, KV, qpk, causal, window, softcap,
+                                                hd):
+    """The tensor-core bf16 backward (``flash_bwd_sm90.cu``) against the
+    plain version, from the plain forward's float32 output and lse and a
+    seeded dout, with q, k, v read as strided views of one fused
+    projection: dq, dk and dv each within 2e-2 times max(1, its largest
+    |plain entry|) (dk and dv sum over rows and the group's heads); a
+    second call gives the same bits (no atomics)."""
+    rng = np.random.default_rng(S + qpk + hd + 1)
+    q, k, v = _fused_qkv(rng, card, 1, S, KV * qpk, KV, hd)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    _, lse, o32 = flash_attn.flash_attention_plain(q, k, v, f32_out=True, **kw)
+    dout = torch.tensor(rng.standard_normal(q.shape).astype(np.float32),
+                        device=card).to(torch.bfloat16)
+    got = flash_attn.flash_attention_bwd_kernel(q, k, v, o32, lse, dout, **kw)
+    want = flash_attn.flash_attention_bwd_plain(q, k, v, o32, lse, dout, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        band = 2e-2 * max(1.0, w.float().abs().max().item())
+        torch.testing.assert_close(g.float(), w.float(), atol=band, rtol=0)
+    again = flash_attn.flash_attention_bwd_kernel(q, k, v, o32, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_flash_backward_rejects_what_it_does_not_take(card):
+    """A CUDA tensor the bf16 backward cannot read raises (no scalar
+    fallback): float16, head_dim 96, rows off the 16-byte grid, and an
+    output not in float32."""
+    def call(x, out_dtype=torch.float32):
+        B, S, H, _ = x.shape
+        out = torch.zeros(x.shape, device=card, dtype=out_dtype)
+        lse = torch.zeros((B, H, S), device=card)
+        dout = torch.zeros(x.shape, device=card, dtype=x.dtype)
+        return flash_attn.flash_attention_bwd_kernel(x, x, x, out, lse, dout)
+
+    with pytest.raises(TypeError):
+        call(torch.zeros((1, 64, 2, 64), device=card, dtype=torch.float16))
+    with pytest.raises(ValueError):
+        call(torch.zeros((1, 64, 2, 96), device=card, dtype=torch.bfloat16))
+    base = torch.zeros((1, 64, 2 * 64 + 4), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        call(base[..., 4:].unflatten(-1, (2, 64)))     # rows start 8 bytes in
+    with pytest.raises(ValueError):
+        call(torch.zeros((1, 64, 2, 64), device=card, dtype=torch.bfloat16),
+             out_dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
 def test_cuda_moe_input_gradient_is_the_same_from_run_to_run(card):
     """Two backward passes of the grouped and the duplex MoE layer on the
     same input give bit-equal input gradients on the card: the token ->
