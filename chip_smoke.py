@@ -9,12 +9,15 @@ Phases, each printing a line:
   2. kernel build (nvcc, all sources in parallel) and its time, each
      source's ptxas registers and spills, and the count of tensor-core
      instructions (HGMMA, HMMA) in each library's SASS (``cuobjdump``;
-     the bf16 flash forward and backward must hold HGMMA);
+     the bf16 flash forward and backward and the bf16 chunk attention must
+     hold HGMMA);
   3. each hand-written kernel against its plain PyTorch version on the card
-     at OLMoE-1B-7B shapes (plus a GQA shape for the attention kernels;
-     the ragged MoE pair also at Jamba-v0.1's widths and path c's decode
-     capacities; the dense decode attention and the SSD decode at
-     Jamba-v0.1's shapes, the SSD decode also at Mamba2-2.7B's; the flash
+     at OLMoE-1B-7B shapes (plus a GQA shape for the attention kernels,
+     and one of path a's chunk stages for the chunked prefill, whose bf16
+     cases must run its tensor-core route; the ragged MoE pair also at
+     Jamba-v0.1's widths and path c's decode capacities; the dense decode
+     attention and the SSD decode at Jamba-v0.1's shapes, the SSD decode
+     also at Mamba2-2.7B's; the flash
      forward and backward at path d's shape, Jamba-v0.1's GQA heads, a
      window with a softcap, 96 heads over 8 and a length that is not a
      tile multiple), in
@@ -33,7 +36,8 @@ Phases, each printing a line:
      it and read just after: ``ServingEngine`` serving 16 seeded requests
      on OLMoE-1B-7B at full width and depth with random weights, paged KV
      (page 16) and chunked prefill (64),
-       a. bf16 KV pages and the duplex ragged MoE (the first path),
+       a. bf16 KV pages and the duplex ragged MoE (the first path; every
+          chunked prefill call must run the tensor-core route),
        b. int8 KV pages (``kv_quant``) and the capacity-padded duplex MoE
           (``moe_ragged=False``);
      each checks that every request completes with in-vocabulary tokens,
@@ -240,11 +244,14 @@ def check_decode(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0, int8=Fals
     return out
 
 
-def check_chunk(torch, gen, dtype, *, KV, qpk, int8=False):
+def check_chunk(torch, gen, dtype, *, KV, qpk, int8=False, starts=(0, 64, 448, 0),
+                clens=(64, 64, 30, 0)):
+    """Chunked prefill; by default four sequences with a short chunk and a
+    padded row (totals == 0). The float kernel's bf16 case must run the
+    tensor-core route (``chunk_attn_sm90.cu``), float32 the scalar one."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import decode_attn as da
     hd, page, maxp, Sc = 128, 16, 64, 64
-    starts = [0, 64, 448, 0]
-    clens = [64, 64, 30, 0]           # a short chunk and a padded row
     totals = [s + c for s, c in zip(starts, clens)]
     B = len(starts)
     P = 1 + B * maxp
@@ -263,7 +270,12 @@ def check_chunk(torch, gen, dtype, *, KV, qpk, int8=False):
         args = (q, kp, vp, tot, st, bt)
         kernel, plain = (da.chunked_prefill_attention_kernel,
                          da.chunked_prefill_attention_plain)
+    sm90 = build.launch_counts["chunked_prefill_attention_sm90"]
     got = kernel(*args, qpk=qpk)
+    sm90 = build.launch_counts["chunked_prefill_attention_sm90"] - sm90
+    if sm90 != (not int8 and dtype == torch.bfloat16):
+        raise AssertionError(f"chunked prefill {dtype} int8={int8} took the wrong route "
+                             f"(tensor-core launches {sm90})")
     want = plain(*args, qpk=qpk)
     torch.cuda.synchronize()
     out = dict(err=(got.float() - want.float()).abs().max().item(),
@@ -539,11 +551,15 @@ KERNELS = [
       ("gqa qpk=4", check_decode, dict(KV=4, qpk=4)),
       ("gqa qpk=4 window=200 softcap=30", check_decode,
        dict(KV=4, qpk=4, window=200, softcap=30.0))]),
+    # bf16 runs chunk_attn_sm90.cu, float32 decode_attn.cu; the third case is
+    # one of path a's stages: one 64-token chunk after a 448-token prefix
     ("chunked_prefill_attention",
      "src/repro/kernels/decode_attn.py:503",
-     "src/repro_torch/kernels/csrc/decode_attn.cu",
+     "src/repro_torch/kernels/csrc/chunk_attn_sm90.cu",
      [("olmoe qpk=1 Sc=64", check_chunk, dict(KV=16, qpk=1)),
-      ("gqa qpk=4 Sc=64", check_chunk, dict(KV=4, qpk=4))]),
+      ("gqa qpk=4 Sc=64", check_chunk, dict(KV=4, qpk=4)),
+      ("path a B=1 start=448 Sc=64", check_chunk,
+       dict(KV=16, qpk=1, starts=(448,), clens=(64,)))]),
     ("ragged_moe_gemm",
      "src/repro/kernels/moe_gemm.py:141",
      "src/repro_torch/kernels/csrc/moe_gemm.cu",
@@ -711,6 +727,14 @@ def serve_phase(torch):
         if missing:
             raise AssertionError(f"[{label}] kernels never launched on the path: {missing}")
         launches.update({k: counts[k] for k in kernels})
+        if "chunked_prefill_attention" in kernels:
+            # bf16 pages at hd 128, page 16: every chunk call on the tensor cores
+            sm90 = counts["chunked_prefill_attention_sm90"]
+            log(f"serve [{label}]: chunked prefill launches "
+                f"{counts['chunked_prefill_attention']}, {sm90} of them on the tensor-core "
+                f"route (chunk_attn_sm90.cu)")
+            if sm90 != counts["chunked_prefill_attention"]:
+                raise AssertionError(f"[{label}] chunked prefill left the tensor-core route")
         check_against_plain(torch, cfg, params, label, flags)
         profile_stages(torch, cfg, params, label, engine_kw)
     from repro_torch.serving.kvmanager import kv_token_bytes
@@ -882,7 +906,7 @@ def profile_stages(torch, cfg, params, label, engine_kw, top: int = 12):
         eng.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    log_profile(prof, label, f"{len(eng.reports)} stages", wall, top)
+    log_profile(prof, label, f"{len(eng.reports)} stages", wall, top, also=("chunk",))
 
 
 def log_profile(prof, label, what, wall, top, also=()):
@@ -1134,7 +1158,8 @@ def compare_logits(torch, label, what, a, b):
 def tensor_core_sass(build) -> None:
     """Counts the tensor-core instructions in each built library's SASS
     (``cuobjdump -sass``): warpgroup products (HGMMA) and warp ones (HMMA).
-    The bf16 flash forward and backward must hold HGMMA."""
+    The bf16 flash forward and backward and the bf16 chunk attention must
+    hold HGMMA."""
     tool = Path(build._nvcc()).with_name("cuobjdump")
     for src in build.SOURCES:
         sass = subprocess.run([str(tool), "-sass", str(build._lib_path(src))],
@@ -1143,7 +1168,7 @@ def tensor_core_sass(build) -> None:
         hmma = len(re.findall(r"\bHMMA\.", sass))
         log(f"sass {src}: {hgmma} HGMMA and {hmma} HMMA instructions "
             f"({'tensor cores' if hgmma or hmma else 'no tensor-core instruction'})")
-        if src in ("flash_fwd_sm90.cu", "flash_bwd_sm90.cu") and not hgmma:
+        if src in ("flash_fwd_sm90.cu", "flash_bwd_sm90.cu", "chunk_attn_sm90.cu") and not hgmma:
             raise AssertionError(f"the SASS of {src} holds no HGMMA")
 
 

@@ -26,7 +26,8 @@ from typing import Dict
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("decode_attn.cu", "moe_gemm.cu", "moe_gemv.cu", "ssd_decode.cu",
-           "flash_attn.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu")
+           "flash_attn.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
+           "chunk_attn_sm90.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +37,8 @@ DTYPE_CODES = {"float32": 0, "bfloat16": 1}   # csrc/common.cuh DTYPE_*
 launch_counts: Dict[str, int] = {
     "paged_decode_attention": 0,
     "chunked_prefill_attention": 0,
+    # the bf16 tensor-core route of the one above, counted in both
+    "chunked_prefill_attention_sm90": 0,
     "ragged_moe_gemm": 0,
     "ragged_moe_gemv": 0,
     "paged_decode_attention_int8": 0,

@@ -10,7 +10,10 @@
 //                                _paged_decode_kernel)
 //   * chunked_prefill_kernel  <- src/repro/kernels/decode_attn.py:
 //                                chunked_prefill_attention_kernel (fp body
-//                                _chunked_prefill_kernel)
+//                                _chunked_prefill_kernel), in float32 and
+//                                at the shapes chunk_attn_sm90.cu does not
+//                                take; bf16 at head_dim 64 or 128 and pages
+//                                of 8-64 keys runs that tensor-core kernel
 //
 // What bounds them on the card: bytes. A decode row does 2*qpk FLOPs per K/V
 // element it reads (about qpk Op/B in bf16), far below the H100's ~295 Op/B
@@ -27,7 +30,8 @@
 // memory in float32; p is rounded to the pool dtype before PV as the TPU
 // kernel does. Blocks run one per (sequence, KV head[, row tile]), no
 // cross-block reduction, so results do not depend on scheduling order.
-// Later work: split-K over pages with a log-sum-exp merge, and wgmma tiles.
+// Later work: split-K over pages with a log-sum-exp merge, and wgmma tiles
+// (the bf16 chunked prefill has its wgmma kernel in chunk_attn_sm90.cu).
 #include "common.cuh"
 
 using port::from_f;

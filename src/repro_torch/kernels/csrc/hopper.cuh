@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the tensor-core flash kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu): mbarriers, TMA and bulk loads,
+// Hopper (sm_90a) building blocks of the tensor-core attention kernels
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, chunk_attn_sm90.cu): mbarriers,
+// TMA and bulk loads,
 // the 128-byte-swizzle wgmma descriptor, the bf16 wgmma products with
 // their fences, and the host-side encoding of TMA tensor maps.
 //
@@ -255,6 +256,28 @@ inline bool gqa_map(CUtensorMap* map, const void* base, int B, int S, int KV, in
   const cuuint32_t box[5] = {64, (cuuint32_t)qpk, 1, (cuuint32_t)bq, 1};
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map of a contiguous (N, KV, rows, hd) bf16 array: a page pool
+// (P, KV, page, hd), or chunk queries in the kernel layout (B, KV, R, hd).
+// Dims (hd, rows, KV, N) innermost first, boxes of 64 columns x `box_rows`
+// rows x 1 KV head x 1 of N (a page id or a sequence: an int32 coordinate),
+// 128-byte swizzle; rows past `rows` read as zeros. A box of 8, 16, 32 or 64
+// rows is whole 1024-byte swizzle atoms, so pages that land at consecutive
+// 1024-byte-aligned offsets make up one swizzled tile of their rows.
+inline bool head_rows_map(CUtensorMap* map, const void* base, int N, int KV, int rows, int hd,
+                          int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)rows, (cuuint64_t)KV, (cuuint64_t)N};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)rows * hd * 2,
+                                 (cuuint64_t)KV * rows * hd * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

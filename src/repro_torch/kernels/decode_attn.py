@@ -16,7 +16,11 @@ versions, in the kernel layouts.
 * ``chunked_prefill_attention_kernel`` — chunk queries (heads innermost, row
   r = position ``start + r // qpk``) against the paged prefix plus the chunk
   just written; mask ``kpos <= qpos and kpos < total``. Port of
-  ``chunked_prefill_attention_kernel`` (fp body).
+  ``chunked_prefill_attention_kernel`` (fp body). Two routes: bfloat16 at
+  head_dim 64 or 128 and pages of 8, 16, 32 or 64 runs the tensor-core
+  kernel of ``csrc/chunk_attn_sm90.cu`` (wgmma, paged K/V tiles by TMA);
+  float32, and bfloat16 at other shapes, the scalar kernel of
+  ``decode_attn.cu``.
 * ``paged_decode_attention_int8_kernel`` / ``chunked_prefill_attention_int8_
   kernel`` — the same two functions over int8 page pools with float32
   per-(token, KV head) scale pools: int8 dots with the scales folded in and
@@ -222,11 +226,20 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, lengths, block_tables, *,
     return out
 
 
+# (head_dim, page) the tensor-core route takes: wgmma over 64-column panels,
+# and pages of whole 8-row swizzle atoms that tile 64 keys
+SM90_SHAPES = {(hd, page) for hd in (64, 128) for page in (8, 16, 32, 64)}
+
+
 def chunked_prefill_attention_kernel(q, k_pages, v_pages, totals, starts,
                                      block_tables, *, qpk: int,
                                      softcap: float = 0.0):
-    """Kernel layout as ``chunked_prefill_attention_plain``; runs the CUDA
-    kernel for CUDA tensors and the plain version for CPU tensors."""
+    """Kernel layout as ``chunked_prefill_attention_plain``; runs a CUDA
+    kernel for CUDA tensors and the plain version for CPU tensors. The
+    kernel is chosen before the launch: bfloat16 with head_dim and page in
+    ``SM90_SHAPES`` runs ``chunk_attn_sm90.cu`` (counted under
+    ``chunked_prefill_attention_sm90`` as well), anything else the scalar
+    kernel of ``decode_attn.cu``."""
     if q.device.type == "cpu":
         return chunked_prefill_attention_plain(q, k_pages, v_pages, totals,
                                                starts, block_tables, qpk=qpk,
@@ -236,18 +249,32 @@ def chunked_prefill_attention_kernel(q, k_pages, v_pages, totals, starts,
     page = k_pages.shape[2]
     if R % qpk:
         raise ValueError(f"rows {R} not a multiple of qpk {qpk}")
+    sm90 = q.dtype == torch.bfloat16 and (hd, page) in SM90_SHAPES
+    if sm90 and any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("the bf16 chunk kernel reads q and the pools by TMA: their "
+                         "bases must be 16-byte aligned")
     smem = (2 * 16 * hd + 16 * page + 48) * 4 + 2 * page * hd * q.element_size()
-    if smem > 227 * 1024:
+    if not sm90 and smem > 227 * 1024:
         raise ValueError("page/head_dim too large for one block's shared memory")
     out = torch.empty_like(q)
-    fn = build.bind("decode_attn.cu", "chunked_prefill_attention", 7, 7, 2)
-    err = fn(build.DTYPE_CODES[str(q.dtype).split(".")[1]], q.data_ptr(),
-             k_pages.data_ptr(), v_pages.data_ptr(), totals.data_ptr(),
-             starts.data_ptr(), block_tables.data_ptr(), out.data_ptr(), B, KV,
-             R, qpk, hd, page, block_tables.shape[1], float(softcap),
-             1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "chunked_prefill_attention")
-    build.launch_counts["chunked_prefill_attention"] += 1
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), totals.data_ptr(),
+            starts.data_ptr(), block_tables.data_ptr(), out.data_ptr())
+    ints = (B, KV, R, qpk, hd, page, block_tables.shape[1])
+    tail = (float(softcap), 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    code = build.DTYPE_CODES[str(q.dtype).split(".")[1]]
+    if sm90:
+        name = "chunked_prefill_attention_sm90"
+        fn = build.bind("chunk_attn_sm90.cu", name, 7, 8, 2)
+        err = fn(code, *ptrs, *ints, k_pages.shape[0], *tail)
+    else:
+        name = "chunked_prefill_attention"
+        fn = build.bind("decode_attn.cu", name, 7, 7, 2)
+        err = fn(code, *ptrs, *ints, *tail)
+    build.check(err, name)
+    build.launch_counts[name] += 1
+    if sm90:
+        build.launch_counts["chunked_prefill_attention"] += 1
     return out
 
 

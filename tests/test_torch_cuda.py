@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import decode_attn, flash_attn, moe_gemm, moe_gemv, ssd_decode
+from repro_torch.kernels import build, decode_attn, flash_attn, moe_gemm, moe_gemv, ssd_decode
 from repro_torch.kernels.quant import int8_quantize
 
 torch.backends.cuda.matmul.allow_tf32 = False   # full float32 products
@@ -64,7 +64,9 @@ def test_cuda_kernels_match_plain(card, dtype, tol):
     k, v, bt = _pools(rng, list(totals))
     qc = rng.standard_normal((4, 2, 12, 16)).astype(np.float32)
     args = (t(qc).to(dtype), t(k).to(dtype), t(v).to(dtype), t(totals), t(starts), t(bt))
+    sm90 = build.launch_counts["chunked_prefill_attention_sm90"]
     got = decode_attn.chunked_prefill_attention_kernel(*args, qpk=2)
+    assert build.launch_counts["chunked_prefill_attention_sm90"] == sm90   # hd 16: scalar
     want = decode_attn.chunked_prefill_attention_plain(*args, qpk=2)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     w = {kk: t(vv).to(dtype) for kk, vv in _experts(rng, 6, d=64, f=128).items()}
@@ -196,6 +198,48 @@ def test_cuda_flash_kernels_match_plain(card, dtype, tol):
             torch.testing.assert_close(g.float(), w.float(), atol=band, rtol=0)
         again = flash_attn.flash_attention_bwd_kernel(q, k, v, o32, lse_p, dout, **kw)
         assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# (hd, page, qpk, Sc, softcap, long): each head size, page, qpk, chunk width
+# and softcap of the route, in turn; Sc 20 puts R off the 64-row tiles at
+# qpk 1 and 4; `long` puts one sequence's context past 2048 keys
+SM90_CHUNK_CASES = [(128, 16, 1, 64, 0.0, False), (128, 16, 4, 64, 30.0, False),
+                    (128, 8, 8, 20, 0.0, False), (128, 64, 1, 20, 30.0, True),
+                    (128, 32, 4, 20, 0.0, True), (64, 16, 1, 20, 0.0, False),
+                    (64, 8, 4, 64, 30.0, True), (64, 64, 8, 64, 0.0, False),
+                    (64, 32, 1, 64, 30.0, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,page,qpk,Sc,softcap,long", SM90_CHUNK_CASES)
+def test_cuda_bf16_chunked_prefill_matches_plain(card, hd, page, qpk, Sc, softcap, long):
+    """The tensor-core bf16 chunk kernel (``chunk_attn_sm90.cu``) against
+    the plain version within 2e-2: starts off the page grid, a chunk shorter
+    than Sc (padded rows), a sequence with total == 0 (exact zeros), and
+    block-table columns past the live pages on a null page 0 of large finite
+    values. The call must take the tensor-core route, and a second call give
+    the same bits; the same inputs in float32 take the scalar route (1e-4)."""
+    rng = np.random.default_rng(hd + page + qpk + Sc)
+    KV = 2
+    starts = np.asarray([0, 37, 2100 if long else 130, 0], np.int32)
+    totals = starts + np.asarray([Sc, Sc - 3, Sc, 0], np.int32)
+    maxp = -(-int(totals.max()) // page) + 2          # columns past every live page
+    k, v, bt = _pools(rng, list(totals), KV=KV, hd=hd, page=page, maxp=maxp)
+    k[0] = v[0] = 1e4                                 # the null page: never live
+    q = rng.standard_normal((len(starts), KV, Sc * qpk, hd)).astype(np.float32)
+    t = lambda a: torch.tensor(a, device=card)
+    ints = (t(totals), t(starts), t(bt))
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        args = (t(q).to(dtype), t(k).to(dtype), t(v).to(dtype), *ints)
+        sm90 = build.launch_counts["chunked_prefill_attention_sm90"]
+        got = decode_attn.chunked_prefill_attention_kernel(*args, qpk=qpk, softcap=softcap)
+        assert build.launch_counts["chunked_prefill_attention_sm90"] == sm90 + (
+            dtype == torch.bfloat16)
+        want = decode_attn.chunked_prefill_attention_plain(*args, qpk=qpk, softcap=softcap)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+        assert not got[3].any()                       # total == 0
+        again = decode_attn.chunked_prefill_attention_kernel(*args, qpk=qpk, softcap=softcap)
+        assert torch.equal(got, again)
 
 
 # (S, KV, qpk, causal, window, softcap): S 1000 and 2047 are not multiples

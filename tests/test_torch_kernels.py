@@ -117,6 +117,32 @@ def test_chunked_prefill_kernel_layout_direct():
     np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize("qpk", [1, 4])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_chunked_prefill_bf16_plain_matches_pallas(qpk, softcap):
+    """At the card's tensor-core route shapes (hd 128, page 16, Sc 64), the
+    bf16 plain version (what ``chunk_attn_sm90.cu`` is held to on the card)
+    against the Pallas kernel in bf16, interpret mode, within 2e-2 (the two
+    round p to bf16 against other running maxima): a start off the page
+    grid, a short chunk, and a sequence with total == 0."""
+    rng = np.random.default_rng(30 + qpk)
+    Sc, KV, hd, page = 64, 1, 128, 16
+    starts = np.asarray([37, 0, 0], np.int32)
+    totals = starts + np.asarray([Sc, 20, 0], np.int32)
+    k, v, bt = _pools(rng, list(totals), KV=KV, hd=hd, page=page, maxp=7)
+    q = rng.standard_normal((3, KV, Sc * qpk, hd)).astype(np.float32)
+    ints = (totals, starts, bt)
+    got = decode_attn.chunked_prefill_attention_plain(
+        *(torch.tensor(a).to(torch.bfloat16) for a in (q, k, v)),
+        *map(torch.tensor, ints), qpk=qpk, softcap=softcap)
+    want = pallas_chunk(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                        *map(jnp.asarray, ints), qpk=qpk, softcap=softcap, interpret=True)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=2e-2, rtol=2e-2)
+    assert not got[2].float().any()      # totals == 0: exact zeros
+
+
 def _experts(rng, E, d=16, f=64):
     w = {"wi_gate": rng.standard_normal((E, d, f)).astype(np.float32) * 0.1,
          "wi_up": rng.standard_normal((E, d, f)).astype(np.float32) * 0.1,
