@@ -13,8 +13,9 @@ Phases, each printing a line:
      hold HGMMA);
   3. each hand-written kernel against its plain PyTorch version on the card
      at OLMoE-1B-7B shapes (plus a GQA shape for the attention kernels,
-     and one of path a's chunk stages for the chunked prefill, whose bf16
-     cases must run its tensor-core route; the ragged MoE pair also at
+     path a's decode lengths for the paged decode, and one of path a's
+     chunk stages for the chunked prefill, whose bf16 cases must run its
+     tensor-core route; the ragged MoE pair also at
      Jamba-v0.1's widths and path c's decode capacities; the dense decode
      attention and the SSD decode at Jamba-v0.1's shapes, the SSD decode
      also at Mamba2-2.7B's; the flash
@@ -41,7 +42,8 @@ Phases, each printing a line:
        b. int8 KV pages (``kv_quant``) and the capacity-padded duplex MoE
           (``moe_ragged=False``);
      each checks that every request completes with in-vocabulary tokens,
-     that each of its kernels was launched, and that one mixed stage's
+     that each of its kernels was launched (a prints its paged decode
+     launches, all through ``paged_decode_sm90.cu``), and that one mixed stage's
      logits through the kernels agree with the plain (kernel-free) torch
      path, then profiles a short run; b also prints both paths' KV pool
      bytes. Then, with the OLMoE model freed,
@@ -185,12 +187,21 @@ def _quant_pools(kp, vp):
     return k8, ks, v8, vs
 
 
-def check_decode(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0, int8=False):
+ROW_LENS = (0, 1, 15, 16, 17, 100, 257, 511, 512, 640, 700, 800, 900, 1000, 1023, 1024)
+# path a's decode lengths: 16 prompts of 128-512 tokens plus up to 32 new ones
+PATH_A_LENS = tuple(round(144 + i * 400 / 15) for i in range(16))
+
+
+def check_decode(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0, int8=False,
+                 lens=ROW_LENS, seed=None):
+    """Paged decode; ``seed`` draws the inputs from a generator of their own,
+    so that the cases after this one draw what they drew without it."""
     from repro_torch.kernels import decode_attn as da
-    B, hd, page, maxp = 16, 128, 16, 64
+    if seed is not None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+    B, hd, page, maxp = len(lens), 128, 16, 64
     P = 1 + B * maxp
-    lens = [0, 1, 15, 16, 17, 100, 257, 511, 512, 640, 700, 800, 900, 1000,
-            1023, 1024]
     kp, vp = _pools(torch, gen, P, KV, page, hd, dtype)
     bt = _tables(torch, gen, lens, page, maxp, P)
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -546,11 +557,13 @@ KERNELS = [
     # the main path's shape) and again in float32
     ("paged_decode_attention",
      "src/repro/kernels/decode_attn.py:280",
-     "src/repro_torch/kernels/csrc/decode_attn.cu",
+     "src/repro_torch/kernels/csrc/paged_decode_sm90.cu",
      [("olmoe qpk=1", check_decode, dict(KV=16, qpk=1)),
       ("gqa qpk=4", check_decode, dict(KV=4, qpk=4)),
       ("gqa qpk=4 window=200 softcap=30", check_decode,
-       dict(KV=4, qpk=4, window=200, softcap=30.0))]),
+       dict(KV=4, qpk=4, window=200, softcap=30.0)),
+      ("path a B=16 lengths 144-544", check_decode,
+       dict(KV=16, qpk=1, lens=PATH_A_LENS, seed=1))]),
     # bf16 runs chunk_attn_sm90.cu, float32 decode_attn.cu; the third case is
     # one of path a's stages: one 64-token chunk after a 448-token prefix
     ("chunked_prefill_attention",
@@ -735,6 +748,9 @@ def serve_phase(torch):
                 f"route (chunk_attn_sm90.cu)")
             if sm90 != counts["chunked_prefill_attention"]:
                 raise AssertionError(f"[{label}] chunked prefill left the tensor-core route")
+        if "paged_decode_attention" in kernels:
+            log(f"serve [{label}]: paged decode launches {counts['paged_decode_attention']}, "
+                f"each the split and merge kernels of paged_decode_sm90.cu (its one route)")
         check_against_plain(torch, cfg, params, label, flags)
         profile_stages(torch, cfg, params, label, engine_kw)
     from repro_torch.serving.kvmanager import kv_token_bytes
@@ -906,7 +922,8 @@ def profile_stages(torch, cfg, params, label, engine_kw, top: int = 12):
         eng.run(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    log_profile(prof, label, f"{len(eng.reports)} stages", wall, top, also=("chunk",))
+    log_profile(prof, label, f"{len(eng.reports)} stages", wall, top,
+                also=("chunk", "paged_decode"))
 
 
 def log_profile(prof, label, what, wall, top, also=()):

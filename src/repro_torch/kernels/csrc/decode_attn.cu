@@ -1,19 +1,22 @@
-// Attention kernels for Hopper (sm_90a): single-token decode and chunked
-// prefill reading K/V through per-sequence block tables, and single-token
-// decode over the dense (per-slot) cache.
+// Attention kernels for Hopper (sm_90a): chunked prefill reading K/V
+// through per-sequence block tables, the int8 bodies of the paged decode and
+// chunked prefill, and single-token decode over the dense (per-slot) cache.
 //
 // Replaces (TPU / Pallas):
 //   * dense_decode_kernel     <- src/repro/kernels/decode_attn.py:
 //                                decode_attention_kernel (body _decode_kernel)
-//   * paged_decode_kernel     <- src/repro/kernels/decode_attn.py:
-//                                paged_decode_attention_kernel (fp body
-//                                _paged_decode_kernel)
 //   * chunked_prefill_kernel  <- src/repro/kernels/decode_attn.py:
 //                                chunked_prefill_attention_kernel (fp body
 //                                _chunked_prefill_kernel), in float32 and
 //                                at the shapes chunk_attn_sm90.cu does not
 //                                take; bf16 at head_dim 64 or 128 and pages
 //                                of 8-64 keys runs that tensor-core kernel
+//   * paged_decode_int8_kernel, chunked_prefill_int8_kernel
+//                             <- the int8 bodies of the same two functions
+//                                (_paged_decode_kernel_int8,
+//                                _chunked_prefill_kernel_int8)
+// The float paged decode (fp body _paged_decode_kernel) is
+// paged_decode_sm90.cu.
 //
 // What bounds them on the card: bytes. A decode row does 2*qpk FLOPs per K/V
 // element it reads (about qpk Op/B in bf16), far below the H100's ~295 Op/B
@@ -24,143 +27,33 @@
 // clamping its scalar-prefetch index map to a resident page. Here each block
 // reads `lengths` / `totals` and `block_tables` itself on the device and
 // loops only over live pages (decode: the window's first page up to
-// ceil(len/page); chunk: up to the tile's causal bound), so dead pages cost
-// neither bytes nor a host sync. Each page is read once per block. Scores
-// and the online softmax (running max m, sum l, accumulator) stay in shared
-// memory in float32; p is rounded to the pool dtype before PV as the TPU
-// kernel does. Blocks run one per (sequence, KV head[, row tile]), no
-// cross-block reduction, so results do not depend on scheduling order.
-// Later work: split-K over pages with a log-sum-exp merge, and wgmma tiles
-// (the bf16 chunked prefill has its wgmma kernel in chunk_attn_sm90.cu).
+// ceil(len/page); chunk: up to the tile's causal bound; dense decode: the
+// live keys), so dead pages cost neither bytes nor a host sync. Each page is
+// read once per block. Scores and the online softmax (running max m, sum l,
+// accumulator) stay in shared memory in float32; p is rounded to the pool
+// dtype before PV as the TPU kernel does. Blocks run one per (sequence, KV
+// head[, row tile]), no cross-block reduction, so results do not depend on
+// scheduling order. Later work: the split of the page range, the bulk-copy
+// ring and the fixed-order merge of paged_decode_sm90.cu for the dense
+// decode (PERF.md section 6).
 #include "common.cuh"
 
 using port::from_f;
 using port::NEG_INF;
 using port::round_to;
 using port::to_f;
+using port::unpack16;
+using port::warp_max;
 using port::warp_sum;
 
 namespace {
 
 constexpr int THREADS = 128;
-constexpr int MAX_HD = 256;        // 8 key elements per lane
+constexpr int MAX_HD = 256;        // the largest head_dim the kernels take
 constexpr int CHUNK_ROWS = 16;     // query rows per chunk block
 
 __device__ __forceinline__ bool decode_valid(int kpos, int length, int window) {
   return kpos < length && (window <= 0 || kpos > length - 1 - window);
-}
-
-// grid (B, KV); q (B, KV, qpk, hd); pools (P, KV, page, hd); out like q.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                    const T* __restrict__ v_pages, const int* __restrict__ lengths,
-                    const int* __restrict__ block_tables, T* __restrict__ out,
-                    int KV, int qpk, int hd, int page, int maxp, int window,
-                    float softcap, float scale) {
-  extern __shared__ float smem[];
-  const int rows = qpk * hd;
-  float* q_s = smem;                 // (qpk, hd)
-  float* acc = q_s + rows;           // (qpk, hd)
-  float* p_s = acc + rows;           // (qpk, page) scores, then probabilities
-  float* m_s = p_s + qpk * page;     // (qpk,) running max
-  float* l_s = m_s + qpk;            // (qpk,) running sum
-  float* a_s = l_s + qpk;            // (qpk,) rescale factor of this page
-
-  const int b = blockIdx.x, g = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
-  const int length = lengths[b];
-  const size_t head_off = ((size_t)b * KV + g) * rows;
-
-  for (int e = tid; e < rows; e += blockDim.x) {
-    q_s[e] = to_f(q[head_off + e]);
-    acc[e] = 0.f;
-  }
-  if (tid < qpk) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  __syncthreads();
-
-  // live pages only: from the page holding the window's first position up
-  // to the page holding position length-1
-  int first = 0;
-  if (window > 0 && length - window > 0) first = length - window;
-  // (a length past the table width attends what the table holds)
-  const int pg_lo = first / page;
-  const int pg_hi = min((length + page - 1) / page, maxp);
-
-  for (int pg = pg_lo; pg < pg_hi; ++pg) {
-    const int pid = block_tables[(size_t)b * maxp + pg];
-    const size_t base = ((size_t)pid * KV + g) * (size_t)page * hd;
-    const T* kp = k_pages + base;
-    const T* vp = v_pages + base;
-    const int k0 = pg * page;
-
-    // scores: one warp per key row, lanes across hd
-    for (int t = warp; t < page; t += nwarps) {
-      float kr[MAX_HD / 32];
-#pragma unroll
-      for (int i = 0; i < MAX_HD / 32; ++i) {
-        const int c = lane + 32 * i;
-        kr[i] = c < hd ? to_f(kp[(size_t)t * hd + c]) : 0.f;
-      }
-      const bool valid = decode_valid(k0 + t, length, window);
-      for (int h = 0; h < qpk; ++h) {
-        float part = 0.f;
-#pragma unroll
-        for (int i = 0; i < MAX_HD / 32; ++i) {
-          const int c = lane + 32 * i;
-          if (c < hd) part += q_s[h * hd + c] * kr[i];
-        }
-        part = warp_sum(part);
-        if (lane == 0) {
-          float s = part * scale;
-          if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-          p_s[h * page + t] = valid ? s : NEG_INF;
-        }
-      }
-    }
-    __syncthreads();
-
-    // online-softmax statistics, one thread per query head
-    if (tid < qpk) {
-      const int h = tid;
-      float mx = NEG_INF;
-      for (int t = 0; t < page; ++t) mx = fmaxf(mx, p_s[h * page + t]);
-      const float m_old = m_s[h];
-      const float m_new = fmaxf(m_old, mx);
-      const float alpha = expf(m_old - m_new);
-      float sum = 0.f;
-      for (int t = 0; t < page; ++t) {
-        // gated: a masked entry contributes exactly 0 even while m is NEG_INF
-        const float p = decode_valid(k0 + t, length, window)
-                            ? expf(p_s[h * page + t] - m_new) : 0.f;
-        p_s[h * page + t] = p;
-        sum += p;
-      }
-      l_s[h] = l_s[h] * alpha + sum;
-      m_s[h] = m_new;
-      a_s[h] = alpha;
-    }
-    __syncthreads();
-
-    // PV: entries past length-1 have p == 0 and are not read
-    const int nlive = min(page, length - k0);
-    for (int e = tid; e < rows; e += blockDim.x) {
-      const int h = e / hd, d = e - h * hd;
-      float a = acc[e] * a_s[h];
-      for (int t = 0; t < nlive; ++t)
-        a += round_to<T>(p_s[h * page + t]) * to_f(vp[(size_t)t * hd + d]);
-      acc[e] = a;
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < rows; e += blockDim.x) {
-    const int h = e / hd;
-    out[head_off + e] = from_f<T>(acc[e] / fmaxf(l_s[h], 1e-37f));
-  }
 }
 
 __device__ __forceinline__ bool chunk_valid(int kpos, int qpos, int total) {
@@ -267,20 +160,6 @@ chunked_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     const int r = e / hd;
     out[row_off + e] = from_f<T>(acc[e] / fmaxf(l_s[r], 1e-37f));
   }
-}
-
-template <typename T>
-int launch_decode(const void* q, const void* k, const void* v, const void* lengths,
-                  const void* bt, void* out, int B, int KV, int qpk, int hd, int page,
-                  int maxp, int window, float softcap, float scale, cudaStream_t stream) {
-  if (hd > MAX_HD) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(2 * qpk * hd + qpk * page + 3 * qpk) * sizeof(float);
-  cudaError_t err = port::allow_smem(paged_decode_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  paged_decode_kernel<T><<<dim3(B, KV), THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)lengths, (const int*)bt, (T*)out,
-      KV, qpk, hd, page, maxp, window, softcap, scale);
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -659,27 +538,6 @@ __host__ __device__ __forceinline__ int dense_kv_offset(int qpk, int hd) {
   return (2 * qpk * hd + qpk * DENSE_TILE + 3 * qpk + 3) & ~3;
 }
 
-// A 16-byte word as floats: 4 float32 or 8 bfloat16 (exact widening).
-__device__ __forceinline__ void unpack16(uint4 w, float (&o)[4]) {
-  o[0] = __uint_as_float(w.x);
-  o[1] = __uint_as_float(w.y);
-  o[2] = __uint_as_float(w.z);
-  o[3] = __uint_as_float(w.w);
-}
-__device__ __forceinline__ void unpack16(uint4 w, float (&o)[8]) {
-  const unsigned u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    o[2 * i] = __uint_as_float(u[i] << 16);
-    o[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // grid (B, KV); q (B, KV, qpk, hd) contiguous; k, v (B, Smax, KV, hd) with
 // element strides sb (sequence) and ss (position), KV heads hd apart and hd
 // contiguous; V rows 16-byte aligned (hd, sb, ss in whole 16-byte words and
@@ -847,22 +705,6 @@ int launch_dense_decode(const void* q, const void* k, const void* v, const void*
 extern "C" {
 
 // Returns a cudaError_t code (0 = launched).
-int paged_decode_attention(int dtype, const void* q, const void* k_pages,
-                           const void* v_pages, const void* lengths,
-                           const void* block_tables, void* out, int B, int KV, int qpk,
-                           int hd, int page, int maxp, int window, float softcap,
-                           float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DTYPE_F32)
-    return launch_decode<float>(q, k_pages, v_pages, lengths, block_tables, out, B, KV,
-                                qpk, hd, page, maxp, window, softcap, scale, s);
-  if (dtype == DTYPE_BF16)
-    return launch_decode<__nv_bfloat16>(q, k_pages, v_pages, lengths, block_tables, out,
-                                        B, KV, qpk, hd, page, maxp, window, softcap,
-                                        scale, s);
-  return (int)cudaErrorInvalidValue;
-}
-
 int chunked_prefill_attention(int dtype, const void* q, const void* k_pages,
                               const void* v_pages, const void* totals, const void* starts,
                               const void* block_tables, void* out, int B, int KV, int R,

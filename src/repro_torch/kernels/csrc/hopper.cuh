@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the tensor-core attention kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, chunk_attn_sm90.cu): mbarriers,
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, chunk_attn_sm90.cu) and of the
+// paged decode's bulk-copy ring (paged_decode_sm90.cu): mbarriers,
 // TMA and bulk loads,
 // the 128-byte-swizzle wgmma descriptor, the bf16 wgmma products with
 // their fences, and the host-side encoding of TMA tensor maps.

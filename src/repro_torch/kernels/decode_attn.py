@@ -1,5 +1,6 @@
-"""Attention kernels (CUDA, ``csrc/decode_attn.cu``) and their plain PyTorch
-versions, in the kernel layouts.
+"""Attention kernels (CUDA, ``csrc/decode_attn.cu``, ``csrc/paged_decode_sm90.cu``
+and ``csrc/chunk_attn_sm90.cu``) and their plain PyTorch versions, in the
+kernel layouts.
 
 * ``decode_attention_kernel`` — GQA decode on the dense cache: one query
   token per sequence, ``qpk`` query heads per KV head, online softmax over
@@ -12,7 +13,12 @@ versions, in the kernel layouts.
   sequence, ``qpk`` query heads per KV head, online softmax over the pages
   ``block_tables[b]`` names up to ``lengths[b]``; optional sliding window and
   tanh softcap. Port of ``repro/kernels/decode_attn.py::
-  paged_decode_attention_kernel`` (fp body).
+  paged_decode_attention_kernel`` (fp body), in float32 and bfloat16: the
+  kernels of ``csrc/paged_decode_sm90.cu`` split each sequence's live page
+  range into runs of ``PAGES_PER_SPLIT`` pages, one block each, and a second
+  launch merges the runs in order. ``paged_decode_attention_split_plain``
+  is that arithmetic in plain PyTorch (the CPU tests hold it against the
+  Pallas kernel); the main path never calls it.
 * ``chunked_prefill_attention_kernel`` — chunk queries (heads innermost, row
   r = position ``start + r // qpk``) against the paged prefix plus the chunk
   just written; mask ``kpos <= qpos and kpos < total``. Port of
@@ -97,6 +103,68 @@ def paged_decode_attention_plain(q, k_pages, v_pages, lengths, block_tables, *,
     if window > 0:
         valid = valid & (kpos > lens - 1 - window)
     return _attend(q, k, v, valid[:, None, None, :], softcap)
+
+
+def paged_decode_attention_split_plain(q, k_pages, v_pages, lengths, block_tables, *,
+                                       pages_per_split: int, window: int = 0,
+                                       softcap: float = 0.0):
+    """``paged_decode_attention_plain`` computed as ``paged_decode_sm90.cu``
+    computes it: each sequence's live pages [lo, hi) cut into splits of
+    ``pages_per_split`` pages; each split's float32 running max m, sum l and
+    accumulator taken a page at a time (q scaled first, p rounded to the pool
+    dtype before PV); then the live splits merged in split order,
+    out = sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-37). A
+    sequence with no live page comes back exact zeros."""
+    B, KV, qpk, hd = q.shape
+    page = k_pages.shape[2]
+    maxp = block_tables.shape[1]
+    pps = pages_per_split
+    lens = lengths.long()
+    # live pages [lo, hi): the window's first position's page up to the page
+    # of position length - 1, within the table
+    first = (lens - window).clamp_min(0) if window > 0 else torch.zeros_like(lens)
+    lo, hi = first // page, ((lens + page - 1) // page).clamp_max(maxp)
+    bt = block_tables.long()
+    rows = torch.arange(B, device=q.device)
+    t = torch.arange(page, device=q.device)
+    qs = q.float() * (1.0 / math.sqrt(hd))
+    parts = []
+    for s in range(-(-maxp // pps)):
+        m = torch.full((B, KV, qpk, 1), NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, KV, qpk, hd), device=q.device)
+        for j in range(pps):
+            pg = lo + s * pps + j
+            pid = bt[rows, pg.clamp(0, max(maxp - 1, 0))]
+            kpos = pg[:, None] * page + t[None]                       # (B, page)
+            ok = (pg < hi)[:, None] & (kpos < lens[:, None])
+            if window > 0:
+                ok &= kpos > lens[:, None] - 1 - window
+            ok = ok[:, None, None, :]
+            sc = torch.matmul(qs, k_pages[pid].float().transpose(-1, -2))
+            if softcap > 0.0:
+                sc = softcap * torch.tanh(sc / softcap)
+            sc = torch.where(ok, sc, torch.full_like(sc, NEG_INF))
+            m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new) * ok
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.matmul(p.to(v_pages.dtype).float(),
+                                             v_pages[pid].float())
+            m = m_new
+        parts.append((m, l, acc))
+    n_live = (hi - lo).clamp_min(0).add(pps - 1).div(pps, rounding_mode="floor")
+    live = [(s < n_live)[:, None, None, None] for s in range(len(parts))]
+    mx = torch.full((B, KV, qpk, 1), NEG_INF, device=q.device)
+    for on, (m, _, _) in zip(live, parts):
+        mx = torch.where(on, torch.maximum(mx, m), mx)
+    acc = torch.zeros((B, KV, qpk, hd), device=q.device)
+    l = torch.zeros((B, KV, qpk, 1), device=q.device)
+    for on, (m, ls, a) in zip(live, parts):
+        w = torch.where(on, torch.exp(m - mx), torch.zeros_like(m))
+        l = l + ls * w
+        acc = acc + a * w
+    return (acc / l.clamp_min(1e-37)).to(q.dtype)
 
 
 def chunked_prefill_attention_plain(q, k_pages, v_pages, totals, starts,
@@ -199,10 +267,17 @@ def decode_attention_kernel(q, k_cache, v_cache, lengths, *, window: int = 0,
     return out
 
 
+# pages a block of the paged decode covers (its split of a sequence's live
+# page range), and the pages of K and V it keeps in flight
+PAGES_PER_SPLIT = 8
+STAGES = 2
+
+
 def paged_decode_attention_kernel(q, k_pages, v_pages, lengths, block_tables, *,
                                   window: int = 0, softcap: float = 0.0):
-    """Kernel layout as ``paged_decode_attention_plain``; runs the CUDA
-    kernel for CUDA tensors and the plain version for CPU tensors."""
+    """Kernel layout as ``paged_decode_attention_plain``; runs the kernels of
+    ``paged_decode_sm90.cu`` (the split, then the merge) for CUDA tensors
+    and the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages, lengths,
                                             block_tables, window=window,
@@ -210,16 +285,29 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, lengths, block_tables, *,
     _check_pools(q, k_pages, v_pages, block_tables, lengths)
     B, KV, qpk, hd = q.shape
     page = k_pages.shape[2]
-    if hd > 256:
-        raise ValueError(f"head_dim {hd} > 256 is not supported by the kernel")
-    if (2 * qpk * hd + qpk * page + 3 * qpk) * 4 > 227 * 1024:
-        raise ValueError("qpk/head_dim/page too large for one block's shared memory")
+    maxp = block_tables.shape[1]
+    item = q.element_size()
+    if hd % 8 or hd > 256 or any(t.data_ptr() % 16 for t in (k_pages, v_pages)):
+        raise ValueError("the kernel brings pages in by 16-byte bulk copies: head_dim "
+                         f"must be a multiple of 8 up to 256 (got {hd}) and the pools "
+                         "16-byte aligned")
+    if qpk * hd * item > 8 * 128 * 16:
+        raise ValueError(f"qpk {qpk} x head_dim {hd} exceeds the kernel's registers "
+                         "(8 x 128 16-byte words)")
+    smem = (128 + 2 * page * hd * item
+            + 4 * (((qpk * (hd + 2 * page) + 3) & ~3) + 128 * (16 // item + 1)))
+    if smem > 227 * 1024:
+        raise ValueError("page/head_dim too large for one block's shared memory")
+    nsplit = -(-maxp // PAGES_PER_SPLIT)
+    if (2 * nsplit + 1) * qpk * 4 > 227 * 1024:
+        raise ValueError(f"{nsplit} splits of {qpk} heads exceed the merge's shared memory")
+    ws = torch.empty((B, KV, nsplit, qpk, hd + 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
-    fn = build.bind("decode_attn.cu", "paged_decode_attention", 6, 7, 2)
+    fn = build.bind("paged_decode_sm90.cu", "paged_decode_attention_sm90", 7, 9, 2)
     err = fn(build.DTYPE_CODES[str(q.dtype).split(".")[1]], q.data_ptr(),
              k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
-             block_tables.data_ptr(), out.data_ptr(), B, KV, qpk, hd, page,
-             block_tables.shape[1], int(window), float(softcap),
+             block_tables.data_ptr(), ws.data_ptr(), out.data_ptr(), B, KV, qpk, hd,
+             page, maxp, int(window), PAGES_PER_SPLIT, STAGES, float(softcap),
              1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_decode_attention")
     build.launch_counts["paged_decode_attention"] += 1

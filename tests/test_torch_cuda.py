@@ -200,6 +200,58 @@ def test_cuda_flash_kernels_match_plain(card, dtype, tol):
         assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+# (hd, page, qpk, window, softcap, long): each head size, page and qpk of the
+# paged decode in turn, a window and a softcap; `long` puts one sequence
+# past 2048 keys
+PAGED_DECODE_CASES = [(128, 16, 1, 0, 0.0, False), (128, 16, 4, 200, 30.0, True),
+                      (128, 8, 8, 0, 30.0, False), (128, 64, 12, 0, 0.0, True),
+                      (128, 32, 1, 7, 0.0, True), (64, 16, 4, 0, 0.0, False),
+                      (64, 8, 12, 200, 0.0, True), (64, 64, 1, 0, 30.0, False),
+                      (64, 32, 8, 7, 5.0, False), (16, 8, 1, 0, 0.0, False),
+                      (16, 32, 4, 7, 5.0, True), (16, 64, 12, 0, 30.0, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,page,qpk,window,softcap,long", PAGED_DECODE_CASES)
+def test_cuda_paged_decode_matches_plain(card, monkeypatch, hd, page, qpk, window, softcap,
+                                        long):
+    """The paged decode (``paged_decode_sm90.cu``: the live page range split
+    over blocks, merged in a fixed order) against the plain version, bf16
+    within 2e-2 and float32 within 1e-4: lengths on and off the page grid, a
+    sequence with length 0 (exact zeros), block-table columns past the live
+    pages on a null page 0 of large finite values; runs of 1, 3 and 32
+    pages a split beside the default, with 1-3 stages, and scores spread
+    wide enough to move a split's running max past its first page; a second
+    call gives the same bits."""
+    rng = np.random.default_rng(hd + page + qpk + window)
+    KV = 2
+    lens = [0, 1, page - 1, page, page + 1, 300, 2100 if long else 517, 1000]
+    maxp = -(-max(lens) // page) + 2                  # columns past every live page
+    k, v, bt = _pools(rng, lens, KV=KV, hd=hd, page=page, maxp=maxp)
+    k[0] = v[0] = 1e4                                 # the null page: never live
+    q = rng.standard_normal((len(lens), KV, qpk, hd)).astype(np.float32)
+    t = lambda a: torch.tensor(a, device=card)
+    ints = (t(np.asarray(lens, np.int32)), t(bt))
+    kw = dict(window=window, softcap=softcap)
+    default = (decode_attn.PAGES_PER_SPLIT, decode_attn.STAGES)
+    # (pages a split, stages, q scale): q x 12 spreads the scores over tens, so
+    # pages past a split's first move its running max too
+    runs = ((*default, 1.0), (*default, 12.0), (1, 2, 1.0), (3, 1, 12.0), (32, 3, 12.0))
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for pps, stages, q_scale in runs:
+            args = (t(q * q_scale).to(dtype), t(k).to(dtype), t(v).to(dtype), *ints)
+            want = decode_attn.paged_decode_attention_plain(*args, **kw)
+            monkeypatch.setattr(decode_attn, "PAGES_PER_SPLIT", pps)
+            monkeypatch.setattr(decode_attn, "STAGES", stages)
+            n = build.launch_counts["paged_decode_attention"]
+            got = decode_attn.paged_decode_attention_kernel(*args, **kw)
+            assert build.launch_counts["paged_decode_attention"] == n + 1
+            torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+            assert not got[0].any()                   # length 0
+            again = decode_attn.paged_decode_attention_kernel(*args, **kw)
+            assert torch.equal(got, again)
+
+
 # (hd, page, qpk, Sc, softcap, long): each head size, page, qpk, chunk width
 # and softcap of the route, in turn; Sc 20 puts R off the 64-row tiles at
 # qpk 1 and 4; `long` puts one sequence's context past 2048 keys

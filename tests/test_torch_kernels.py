@@ -69,6 +69,35 @@ def test_paged_decode_plain_matches_pallas(qpk, window, softcap):
     assert not got[~live].any()          # empty rows come back exactly zero
 
 
+@pytest.mark.parametrize("pages_per_split", [1, 2, 5])    # 5: maxp, one split
+@pytest.mark.parametrize("qpk", [1, 2])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (7, 0.0), (0, 5.0), (7, 5.0)])
+@pytest.mark.parametrize("q_scale", [1.0, 12.0])
+def test_paged_decode_split_plain_matches_pallas(pages_per_split, qpk, window, softcap,
+                                                 q_scale):
+    """The CUDA kernel's split-and-merge arithmetic
+    (``paged_decode_attention_split_plain``: per-split float32 (m, l, acc)
+    over runs of ``pages_per_split`` live pages, merged in split order)
+    against the Pallas kernel in interpret mode. Window 7 puts the first
+    live page of lengths 23 and 40 past page 0; q_scale 12 spreads the
+    scores over tens, so pages past a split's first move its running max;
+    empty rows are exact zeros."""
+    rng = np.random.default_rng(30 + qpk)
+    lens = [0, 1, 8, 9, 23, 40]
+    k, v, bt = _pools(rng, lens)
+    q = rng.standard_normal((len(lens), 2, qpk, 16)).astype(np.float32) * q_scale
+    lengths = np.asarray(lens, np.int32)
+    got = decode_attn.paged_decode_attention_split_plain(
+        torch.tensor(q), torch.tensor(k), torch.tensor(v), torch.tensor(lengths),
+        torch.tensor(bt), pages_per_split=pages_per_split, window=window,
+        softcap=softcap).numpy()
+    want = np.asarray(pallas_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                    jnp.asarray(lengths), jnp.asarray(bt),
+                                    window=window, softcap=softcap, interpret=True))
+    np.testing.assert_allclose(got, want, **TOL)
+    assert not got[lengths == 0].any()
+
+
 @pytest.mark.parametrize("qpk", [1, 2])
 @pytest.mark.parametrize("softcap", [0.0, 4.0])
 def test_chunked_prefill_plain_matches_pallas(qpk, softcap):
