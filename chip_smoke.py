@@ -10,15 +10,16 @@ Phases, each printing a line:
      source's ptxas registers and spills, and the count of tensor-core
      instructions (HGMMA, HMMA) in each library's SASS (``cuobjdump``;
      the bf16 flash forward and backward and the bf16 chunk attention must
-     hold HGMMA);
+     hold HGMMA, the bf16 cold GEMV HMMA or HGMMA);
   3. each hand-written kernel against its plain PyTorch version on the card
      at OLMoE-1B-7B shapes (plus a GQA shape for the attention kernels,
      path a's decode lengths for the paged decode, and one of path a's
      chunk stages for the chunked prefill, whose bf16 cases must run its
-     tensor-core route; the ragged MoE pair also at
+     tensor-core route, as the cold GEMVs' must; the ragged MoE pair also at
      Jamba-v0.1's widths and path c's decode capacities; the dense decode
-     attention and the SSD decode at Jamba-v0.1's shapes, the SSD decode
-     also at Mamba2-2.7B's; the flash
+     attention and the SSD decode at Jamba-v0.1's shapes, the dense decode
+     also at path c's decode lengths, the SSD decode also at Mamba2-2.7B's,
+     judged on its error over max(1, the largest |plain| entry); the flash
      forward and backward at path d's shape, Jamba-v0.1's GQA heads, a
      window with a softcap, 96 heads over 8 and a length that is not a
      tile multiple), in
@@ -42,8 +43,9 @@ Phases, each printing a line:
        b. int8 KV pages (``kv_quant``) and the capacity-padded duplex MoE
           (``moe_ragged=False``);
      each checks that every request completes with in-vocabulary tokens,
-     that each of its kernels was launched (a prints its paged decode
-     launches, all through ``paged_decode_sm90.cu``), and that one mixed stage's
+     that each of its kernels was launched, every cold GEMV launch on the
+     tensor-core route (``moe_gemv_sm90.cu``; a prints its paged decode
+     launches, all through ``decode_sm90.cu``), and that one mixed stage's
      logits through the kernels agree with the plain (kernel-free) torch
      path, then profiles a short run; b also prints both paths' KV pool
      bytes. Then, with the OLMoE model freed,
@@ -54,7 +56,8 @@ Phases, each printing a line:
           stack) with the legacy whole-prompt prefill
           (``prefill_chunk_tokens=None``) and
           the duplex ragged MoE; it checks completion, the launches of the
-          dense decode attention, SSD decode and ragged MoE kernels, one
+          dense decode attention (all through ``decode_sm90.cu``), SSD
+          decode and ragged MoE kernels, one
           decode stage through the kernels against the plain path, prints
           the dense KV and SSM state bytes and the peak memory, and
           profiles a short run. Then, with the Jamba model freed,
@@ -190,6 +193,8 @@ def _quant_pools(kp, vp):
 ROW_LENS = (0, 1, 15, 16, 17, 100, 257, 511, 512, 640, 700, 800, 900, 1000, 1023, 1024)
 # path a's decode lengths: 16 prompts of 128-512 tokens plus up to 32 new ones
 PATH_A_LENS = tuple(round(144 + i * 400 / 15) for i in range(16))
+# path c's decode lengths: the same prompts, from the first decode step on
+PATH_C_LENS = tuple(round(128 + i * 416 / 15) for i in range(16))
 
 
 def check_decode(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0, int8=False,
@@ -321,13 +326,21 @@ def check_chunk(torch, gen, dtype, *, KV, qpk, int8=False, starts=(0, 64, 448, 0
     return out
 
 
-def check_dense(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0):
+def check_dense(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0, lens=None, seed=None):
     """Decode attention over a dense (B, Smax, KV, hd) cache, read in place:
-    16 sequences, Smax 1024, seeded lengths 0-1024 (one at 0, one at 1024)."""
+    16 sequences, Smax 1024, by default seeded lengths 0-1024 (one at 0, one
+    at 1024). ``seed`` draws the inputs from a generator of their own, so
+    that the cases after this one draw what they drew without it."""
     from repro_torch.kernels import decode_attn as da
+    if seed is not None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
     B, hd, Smax = 16, 128, 1024
-    lens = torch.randint(0, Smax + 1, (B,), generator=gen, device="cuda").to(torch.int32)
-    lens[0], lens[1] = 0, Smax
+    if lens is None:
+        lens = torch.randint(0, Smax + 1, (B,), generator=gen, device="cuda").to(torch.int32)
+        lens[0], lens[1] = 0, Smax
+    else:
+        lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     k = torch.randn((B, Smax, KV, hd), generator=gen, device="cuda").to(dtype)
     v = torch.randn((B, Smax, KV, hd), generator=gen, device="cuda").to(dtype)
     q = torch.randn((B, KV, qpk, hd), generator=gen, device="cuda").to(dtype)
@@ -362,8 +375,10 @@ def check_dense(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0):
 
 def check_ssd(torch, gen, dtype, *, H, N, P):
     """The Mamba-2 decode state update for 16 sequences; the kernel updates
-    its (cloned) state in place. The error is the larger of y's and the
-    new state's."""
+    its (cloned) state in place. y and the new state are each judged on
+    their error over max(1, their largest |plain entry|) (``rel_err``; |y|
+    reaches ~220 at Mamba2-2.7B's shape, where one bf16 step is 1.0); ``err``
+    is the larger absolute error."""
     from repro_torch.kernels import ssd_decode as sd
     B = 16
     state = torch.randn((B, H, N, P), generator=gen, device="cuda")
@@ -376,10 +391,14 @@ def check_ssd(torch, gen, dtype, *, H, N, P):
     y_p, s_p = sd.ssd_decode_plain(state, x, dt, a_log, b, c, d)
     y_k, s_k = sd.ssd_decode_kernel(state.clone(), x, dt, a_log, b, c, d)
     torch.cuda.synchronize()
-    err = max((y_k.float() - y_p.float()).abs().max().item(), (s_k - s_p).abs().max().item())
+    errs = [(y_k.float() - y_p.float()).abs().max().item(), (s_k - s_p).abs().max().item()]
+    scales = [y_p.float().abs().max().item(), s_p.abs().max().item()]
     work = state.clone()
     item = x.element_size()
-    return dict(err=err, scale=y_p.float().abs().max().item(),
+    return dict(err=max(errs), rel_err=max(e / max(1.0, m) for e, m in zip(errs, scales)),
+                scale=scales[0],
+                detail=" ".join(f"{n}: err={e:.3e} max|plain|={m:.3g};"
+                                for n, e, m in zip(("y", "state"), errs, scales)),
                 ms=time_ms(lambda: sd.ssd_decode_kernel(work, x, dt, a_log, b, c, d)),
                 graph_ms=graph_ms(torch, lambda: sd.ssd_decode_kernel(work, x, dt, a_log, b,
                                                                       c, d)),
@@ -524,6 +543,7 @@ def check_moe(torch, gen, dtype, *, hot: bool, E: int = 64, d: int = 2048, f: in
         kernel, plain = moe_gemv.ragged_moe_gemv_kernel, moe_gemv.ragged_moe_gemv_plain
         if padded:
             kernel, plain = moe_gemv.moe_gemv_kernel, moe_gemv.moe_gemv_plain
+    from repro_torch.kernels import build
     base = base[:n]
     rest = torch.randint(0, C + 1, (n - len(base),), generator=gen, device="cuda").tolist()
     counts_l = [C] * n if padded else base + rest
@@ -532,7 +552,12 @@ def check_moe(torch, gen, dtype, *, hot: bool, E: int = 64, d: int = 2048, f: in
     wg, wu, wo = _experts(torch, gen, dtype, E, d, f)
     x = torch.randn((n, C, d), generator=gen, device="cuda").to(dtype)
     args = (x, wg, wu, wo, perm) if padded else (x, wg, wu, wo, perm, counts)
+    sm90 = ("moe_gemv_sm90" if padded else "ragged_moe_gemv_sm90") if not hot else None
+    before = build.launch_counts[sm90] if sm90 else 0
     got = kernel(*args)
+    if sm90 and build.launch_counts[sm90] - before != (dtype == torch.bfloat16):
+        raise AssertionError(f"cold GEMV {dtype} padded={padded} took the wrong route "
+                             f"(tensor-core launches {build.launch_counts[sm90] - before})")
     want = plain(*args)
     torch.cuda.synchronize()
     item = x.element_size()
@@ -557,7 +582,7 @@ KERNELS = [
     # the main path's shape) and again in float32
     ("paged_decode_attention",
      "src/repro/kernels/decode_attn.py:280",
-     "src/repro_torch/kernels/csrc/paged_decode_sm90.cu",
+     "src/repro_torch/kernels/csrc/decode_sm90.cu",
      [("olmoe qpk=1", check_decode, dict(KV=16, qpk=1)),
       ("gqa qpk=4", check_decode, dict(KV=4, qpk=4)),
       ("gqa qpk=4 window=200 softcap=30", check_decode,
@@ -583,9 +608,10 @@ KERNELS = [
       # path c's decode stages: k_cold 8, and k_cold 0 (every expert hot)
       ("jamba hot E=8 C=8", check_moe, dict(hot=True, n=8, C=8, **JAMBA_MOE)),
       ("jamba hot E=16 C=8", check_moe, dict(hot=True, n=16, C=8, **JAMBA_MOE))]),
+    # bf16 runs moe_gemv_sm90.cu, float32 moe_gemv.cu
     ("ragged_moe_gemv",
      "src/repro/kernels/moe_gemv.py:114",
-     "src/repro_torch/kernels/csrc/moe_gemv.cu",
+     "src/repro_torch/kernels/csrc/moe_gemv_sm90.cu",
      [("olmoe cold Ec=48 Cc=48", check_moe, dict(hot=False)),
       # path c's decode stages: k_cold 8, and k_cold 16 (every expert cold)
       ("jamba cold Ec=8 Cc=8", check_moe, dict(hot=False, n=8, C=8, **JAMBA_MOE)),
@@ -607,14 +633,16 @@ KERNELS = [
      [("olmoe hot padded E=32 C=64", check_moe, dict(hot=True, C=64, padded=True))]),
     ("moe_gemv",
      "src/repro/kernels/moe_gemv.py:57",
-     "src/repro_torch/kernels/csrc/moe_gemv.cu",
+     "src/repro_torch/kernels/csrc/moe_gemv_sm90.cu",
      [("olmoe cold padded Ec=48 Cc=48", check_moe, dict(hot=False, padded=True))]),
     ("decode_attention",
      "src/repro/kernels/decode_attn.py:127",
-     "src/repro_torch/kernels/csrc/decode_attn.cu",
+     "src/repro_torch/kernels/csrc/decode_sm90.cu",
      [("jamba KV=8 qpk=4 Smax=1024", check_dense, dict(KV=8, qpk=4)),
       ("KV=8 qpk=1 window=200 softcap=30", check_dense,
-       dict(KV=8, qpk=1, window=200, softcap=30.0))]),
+       dict(KV=8, qpk=1, window=200, softcap=30.0)),
+      ("path c B=16 KV=8 qpk=4 lengths 128-544", check_dense,
+       dict(KV=8, qpk=4, lens=PATH_C_LENS, seed=2))]),
     ("ssd_decode",
      "src/repro/kernels/ssd_decode.py:46",
      "src/repro_torch/kernels/csrc/ssd_decode.cu",
@@ -748,9 +776,10 @@ def serve_phase(torch):
                 f"route (chunk_attn_sm90.cu)")
             if sm90 != counts["chunked_prefill_attention"]:
                 raise AssertionError(f"[{label}] chunked prefill left the tensor-core route")
+        check_gemv_route(label, counts)
         if "paged_decode_attention" in kernels:
             log(f"serve [{label}]: paged decode launches {counts['paged_decode_attention']}, "
-                f"each the split and merge kernels of paged_decode_sm90.cu (its one route)")
+                f"each the split and merge kernels of decode_sm90.cu (its one route)")
         check_against_plain(torch, cfg, params, label, flags)
         profile_stages(torch, cfg, params, label, engine_kw)
     from repro_torch.serving.kvmanager import kv_token_bytes
@@ -760,6 +789,18 @@ def serve_phase(torch):
         f"ratio {na / nb:.3f} ({want:.3f} expected: 2*KV*hd*2 over 2*KV*(hd + 4) bytes "
         f"per token)")
     return launches
+
+
+def check_gemv_route(label, counts):
+    """Every cold GEMV launch of a (bf16) path ran the tensor-core kernels
+    of ``moe_gemv_sm90.cu``."""
+    for name in ("ragged_moe_gemv", "moe_gemv"):
+        if counts[name]:
+            sm90 = counts[f"{name}_sm90"]
+            log(f"serve [{label}]: {name} launches {counts[name]}, {sm90} of them on the "
+                f"tensor-core route (moe_gemv_sm90.cu)")
+            if sm90 != counts[name]:
+                raise AssertionError(f"[{label}] {name} left the tensor-core route")
 
 
 def serve_path(torch, cfg, params, label, engine_kw):
@@ -852,6 +893,9 @@ def hybrid_phase(torch):
     if missing:
         raise AssertionError(f"[{HYBRID_LABEL}] kernels never launched on the path: "
                              f"{missing}")
+    log(f"serve [{HYBRID_LABEL}]: dense decode launches {counts['decode_attention']}, each "
+        f"the split and merge kernels of decode_sm90.cu (its one route)")
+    check_gemv_route(HYBRID_LABEL, counts)
     kv_b = sum(t.numel() * t.element_size() for seg in eng.kv.cache
                for blk in seg["blocks"] if "k" in blk for t in blk.values())
     ssm_b = sum(t.numel() * t.element_size() for seg in eng.kv.cache
@@ -923,7 +967,7 @@ def profile_stages(torch, cfg, params, label, engine_kw, top: int = 12):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     log_profile(prof, label, f"{len(eng.reports)} stages", wall, top,
-                also=("chunk", "paged_decode"))
+                also=("chunk", "decode", "cold"))
 
 
 def log_profile(prof, label, what, wall, top, also=()):
@@ -1176,7 +1220,7 @@ def tensor_core_sass(build) -> None:
     """Counts the tensor-core instructions in each built library's SASS
     (``cuobjdump -sass``): warpgroup products (HGMMA) and warp ones (HMMA).
     The bf16 flash forward and backward and the bf16 chunk attention must
-    hold HGMMA."""
+    hold HGMMA, the bf16 cold GEMV HMMA or HGMMA."""
     tool = Path(build._nvcc()).with_name("cuobjdump")
     for src in build.SOURCES:
         sass = subprocess.run([str(tool), "-sass", str(build._lib_path(src))],
@@ -1187,6 +1231,8 @@ def tensor_core_sass(build) -> None:
             f"({'tensor cores' if hgmma or hmma else 'no tensor-core instruction'})")
         if src in ("flash_fwd_sm90.cu", "flash_bwd_sm90.cu", "chunk_attn_sm90.cu") and not hgmma:
             raise AssertionError(f"the SASS of {src} holds no HGMMA")
+        if src == "moe_gemv_sm90.cu" and not (hgmma or hmma):
+            raise AssertionError(f"the SASS of {src} holds no HMMA or HGMMA")
 
 
 def main(argv=None) -> int:

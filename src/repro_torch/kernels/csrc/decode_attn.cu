@@ -1,10 +1,8 @@
 // Attention kernels for Hopper (sm_90a): chunked prefill reading K/V
-// through per-sequence block tables, the int8 bodies of the paged decode and
-// chunked prefill, and single-token decode over the dense (per-slot) cache.
+// through per-sequence block tables, and the int8 bodies of the paged decode
+// and chunked prefill.
 //
 // Replaces (TPU / Pallas):
-//   * dense_decode_kernel     <- src/repro/kernels/decode_attn.py:
-//                                decode_attention_kernel (body _decode_kernel)
 //   * chunked_prefill_kernel  <- src/repro/kernels/decode_attn.py:
 //                                chunked_prefill_attention_kernel (fp body
 //                                _chunked_prefill_kernel), in float32 and
@@ -15,8 +13,8 @@
 //                             <- the int8 bodies of the same two functions
 //                                (_paged_decode_kernel_int8,
 //                                _chunked_prefill_kernel_int8)
-// The float paged decode (fp body _paged_decode_kernel) is
-// paged_decode_sm90.cu.
+// The float paged decode (fp body _paged_decode_kernel) and the dense-cache
+// decode (decode_attention_kernel) are decode_sm90.cu.
 //
 // What bounds them on the card: bytes. A decode row does 2*qpk FLOPs per K/V
 // element it reads (about qpk Op/B in bf16), far below the H100's ~295 Op/B
@@ -27,24 +25,18 @@
 // clamping its scalar-prefetch index map to a resident page. Here each block
 // reads `lengths` / `totals` and `block_tables` itself on the device and
 // loops only over live pages (decode: the window's first page up to
-// ceil(len/page); chunk: up to the tile's causal bound; dense decode: the
-// live keys), so dead pages cost neither bytes nor a host sync. Each page is
-// read once per block. Scores and the online softmax (running max m, sum l,
-// accumulator) stay in shared memory in float32; p is rounded to the pool
-// dtype before PV as the TPU kernel does. Blocks run one per (sequence, KV
-// head[, row tile]), no cross-block reduction, so results do not depend on
-// scheduling order. Later work: the split of the page range, the bulk-copy
-// ring and the fixed-order merge of paged_decode_sm90.cu for the dense
-// decode (PERF.md section 6).
+// ceil(len/page); chunk: up to the tile's causal bound), so dead pages cost
+// neither bytes nor a host sync. Each page is read once per block. Scores
+// and the online softmax (running max m, sum l, accumulator) stay in shared
+// memory in float32; p is rounded to the pool dtype before PV as the TPU
+// kernel does. Blocks run one per (sequence, KV head[, row tile]), no
+// cross-block reduction, so results do not depend on scheduling order.
 #include "common.cuh"
 
 using port::from_f;
 using port::NEG_INF;
 using port::round_to;
 using port::to_f;
-using port::unpack16;
-using port::warp_max;
-using port::warp_sum;
 
 namespace {
 
@@ -507,199 +499,6 @@ int launch_chunk_int8(const void* q, const void* k, const void* ks, const void* 
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// Dense-cache decode (the dense KV layout: one (Smax, KV, hd) row per slot).
-//
-// The TPU kernel takes the cache as (B, KV, S, hd) padded to its kv block,
-// which its wrapper builds by transposing and padding the whole cache on
-// every call. This kernel reads the model layout (B, Smax, KV, hd) in place
-// through the strides it is given, so no copy of the cache is made. Each
-// block serves the qpk query heads of one (sequence, KV head), as the TPU
-// grid's (b, g) programs do, and bounds its key loop on the device: from the
-// window's left edge (length - window, when window > 0) up to
-// min(length, Smax). That is the TPU body's dead-block skip (pl.when on
-// `needed`) done per key, with no host sync; keys outside the loop cost no
-// bytes. Per tile of DENSE_TILE keys the block stages the tile's K and V in
-// shared memory with 16-byte loads, all issued in one wave; one thread per
-// (query head, key) takes the whole dot product from shared memory (no
-// shuffles), one warp per query head takes the online-softmax step, and
-// the threads over (head, dim) accumulate PV. Scores, the softmax
-// statistics and the accumulator stay in float32, and p is rounded to the
-// cache dtype before PV, as the TPU body does. Bound by bytes: the live K/V
-// rows.
-// ---------------------------------------------------------------------------
-
-constexpr int DENSE_THREADS = 256;
-constexpr int DENSE_TILE = 64;                                   // keys per step
-constexpr int DENSE_VBATCH = 4;     // K and V words per thread in flight
-
-// floats before the K and V tiles: q, acc, p, m, l, a, rounded up to 16 bytes
-__host__ __device__ __forceinline__ int dense_kv_offset(int qpk, int hd) {
-  return (2 * qpk * hd + qpk * DENSE_TILE + 3 * qpk + 3) & ~3;
-}
-
-// grid (B, KV); q (B, KV, qpk, hd) contiguous; k, v (B, Smax, KV, hd) with
-// element strides sb (sequence) and ss (position), KV heads hd apart and hd
-// contiguous; V rows 16-byte aligned (hd, sb, ss in whole 16-byte words and
-// an aligned base); out like q.
-template <typename T>
-__global__ void __launch_bounds__(DENSE_THREADS)
-dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ lengths,
-                    T* __restrict__ out, int Smax, int KV, int qpk, int hd, int sb,
-                    int ss, int window, float softcap, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* smem = reinterpret_cast<float*>(smem_raw);
-  const int rows = qpk * hd;
-  float* q_s = smem;                         // (qpk, hd)
-  float* acc = q_s + rows;                   // (qpk, hd)
-  float* p_s = acc + rows;                   // (qpk, TILE) scores, then probabilities
-  float* m_s = p_s + qpk * DENSE_TILE;       // (qpk,) running max
-  float* l_s = m_s + qpk;                    // (qpk,) running sum
-  float* a_s = l_s + qpk;                    // (qpk,) rescale factor of this tile
-  // this tile's K (TILE, ks) with rows padded by 16 bytes, then V (TILE, hd),
-  // 16-byte aligned for the vector stores
-  const int ks = hd + 16 / (int)sizeof(T);
-  T* k_s = reinterpret_cast<T*>(smem + dense_kv_offset(qpk, hd));
-  T* v_s = k_s + (size_t)DENSE_TILE * ks;
-
-  const int b = blockIdx.x, g = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int length = lengths[b];
-  const size_t head_off = ((size_t)b * KV + g) * rows;
-  const T* kb = k + (size_t)b * sb + (size_t)g * hd;
-  const T* vb = v + (size_t)b * sb + (size_t)g * hd;
-
-  for (int e = tid; e < rows; e += blockDim.x) {
-    q_s[e] = to_f(q[head_off + e]);
-    acc[e] = 0.f;
-  }
-  if (tid < qpk) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
-  __syncthreads();
-
-  // live keys [lo, hi): kpos < length (a length past the cache attends all
-  // Smax positions it holds) and, with a window, kpos > length - 1 - window
-  const int hi = min(length, Smax);
-  const int lo = window > 0 ? max(length - window, 0) : 0;
-
-  for (int t0 = lo; t0 < hi; t0 += DENSE_TILE) {
-    const int n = min(DENSE_TILE, hi - t0);
-    // one wave of 16-byte loads: the tile's K and V rows into shared memory
-    {
-      constexpr int VEC = 16 / sizeof(T);
-      const int rowv = hd / VEC, nv = n * rowv;
-      for (int base = tid; base < nv; base += DENSE_VBATCH * DENSE_THREADS) {
-        uint4 kw[DENSE_VBATCH], vw[DENSE_VBATCH];
-#pragma unroll
-        for (int j = 0; j < DENSE_VBATCH; ++j) {
-          const int w = base + j * DENSE_THREADS;
-          if (w < nv) {
-            const int t = w / rowv, cv = w - t * rowv;
-            const size_t off = (size_t)(t0 + t) * ss + cv * VEC;
-            kw[j] = *reinterpret_cast<const uint4*>(kb + off);
-            vw[j] = *reinterpret_cast<const uint4*>(vb + off);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < DENSE_VBATCH; ++j) {
-          const int w = base + j * DENSE_THREADS;
-          if (w < nv) {
-            const int t = w / rowv, cv = w - t * rowv;
-            *reinterpret_cast<uint4*>(k_s + (size_t)t * ks + cv * VEC) = kw[j];
-            *reinterpret_cast<uint4*>(v_s + (size_t)w * VEC) = vw[j];
-          }
-        }
-      }
-    }
-    __syncthreads();
-
-    // scores: one thread per (query head, key), a whole-row dot product read
-    // from shared memory in 16-byte words (K rows padded by 16 bytes, so a
-    // quarter-warp's eight rows fall in distinct banks)
-    for (int pr = tid; pr < qpk * DENSE_TILE; pr += blockDim.x) {
-      const int h = pr / DENSE_TILE, t = pr - h * DENSE_TILE;
-      if (t >= n) continue;
-      const float* qh = q_s + h * hd;
-      const T* kt = k_s + (size_t)t * ks;
-      float dot = 0.f;
-      for (int c = 0; c < hd; c += 16 / (int)sizeof(T)) {
-        float e[16 / sizeof(T)];
-        unpack16(*reinterpret_cast<const uint4*>(kt + c), e);
-#pragma unroll
-        for (int j = 0; j < 16 / (int)sizeof(T); ++j) dot += qh[c + j] * e[j];
-      }
-      float sc = dot * scale;
-      if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
-      p_s[h * DENSE_TILE + t] = sc;
-    }
-    __syncthreads();
-
-    // online-softmax statistics over the tile's n live keys, one warp per
-    // query head, lanes across the keys
-    for (int h = warp; h < qpk; h += DENSE_THREADS / 32) {
-      float* ps = p_s + h * DENSE_TILE;
-      float mx = NEG_INF;
-      for (int t = lane; t < n; t += 32) mx = fmaxf(mx, ps[t]);
-      mx = warp_max(mx);
-      const float m_old = m_s[h];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int t = lane; t < n; t += 32) {
-        const float p = expf(ps[t] - m_new);
-        ps[t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        l_s[h] = l_s[h] * alpha + sum;
-        m_s[h] = m_new;
-        a_s[h] = alpha;
-      }
-    }
-    __syncthreads();
-
-    for (int e = tid; e < rows; e += blockDim.x) {
-      const int h = e / hd, d = e - h * hd;
-      float a = acc[e] * a_s[h];
-#pragma unroll 8
-      for (int t = 0; t < n; ++t)
-        a += round_to<T>(p_s[h * DENSE_TILE + t]) * to_f(v_s[t * hd + d]);
-      acc[e] = a;
-    }
-    __syncthreads();
-  }
-
-  // a row with no live key (length 0) has l == 0 and writes 0
-  for (int e = tid; e < rows; e += blockDim.x) {
-    const int h = e / hd;
-    out[head_off + e] = from_f<T>(acc[e] / fmaxf(l_s[h], 1e-37f));
-  }
-}
-
-inline size_t dense_smem_bytes(int qpk, int hd, size_t item) {
-  return dense_kv_offset(qpk, hd) * sizeof(float)
-         + (size_t)DENSE_TILE * (2 * hd + 16 / item) * item;
-}
-
-template <typename T>
-int launch_dense_decode(const void* q, const void* k, const void* v, const void* lengths,
-                        void* out, int B, int Smax, int KV, int qpk, int hd, int sb,
-                        int ss, int window, float softcap, float scale,
-                        cudaStream_t stream) {
-  if (hd > MAX_HD || qpk < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = dense_smem_bytes(qpk, hd, sizeof(T));
-  cudaError_t err = port::allow_smem(dense_decode_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  dense_decode_kernel<T><<<dim3(B, KV), DENSE_THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)lengths, (T*)out, Smax, KV, qpk,
-      hd, sb, ss, window, softcap, scale);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -757,23 +556,6 @@ int chunked_prefill_attention_int8(int dtype, const void* q, const void* k_pages
     return launch_chunk_int8<__nv_bfloat16>(q, k_pages, k_scales, v_pages, v_scales, totals,
                                             starts, block_tables, out, B, KV, R, qpk, hd, page,
                                             maxp, softcap, scale, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-// Dense cache: q (B, KV, qpk, hd); k, v (B, Smax, KV, hd) with element
-// strides sb, ss of their first two dimensions (the same for k and v);
-// lengths (B,) int32. Returns a cudaError_t code (0 = launched).
-int dense_decode_attention(int dtype, const void* q, const void* k, const void* v,
-                           const void* lengths, void* out, int B, int Smax, int KV, int qpk,
-                           int hd, int sb, int ss, int window, float softcap,
-                           float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == DTYPE_F32)
-    return launch_dense_decode<float>(q, k, v, lengths, out, B, Smax, KV, qpk, hd, sb, ss,
-                                      window, softcap, scale, s);
-  if (dtype == DTYPE_BF16)
-    return launch_dense_decode<__nv_bfloat16>(q, k, v, lengths, out, B, Smax, KV, qpk, hd,
-                                              sb, ss, window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the tensor-core attention kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, chunk_attn_sm90.cu) and of the
-// paged decode's bulk-copy ring (paged_decode_sm90.cu): mbarriers,
-// TMA and bulk loads,
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, chunk_attn_sm90.cu), of the
+// decode's ring of bulk copies and TMA boxes (decode_sm90.cu) and of the
+// cold-expert GEMV (moe_gemv_sm90.cu): mbarriers, TMA and bulk loads,
 // the 128-byte-swizzle wgmma descriptor, the bf16 wgmma products with
 // their fences, and the host-side encoding of TMA tensor maps.
 //
@@ -279,6 +279,40 @@ inline bool head_rows_map(CUtensorMap* map, const void* base, int N, int KV, int
   const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map of a (B, S, KV, hd) cache of `item`-byte elements with element
+// strides (sb, ss), heads hd apart: dims (hd, KV, S, B) innermost first,
+// boxes of hd columns x 1 head x `rows` positions x 1 sequence, unswizzled
+// (a box lands as `rows` rows of hd elements); rows past S read as zeros.
+inline bool cache_map(CUtensorMap* map, CUtensorMapDataType type, int item, const void* base,
+                      int B, int S, int KV, int hd, int sb, int ss, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)KV, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * item, (cuuint64_t)ss * item,
+                                 (cuuint64_t)sb * item};
+  const cuuint32_t box[4] = {(cuuint32_t)hd, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map of a row-major (rows, cols) bf16 matrix: boxes of 64 columns x
+// `box_rows` rows, 128-byte swizzle; rows past `rows` read as zeros.
+inline bool matrix_map(CUtensorMap* map, const void* base, int cols, int rows, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

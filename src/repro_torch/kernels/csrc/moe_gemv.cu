@@ -1,7 +1,10 @@
 // Ragged gather-GEMV for the cold experts of a duplex MoE layer, Hopper
-// (sm_90a): the same SwiGLU FFN as the hot path, y[e] = (silu(x[e] Wg[p]) *
-// (x[e] Wu[p])) Wo[p] with p = perm[e], for the k_cold least-loaded experts
-// whose small (Cc, d) token slabs hold a handful of live rows each.
+// (sm_90a), float32: the same SwiGLU FFN as the hot path, y[e] =
+// (silu(x[e] Wg[p]) * (x[e] Wu[p])) Wo[p] with p = perm[e], for the k_cold
+// least-loaded experts whose small (Cc, d) token slabs hold a handful of
+// live rows each. bfloat16 runs the tensor-core kernels of
+// moe_gemv_sm90.cu; float32 stays here, on the CUDA cores, because TF32
+// products would leave its 1e-4 band.
 //
 // Replaces (TPU / Pallas): src/repro/kernels/moe_gemv.py:
 //   * ragged_moe_gemv <- ragged_moe_gemv_kernel (body _ragged_moe_gemv_kernel);
@@ -26,8 +29,7 @@
 // on the device and returns before any weight load. The down-projection is
 // a sum over d_ff: phase 2 gives one block the whole d_ff range for its
 // output columns, so the reduction order is fixed and no float atomics are
-// used (greedy parity depends on it). Phase 1 rounds h = silu(gate) * up to
-// the storage dtype before Wo, as the TPU kernel does.
+// used (greedy parity depends on it).
 #include "common.cuh"
 
 using port::from_f;
@@ -182,22 +184,17 @@ int launch(const void* x, const void* wg, const void* wu, const void* wo, const 
 
 extern "C" {
 
-// x (Ec, Cc, d) cold slot buffers in rank order; wg/wu (E, d, f) and wo
-// (E, f, d) for ALL experts, 16-byte aligned; perm (Ec,) expert id of each
-// cold rank; counts (Ec,) live rows, already clamped to Cc; h (Ec, Cc, f)
-// scratch; y (Ec, Cc, d) output. d and f must be multiples of 64.
-// Returns a cudaError_t code (0 = launched).
+// x (Ec, Cc, d) float32 cold slot buffers in rank order; wg/wu (E, d, f)
+// and wo (E, f, d) for ALL experts, 16-byte aligned; perm (Ec,) expert id
+// of each cold rank; counts (Ec,) live rows, already clamped to Cc; h
+// (Ec, Cc, f) scratch; y (Ec, Cc, d) output. d and f must be multiples of
+// 64. Returns a cudaError_t code (0 = launched).
 int ragged_moe_gemv(int dtype, const void* x, const void* wg, const void* wu, const void* wo,
                     const void* perm, const void* counts, void* h, void* y, int Ec, int Cc,
                     int d, int f, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype != DTYPE_F32 || d % FS != 0 || f % FS != 0) return (int)cudaErrorInvalidValue;
   if (Ec == 0 || Cc == 0) return 0;
-  if (d % FS != 0 || f % FS != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == DTYPE_F32)
-    return launch<float>(x, wg, wu, wo, perm, counts, h, y, Ec, Cc, d, f, s);
-  if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(x, wg, wu, wo, perm, counts, h, y, Ec, Cc, d, f, s);
-  return (int)cudaErrorInvalidValue;
+  return launch<float>(x, wg, wu, wo, perm, counts, h, y, Ec, Cc, d, f, (cudaStream_t)stream);
 }
 
 // The capacity-padded variant: as ragged_moe_gemv with every one of the Cc

@@ -1,4 +1,4 @@
-"""Attention kernels (CUDA, ``csrc/decode_attn.cu``, ``csrc/paged_decode_sm90.cu``
+"""Attention kernels (CUDA, ``csrc/decode_sm90.cu``, ``csrc/decode_attn.cu``
 and ``csrc/chunk_attn_sm90.cu``) and their plain PyTorch versions, in the
 kernel layouts.
 
@@ -6,19 +6,25 @@ kernel layouts.
   token per sequence, ``qpk`` query heads per KV head, online softmax over
   the positions ``< lengths[b]`` of the sequence's (Smax, KV, hd) cache row;
   optional sliding window and tanh softcap. Port of ``repro/kernels/
-  decode_attn.py::decode_attention_kernel``. The cache stays in the model
-  layout (B, Smax, KV, hd): the kernel reads it through its strides, where
-  the reference's wrapper transposes and pads the whole cache per call.
+  decode_attn.py::decode_attention_kernel``, in float32 and bfloat16. The
+  cache stays in the model layout (B, Smax, KV, hd): the kernels of
+  ``csrc/decode_sm90.cu`` read it through a TMA tensor map over its
+  strides, where the reference's wrapper transposes and pads the whole
+  cache per call. They split each sequence's live positions into runs of
+  ``DENSE_TILES_PER_SPLIT`` tiles of ``DENSE_TILE`` keys, one block each,
+  and a second launch merges the runs in order.
+  ``decode_attention_split_plain`` is that arithmetic in plain PyTorch.
 * ``paged_decode_attention_kernel`` — GQA decode: one query token per
   sequence, ``qpk`` query heads per KV head, online softmax over the pages
   ``block_tables[b]`` names up to ``lengths[b]``; optional sliding window and
   tanh softcap. Port of ``repro/kernels/decode_attn.py::
   paged_decode_attention_kernel`` (fp body), in float32 and bfloat16: the
-  kernels of ``csrc/paged_decode_sm90.cu`` split each sequence's live page
-  range into runs of ``PAGES_PER_SPLIT`` pages, one block each, and a second
-  launch merges the runs in order. ``paged_decode_attention_split_plain``
-  is that arithmetic in plain PyTorch (the CPU tests hold it against the
-  Pallas kernel); the main path never calls it.
+  same kernels of ``csrc/decode_sm90.cu`` split each sequence's live page
+  range into runs of ``PAGES_PER_SPLIT`` pages, one block each, and merge
+  the runs in order. ``paged_decode_attention_split_plain`` is that
+  arithmetic in plain PyTorch.
+  The CPU tests hold both split versions against the Pallas kernels; the
+  main path never calls them.
 * ``chunked_prefill_attention_kernel`` — chunk queries (heads innermost, row
   r = position ``start + r // qpk``) against the paged prefix plus the chunk
   just written; mask ``kpos <= qpos and kpos < total``. Port of
@@ -60,8 +66,9 @@ def _gather_pages(pages, block_tables):
 
 
 def _attend(q, k, v, valid, softcap):
-    """Masked attention in the kernels' arithmetic: float32 scores, p
-    normalised after PV and rounded to the pool dtype before it, rows with
+    """Masked attention in the reference kernels' arithmetic: float32
+    scores, p normalised after PV and rounded to the pool dtype before it
+    (the decode kernels of ``decode_sm90.cu`` keep p in float32), rows with
     nothing valid come back 0. q (..., R, hd); k, v (..., S, hd); valid
     broadcastable to (..., R, S)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -105,43 +112,37 @@ def paged_decode_attention_plain(q, k_pages, v_pages, lengths, block_tables, *,
     return _attend(q, k, v, valid[:, None, None, :], softcap)
 
 
-def paged_decode_attention_split_plain(q, k_pages, v_pages, lengths, block_tables, *,
-                                       pages_per_split: int, window: int = 0,
-                                       softcap: float = 0.0):
-    """``paged_decode_attention_plain`` computed as ``paged_decode_sm90.cu``
-    computes it: each sequence's live pages [lo, hi) cut into splits of
-    ``pages_per_split`` pages; each split's float32 running max m, sum l and
-    accumulator taken a page at a time (q scaled first, p rounded to the pool
-    dtype before PV); then the live splits merged in split order,
+def _split_decode(q, tiles, lens, lim, ntiles, tile, tiles_per_split, window, softcap):
+    """The split kernels' arithmetic over a row of ``ntiles`` tiles of
+    ``tile`` keys: each sequence's live tiles [lo, hi) (the window's first
+    position's tile up to the tile of position lim - 1) cut into splits of
+    ``tiles_per_split`` tiles; each split's float32 running max m, sum l and
+    accumulator taken a tile at a time (q scaled first, p kept in float32
+    for PV); then the live splits merged in split order,
     out = sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-37). A
-    sequence with no live page comes back exact zeros."""
+    sequence with no live key comes back exact zeros. ``tiles(t)`` gives the
+    K and V (B, KV, tile, hd) of tile t (B,), already clamped into the row;
+    lim (B,) bounds the live keys (the length, within the row)."""
     B, KV, qpk, hd = q.shape
-    page = k_pages.shape[2]
-    maxp = block_tables.shape[1]
-    pps = pages_per_split
-    lens = lengths.long()
-    # live pages [lo, hi): the window's first position's page up to the page
-    # of position length - 1, within the table
+    tps = tiles_per_split
     first = (lens - window).clamp_min(0) if window > 0 else torch.zeros_like(lens)
-    lo, hi = first // page, ((lens + page - 1) // page).clamp_max(maxp)
-    bt = block_tables.long()
-    rows = torch.arange(B, device=q.device)
-    t = torch.arange(page, device=q.device)
+    lo, hi = first // tile, ((lens + tile - 1) // tile).clamp_max(ntiles)
+    t = torch.arange(tile, device=q.device)
     qs = q.float() * (1.0 / math.sqrt(hd))
     parts = []
-    for s in range(-(-maxp // pps)):
+    for s in range(-(-ntiles // tps)):
         m = torch.full((B, KV, qpk, 1), NEG_INF, device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros((B, KV, qpk, hd), device=q.device)
-        for j in range(pps):
-            pg = lo + s * pps + j
-            pid = bt[rows, pg.clamp(0, max(maxp - 1, 0))]
-            kpos = pg[:, None] * page + t[None]                       # (B, page)
-            ok = (pg < hi)[:, None] & (kpos < lens[:, None])
+        for j in range(tps):
+            tp = lo + s * tps + j
+            k, v = tiles(tp.clamp(0, max(ntiles - 1, 0)))
+            kpos = tp[:, None] * tile + t[None]                       # (B, tile)
+            ok = (tp < hi)[:, None] & (kpos < lim[:, None])
             if window > 0:
                 ok &= kpos > lens[:, None] - 1 - window
             ok = ok[:, None, None, :]
-            sc = torch.matmul(qs, k_pages[pid].float().transpose(-1, -2))
+            sc = torch.matmul(qs, k.float().transpose(-1, -2))
             if softcap > 0.0:
                 sc = softcap * torch.tanh(sc / softcap)
             sc = torch.where(ok, sc, torch.full_like(sc, NEG_INF))
@@ -149,11 +150,10 @@ def paged_decode_attention_split_plain(q, k_pages, v_pages, lengths, block_table
             alpha = torch.exp(m - m_new)
             p = torch.exp(sc - m_new) * ok
             l = l * alpha + p.sum(dim=-1, keepdim=True)
-            acc = acc * alpha + torch.matmul(p.to(v_pages.dtype).float(),
-                                             v_pages[pid].float())
+            acc = acc * alpha + torch.matmul(p, v.float())
             m = m_new
         parts.append((m, l, acc))
-    n_live = (hi - lo).clamp_min(0).add(pps - 1).div(pps, rounding_mode="floor")
+    n_live = (hi - lo).clamp_min(0).add(tps - 1).div(tps, rounding_mode="floor")
     live = [(s < n_live)[:, None, None, None] for s in range(len(parts))]
     mx = torch.full((B, KV, qpk, 1), NEG_INF, device=q.device)
     for on, (m, _, _) in zip(live, parts):
@@ -165,6 +165,48 @@ def paged_decode_attention_split_plain(q, k_pages, v_pages, lengths, block_table
         l = l + ls * w
         acc = acc + a * w
     return (acc / l.clamp_min(1e-37)).to(q.dtype)
+
+
+def paged_decode_attention_split_plain(q, k_pages, v_pages, lengths, block_tables, *,
+                                       pages_per_split: int, window: int = 0,
+                                       softcap: float = 0.0):
+    """``paged_decode_attention_plain`` computed as ``decode_sm90.cu``
+    computes it (``_split_decode``), a tile a page: the live pages [lo, hi)
+    run from the window's first position's page up to the page of position
+    length - 1, within the table."""
+    page = k_pages.shape[2]
+    maxp = block_tables.shape[1]
+    lens = lengths.long()
+    bt = block_tables.long()
+    rows = torch.arange(bt.shape[0], device=q.device)
+
+    def tiles(tp):
+        pid = bt[rows, tp]
+        return k_pages[pid], v_pages[pid]
+
+    return _split_decode(q, tiles, lens, lens, maxp, page, pages_per_split, window, softcap)
+
+
+def decode_attention_split_plain(q, k_cache, v_cache, lengths, *, tile: int,
+                                 tiles_per_split: int, window: int = 0,
+                                 softcap: float = 0.0):
+    """``decode_attention_plain`` computed as ``decode_sm90.cu`` computes it
+    (``_split_decode``) over the dense cache's ceil(Smax / tile) tiles of
+    ``tile`` positions: the live keys end at min(length, Smax), so a length
+    past the cache attends all Smax positions, and a last tile's positions
+    past Smax are masked."""
+    Smax = k_cache.shape[1]
+    lens = lengths.long()
+    rows = torch.arange(k_cache.shape[0], device=q.device)[:, None]
+    t = torch.arange(tile, device=q.device)[None]
+
+    def tiles(tp):
+        kpos = (tp[:, None] * tile + t).clamp_max(Smax - 1)            # (B, tile)
+        return (k_cache[rows, kpos].permute(0, 2, 1, 3),
+                v_cache[rows, kpos].permute(0, 2, 1, 3))
+
+    return _split_decode(q, tiles, lens, lens.clamp_max(Smax), -(-Smax // tile), tile,
+                         tiles_per_split, window, softcap)
 
 
 def chunked_prefill_attention_plain(q, k_pages, v_pages, totals, starts,
@@ -217,16 +259,28 @@ def _check_pools(q, k_pages, v_pages, block_tables, *ints, scales=None):
         raise ValueError("q must be contiguous")
 
 
+# pages a block of the paged decode covers (its split of a sequence's live
+# page range); positions a stage of the dense decode brings in (one TMA box
+# each of K and V) and the tiles a block covers; the stages of K and V a
+# block of either keeps in flight
+PAGES_PER_SPLIT = 8
+DENSE_TILE = 32
+DENSE_TILES_PER_SPLIT = 4
+STAGES = 2
+
+
 def decode_attention_kernel(q, k_cache, v_cache, lengths, *, window: int = 0,
                             softcap: float = 0.0):
-    """Layout as ``decode_attention_plain``; runs the CUDA kernel for CUDA
-    tensors and the plain version for CPU tensors. The caches may be views
-    (a layer of a stacked cache): each needs its last two dimensions
-    contiguous, k and v the same strides, and head_dim, the strides and the
-    base in whole 16-byte words."""
+    """Layout as ``decode_attention_plain``; runs the kernels of
+    ``decode_sm90.cu`` (the split, then the merge) for CUDA tensors and the
+    plain version for CPU tensors. The caches may be views (a layer of a
+    stacked cache): each needs its last two dimensions contiguous, k and v
+    the same strides, and the strides and the base in whole 16-byte words."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths, window=window,
                                       softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"the decode attention kernel runs on CUDA tensors, got {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"decode attention kernel takes float32/bfloat16, got {q.dtype}")
     B, KV, qpk, hd = q.shape
@@ -246,37 +300,48 @@ def decode_attention_kernel(q, k_cache, v_cache, lengths, *, window: int = 0,
     if lengths.dtype != torch.int32 or lengths.device != q.device \
             or not lengths.is_contiguous() or not q.is_contiguous():
         raise ValueError("q must be contiguous and lengths contiguous int32 on q's device")
-    if hd > 256:
-        raise ValueError(f"head_dim {hd} > 256 is not supported by the kernel")
     item = q.element_size()
-    if any(n * item % 16 for n in (hd, sb, ss)) \
+    if hd % 8 or hd > 256 or any(n * item % 16 for n in (sb, ss)) \
             or any(t.data_ptr() % 16 for t in (k_cache, v_cache)):
-        raise ValueError("the kernel reads K and V in 16-byte words: head_dim, the "
-                         "cache strides and the cache base must be whole 16-byte words")
-    smem = (2 * qpk * hd + 67 * qpk + 3) * 4 + 64 * (2 * hd + 16 // item) * item
-    if smem > 227 * 1024:
-        raise ValueError("qpk/head_dim too large for one block's shared memory")
+        raise ValueError("the kernel reads K and V by TMA: head_dim must be a multiple of 8 "
+                         f"up to 256 (got {hd}), the cache strides and base whole 16-byte "
+                         "words")
+    if DENSE_TILE * hd * item % 128 or not 1 <= DENSE_TILE <= 256:
+        raise ValueError(f"a tile of {DENSE_TILE} positions x head_dim {hd} is not whole "
+                         "128-byte rows of the ring")
+    if qpk * hd * item > 8 * 128 * 16:
+        raise ValueError(f"qpk {qpk} x head_dim {hd} exceeds the kernel's registers "
+                         "(8 x 128 16-byte words)")
+    nsplit = -(-(-(-Smax // DENSE_TILE)) // DENSE_TILES_PER_SPLIT)
+    _check_decode_smem(qpk, hd, DENSE_TILE, item, nsplit)
+    ws = torch.empty((B, KV, nsplit, qpk, hd + 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
-    fn = build.bind("decode_attn.cu", "dense_decode_attention", 5, 8, 2)
+    fn = build.bind("decode_sm90.cu", "decode_attention_sm90", 6, 11, 2)
     err = fn(build.DTYPE_CODES[str(q.dtype).split(".")[1]], q.data_ptr(),
-             k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             B, Smax, KV, qpk, hd, sb, ss, int(window), float(softcap),
-             1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "dense_decode_attention")
+             k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(), ws.data_ptr(),
+             out.data_ptr(), B, Smax, KV, qpk, hd, sb, ss, int(window), DENSE_TILE,
+             DENSE_TILES_PER_SPLIT, STAGES, float(softcap), 1.0 / math.sqrt(hd),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "decode_attention")
     build.launch_counts["decode_attention"] += 1
     return out
 
 
-# pages a block of the paged decode covers (its split of a sequence's live
-# page range), and the pages of K and V it keeps in flight
-PAGES_PER_SPLIT = 8
-STAGES = 2
+def _check_decode_smem(qpk, hd, tile, item, nsplit):
+    """Refuse what one block of ``decode_sm90.cu``'s split or merge kernel
+    cannot hold in shared memory (one stage at least)."""
+    smem = (128 + 2 * tile * hd * item
+            + 4 * (((qpk * (hd + 2 * tile) + 3) & ~3) + 128 * (16 // item + 1)))
+    if smem > 227 * 1024:
+        raise ValueError("tile/head_dim too large for one block's shared memory")
+    if (2 * nsplit + 1) * qpk * 4 > 227 * 1024:
+        raise ValueError(f"{nsplit} splits of {qpk} heads exceed the merge's shared memory")
 
 
 def paged_decode_attention_kernel(q, k_pages, v_pages, lengths, block_tables, *,
                                   window: int = 0, softcap: float = 0.0):
     """Kernel layout as ``paged_decode_attention_plain``; runs the kernels of
-    ``paged_decode_sm90.cu`` (the split, then the merge) for CUDA tensors
+    ``decode_sm90.cu`` (the split, then the merge) for CUDA tensors
     and the plain version for CPU tensors."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages, lengths,
@@ -294,16 +359,11 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, lengths, block_tables, *,
     if qpk * hd * item > 8 * 128 * 16:
         raise ValueError(f"qpk {qpk} x head_dim {hd} exceeds the kernel's registers "
                          "(8 x 128 16-byte words)")
-    smem = (128 + 2 * page * hd * item
-            + 4 * (((qpk * (hd + 2 * page) + 3) & ~3) + 128 * (16 // item + 1)))
-    if smem > 227 * 1024:
-        raise ValueError("page/head_dim too large for one block's shared memory")
     nsplit = -(-maxp // PAGES_PER_SPLIT)
-    if (2 * nsplit + 1) * qpk * 4 > 227 * 1024:
-        raise ValueError(f"{nsplit} splits of {qpk} heads exceed the merge's shared memory")
+    _check_decode_smem(qpk, hd, page, item, nsplit)
     ws = torch.empty((B, KV, nsplit, qpk, hd + 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
-    fn = build.bind("paged_decode_sm90.cu", "paged_decode_attention_sm90", 7, 9, 2)
+    fn = build.bind("decode_sm90.cu", "paged_decode_attention_sm90", 7, 9, 2)
     err = fn(build.DTYPE_CODES[str(q.dtype).split(".")[1]], q.data_ptr(),
              k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
              block_tables.data_ptr(), ws.data_ptr(), out.data_ptr(), B, KV, qpk, hd,

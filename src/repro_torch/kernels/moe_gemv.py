@@ -1,6 +1,6 @@
-"""Gather-GEMVs for cold experts (CUDA, ``csrc/moe_gemv.cu``) and their
-plain PyTorch versions: ragged (``ragged_moe_gemv_kernel``) and
-capacity-padded (``moe_gemv_kernel``).
+"""Gather-GEMVs for cold experts (CUDA, ``csrc/moe_gemv_sm90.cu`` and
+``csrc/moe_gemv.cu``) and their plain PyTorch versions: ragged
+(``ragged_moe_gemv_kernel``) and capacity-padded (``moe_gemv_kernel``).
 
 The same SwiGLU FFN as the hot path for the ``k_cold`` least-loaded experts:
 small (Cc, d) token slabs, each occupied expert's weights streamed once,
@@ -8,6 +8,12 @@ experts with ``counts == 0`` skipped, dead rows zeroed. Port of
 ``repro/kernels/moe_gemv.py::ragged_moe_gemv_kernel``. The
 capacity-padded ``moe_gemv_kernel`` (port of ``moe_gemv_kernel``) streams
 every cold expert's weights and computes all Cc slots: no counts.
+
+Two routes, chosen before the launch by dtype: bfloat16 runs the
+tensor-core kernels of ``moe_gemv_sm90.cu`` (weights by TMA, the live rows
+as the M dimension of ``mma.sync``; counted under ``ragged_moe_gemv_sm90``
+or ``moe_gemv_sm90`` as well), float32 the scalar kernels of
+``moe_gemv.cu``.
 """
 from __future__ import annotations
 
@@ -40,44 +46,56 @@ def _check_gemv_operands(x, w_gate, w_up, w_out, perm, counts=None):
         raise ValueError("cold GEMV kernel needs 16-byte aligned expert weights")
 
 
+# weight stages a block of the bf16 kernels keeps in flight (2 leaves room
+# for more blocks an SM, which was faster than deeper rings)
+STAGES = 2
+
+
+def _launch(name, x, w_gate, w_up, w_out, perm, counts=None):
+    """Both wrappers' launch: the route by dtype, h and y allocated here."""
+    Ec, Cc, d = x.shape
+    f = w_gate.shape[2]
+    h = torch.empty((Ec, Cc, f), dtype=x.dtype, device=x.device)
+    y = torch.empty_like(x)
+    ptrs = [x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_out.data_ptr(),
+            perm.data_ptr()] + ([] if counts is None else [counts.data_ptr()])
+    ptrs += [h.data_ptr(), y.data_ptr()]
+    ints = (Ec, Cc, d, f)
+    sm90 = x.dtype == torch.bfloat16
+    if sm90:
+        if any(t.data_ptr() % 16 for t in (x, h)):
+            raise ValueError("the bf16 cold GEMV reads x by TMA: its base must be "
+                             "16-byte aligned")
+        source, entry = "moe_gemv_sm90.cu", f"{name}_sm90"
+        ints = (w_gate.shape[0], *ints, STAGES)
+    else:
+        source, entry = "moe_gemv.cu", name
+    fn = build.bind(source, entry, len(ptrs), len(ints))
+    err = fn(build.DTYPE_CODES[str(x.dtype).split(".")[1]], *ptrs, *ints,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, entry)
+    build.launch_counts[name] += 1
+    if sm90:
+        build.launch_counts[entry] += 1
+    return y
+
+
 def ragged_moe_gemv_kernel(x, w_gate, w_up, w_out, perm, counts):
     """Layout as ``ragged_moe_gemv_plain`` (counts already clamped to Cc);
-    runs the CUDA kernel for CUDA tensors and the plain version for CPU
-    tensors. The kernel needs d and d_ff multiples of 64 and 16-byte aligned
-    weights (it streams them with 16-byte loads)."""
+    runs a CUDA kernel for CUDA tensors (bfloat16: ``moe_gemv_sm90.cu``,
+    float32: ``moe_gemv.cu``) and the plain version for CPU tensors. The
+    kernels need d and d_ff multiples of 64 and 16-byte aligned weights."""
     if x.device.type == "cpu":
         return ragged_moe_gemv_plain(x, w_gate, w_up, w_out, perm, counts)
     _check_gemv_operands(x, w_gate, w_up, w_out, perm, counts)
-    Ec, Cc, d = x.shape
-    f = w_gate.shape[2]
-    h = torch.empty((Ec, Cc, f), dtype=x.dtype, device=x.device)
-    y = torch.empty_like(x)
-    fn = build.bind("moe_gemv.cu", "ragged_moe_gemv", 8, 4)
-    err = fn(build.DTYPE_CODES[str(x.dtype).split(".")[1]], x.data_ptr(),
-             w_gate.data_ptr(), w_up.data_ptr(), w_out.data_ptr(),
-             perm.data_ptr(), counts.data_ptr(), h.data_ptr(), y.data_ptr(),
-             Ec, Cc, d, f, torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "ragged_moe_gemv")
-    build.launch_counts["ragged_moe_gemv"] += 1
-    return y
+    return _launch("ragged_moe_gemv", x, w_gate, w_up, w_out, perm, counts)
 
 
 def moe_gemv_kernel(x, w_gate, w_up, w_out, perm):
-    """Layout as ``moe_gemv_plain``; runs the CUDA kernel for CUDA tensors
-    and the plain version for CPU tensors. Needs d and d_ff multiples of 64
-    and 16-byte aligned weights, as the ragged kernel."""
+    """Layout as ``moe_gemv_plain``; runs a CUDA kernel for CUDA tensors
+    (the routes and shapes of the ragged kernel) and the plain version for
+    CPU tensors."""
     if x.device.type == "cpu":
         return moe_gemv_plain(x, w_gate, w_up, w_out, perm)
     _check_gemv_operands(x, w_gate, w_up, w_out, perm)
-    Ec, Cc, d = x.shape
-    f = w_gate.shape[2]
-    h = torch.empty((Ec, Cc, f), dtype=x.dtype, device=x.device)
-    y = torch.empty_like(x)
-    fn = build.bind("moe_gemv.cu", "moe_gemv", 7, 4)
-    err = fn(build.DTYPE_CODES[str(x.dtype).split(".")[1]], x.data_ptr(),
-             w_gate.data_ptr(), w_up.data_ptr(), w_out.data_ptr(),
-             perm.data_ptr(), h.data_ptr(), y.data_ptr(), Ec, Cc, d, f,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "moe_gemv")
-    build.launch_counts["moe_gemv"] += 1
-    return y
+    return _launch("moe_gemv", x, w_gate, w_up, w_out, perm)

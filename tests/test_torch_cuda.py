@@ -137,22 +137,47 @@ def test_cuda_int8_and_padded_kernels_match_plain(card, dtype, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-def test_cuda_dense_decode_and_ssd_kernels_match_plain(card, dtype, tol):
-    """The dense-cache decode attention kernel (qpk 1 and 4, a window and a
-    softcap, lengths 0 to past Smax, a layer view of a stacked cache) and the
-    SSD decode kernel (headdim 16 and 64; its state updated in place)
-    against their plain versions on the card."""
+def test_cuda_dense_decode_and_ssd_kernels_match_plain(card, monkeypatch, dtype, tol):
+    """The dense-cache decode attention kernels (``decode_sm90.cu``: qpk 1
+    and 4, a window and a softcap, lengths 0 to past Smax, a layer view of a
+    stacked cache; then Jamba's qpk 4 at hd 128 and Smax 1024 with lengths
+    on and either side of a split boundary, at the default split and at 1
+    and 3 tiles a split of 8 and 32 positions with 1-3 stages) and the SSD
+    decode kernel (headdim 16 and 64; its state updated in place) against
+    their plain versions on the card; a second decode call gives the same
+    bits, and a length-0 row exact zeros."""
     rng = np.random.default_rng(2)
     t = lambda a: torch.tensor(a, device=card)
     B, KV, hd, Smax = 6, 2, 32, 80
     lens = t(np.asarray([0, 1, 17, 64, 80, 95], np.int32))
     stacked = t(rng.standard_normal((2, 2, B, Smax, KV, hd)).astype(np.float32)).to(dtype)
     k, v = stacked[0, 1], stacked[1, 1]          # layer views, as the model passes them
-    for qpk, kw in ((1, dict()), (4, dict()), (4, dict(window=20, softcap=5.0))):
-        q = t(rng.standard_normal((B, KV, qpk, hd)).astype(np.float32)).to(dtype)
+
+    def check(q, k, v, lens, **kw):
+        n = build.launch_counts["decode_attention"]
         got = decode_attn.decode_attention_kernel(q, k, v, lens, **kw)
+        assert build.launch_counts["decode_attention"] == n + 1
         want = decode_attn.decode_attention_plain(q, k, v, lens, **kw)
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+        assert not got[0].any()                   # length 0
+        assert torch.equal(got, decode_attn.decode_attention_kernel(q, k, v, lens, **kw))
+
+    for qpk, kw in ((1, dict()), (4, dict()), (4, dict(window=20, softcap=5.0))):
+        q = t(rng.standard_normal((B, KV, qpk, hd)).astype(np.float32)).to(dtype)
+        check(q, k, v, lens, **kw)
+    B, KV, hd, Smax = 8, 8, 128, 1024
+    split = decode_attn.DENSE_TILE * decode_attn.DENSE_TILES_PER_SPLIT
+    lens = t(np.asarray([0, 1, split - 1, split, split + 1, 544, Smax, Smax + 6], np.int32))
+    k, v = (t(rng.standard_normal((B, Smax, KV, hd)).astype(np.float32)).to(dtype)
+            for _ in range(2))
+    q = t(rng.standard_normal((B, KV, 4, hd)).astype(np.float32) * 4).to(dtype)
+    for tile, tps, stages in ((decode_attn.DENSE_TILE, decode_attn.DENSE_TILES_PER_SPLIT,
+                               decode_attn.STAGES), (8, 1, 1), (32, 3, 3)):
+        monkeypatch.setattr(decode_attn, "DENSE_TILE", tile)
+        monkeypatch.setattr(decode_attn, "DENSE_TILES_PER_SPLIT", tps)
+        monkeypatch.setattr(decode_attn, "STAGES", stages)
+        for kw in (dict(), dict(window=200, softcap=30.0)):
+            check(q, k, v, lens, **kw)
     for (Bs, H, N, P) in ((2, 8, 16, 16), (3, 12, 16, 64)):
         state = t(rng.standard_normal((Bs, H, N, P)).astype(np.float32))
         x = t(rng.standard_normal((Bs, H, P)).astype(np.float32)).to(dtype)
@@ -215,7 +240,7 @@ PAGED_DECODE_CASES = [(128, 16, 1, 0, 0.0, False), (128, 16, 4, 200, 30.0, True)
 @pytest.mark.parametrize("hd,page,qpk,window,softcap,long", PAGED_DECODE_CASES)
 def test_cuda_paged_decode_matches_plain(card, monkeypatch, hd, page, qpk, window, softcap,
                                         long):
-    """The paged decode (``paged_decode_sm90.cu``: the live page range split
+    """The paged decode (``decode_sm90.cu``: the live page range split
     over blocks, merged in a fixed order) against the plain version, bf16
     within 2e-2 and float32 within 1e-4: lengths on and off the page grid, a
     sequence with length 0 (exact zeros), block-table columns past the live
@@ -402,6 +427,48 @@ def test_cuda_bf16_flash_backward_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError):
         call(torch.zeros((1, 64, 2, 64), device=card, dtype=torch.bfloat16),
              out_dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,f,Cc", [(2048, 1024, 72), (4096, 14336, 24)])
+def test_cuda_moe_gemv_matches_plain(card, d, f, Cc):
+    """The bf16 cold GEMVs (``moe_gemv_sm90.cu``: weights by TMA, the live
+    rows on the tensor cores), ragged and capacity-padded, against their
+    plain versions within 2e-2 at OLMoE's widths (Cc 72: a second pass of
+    64 rows) and Jamba's: counts 0, 1, 15, 16, 17 and Cc, with empty experts
+    between live ones and perm out of order. Each call must take the
+    tensor-core route, dead rows come back exact zeros, and a second call
+    gives the same bits; float32 at OLMoE's widths takes the scalar route
+    (1e-4)."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(d + f)
+    E = 10
+    counts = [0, 1, 0, 15, 16, 0, 17, Cc]
+    n = len(counts)
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen, device=card) / shape[-2] ** 0.5
+
+    wg, wu, wo = w(E, d, f), w(E, d, f), w(E, f, d)
+    x = torch.randn((n, Cc, d), generator=gen, device=card)
+    perm = torch.randperm(E, generator=gen, device=card)[:n].to(torch.int32)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=card)
+    dtypes = ((torch.bfloat16, 2e-2),) + (((torch.float32, 1e-4),) if d == 2048 else ())
+    for dtype, tol in dtypes:
+        args = [t.to(dtype) for t in (x, wg, wu, wo)] + [perm]
+        for kern, plain, extra, name in (
+                (moe_gemv.ragged_moe_gemv_kernel, moe_gemv.ragged_moe_gemv_plain, [cnt],
+                 "ragged_moe_gemv_sm90"),
+                (moe_gemv.moe_gemv_kernel, moe_gemv.moe_gemv_plain, [], "moe_gemv_sm90")):
+            n_sm90 = build.launch_counts[name]
+            got = kern(*args, *extra)
+            assert build.launch_counts[name] == n_sm90 + (dtype == torch.bfloat16)
+            want = plain(*args, *extra)
+            torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+            if extra:
+                for e, c in enumerate(counts):
+                    assert not got[e, c:].any()
+            assert torch.equal(got, kern(*args, *extra))
 
 
 @pytest.mark.cuda

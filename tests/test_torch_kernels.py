@@ -11,6 +11,7 @@ import torch
 from repro.kernels import ref
 from repro.kernels.decode_attn import (chunked_prefill_attention_kernel as
                                        pallas_chunk,
+                                       decode_attention_kernel as pallas_dense,
                                        paged_decode_attention_kernel as
                                        pallas_decode)
 from repro.kernels import ops as jops
@@ -96,6 +97,45 @@ def test_paged_decode_split_plain_matches_pallas(pages_per_split, qpk, window, s
                                     window=window, softcap=softcap, interpret=True))
     np.testing.assert_allclose(got, want, **TOL)
     assert not got[lengths == 0].any()
+
+
+@pytest.mark.parametrize("tile,tiles_per_split", [(1, 1), (1, 3), (4, 2)])  # 1, 3, 8 keys
+@pytest.mark.parametrize("qpk", [1, 4])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (9, 0.0), (0, 5.0), (9, 5.0)])
+@pytest.mark.parametrize("q_scale", [1.0, 12.0])
+def test_dense_decode_split_plain_matches_pallas(tile, tiles_per_split, qpk, window, softcap,
+                                                 q_scale):
+    """The dense decode kernel's split-and-merge arithmetic
+    (``decode_attention_split_plain``: per-split float32 (m, l, acc) over
+    runs of ``tiles_per_split`` tiles of ``tile`` positions, merged in split
+    order) against the Pallas ``decode_attention_kernel`` in interpret mode
+    and its ``ref.py`` oracle: Smax 40 (not a multiple of a 3-key split, so
+    a last split is short), lengths 0, 1, a split boundary and either side,
+    Smax and past Smax; window 9 puts the first live key of the longer rows
+    past the first split; q_scale 12 spreads the scores over tens, so tiles
+    past a split's first move its running max; empty rows are exact zeros."""
+    rng = np.random.default_rng(40 + qpk + tile)
+    KV, hd, Smax = 2, 16, 40
+    kps = tile * tiles_per_split
+    lens = np.asarray([0, 1, 2 * kps - 1, 2 * kps, 2 * kps + 1, Smax, Smax + 5], np.int32)
+    B = len(lens)
+    q = rng.standard_normal((B, KV, qpk, hd)).astype(np.float32) * q_scale
+    k = rng.standard_normal((B, Smax, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Smax, KV, hd)).astype(np.float32)
+    got = decode_attn.decode_attention_split_plain(
+        torch.tensor(q), torch.tensor(k), torch.tensor(v), torch.tensor(lens), tile=tile,
+        tiles_per_split=tiles_per_split, window=window, softcap=softcap).numpy()
+    kj, vj = (jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (k, v))   # (B, KV, Smax, hd)
+    want = np.asarray(pallas_dense(jnp.asarray(q), kj, vj, jnp.asarray(lens), window=window,
+                                   softcap=softcap, kv_block=8, interpret=True))
+    np.testing.assert_allclose(got, want, **TOL)
+    oracle = np.asarray(ref.decode_attention_ref(jnp.asarray(q), kj, vj, jnp.asarray(lens),
+                                                 window=window, softcap=softcap))
+    kpos = np.arange(Smax)[None]
+    live = ((kpos < lens[:, None]) & ((kpos > lens[:, None] - 1 - window) if window
+                                      else True)).any(axis=1)
+    np.testing.assert_allclose(got[live], oracle[live], **TOL)   # the oracle softmaxes
+    assert not got[~live].any()                                  # empty rows uniformly
 
 
 @pytest.mark.parametrize("qpk", [1, 2])
@@ -229,10 +269,16 @@ def test_wrappers_do_not_fall_back_off_cpu():
         decode_attn.paged_decode_attention_kernel(q, k, k, one, bt)
     with pytest.raises(ValueError, match="CUDA"):
         decode_attn.chunked_prefill_attention_kernel(q, k, k, one, one, bt, qpk=1)
+    cache = torch.zeros((1, 8, 1, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attn.decode_attention_kernel(q, cache, cache, one)
     x = torch.zeros((1, 2, 16), device="meta")
     w = torch.zeros((1, 16, 64), device="meta")
     wo = torch.zeros((1, 64, 16), device="meta")
     for fn in (moe_gemm.ragged_moe_gemm_kernel, moe_gemv.ragged_moe_gemv_kernel):
         with pytest.raises(ValueError, match="CUDA"):
             fn(x, w, w, wo, one, one)
+    for fn in (moe_gemm.moe_gemm_kernel, moe_gemv.moe_gemv_kernel):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(x, w, w, wo, one)
     assert all(v == 0 for v in build.launch_counts.values())
