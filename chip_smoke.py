@@ -10,16 +10,19 @@ Phases, each printing a line:
      source's ptxas registers and spills, and the count of tensor-core
      instructions (HGMMA, HMMA) in each library's SASS (``cuobjdump``;
      the bf16 flash forward and backward and the bf16 chunk attention must
-     hold HGMMA, the bf16 cold GEMV HMMA or HGMMA);
+     hold HGMMA, the bf16 hot GEMM and cold GEMV HMMA or HGMMA);
   3. each hand-written kernel against its plain PyTorch version on the card
      at OLMoE-1B-7B shapes (plus a GQA shape for the attention kernels,
      path a's decode lengths for the paged decode, and one of path a's
      chunk stages for the chunked prefill, whose bf16 cases must run its
-     tensor-core route, as the cold GEMVs' must; the ragged MoE pair also at
-     Jamba-v0.1's widths and path c's decode capacities; the dense decode
-     attention and the SSD decode at Jamba-v0.1's shapes, the dense decode
-     also at path c's decode lengths, the SSD decode also at Mamba2-2.7B's,
-     judged on its error over max(1, the largest |plain| entry); the flash
+     tensor-core route, as the hot GEMMs' and the cold GEMVs' must; the
+     ragged hot GEMM also at C 136, a second 128-row pass; the ragged MoE
+     pair also at Jamba-v0.1's widths and path c's decode capacities, each
+     MoE case judged on its error over max(1, the largest |plain| entry);
+     the dense decode attention and the SSD decode at Jamba-v0.1's shapes,
+     the dense decode also at path c's decode lengths, the SSD decode also
+     at Mamba2-2.7B's, judged on its error over max(1, the largest |plain|
+     entry); the flash
      forward and backward at path d's shape, Jamba-v0.1's GQA heads, a
      window with a softcap, 96 heads over 8 and a length that is not a
      tile multiple), in
@@ -43,8 +46,9 @@ Phases, each printing a line:
        b. int8 KV pages (``kv_quant``) and the capacity-padded duplex MoE
           (``moe_ragged=False``);
      each checks that every request completes with in-vocabulary tokens,
-     that each of its kernels was launched, every cold GEMV launch on the
-     tensor-core route (``moe_gemv_sm90.cu``; a prints its paged decode
+     that each of its kernels was launched, every hot GEMM and cold GEMV
+     launch on the tensor-core route (``moe_gemm_sm90.cu``,
+     ``moe_gemv_sm90.cu``; a prints its paged decode
      launches, all through ``decode_sm90.cu``), and that one mixed stage's
      logits through the kernels agree with the plain (kernel-free) torch
      path, then profiles a short run; b also prints both paths' KV pool
@@ -57,8 +61,13 @@ Phases, each printing a line:
           (``prefill_chunk_tokens=None``) and
           the duplex ragged MoE; it checks completion, the launches of the
           dense decode attention (all through ``decode_sm90.cu``), SSD
-          decode and ragged MoE kernels, one
-          decode stage through the kernels against the plain path, prints
+          decode and ragged MoE kernels (every hot GEMM and cold GEMV
+          launch on the tensor-core route), a decode stage of three live
+          rows and three of seven live rows (seeds 1-3) through the kernels
+          against the plain path, the plain path taking the kernel path's
+          expert choices (each row's top-2 logit gap printed beside its
+          difference, and any MoE layer where the plain router would choose
+          otherwise, with its margin: a near-tie shows as one), prints
           the dense KV and SSM state bytes and the peak memory, and
           profiles a short run. Then, with the Jamba model freed,
        d. training: OLMoE-1B-7B at full width, depth cut to 8 of its 16
@@ -81,6 +90,7 @@ printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -528,11 +538,16 @@ def check_moe(torch, gen, dtype, *, hot: bool, E: int = 64, d: int = 2048, f: in
     the ragged GEMM, by default E - k_cold = 32 hot experts; cold: the
     ragged GEMV, by default 48 cold experts with capacity 48 (a 272-token
     OLMoE stage at k_cold 48). ``padded``: the capacity-padded kernels,
-    every slot live and computed."""
-    from repro_torch.kernels import moe_gemm, moe_gemv
+    every slot live and computed. A bf16 call must run the tensor-core
+    route (``moe_gemm_sm90.cu``, ``moe_gemv_sm90.cu``), a float32 one the
+    scalar kernel. Judged on the error over max(1, the largest |plain|
+    entry) (``rel_err``: one bf16 step at |y| >= 4 is 3.1e-2); ``err`` is
+    the absolute error."""
+    from repro_torch.kernels import build, moe_gemm, moe_gemv
     if hot:
         n = n or E - 32
-        # at C=128 (c_block 64) C//2 and C//2 + 1 are c_block and c_block + 1
+        # at C=128 C//2 and C//2 + 1 are 64 and 65, either side of a 64-row
+        # tile; at C=136 C - 1 and C are in the bf16 kernel's second pass
         base = [0, 1, 2, 3, C // 2, C // 2 + 1, C - 1, C]
         kernel, plain = moe_gemm.ragged_moe_gemm_kernel, moe_gemm.ragged_moe_gemm_plain
         if padded:
@@ -543,7 +558,6 @@ def check_moe(torch, gen, dtype, *, hot: bool, E: int = 64, d: int = 2048, f: in
         kernel, plain = moe_gemv.ragged_moe_gemv_kernel, moe_gemv.ragged_moe_gemv_plain
         if padded:
             kernel, plain = moe_gemv.moe_gemv_kernel, moe_gemv.moe_gemv_plain
-    from repro_torch.kernels import build
     base = base[:n]
     rest = torch.randint(0, C + 1, (n - len(base),), generator=gen, device="cuda").tolist()
     counts_l = [C] * n if padded else base + rest
@@ -552,18 +566,20 @@ def check_moe(torch, gen, dtype, *, hot: bool, E: int = 64, d: int = 2048, f: in
     wg, wu, wo = _experts(torch, gen, dtype, E, d, f)
     x = torch.randn((n, C, d), generator=gen, device="cuda").to(dtype)
     args = (x, wg, wu, wo, perm) if padded else (x, wg, wu, wo, perm, counts)
-    sm90 = ("moe_gemv_sm90" if padded else "ragged_moe_gemv_sm90") if not hot else None
-    before = build.launch_counts[sm90] if sm90 else 0
+    sm90 = f"{'' if padded else 'ragged_'}moe_{'gemm' if hot else 'gemv'}_sm90"
+    before = build.launch_counts[sm90]
     got = kernel(*args)
-    if sm90 and build.launch_counts[sm90] - before != (dtype == torch.bfloat16):
-        raise AssertionError(f"cold GEMV {dtype} padded={padded} took the wrong route "
+    if build.launch_counts[sm90] - before != (dtype == torch.bfloat16):
+        raise AssertionError(f"{sm90[:-5]} {dtype} took the wrong route "
                              f"(tensor-core launches {build.launch_counts[sm90] - before})")
     want = plain(*args)
     torch.cuda.synchronize()
     item = x.element_size()
     live_experts = sum(1 for c in counts_l if c > 0)
-    return dict(err=(got.float() - want.float()).abs().max().item(),
-                scale=want.float().abs().max().item(),
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    return dict(err=err, rel_err=err / max(1.0, scale), scale=scale,
+                detail=f"y: err={err:.3e} max|plain|={scale:.3g};",
                 ms=time_ms(lambda: kernel(*args)),
                 graph_ms=graph_ms(torch, lambda: kernel(*args)),
                 plain_ms=time_ms(lambda: plain(*args), iters=5), lib_ms=None,
@@ -598,13 +614,16 @@ KERNELS = [
       ("gqa qpk=4 Sc=64", check_chunk, dict(KV=4, qpk=4)),
       ("path a B=1 start=448 Sc=64", check_chunk,
        dict(KV=16, qpk=1, starts=(448,), clens=(64,)))]),
+    # bf16 runs moe_gemm_sm90.cu, float32 moe_gemm.cu
     ("ragged_moe_gemm",
      "src/repro/kernels/moe_gemm.py:141",
-     "src/repro_torch/kernels/csrc/moe_gemm.cu",
+     "src/repro_torch/kernels/csrc/moe_gemm_sm90.cu",
      # C=64: the hot capacity of a 272-token stage (16 decode rows + 4 chunks
-     # of 64); C=128 puts counts at c_block 64 and c_block + 1
+     # of 64); C=128 puts counts at 64 and 65; C=136 takes the bf16 kernel's
+     # second 128-row pass
      [("olmoe hot E=32 C=64", check_moe, dict(hot=True, C=64)),
       ("olmoe hot E=32 C=128", check_moe, dict(hot=True, C=128)),
+      ("olmoe hot E=32 C=136", check_moe, dict(hot=True, C=136)),
       # path c's decode stages: k_cold 8, and k_cold 0 (every expert hot)
       ("jamba hot E=8 C=8", check_moe, dict(hot=True, n=8, C=8, **JAMBA_MOE)),
       ("jamba hot E=16 C=8", check_moe, dict(hot=True, n=16, C=8, **JAMBA_MOE))]),
@@ -629,7 +648,7 @@ KERNELS = [
       ("gqa qpk=4 Sc=64 int8", check_chunk, dict(KV=4, qpk=4, int8=True))]),
     ("moe_gemm",
      "src/repro/kernels/moe_gemm.py:65",
-     "src/repro_torch/kernels/csrc/moe_gemm.cu",
+     "src/repro_torch/kernels/csrc/moe_gemm_sm90.cu",
      [("olmoe hot padded E=32 C=64", check_moe, dict(hot=True, C=64, padded=True))]),
     ("moe_gemv",
      "src/repro/kernels/moe_gemv.py:57",
@@ -776,7 +795,7 @@ def serve_phase(torch):
                 f"route (chunk_attn_sm90.cu)")
             if sm90 != counts["chunked_prefill_attention"]:
                 raise AssertionError(f"[{label}] chunked prefill left the tensor-core route")
-        check_gemv_route(label, counts)
+        check_expert_routes(label, counts)
         if "paged_decode_attention" in kernels:
             log(f"serve [{label}]: paged decode launches {counts['paged_decode_attention']}, "
                 f"each the split and merge kernels of decode_sm90.cu (its one route)")
@@ -791,14 +810,14 @@ def serve_phase(torch):
     return launches
 
 
-def check_gemv_route(label, counts):
-    """Every cold GEMV launch of a (bf16) path ran the tensor-core kernels
-    of ``moe_gemv_sm90.cu``."""
-    for name in ("ragged_moe_gemv", "moe_gemv"):
+def check_expert_routes(label, counts):
+    """Every hot GEMM and cold GEMV launch of a (bf16) path ran the
+    tensor-core kernels of ``moe_gemm_sm90.cu`` and ``moe_gemv_sm90.cu``."""
+    for name in ("ragged_moe_gemm", "moe_gemm", "ragged_moe_gemv", "moe_gemv"):
         if counts[name]:
             sm90 = counts[f"{name}_sm90"]
             log(f"serve [{label}]: {name} launches {counts[name]}, {sm90} of them on the "
-                f"tensor-core route (moe_gemv_sm90.cu)")
+                f"tensor-core route ({name.replace('ragged_', '')}_sm90.cu)")
             if sm90 != counts[name]:
                 raise AssertionError(f"[{label}] {name} left the tensor-core route")
 
@@ -895,7 +914,7 @@ def hybrid_phase(torch):
                              f"{missing}")
     log(f"serve [{HYBRID_LABEL}]: dense decode launches {counts['decode_attention']}, each "
         f"the split and merge kernels of decode_sm90.cu (its one route)")
-    check_gemv_route(HYBRID_LABEL, counts)
+    check_expert_routes(HYBRID_LABEL, counts)
     kv_b = sum(t.numel() * t.element_size() for seg in eng.kv.cache
                for blk in seg["blocks"] if "k" in blk for t in blk.values())
     ssm_b = sum(t.numel() * t.element_size() for seg in eng.kv.cache
@@ -915,35 +934,105 @@ def hybrid_phase(torch):
     return {k: counts[k] for k in ("decode_attention", "ssd_decode")}
 
 
+# path c's decode checks: (seed, prompt lengths of the rows; the last row
+# dead). The first is a four-row stage; the others hold eight rows from
+# three seeds.
+DECODE_CHECKS = ((1, (320, 257, 130, 64)),) + tuple(
+    (seed, (320, 257, 130, 64, 300, 200, 96, 16)) for seed in (1, 2, 3))
+
+
+@contextlib.contextmanager
+def recorded_routes(torch, pins=None):
+    """Inside, the duplex MoE layer's router records each call's expert
+    choice (top-k indices) and its margin (the k-th minus the (k+1)-th
+    probability), its own choice even when pinned. With ``pins`` (an earlier
+    run's record, in call order) each call takes the pinned experts
+    instead, gated by its own probabilities of them, normalised and masked
+    as ``models/moe.py::route`` does."""
+    import repro_torch.core.duplex_moe as dm
+    route, calls = dm.route, []
+
+    def recording(params, m, x_flat, valid=None):
+        out = route(params, m, x_flat, valid)
+        probs = torch.softmax(torch.matmul(x_flat.float(), params["router"].float()), dim=-1)
+        top = torch.topk(probs, m.top_k + 1, dim=-1).values
+        calls.append((out.expert_idx, top[:, -2] - top[:, -1]))
+        if pins is None:
+            return out
+        idx = pins[len(calls) - 1][0]
+        gates = probs.gather(-1, idx)
+        if m.norm_topk_probs:
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        one_hot = torch.nn.functional.one_hot(idx, m.num_experts)
+        if valid is not None:
+            gates = torch.where(valid[:, None], gates, torch.zeros_like(gates))
+            one_hot = one_hot * valid[:, None, None]
+        return out._replace(expert_idx=idx, gates=gates, counts=one_hot.sum(dim=(0, 1)))
+
+    dm.route = recording
+    try:
+        yield calls
+    finally:
+        dm.route = route
+
+
 def check_decode_against_plain(torch, cfg, params, label):
-    """One dense decode stage (four rows after a prefill of 320, 257, 130
-    and 64 tokens, the fourth row dead) through the kernels (dense decode
+    """One dense decode stage for each of ``DECODE_CHECKS`` (prefills of
+    the given lengths, the last row dead) through the kernels (dense decode
     attention, SSD decode, ragged MoE at k_cold 8) and through the plain
-    torch path, each on its own copy of the prefilled cache; the live rows'
-    logits are held to ``compare_logits``."""
+    torch path, each on its own copy of the prefilled cache. The plain path
+    takes the kernel path's expert choice in every MoE layer
+    (``recorded_routes``): where two experts' router probabilities nearly
+    tie, bf16 noise upstream may flip the choice, which moves a row's
+    logits by several times the band while no kernel is wrong (seen on
+    Jamba-v0.1). So both paths compute one function, and every live row's
+    logits are held to ``compare_logits``. Each row's top-2 logit gap is printed
+    beside its largest difference, and beside that the difference from a
+    third run, the plain path on its own expert choice, with the MoE
+    layers where that choice differs and the router's margin there: a
+    near-tie can be told from a fault."""
     from repro_torch.core.execution import ExecutionPlan
     from repro_torch.models.model import decode_step, init_cache, prefill
     from repro_torch.models.params import tree_map
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
-    B, S = 4, 320
-    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
-    true_len = torch.tensor([320, 257, 130, 64], dtype=torch.int32, device="cuda")
-    cache = init_cache(cfg, B, 1024, device="cuda")
-    with torch.no_grad():
-        prefill(params, cfg, {"tokens": toks}, cache, true_len,
-                plan=ExecutionPlan(moe_impl="grouped", use_kernels=True))
-    nxt = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device="cuda")
-    valid = torch.tensor([True, True, True, False], device="cuda")
-    out = {}
-    for use_kernels in (True, False):
-        own = tree_map(cache, lambda t: t.clone())
-        plan = ExecutionPlan(moe_impl="duplex", k_cold=8, c_hot=8, c_cold=8,
-                             moe_ragged=use_kernels, use_kernels=use_kernels)
+    for seed, lens in DECODE_CHECKS:
+        B, S = len(lens), max(lens)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+        true_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        cache = init_cache(cfg, B, 1024, device="cuda")
         with torch.no_grad():
-            logits, _, _ = decode_step(params, cfg, nxt, own, {"valid": valid}, plan=plan)
-        out[use_kernels] = logits[:3, 0].float()
-    compare_logits(torch, label, "one decode stage", out[True], out[False])
+            prefill(params, cfg, {"tokens": toks}, cache, true_len,
+                    plan=ExecutionPlan(moe_impl="grouped", use_kernels=True))
+        nxt = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen, device="cuda")
+        valid = torch.arange(B, device="cuda") < B - 1
+        out, routes = {}, {}
+        for path in ("kernels", "plain", "plain, own choice"):
+            use_kernels = path == "kernels"
+            own = tree_map(cache, lambda t: t.clone())
+            plan = ExecutionPlan(moe_impl="duplex", k_cold=8, c_hot=8, c_cold=8,
+                                 moe_ragged=use_kernels, use_kernels=use_kernels)
+            pins = routes["kernels"] if path == "plain" else None
+            with torch.no_grad(), recorded_routes(torch, pins) as calls:
+                logits, _, _ = decode_step(params, cfg, nxt, own, {"valid": valid}, plan=plan)
+            out[path], routes[path] = logits[:B - 1, 0].float(), calls
+        del cache
+        a, b, free = out["kernels"], out["plain"], out["plain, own choice"]
+        top2 = b.topk(2, dim=-1).values
+        rows = []
+        for r, (gap, diff, diff_free, same) in enumerate(zip(
+                (top2[:, 0] - top2[:, 1]).tolist(), (a - b).abs().amax(-1).tolist(),
+                (a - free).abs().amax(-1).tolist(), (a.argmax(-1) == b.argmax(-1)).tolist())):
+            ties = [f" MoE layer {i} (router margin {m[r].item():.1e})" for i, ((k, _), (p, m))
+                    in enumerate(zip(routes["kernels"], routes["plain, own choice"]))
+                    if not torch.equal(k[r].sort().values, p[r].sort().values)]
+            rows.append(f"{gap:.4f}/{diff:.4f}/{diff_free:.4f}/{'y' if same else 'n'}"
+                        f"{''.join(ties)}")
+        log(f"serve [{label}]: decode check seed {seed}, {B - 1} live rows (top-2 gap of the "
+            f"plain logits / max |dlogit| / the same against the plain path's own expert "
+            f"choice / argmax equal; MoE layers where that choice differs): " + ", ".join(rows))
+        compare_logits(torch, label, f"one decode stage (seed {seed}, {B - 1} live rows, "
+                       f"the kernel path's expert choice)", a, b)
 
 
 def profile_stages(torch, cfg, params, label, engine_kw, top: int = 12):
@@ -1220,7 +1309,7 @@ def tensor_core_sass(build) -> None:
     """Counts the tensor-core instructions in each built library's SASS
     (``cuobjdump -sass``): warpgroup products (HGMMA) and warp ones (HMMA).
     The bf16 flash forward and backward and the bf16 chunk attention must
-    hold HGMMA, the bf16 cold GEMV HMMA or HGMMA."""
+    hold HGMMA, the bf16 hot GEMM and cold GEMV HMMA or HGMMA."""
     tool = Path(build._nvcc()).with_name("cuobjdump")
     for src in build.SOURCES:
         sass = subprocess.run([str(tool), "-sass", str(build._lib_path(src))],
@@ -1231,7 +1320,7 @@ def tensor_core_sass(build) -> None:
             f"({'tensor cores' if hgmma or hmma else 'no tensor-core instruction'})")
         if src in ("flash_fwd_sm90.cu", "flash_bwd_sm90.cu", "chunk_attn_sm90.cu") and not hgmma:
             raise AssertionError(f"the SASS of {src} holds no HGMMA")
-        if src == "moe_gemv_sm90.cu" and not (hgmma or hmma):
+        if src in ("moe_gemv_sm90.cu", "moe_gemm_sm90.cu") and not (hgmma or hmma):
             raise AssertionError(f"the SASS of {src} holds no HMMA or HGMMA")
 
 

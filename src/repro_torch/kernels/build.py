@@ -27,7 +27,7 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("decode_attn.cu", "moe_gemm.cu", "moe_gemv.cu", "ssd_decode.cu",
            "flash_attn.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
-           "chunk_attn_sm90.cu", "decode_sm90.cu", "moe_gemv_sm90.cu")
+           "chunk_attn_sm90.cu", "decode_sm90.cu", "moe_gemv_sm90.cu", "moe_gemm_sm90.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,7 +41,10 @@ launch_counts: Dict[str, int] = {
     "chunked_prefill_attention_sm90": 0,
     "ragged_moe_gemm": 0,
     "ragged_moe_gemv": 0,
-    # the bf16 tensor-core routes of the cold GEMVs, counted in both
+    # the bf16 tensor-core routes of the hot GEMMs and the cold GEMVs,
+    # counted in both
+    "ragged_moe_gemm_sm90": 0,
+    "moe_gemm_sm90": 0,
     "ragged_moe_gemv_sm90": 0,
     "moe_gemv_sm90": 0,
     "paged_decode_attention_int8": 0,

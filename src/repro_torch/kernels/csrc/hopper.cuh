@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the tensor-core attention kernels
 // (flash_fwd_sm90.cu, flash_bwd_sm90.cu, chunk_attn_sm90.cu), of the
 // decode's ring of bulk copies and TMA boxes (decode_sm90.cu) and of the
-// cold-expert GEMV (moe_gemv_sm90.cu): mbarriers, TMA and bulk loads,
+// expert FFNs (moe_gemv_sm90.cu, moe_gemm_sm90.cu): mbarriers, TMA and bulk loads,
 // the 128-byte-swizzle wgmma descriptor, the bf16 wgmma products with
 // their fences, and the host-side encoding of TMA tensor maps.
 //
@@ -48,6 +48,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+// One TMA box of a 2-d tensor map into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
 }
 // One TMA box of a 5-d tensor map into shared memory, completing on bar.
 __device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -101,26 +110,28 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// D (64 x 64, float32) (+)= A (64 x 16) B (16 x 64), A and B K-major in
-// shared memory (descriptors da, db); scale_d 0 overwrites D.
+// D (64 x 64, float32) (+)= A (64 x 16) B (16 x 64), both in shared memory
+// (descriptors da, db): K-major, or with TRANS_A 1 A MN-major (its 64 rows
+// contiguous); scale_d 0 overwrites D.
+template <int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      ", %32, %33, p, 1, 1, %35, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A));
 }
 
-// D (64 x 128, float32) (+)= A (64 x 16) B (16 x 128), A and B K-major in
-// shared memory (descriptors da, db); scale_d 0 overwrites D.
+// D (64 x 128, float32) (+)= A (64 x 16) B (16 x 128), as the 64 x 64 form.
+template <int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -129,7 +140,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      ", %64, %65, p, 1, 1, %67, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -141,7 +152,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A));
 }
 
 // D (64 x N, float32) += A (64 x 16, bf16 in registers: the m64k16 A

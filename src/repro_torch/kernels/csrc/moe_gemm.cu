@@ -1,6 +1,9 @@
 // Ragged grouped GEMM for the hot experts of a duplex MoE layer, Hopper
-// (sm_90a): y[e] = (silu(x[e] Wg[p]) * (x[e] Wu[p])) Wo[p] with p = perm[e],
-// over only the live rows (count[e]) of each expert's slot buffer.
+// (sm_90a), float32: y[e] = (silu(x[e] Wg[p]) * (x[e] Wu[p])) Wo[p] with
+// p = perm[e], over only the live rows (count[e]) of each expert's slot
+// buffer. bfloat16 runs the tensor-core kernels of moe_gemm_sm90.cu;
+// float32 stays here, on the CUDA cores, because TF32 products would leave
+// its 1e-4 band.
 //
 // Replaces (TPU / Pallas): src/repro/kernels/moe_gemm.py:
 //   * ragged_moe_gemm <- ragged_moe_gemm_kernel (body
@@ -30,12 +33,10 @@
 // rounded to the storage dtype (the TPU kernel's rounding point) to a
 // scratch buffer, phase B multiplies by Wo with float32 accumulation over
 // the whole d_ff inside one block, so sums have a fixed order (no atomics).
-// The scratch round trip is the price of the simple version; fusing it away
-// and moving the tiles to wgmma is later work.
+// The scratch round trip is the price of the simple version.
 #include "common.cuh"
 
 using port::from_f;
-using port::round_to;
 using port::silu;
 using port::to_f;
 
@@ -184,20 +185,16 @@ int launch(const void* x, const void* wg, const void* wu, const void* wo, const 
 
 extern "C" {
 
-// x (Eh, C, d) slot buffers in rank order; wg/wu (E, d, f) and wo (E, f, d)
+// x (Eh, C, d) float32 slot buffers in rank order; wg/wu (E, d, f) and wo (E, f, d)
 // for ALL experts; perm (Eh,) expert id of each rank; counts (Eh,) live rows,
 // already clamped to C; h (Eh, C, f) scratch; y (Eh, C, d) output.
 // Returns a cudaError_t code (0 = launched).
 int ragged_moe_gemm(int dtype, const void* x, const void* wg, const void* wu, const void* wo,
                     const void* perm, const void* counts, void* h, void* y, int Eh, int C,
                     int d, int f, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype != DTYPE_F32) return (int)cudaErrorInvalidValue;
   if (Eh == 0 || C == 0) return 0;
-  if (dtype == DTYPE_F32)
-    return launch<float>(x, wg, wu, wo, perm, counts, h, y, Eh, C, d, f, s);
-  if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(x, wg, wu, wo, perm, counts, h, y, Eh, C, d, f, s);
-  return (int)cudaErrorInvalidValue;
+  return launch<float>(x, wg, wu, wo, perm, counts, h, y, Eh, C, d, f, (cudaStream_t)stream);
 }
 
 // The capacity-padded variant: as ragged_moe_gemm with every one of the C

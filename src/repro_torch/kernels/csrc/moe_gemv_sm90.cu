@@ -65,15 +65,6 @@ struct Maps {
   CUtensorMap w0, w1, a;
 };
 
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
 // Four 8x8 b16 matrices from shared memory, a lane's address a row each.
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -154,13 +145,13 @@ cold_sm90_kernel(const __grid_constant__ Maps maps, const int* __restrict__ perm
         if (i >= stages) sm90::mbar_wait(empty0 + 8 * st, ((i / stages) - 1) & 1);
         const uint32_t bar = full0 + 8 * st, dst = base_a + st * stage_bytes;
         sm90::mbar_expect_tx(bar, (DOWN ? nb : 2) * WBOX + ng * nb * ABOX);
-        tma_load_2d(dst, &maps.w0, bar, n0, p * K + k0);
+        sm90::tma_load_2d(dst, &maps.w0, bar, n0, p * K + k0);
         if (!DOWN || nb == 2)                     // up at the same depth; Wo's next 64 rows
-          tma_load_2d(dst + WBOX, &maps.w1, bar, n0, p * K + k0 + (NBX - 1) * BK);
+          sm90::tma_load_2d(dst + WBOX, &maps.w1, bar, n0, p * K + k0 + (NBX - 1) * BK);
         for (int gi = 0; gi < ng; ++gi)
           for (int kb = 0; kb < nb; ++kb)
-            tma_load_2d(dst + 2 * WBOX + (gi * NBX + kb) * ABOX, &maps.a, bar, k0 + kb * BK,
-                        e * Cc + pass * ROWS + gi * 16);
+            sm90::tma_load_2d(dst + 2 * WBOX + (gi * NBX + kb) * ABOX, &maps.a, bar,
+                              k0 + kb * BK, e * Cc + pass * ROWS + gi * 16);
       }
     }
     return;

@@ -1,6 +1,6 @@
-"""Grouped GEMMs for hot experts (CUDA, ``csrc/moe_gemm.cu``) and their
-plain PyTorch versions: ragged (``ragged_moe_gemm_kernel``) and
-capacity-padded (``moe_gemm_kernel``).
+"""Grouped GEMMs for hot experts (CUDA, ``csrc/moe_gemm_sm90.cu`` and
+``csrc/moe_gemm.cu``) and their plain PyTorch versions: ragged
+(``ragged_moe_gemm_kernel``) and capacity-padded (``moe_gemm_kernel``).
 
 Computes, per hot rank e with expert id ``perm[e]``, the SwiGLU FFN
 ``(silu(x Wg) * (x Wu)) Wo`` over the live rows ``c < counts[e]`` of its slot
@@ -13,6 +13,12 @@ ragged_moe_gemm_kernel``. The expert weights are read in place through
 The capacity-padded ``moe_gemm_kernel`` (port of ``moe_gemm.py::
 moe_gemm_kernel``) computes the same FFN over every slot of the capacity:
 no counts, nothing skipped or zeroed.
+
+Two routes, chosen before the launch by dtype: bfloat16 runs the
+tensor-core kernels of ``moe_gemm_sm90.cu`` (each live expert's weights by
+TMA once for up to 128 live rows, ``wgmma`` with the rows as N; counted
+under ``ragged_moe_gemm_sm90`` or ``moe_gemm_sm90`` as well), float32 the
+scalar kernels of ``moe_gemm.cu``.
 """
 from __future__ import annotations
 
@@ -73,42 +79,64 @@ def check_expert_operands(x, w_gate, w_up, w_out, perm, counts=None):
             raise ValueError("perm/counts must be contiguous int32 (experts,) on x's device")
 
 
+# weight stages a block of the bf16 kernels keeps in flight (2 was the
+# fastest of 2-5 on the card; at C <= 64 it leaves room for two blocks an SM)
+STAGES = 2
+
+
+def launch(name, stages, x, w_gate, w_up, w_out, perm, counts=None):
+    """The expert FFN kernels' launch (the hot GEMMs here, the cold GEMVs in
+    ``moe_gemv``), operands already checked: the route by dtype, h and y
+    allocated here. bfloat16 runs ``<name>_sm90`` of ``<kind>_sm90.cu`` and
+    counts it under that name too, float32 ``<name>`` of ``<kind>.cu``
+    (kind: ``name`` without ``ragged_``)."""
+    n, C, d = x.shape
+    f = w_gate.shape[2]
+    h = torch.empty((n, C, f), dtype=x.dtype, device=x.device)
+    y = torch.empty_like(x)
+    ptrs = [x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_out.data_ptr(),
+            perm.data_ptr()] + ([] if counts is None else [counts.data_ptr()])
+    ptrs += [h.data_ptr(), y.data_ptr()]
+    ints = (n, C, d, f)
+    kind = name.removeprefix("ragged_")
+    sm90 = x.dtype == torch.bfloat16
+    if sm90:
+        if d % 64 or f % 64:
+            raise ValueError(f"the bf16 {name} kernel needs d, d_ff multiples of 64, "
+                             f"got {d}, {f}")
+        if any(t.data_ptr() % 16 for t in (x, w_gate, w_up, w_out, h)):
+            raise ValueError(f"the bf16 {name} kernel reads x and the expert weights by "
+                             f"TMA: their bases must be 16-byte aligned")
+        source, entry = f"{kind}_sm90.cu", f"{name}_sm90"
+        ints = (w_gate.shape[0], *ints, stages)
+    else:
+        source, entry = f"{kind}.cu", name
+    fn = build.bind(source, entry, len(ptrs), len(ints))
+    err = fn(build.DTYPE_CODES[str(x.dtype).split(".")[1]], *ptrs, *ints,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, entry)
+    build.launch_counts[name] += 1
+    if sm90:
+        build.launch_counts[entry] += 1
+    return y
+
+
 def ragged_moe_gemm_kernel(x, w_gate, w_up, w_out, perm, counts):
     """Layout as ``ragged_moe_gemm_plain`` (counts already clamped to C);
-    runs the CUDA kernel for CUDA tensors and the plain version for CPU
-    tensors."""
+    runs a CUDA kernel for CUDA tensors (bfloat16: ``moe_gemm_sm90.cu``,
+    which needs d and d_ff multiples of 64 and 16-byte aligned operands;
+    float32: ``moe_gemm.cu``) and the plain version for CPU tensors."""
     if x.device.type == "cpu":
         return ragged_moe_gemm_plain(x, w_gate, w_up, w_out, perm, counts)
     check_expert_operands(x, w_gate, w_up, w_out, perm, counts)
-    Eh, C, d = x.shape
-    f = w_gate.shape[2]
-    h = torch.empty((Eh, C, f), dtype=x.dtype, device=x.device)
-    y = torch.empty_like(x)
-    fn = build.bind("moe_gemm.cu", "ragged_moe_gemm", 8, 4)
-    err = fn(build.DTYPE_CODES[str(x.dtype).split(".")[1]], x.data_ptr(),
-             w_gate.data_ptr(), w_up.data_ptr(), w_out.data_ptr(),
-             perm.data_ptr(), counts.data_ptr(), h.data_ptr(), y.data_ptr(),
-             Eh, C, d, f, torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "ragged_moe_gemm")
-    build.launch_counts["ragged_moe_gemm"] += 1
-    return y
+    return launch("ragged_moe_gemm", STAGES, x, w_gate, w_up, w_out, perm, counts)
 
 
 def moe_gemm_kernel(x, w_gate, w_up, w_out, perm):
-    """Layout as ``moe_gemm_plain``; runs the CUDA kernel for CUDA tensors
-    and the plain version for CPU tensors."""
+    """Layout as ``moe_gemm_plain``; runs a CUDA kernel for CUDA tensors
+    (the routes and shapes of the ragged kernel) and the plain version for
+    CPU tensors."""
     if x.device.type == "cpu":
         return moe_gemm_plain(x, w_gate, w_up, w_out, perm)
     check_expert_operands(x, w_gate, w_up, w_out, perm)
-    Eh, C, d = x.shape
-    f = w_gate.shape[2]
-    h = torch.empty((Eh, C, f), dtype=x.dtype, device=x.device)
-    y = torch.empty_like(x)
-    fn = build.bind("moe_gemm.cu", "moe_gemm", 7, 4)
-    err = fn(build.DTYPE_CODES[str(x.dtype).split(".")[1]], x.data_ptr(),
-             w_gate.data_ptr(), w_up.data_ptr(), w_out.data_ptr(),
-             perm.data_ptr(), h.data_ptr(), y.data_ptr(), Eh, C, d, f,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "moe_gemm")
-    build.launch_counts["moe_gemm"] += 1
-    return y
+    return launch("moe_gemm", STAGES, x, w_gate, w_up, w_out, perm)

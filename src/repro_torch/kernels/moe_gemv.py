@@ -17,10 +17,7 @@ or ``moe_gemv_sm90`` as well), float32 the scalar kernels of
 """
 from __future__ import annotations
 
-import torch
-
-from repro_torch.kernels import build
-from repro_torch.kernels.moe_gemm import (check_expert_operands, moe_gemm_plain,
+from repro_torch.kernels.moe_gemm import (check_expert_operands, launch, moe_gemm_plain,
                                           zero_dead_rows)
 
 
@@ -51,35 +48,6 @@ def _check_gemv_operands(x, w_gate, w_up, w_out, perm, counts=None):
 STAGES = 2
 
 
-def _launch(name, x, w_gate, w_up, w_out, perm, counts=None):
-    """Both wrappers' launch: the route by dtype, h and y allocated here."""
-    Ec, Cc, d = x.shape
-    f = w_gate.shape[2]
-    h = torch.empty((Ec, Cc, f), dtype=x.dtype, device=x.device)
-    y = torch.empty_like(x)
-    ptrs = [x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_out.data_ptr(),
-            perm.data_ptr()] + ([] if counts is None else [counts.data_ptr()])
-    ptrs += [h.data_ptr(), y.data_ptr()]
-    ints = (Ec, Cc, d, f)
-    sm90 = x.dtype == torch.bfloat16
-    if sm90:
-        if any(t.data_ptr() % 16 for t in (x, h)):
-            raise ValueError("the bf16 cold GEMV reads x by TMA: its base must be "
-                             "16-byte aligned")
-        source, entry = "moe_gemv_sm90.cu", f"{name}_sm90"
-        ints = (w_gate.shape[0], *ints, STAGES)
-    else:
-        source, entry = "moe_gemv.cu", name
-    fn = build.bind(source, entry, len(ptrs), len(ints))
-    err = fn(build.DTYPE_CODES[str(x.dtype).split(".")[1]], *ptrs, *ints,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, entry)
-    build.launch_counts[name] += 1
-    if sm90:
-        build.launch_counts[entry] += 1
-    return y
-
-
 def ragged_moe_gemv_kernel(x, w_gate, w_up, w_out, perm, counts):
     """Layout as ``ragged_moe_gemv_plain`` (counts already clamped to Cc);
     runs a CUDA kernel for CUDA tensors (bfloat16: ``moe_gemv_sm90.cu``,
@@ -88,7 +56,7 @@ def ragged_moe_gemv_kernel(x, w_gate, w_up, w_out, perm, counts):
     if x.device.type == "cpu":
         return ragged_moe_gemv_plain(x, w_gate, w_up, w_out, perm, counts)
     _check_gemv_operands(x, w_gate, w_up, w_out, perm, counts)
-    return _launch("ragged_moe_gemv", x, w_gate, w_up, w_out, perm, counts)
+    return launch("ragged_moe_gemv", STAGES, x, w_gate, w_up, w_out, perm, counts)
 
 
 def moe_gemv_kernel(x, w_gate, w_up, w_out, perm):
@@ -98,4 +66,4 @@ def moe_gemv_kernel(x, w_gate, w_up, w_out, perm):
     if x.device.type == "cpu":
         return moe_gemv_plain(x, w_gate, w_up, w_out, perm)
     _check_gemv_operands(x, w_gate, w_up, w_out, perm)
-    return _launch("moe_gemv", x, w_gate, w_up, w_out, perm)
+    return launch("moe_gemv", STAGES, x, w_gate, w_up, w_out, perm)

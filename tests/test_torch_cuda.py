@@ -472,6 +472,77 @@ def test_cuda_moe_gemv_matches_plain(card, d, f, Cc):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,f,C", [(2048, 1024, 136), (4096, 14336, 72), (192, 320, 72)])
+def test_cuda_moe_gemm_matches_plain(card, d, f, C):
+    """The bf16 hot GEMMs (``moe_gemm_sm90.cu``: each live expert's weights
+    by TMA once a pass of up to 128 rows, ``wgmma`` with the rows as N),
+    ragged and capacity-padded, against their plain versions within 2e-2 at
+    OLMoE's widths (C 136: a second 128-row pass), Jamba's (C 72: one pass
+    of 128) and widths that end inside a block's 128 (d_ff) and 256 (d)
+    columns: counts 0, 1, 15, 16, 17, 64, 65 and C, with empty experts
+    between live ones and perm out of order. Each call must take the
+    tensor-core route, dead rows come back exact zeros, and a second call
+    gives the same bits; float32 at OLMoE's widths takes the scalar route
+    (1e-4)."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(d + f + C)
+    E = 12
+    counts = [0, 1, 15, 0, 16, 17, 64, 0, 65, C]
+    n = len(counts)
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen, device=card) / shape[-2] ** 0.5
+
+    wg, wu, wo = w(E, d, f), w(E, d, f), w(E, f, d)
+    x = torch.randn((n, C, d), generator=gen, device=card)
+    perm = torch.randperm(E, generator=gen, device=card)[:n].to(torch.int32)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=card)
+    dtypes = ((torch.bfloat16, 2e-2),) + (((torch.float32, 1e-4),) if d == 2048 else ())
+    for dtype, tol in dtypes:
+        args = [t.to(dtype) for t in (x, wg, wu, wo)] + [perm]
+        for kern, plain, extra, name in (
+                (moe_gemm.ragged_moe_gemm_kernel, moe_gemm.ragged_moe_gemm_plain, [cnt],
+                 "ragged_moe_gemm_sm90"),
+                (moe_gemm.moe_gemm_kernel, moe_gemm.moe_gemm_plain, [], "moe_gemm_sm90")):
+            n_sm90 = build.launch_counts[name]
+            got = kern(*args, *extra)
+            assert build.launch_counts[name] == n_sm90 + (dtype == torch.bfloat16)
+            want = plain(*args, *extra)
+            torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+            if extra:
+                for e, c in enumerate(counts):
+                    assert not got[e, c:].any()
+            assert torch.equal(got, kern(*args, *extra))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_moe_gemm_rejects_what_it_does_not_take(card):
+    """The bf16 hot GEMMs refuse d or d_ff not a multiple of 64, operands
+    whose base is not 16-byte aligned, and float16; they never fall back to
+    the scalar kernel or the plain version."""
+    bf = dict(device=card, dtype=torch.bfloat16)
+    perm = torch.tensor([1, 0], dtype=torch.int32, device=card)
+    cnt = torch.tensor([3, 0], dtype=torch.int32, device=card)
+
+    def operands(d, f, x_off=0, w_off=0):
+        x = torch.zeros(2 * 8 * d + x_off, **bf)[x_off:].view(2, 8, d)
+        wg = torch.zeros(2 * d * f + w_off, **bf)[w_off:].view(2, d, f)
+        return x, wg, torch.zeros((2, d, f), **bf), torch.zeros((2, f, d), **bf)
+
+    before = dict(build.launch_counts)
+    for bad in (operands(96, 128), operands(128, 96), operands(128, 128, x_off=1),
+                operands(128, 128, w_off=4)):
+        with pytest.raises(ValueError):
+            moe_gemm.ragged_moe_gemm_kernel(*bad, perm, cnt)
+        with pytest.raises(ValueError):
+            moe_gemm.moe_gemm_kernel(*bad, perm)
+    half = [t.to(torch.float16) for t in operands(128, 128)]
+    with pytest.raises(TypeError):
+        moe_gemm.ragged_moe_gemm_kernel(*half, perm, cnt)
+    assert build.launch_counts == before
+
+
+@pytest.mark.cuda
 def test_cuda_moe_input_gradient_is_the_same_from_run_to_run(card):
     """Two backward passes of the grouped and the duplex MoE layer on the
     same input give bit-equal input gradients on the card: the token ->

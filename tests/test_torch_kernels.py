@@ -212,6 +212,61 @@ def test_chunked_prefill_bf16_plain_matches_pallas(qpk, softcap):
     assert not got[2].float().any()      # totals == 0: exact zeros
 
 
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (40, 30.0)])
+@pytest.mark.parametrize("q_scale", [1.0, 12.0])
+def test_paged_decode_split_bf16_plain_matches_pallas(window, softcap, q_scale):
+    """At the card's shapes (hd 128, page 16, the shipped
+    ``PAGES_PER_SPLIT``), the bf16 split arithmetic that ``decode_sm90.cu``
+    is held to on the card (p kept in float32) against the Pallas kernel in
+    bf16, interpret mode (p rounded to bf16 before P.V), within 2e-2: rows
+    of 0, 1, a page boundary and either side, and more than one split."""
+    rng = np.random.default_rng(50 + int(q_scale))
+    lens = [0, 1, 16, 17, 150, 300]
+    k, v, bt = _pools(rng, lens, KV=2, hd=128, page=16, maxp=19)
+    q = rng.standard_normal((len(lens), 2, 2, 128)).astype(np.float32) * q_scale
+    lengths = np.asarray(lens, np.int32)
+    got = decode_attn.paged_decode_attention_split_plain(
+        *(torch.tensor(a).to(torch.bfloat16) for a in (q, k, v)), torch.tensor(lengths),
+        torch.tensor(bt), pages_per_split=decode_attn.PAGES_PER_SPLIT, window=window,
+        softcap=softcap)
+    want = pallas_decode(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                         jnp.asarray(lengths), jnp.asarray(bt), window=window,
+                         softcap=softcap, interpret=True)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=2e-2, rtol=2e-2)
+    assert not got[lengths == 0].float().any()
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (40, 30.0)])
+@pytest.mark.parametrize("q_scale", [1.0, 12.0])
+def test_dense_decode_split_bf16_plain_matches_pallas(window, softcap, q_scale):
+    """The dense decode's bf16 split arithmetic (``decode_attention_split_plain``
+    at the shipped ``DENSE_TILE`` and ``DENSE_TILES_PER_SPLIT``, p in float32)
+    against the Pallas ``decode_attention_kernel`` in bf16, interpret mode,
+    within 2e-2, at hd 128 and GQA qpk 4: Smax 300 (not a tile multiple),
+    lengths 0, 1, a split boundary and either side, Smax and past it."""
+    rng = np.random.default_rng(60 + int(q_scale))
+    KV, qpk, hd, Smax = 2, 4, 128, 300
+    kps = decode_attn.DENSE_TILE * decode_attn.DENSE_TILES_PER_SPLIT
+    lens = np.asarray([0, 1, kps - 1, kps, kps + 1, Smax, Smax + 5], np.int32)
+    B = len(lens)
+    q = rng.standard_normal((B, KV, qpk, hd)).astype(np.float32) * q_scale
+    k = rng.standard_normal((B, Smax, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Smax, KV, hd)).astype(np.float32)
+    got = decode_attn.decode_attention_split_plain(
+        *(torch.tensor(a).to(torch.bfloat16) for a in (q, k, v)), torch.tensor(lens),
+        tile=decode_attn.DENSE_TILE, tiles_per_split=decode_attn.DENSE_TILES_PER_SPLIT,
+        window=window, softcap=softcap)
+    kj, vj = (jnp.asarray(a.transpose(0, 2, 1, 3), jnp.bfloat16) for a in (k, v))
+    want = pallas_dense(jnp.asarray(q, jnp.bfloat16), kj, vj, jnp.asarray(lens),
+                        window=window, softcap=softcap, kv_block=100, interpret=True)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=2e-2, rtol=2e-2)
+    assert not got[lens == 0].float().any()
+
+
 def _experts(rng, E, d=16, f=64):
     w = {"wi_gate": rng.standard_normal((E, d, f)).astype(np.float32) * 0.1,
          "wi_up": rng.standard_normal((E, d, f)).astype(np.float32) * 0.1,
@@ -245,6 +300,49 @@ def test_moe_plain_matches_pallas(counts, hot):
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
     oracle = ref.ragged_moe_ffn_ref(w_perm, jnp.asarray(x), jnp.asarray(cnt))
     np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("hot", [True, False])
+def test_moe_bf16_plain_matches_pallas(hot, padded):
+    """At widths the card's bf16 kernels take (d 128, d_ff 256), the bf16
+    plain versions (what ``moe_gemm_sm90.cu`` and ``moe_gemv_sm90.cu`` are
+    held to on the card: float32 products, h rounded to bf16 before Wo)
+    against the Pallas kernels in bf16, interpret mode, within 2e-2: ragged
+    counts full, empty, one token and either side of a c_block of 8, perm
+    out of order; padded, every slot."""
+    rng = np.random.default_rng(70 + 2 * hot + padded)
+    E, C, d, f = 7, 16, 128, 256
+    counts = np.asarray([16, 0, 1, 8, 9, 7], np.int32)
+    n = len(counts)
+    w = {"wi_gate": rng.standard_normal((E, d, f)).astype(np.float32) / d ** 0.5,
+         "wi_up": rng.standard_normal((E, d, f)).astype(np.float32) / d ** 0.5,
+         "wo": rng.standard_normal((E, f, d)).astype(np.float32) / f ** 0.5}
+    perm = rng.permutation(E)[:n].astype(np.int32)
+    x = rng.standard_normal((n, C, d)).astype(np.float32)
+    tb = lambda a: torch.tensor(a).to(torch.bfloat16)
+    args = (tb(x), tb(w["wi_gate"]), tb(w["wi_up"]), tb(w["wo"]), torch.tensor(perm))
+    if hot:
+        got = (moe_gemm.moe_gemm_plain(*args) if padded
+               else moe_gemm.ragged_moe_gemm_plain(*args, torch.tensor(counts)))
+    else:
+        got = (moe_gemv.moe_gemv_plain(*args) if padded
+               else moe_gemv.ragged_moe_gemv_plain(*args, torch.tensor(counts)))
+    w_perm = {k: jnp.asarray(v[perm], jnp.bfloat16) for k, v in w.items()}
+    xj, cj = jnp.asarray(x, jnp.bfloat16), jnp.asarray(counts)
+    if hot and padded:
+        want = jops.moe_gemm(w_perm, xj, c_block=8, f_block=128, interpret=True)
+    elif hot:
+        want = jops.ragged_moe_gemm(w_perm, xj, cj, c_block=8, f_block=128, interpret=True)
+    else:
+        want = jops.moe_gemv(w_perm, xj, None if padded else cj, f_block=128,
+                             interpret=True)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=2e-2, rtol=2e-2)
+    if not padded:
+        for e, c in enumerate(counts):
+            assert not got[e, c:].float().any()
 
 
 def test_moe_wrappers_clamp_counts_to_capacity():
