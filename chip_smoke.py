@@ -8,14 +8,18 @@ Phases, each printing a line:
   1. environment: torch / CUDA versions and the card's name and power limit;
   2. kernel build (nvcc, all sources in parallel) and its time, each
      source's ptxas registers and spills, and the count of tensor-core
-     instructions (HGMMA, HMMA) in each library's SASS (``cuobjdump``;
-     the bf16 flash forward and backward and the bf16 chunk attention must
-     hold HGMMA, the bf16 hot GEMM and cold GEMV HMMA or HGMMA);
+     instructions (HGMMA, HMMA, IGMMA, IMMA) in each library's SASS
+     (``cuobjdump``; the bf16 flash forward and backward and the bf16 chunk
+     attention must hold HGMMA, the bf16 hot GEMM and cold GEMV HMMA or
+     HGMMA, the int8 chunk attention IMMA or IGMMA);
   3. each hand-written kernel against its plain PyTorch version on the card
      at OLMoE-1B-7B shapes (plus a GQA shape for the attention kernels,
      path a's decode lengths for the paged decode, and one of path a's
      chunk stages for the chunked prefill, whose bf16 cases must run its
      tensor-core route, as the hot GEMMs' and the cold GEMVs' must; the
+     int8 paged decode and chunk also at path b's decode lengths and chunk
+     stage, the decode on its split route held against that route's plain
+     version, the chunk on its int8 tensor-core route; the
      ragged hot GEMM also at C 136, a second 128-row pass; the ragged MoE
      pair also at Jamba-v0.1's widths and path c's decode capacities, each
      MoE case judged on its error over max(1, the largest |plain| entry);
@@ -44,7 +48,9 @@ Phases, each printing a line:
        a. bf16 KV pages and the duplex ragged MoE (the first path; every
           chunked prefill call must run the tensor-core route),
        b. int8 KV pages (``kv_quant``) and the capacity-padded duplex MoE
-          (``moe_ragged=False``);
+          (``moe_ragged=False``; every int8 decode call must run the split
+          route of ``decode_sm90.cu``, every int8 chunk call
+          ``chunk_int8_sm90.cu``);
      each checks that every request completes with in-vocabulary tokens,
      that each of its kernels was launched, every hot GEMM and cold GEMV
      launch on the tensor-core route (``moe_gemm_sm90.cu``,
@@ -210,7 +216,10 @@ PATH_C_LENS = tuple(round(128 + i * 416 / 15) for i in range(16))
 def check_decode(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0, int8=False,
                  lens=ROW_LENS, seed=None):
     """Paged decode; ``seed`` draws the inputs from a generator of their own,
-    so that the cases after this one draw what they drew without it."""
+    so that the cases after this one draw what they drew without it. The
+    int8 kernel must take its split route (``decode_sm90.cu``, page 16) and
+    is held against that route's plain version, split by split."""
+    from repro_torch.kernels import build
     from repro_torch.kernels import decode_attn as da
     if seed is not None:
         gen = torch.Generator(device="cuda")
@@ -226,12 +235,18 @@ def check_decode(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0, int8=Fals
     if int8:
         k8, ks, v8, vs = _quant_pools(kp, vp)
         args = (q, k8, ks, v8, vs, lengths, bt)
-        kernel, plain = (da.paged_decode_attention_int8_kernel,
-                         da.paged_decode_attention_int8_plain)
+        kernel = da.paged_decode_attention_int8_kernel
+        plain = lambda *a, **k: da.paged_decode_attention_int8_split_plain(
+            *a, pages_per_split=da.INT8_PAGES_PER_SPLIT, **k)
     else:
         args = (q, kp, vp, lengths, bt)
         kernel, plain = da.paged_decode_attention_kernel, da.paged_decode_attention_plain
+    split = build.launch_counts["paged_decode_attention_int8_sm90"]
     got = kernel(*args, **kw)
+    split = build.launch_counts["paged_decode_attention_int8_sm90"] - split
+    if split != int8:
+        raise AssertionError(f"paged decode int8={int8} took the wrong route "
+                             f"(int8 split launches {split})")
     want = plain(*args, **kw)
     torch.cuda.synchronize()
     out = dict(err=(got.float() - want.float()).abs().max().item(),
@@ -274,7 +289,9 @@ def check_chunk(torch, gen, dtype, *, KV, qpk, int8=False, starts=(0, 64, 448, 0
                 clens=(64, 64, 30, 0)):
     """Chunked prefill; by default four sequences with a short chunk and a
     padded row (totals == 0). The float kernel's bf16 case must run the
-    tensor-core route (``chunk_attn_sm90.cu``), float32 the scalar one."""
+    tensor-core route (``chunk_attn_sm90.cu``), float32 the scalar one; the
+    int8 kernel must run its tensor-core route (``chunk_int8_sm90.cu``) in
+    both."""
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attn as da
     hd, page, maxp, Sc = 128, 16, 64, 64
@@ -296,12 +313,13 @@ def check_chunk(torch, gen, dtype, *, KV, qpk, int8=False, starts=(0, 64, 448, 0
         args = (q, kp, vp, tot, st, bt)
         kernel, plain = (da.chunked_prefill_attention_kernel,
                          da.chunked_prefill_attention_plain)
-    sm90 = build.launch_counts["chunked_prefill_attention_sm90"]
+    routes = ("chunked_prefill_attention_sm90", "chunked_prefill_attention_int8_sm90")
+    before = [build.launch_counts[r] for r in routes]
     got = kernel(*args, qpk=qpk)
-    sm90 = build.launch_counts["chunked_prefill_attention_sm90"] - sm90
-    if sm90 != (not int8 and dtype == torch.bfloat16):
+    sm90 = [build.launch_counts[r] - n for r, n in zip(routes, before)]
+    if sm90 != [int(not int8 and dtype == torch.bfloat16), int(int8)]:
         raise AssertionError(f"chunked prefill {dtype} int8={int8} took the wrong route "
-                             f"(tensor-core launches {sm90})")
+                             f"(bf16 and int8 tensor-core launches {sm90})")
     want = plain(*args, qpk=qpk)
     torch.cuda.synchronize()
     out = dict(err=(got.float() - want.float()).abs().max().item(),
@@ -635,17 +653,24 @@ KERNELS = [
       # path c's decode stages: k_cold 8, and k_cold 16 (every expert cold)
       ("jamba cold Ec=8 Cc=8", check_moe, dict(hot=False, n=8, C=8, **JAMBA_MOE)),
       ("jamba cold Ec=16 Cc=16", check_moe, dict(hot=False, n=16, C=16, **JAMBA_MOE))]),
+    # the split route of decode_sm90.cu; the third case is path b's decode
+    # stage: 16 sequences at path a's lengths
     ("paged_decode_attention_int8",
      "src/repro/kernels/decode_attn.py:222",
-     "src/repro_torch/kernels/csrc/decode_attn.cu",
+     "src/repro_torch/kernels/csrc/decode_sm90.cu",
      [("olmoe qpk=1 int8", check_decode, dict(KV=16, qpk=1, int8=True)),
       ("gqa qpk=4 window=200 softcap=30 int8", check_decode,
-       dict(KV=4, qpk=4, window=200, softcap=30.0, int8=True))]),
+       dict(KV=4, qpk=4, window=200, softcap=30.0, int8=True)),
+      ("path b B=16 lengths 144-544 int8", check_decode,
+       dict(KV=16, qpk=1, int8=True, lens=PATH_A_LENS, seed=3))]),
+    # the int8 tensor-core route; the third case is path b's chunk stage
     ("chunked_prefill_attention_int8",
      "src/repro/kernels/decode_attn.py:446",
-     "src/repro_torch/kernels/csrc/decode_attn.cu",
+     "src/repro_torch/kernels/csrc/chunk_int8_sm90.cu",
      [("olmoe qpk=1 Sc=64 int8", check_chunk, dict(KV=16, qpk=1, int8=True)),
-      ("gqa qpk=4 Sc=64 int8", check_chunk, dict(KV=4, qpk=4, int8=True))]),
+      ("gqa qpk=4 Sc=64 int8", check_chunk, dict(KV=4, qpk=4, int8=True)),
+      ("path b B=1 start=448 Sc=64 int8", check_chunk,
+       dict(KV=16, qpk=1, int8=True, starts=(448,), clens=(64,)))]),
     ("moe_gemm",
      "src/repro/kernels/moe_gemm.py:65",
      "src/repro_torch/kernels/csrc/moe_gemm_sm90.cu",
@@ -799,6 +824,17 @@ def serve_phase(torch):
         if "paged_decode_attention" in kernels:
             log(f"serve [{label}]: paged decode launches {counts['paged_decode_attention']}, "
                 f"each the split and merge kernels of decode_sm90.cu (its one route)")
+        if "paged_decode_attention_int8" in kernels:
+            # int8 pages of 16 keys at hd 128: every decode call on the split
+            # route, every chunk call on the int8 tensor cores
+            for name, route in (("paged_decode_attention_int8", "split (decode_sm90.cu)"),
+                                ("chunked_prefill_attention_int8",
+                                 "tensor-core (chunk_int8_sm90.cu)")):
+                n = counts[f"{name}_sm90"]
+                log(f"serve [{label}]: {name} launches {counts[name]}, {n} of them on the "
+                    f"{route} route")
+                if n != counts[name]:
+                    raise AssertionError(f"[{label}] {name} left its {route} route")
         check_against_plain(torch, cfg, params, label, flags)
         profile_stages(torch, cfg, params, label, engine_kw)
     from repro_torch.serving.kvmanager import kv_token_bytes
@@ -1307,21 +1343,24 @@ def compare_logits(torch, label, what, a, b):
 
 def tensor_core_sass(build) -> None:
     """Counts the tensor-core instructions in each built library's SASS
-    (``cuobjdump -sass``): warpgroup products (HGMMA) and warp ones (HMMA).
-    The bf16 flash forward and backward and the bf16 chunk attention must
-    hold HGMMA, the bf16 hot GEMM and cold GEMV HMMA or HGMMA."""
+    (``cuobjdump -sass``): warpgroup products (HGMMA; IGMMA on int8) and
+    warp ones (HMMA; IMMA on int8). The bf16 flash forward and backward and
+    the bf16 chunk attention must hold HGMMA, the bf16 hot GEMM and cold
+    GEMV HMMA or HGMMA, the int8 chunk attention IMMA or IGMMA."""
     tool = Path(build._nvcc()).with_name("cuobjdump")
     for src in build.SOURCES:
         sass = subprocess.run([str(tool), "-sass", str(build._lib_path(src))],
                               capture_output=True, text=True, check=True, timeout=300).stdout
-        hgmma = len(re.findall(r"\bHGMMA\.", sass))
-        hmma = len(re.findall(r"\bHMMA\.", sass))
-        log(f"sass {src}: {hgmma} HGMMA and {hmma} HMMA instructions "
-            f"({'tensor cores' if hgmma or hmma else 'no tensor-core instruction'})")
-        if src in ("flash_fwd_sm90.cu", "flash_bwd_sm90.cu", "chunk_attn_sm90.cu") and not hgmma:
+        n = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA", "IGMMA", "IMMA")}
+        log(f"sass {src}: " + ", ".join(f"{v} {op}" for op, v in n.items()) + " instructions "
+            f"({'tensor cores' if any(n.values()) else 'no tensor-core instruction'})")
+        if src in ("flash_fwd_sm90.cu", "flash_bwd_sm90.cu", "chunk_attn_sm90.cu") \
+                and not n["HGMMA"]:
             raise AssertionError(f"the SASS of {src} holds no HGMMA")
-        if src in ("moe_gemv_sm90.cu", "moe_gemm_sm90.cu") and not (hgmma or hmma):
+        if src in ("moe_gemv_sm90.cu", "moe_gemm_sm90.cu") and not (n["HGMMA"] or n["HMMA"]):
             raise AssertionError(f"the SASS of {src} holds no HMMA or HGMMA")
+        if src == "chunk_int8_sm90.cu" and not (n["IGMMA"] or n["IMMA"]):
+            raise AssertionError(f"the SASS of {src} holds no IMMA or IGMMA")
 
 
 def main(argv=None) -> int:

@@ -27,7 +27,8 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("decode_attn.cu", "moe_gemm.cu", "moe_gemv.cu", "ssd_decode.cu",
            "flash_attn.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
-           "chunk_attn_sm90.cu", "decode_sm90.cu", "moe_gemv_sm90.cu", "moe_gemm_sm90.cu")
+           "chunk_attn_sm90.cu", "decode_sm90.cu", "moe_gemv_sm90.cu", "moe_gemm_sm90.cu",
+           "chunk_int8_sm90.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +50,10 @@ launch_counts: Dict[str, int] = {
     "moe_gemv_sm90": 0,
     "paged_decode_attention_int8": 0,
     "chunked_prefill_attention_int8": 0,
+    # the split route of the int8 paged decode (decode_sm90.cu) and the
+    # tensor-core route of the int8 chunk (chunk_int8_sm90.cu), counted in both
+    "paged_decode_attention_int8_sm90": 0,
+    "chunked_prefill_attention_int8_sm90": 0,
     "moe_gemm": 0,
     "moe_gemv": 0,
     "decode_attention": 0,

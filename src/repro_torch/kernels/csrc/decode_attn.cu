@@ -12,7 +12,13 @@
 //   * paged_decode_int8_kernel, chunked_prefill_int8_kernel
 //                             <- the int8 bodies of the same two functions
 //                                (_paged_decode_kernel_int8,
-//                                _chunked_prefill_kernel_int8)
+//                                _chunked_prefill_kernel_int8), at the
+//                                shapes the Hopper kernels do not take: the
+//                                decode at pages not a multiple of 4 keys
+//                                (decode_sm90.cu takes the rest), the chunk
+//                                at head_dim other than 64 and 128 or pages
+//                                outside 8-64 (chunk_int8_sm90.cu takes the
+//                                rest)
 // The float paged decode (fp body _paged_decode_kernel) and the dense-cache
 // decode (decode_attention_kernel) are decode_sm90.cu.
 //
@@ -33,8 +39,13 @@
 // cross-block reduction, so results do not depend on scheduling order.
 #include "common.cuh"
 
+using port::dot16;
 using port::from_f;
+using port::i8_scale;
+using port::i8_score;
 using port::NEG_INF;
+using port::quant_i8;
+using port::quantize_rows;
 using port::round_to;
 using port::to_f;
 
@@ -188,39 +199,6 @@ int launch_chunk(const void* q, const void* k, const void* v, const void* totals
 
 constexpr int I8_ROWS = 16;        // chunk query rows per block
 
-__device__ __forceinline__ float i8_scale(float amax) { return fmaxf(amax / 127.f, 1e-8f); }
-
-// round half to even (rintf) of x / sc, clamped to +-127: int8_quantize
-__device__ __forceinline__ int8_t quant_i8(float x, float sc) {
-  return (int8_t)fminf(fmaxf(rintf(x / sc), -127.f), 127.f);
-}
-
-__device__ __forceinline__ int dot16(uint4 a, uint4 b, int acc) {
-  acc = __dp4a((int)a.x, (int)b.x, acc);
-  acc = __dp4a((int)a.y, (int)b.y, acc);
-  acc = __dp4a((int)a.z, (int)b.z, acc);
-  return __dp4a((int)a.w, (int)b.w, acc);
-}
-
-// Quantize rows [0, nvalid) of src (row stride hd) into dst (int8, row
-// stride hd) and sc; rows [nvalid, nrows) become zeros. One warp per row.
-template <typename T>
-__device__ void quantize_rows(const T* __restrict__ src, int nvalid, int nrows, int hd,
-                              int8_t* dst, float* sc) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-  for (int r = warp; r < nrows; r += nwarps) {
-    const bool ok = r < nvalid;
-    float amax = 0.f;
-    for (int c = lane; c < hd; c += 32)
-      if (ok) amax = fmaxf(amax, fabsf(to_f(src[(size_t)r * hd + c])));
-    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    const float s = i8_scale(amax);
-    for (int c = lane; c < hd; c += 32)
-      dst[r * hd + c] = ok ? quant_i8(to_f(src[(size_t)r * hd + c]), s) : (int8_t)0;
-    if (lane == 0) sc[r] = s;
-  }
-}
-
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
 
 // Shared memory of an int8 block of `rows` query rows: float32 acc (rows,
@@ -296,13 +274,6 @@ __device__ __forceinline__ void i8_pv(const I8Smem& s, const int8_t* v_s, int ro
     for (int t = 0; t < nlive; ++t) a += (int)s.pv8[r * page + t] * (int)v_s[t * hd + d];
     s.acc[e] = __fadd_rn(__fmul_rn(s.acc[e], s.alpha[r]), __fmul_rn((float)a, s.pv_sc[r]));
   }
-}
-
-__device__ __forceinline__ float i8_score(int dot, float q_sc, float k_sc, float scale,
-                                          float softcap) {
-  float s = __fmul_rn(__fmul_rn(__fmul_rn((float)dot, q_sc), k_sc), scale);
-  if (softcap > 0.f) s = __fmul_rn(softcap, tanhf(s / softcap));
-  return s;
 }
 
 // grid (B, KV); q (B, KV, qpk, hd); pools (P, KV, page, hd) int8; scale

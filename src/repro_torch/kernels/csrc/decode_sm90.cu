@@ -9,8 +9,11 @@
 //   * decode_split_kernel<.., DENSE>, decode_merge_kernel
 //       <- src/repro/kernels/decode_attn.py:127 decode_attention_kernel
 //          (body _decode_kernel, :77), in float32 and bfloat16
-//
-// The int8 body of the paged decode stays the scalar kernel of decode_attn.cu.
+//   * decode_split_int8_kernel, decode_merge_kernel
+//       <- src/repro/kernels/decode_attn.py:280 paged_decode_attention_kernel
+//          (int8 body _paged_decode_kernel_int8, :222), q in float32 and
+//          bfloat16, at head_dim a multiple of 16 and pages of a multiple
+//          of 4 keys; other pages run the scalar kernel of decode_attn.cu
 //
 // What bounds it on the card: bytes. A decode row does 2 * qpk FLOPs a K or
 // V element it reads, about qpk operations a byte in bf16, far below the
@@ -67,6 +70,10 @@
 //     out = sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-37). No
 //     float atomics: the result does not depend on the order blocks run in,
 //     and a sequence with no live key writes exact zeros.
+//
+// The int8 body (decode_split_int8_kernel, below) shares the split, the
+// ring and the merge; a stage holds a page's int8 K and V and their float32
+// scales, and the per-page requantization of p * v_scale is kept.
 //
 // Why no tensor cores: at qpk query heads a KV head the kernel does about
 // qpk operations a byte. At OLMoE's qpk 1 no wgmma or mma.sync tile has rows
@@ -350,6 +357,234 @@ decode_split_kernel(const __grid_constant__ CacheMaps maps, const T* __restrict_
   }
 }
 
+// ---------------------------------------------------------------------------
+// The int8 split body: int8 pools with float32 per-(token, KV head) scale
+// pools, each page exactly as the TPU kernel's int8 body computes it:
+//   s   = ((float(q8 . k8) * q_scale) * k_scale) * scale, then the softcap
+//   p   = exp(s - m_new), gated by the mask
+//   pv8 = p * v_scale requantized per row over this page (pv_scale)
+//   acc = acc * alpha + float(pv8 . v8) * pv_scale
+// over the split's pages with the split's own running max m; the merge
+// kernel above then combines the splits' (acc, m, l). Requantization is
+// scale-invariant above the recipe's 1e-8 scale floor, so there a split's
+// own m gives the same pv8 as the sequence's in exact arithmetic; in float
+// a value within rounding of a .5 step can move by one int8 step. Below
+// it (p * v_scale under 1.27e-6 on a whole page, ~10 below the sequence's
+// max) the page walk requantizes on the floor's coarser grid, and a split
+// whose own max is lower keeps more of the page: at most 0.5e-8 * 127 a key
+// of such a page, over l (kernels/decode_attn.py::
+// paged_decode_attention_int8_split_plain is this arithmetic, split by
+// split).
+// ---------------------------------------------------------------------------
+
+// A stage: the int8 K and V slabs (page, hd) of one (page id, KV head), then
+// its float32 K and V scale slabs (page): four bulk copies, each a whole
+// number of 16-byte words when page % 4 == 0.
+__host__ __device__ __forceinline__ size_t i8_stage_bytes(int hd, int page) {
+  return 2 * (size_t)page * hd + 8 * (size_t)page;
+}
+
+// Shared memory after the ring: float32 scores (qpk, page) and five per-row
+// values (m, l, alpha, pv scale, q scale), rounded up to 16 bytes; then int8
+// q (qpk, hd) and pv (qpk, page).
+__host__ __device__ __forceinline__ size_t i8_rows_bytes(int qpk, int page) {
+  return ((size_t)qpk * (page + 5) * 4 + 15) & ~(size_t)15;
+}
+
+__host__ __device__ __forceinline__ size_t i8_smem_bytes(int qpk, int hd, int page,
+                                                         int stages) {
+  return 128 + (size_t)stages * i8_stage_bytes(hd, page) + i8_rows_bytes(qpk, page) +
+         (size_t)qpk * (hd + page);
+}
+
+// grid (B * KV, nsplit); q (B, KV, qpk, hd); int8 pools (P, KV, page, hd)
+// and float32 scale pools (P, KV, page), all 16-byte aligned; hd a multiple
+// of 16 up to 256, page a multiple of 4; ws as decode_split_kernel's. The
+// block's pages, split and ring are decode_split_kernel's. The arithmetic
+// runs on the CUDA cores: at qpk 1-4 a row is far too thin for a 16-row
+// mma. q is quantized once a block, a warp a row. Scores: hd / 16 lanes a
+// key, __dp4a over 16-byte words, summed with shuffles. A page's max, exp,
+// sum and amax of a row: one warp, its lanes across the keys, with
+// shuffles. PV: four lanes share an output word (4 columns of one row),
+// each takes every fourth run of 4 keys, transposes the 4 x 4 bytes of V
+// with __byte_perm and takes __dp4a with the row's 4 pv8 bytes; the four
+// int32 sums are exact in any order, added with shuffles, and each lane
+// folds one column into its float32 accumulator. NS: output words a lane
+// group holds (ceil(qpk * hd / 4 / 32)).
+template <typename T, int NS>
+__global__ void __launch_bounds__(THREADS)
+decode_split_int8_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_pages,
+                         const float* __restrict__ k_scales, const int8_t* __restrict__ v_pages,
+                         const float* __restrict__ v_scales, const int* __restrict__ lengths,
+                         const int* __restrict__ block_tables, float* __restrict__ ws, int KV,
+                         int qpk, int hd, int page, int maxp, int window, int pps, int stages,
+                         float softcap, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[MAX_STAGES];
+  __shared__ int pid_s[MAX_TPS];
+
+  const int bg = blockIdx.x, b = bg / KV, g = bg - b * KV, split = blockIdx.y;
+  const int length = lengths[b], lim = min(length, maxp * page);
+  int lo, hi;
+  live_tiles(length, window, page, maxp, lo, hi);
+  const int p0 = lo + split * pps, np = min(pps, hi - p0);
+  if (np <= 0) return;                          // the whole block, before any barrier
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint32_t kv_bytes = (uint32_t)page * hd, sc_bytes = (uint32_t)page * 4;
+  const uint32_t stage_bytes = (uint32_t)i8_stage_bytes(hd, page);
+  unsigned char* ring = smem_raw + ((128 - (sm90::smem_addr(smem_raw) & 127)) & 127);
+  float* s_s = reinterpret_cast<float*>(ring + (size_t)stages * stage_bytes);  // (qpk, page)
+  float* m_s = s_s + qpk * page;
+  float* l_s = m_s + qpk;
+  float* alpha_s = l_s + qpk;
+  float* pvsc_s = alpha_s + qpk;
+  float* qsc_s = pvsc_s + qpk;
+  int8_t* q8 = reinterpret_cast<int8_t*>(s_s) + i8_rows_bytes(qpk, page);      // (qpk, hd)
+  int8_t* pv8 = q8 + qpk * hd;                                                 // (qpk, page)
+  const uint32_t ring_a = sm90::smem_addr(ring), bar0 = sm90::smem_addr(bars);
+
+  auto issue = [&](int j) {                     // page j of the split into its stage
+    const int st = j % stages;
+    const uint32_t bar = bar0 + 8 * st, dst = ring_a + st * stage_bytes;
+    const size_t slab = (size_t)pid_s[j] * KV + g;
+    sm90::mbar_expect_tx(bar, stage_bytes);
+    sm90::bulk_load(dst, k_pages + slab * kv_bytes, kv_bytes, bar);
+    sm90::bulk_load(dst + kv_bytes, v_pages + slab * kv_bytes, kv_bytes, bar);
+    sm90::bulk_load(dst + 2 * kv_bytes, k_scales + slab * page, sc_bytes, bar);
+    sm90::bulk_load(dst + 2 * kv_bytes + sc_bytes, v_scales + slab * page, sc_bytes, bar);
+  };
+  if (warp == 0) {
+    if (lane < np) pid_s[lane] = block_tables[(size_t)b * maxp + p0 + lane];
+    __syncwarp();
+    if (lane == 0) {
+      for (int st = 0; st < stages; ++st) sm90::mbar_init(bar0 + 8 * st, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int j = 0; j < min(stages, np); ++j) issue(j);
+    }
+  }
+  port::quantize_rows(q + (size_t)bg * qpk * hd, qpk, qpk, hd, q8, qsc_s);
+  if (tid < qpk) {
+    m_s[tid] = NEG_INF;
+    l_s[tid] = 0.f;
+  }
+  __syncthreads();
+
+  const int G = hd / 16;                        // lanes a key row: 1-16
+  const int gl = tid % G, gk = tid / G;         // this lane's word, and key of a pass
+  const int W4 = hd / 4;                        // output words of a row
+  const int kl = tid & 3;                       // this lane's share of a word's keys
+  float acc[NS];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < np; ++j) {
+    const int st = j % stages, k0 = (p0 + j) * page;
+    const int8_t* k_s = reinterpret_cast<const int8_t*>(ring) + (size_t)st * stage_bytes;
+    const int8_t* v_s = k_s + kv_bytes;
+    const float* ks_s = reinterpret_cast<const float*>(v_s + kv_bytes);
+    const float* vs_s = ks_s + page;
+    sm90::mbar_wait(bar0 + 8 * st, (j / stages) & 1);
+
+    // scores: G lanes a key across its 16-byte words
+    for (int t0 = 0; t0 < page; t0 += THREADS / G) {   // the same for every lane
+      const int t = t0 + gk;
+      const bool row_ok = t < page;
+      const uint4 kw = row_ok ? reinterpret_cast<const uint4*>(k_s + (size_t)t * hd)[gl]
+                              : make_uint4(0u, 0u, 0u, 0u);
+      const bool valid = row_ok && decode_valid(k0 + t, lim, length, window);
+      const float ksc = row_ok ? ks_s[t] : 0.f;
+      for (int h = 0; h < qpk; ++h) {
+        int d = port::dot16(reinterpret_cast<const uint4*>(q8 + h * hd)[gl], kw, 0);
+        for (int o = G / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+        if (row_ok && gl == 0)
+          s_s[h * page + t] = valid ? port::i8_score(d, qsc_s[h], ksc, scale, softcap) : NEG_INF;
+      }
+    }
+    // the scores are in; every thread is past page j - 1, so its stage is free
+    __syncthreads();
+    if (stages > 1 && tid == 0 && j >= 1 && j - 1 + stages < np) issue(j - 1 + stages);
+
+    // a warp a row: the page's max, p gated by the mask, its sum, p * v_scale
+    // and its amax, then pv8 requantized over the page
+    for (int h = warp; h < qpk; h += THREADS / 32) {
+      float* sr = s_s + h * page;
+      float mx = NEG_INF;
+      for (int t = lane; t < page; t += 32) mx = fmaxf(mx, sr[t]);
+      mx = warp_max(mx);
+      const float m_old = m_s[h], m_new = fmaxf(m_old, mx);
+      const float alpha = expf(m_old - m_new);
+      float sum = 0.f, amax = 0.f;
+      for (int t = lane; t < page; t += 32) {
+        const float p = decode_valid(k0 + t, lim, length, window) ? expf(sr[t] - m_new) : 0.f;
+        sum += p;
+        const float pv = __fmul_rn(p, vs_s[t]);
+        sr[t] = pv;
+        amax = fmaxf(amax, fabsf(pv));
+      }
+      sum = port::warp_sum(sum);
+      const float sc = port::i8_scale(warp_max(amax), port::rcp_for(127.f));
+      const float rsc = port::rcp_for(sc);
+      for (int t = lane; t < page; t += 32) pv8[h * page + t] = port::quant_i8(sr[t], sc, rsc);
+      if (lane == 0) {
+        l_s[h] = l_s[h] * alpha + sum;
+        m_s[h] = m_new;
+        alpha_s[h] = alpha;
+        pvsc_s[h] = sc;
+      }
+    }
+    __syncthreads();
+
+    // PV: lanes 4w .. 4w + 3 of a pass share output word i * 32 + w
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int si = i * (THREADS / 4) + (tid >> 2);
+      const bool on = si < qpk * W4;
+      const int h = on ? si / W4 : 0, c = on ? si - h * W4 : 0;
+      int a[4] = {0, 0, 0, 0};
+      if (on) {
+        for (int t0 = 4 * kl; t0 < page; t0 += 16) {
+          const int* vr = reinterpret_cast<const int*>(v_s + (size_t)t0 * hd) + c;
+          const uint32_t w0 = vr[0], w1 = vr[W4], w2 = vr[2 * W4], w3 = vr[3 * W4];
+          const int pw = *reinterpret_cast<const int*>(pv8 + h * page + t0);
+          uint32_t col[4];                      // column 4c + e of keys t0 .. t0 + 3
+          port::transpose4x4(w0, w1, w2, w3, col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = __dp4a((int)col[e], pw, a[e]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        a[e] += __shfl_xor_sync(0xffffffffu, a[e], 1);
+        a[e] += __shfl_xor_sync(0xffffffffu, a[e], 2);
+      }
+      const int mine = kl == 0 ? a[0] : kl == 1 ? a[1] : kl == 2 ? a[2] : a[3];
+      if (on)
+        acc[i] = __fadd_rn(__fmul_rn(acc[i], alpha_s[h]), __fmul_rn((float)mine, pvsc_s[h]));
+    }
+    if (stages == 1 && j + 1 < np) {            // one stage: free it before the next wait
+      __syncthreads();
+      if (tid == 0) issue(j + 1);
+    }
+  }
+
+  // the split's (acc, m, l); m and l were last written before the page's
+  // second barrier
+  float* wsb = ws + ((size_t)bg * gridDim.y + split) * qpk * (hd + 2);
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int si = i * (THREADS / 4) + (tid >> 2);
+    if (si < qpk * W4) {
+      const int h = si / W4, c = si - h * W4;
+      wsb[h * (hd + 2) + 4 * c + kl] = acc[i];
+    }
+  }
+  if (tid < qpk) {
+    wsb[tid * (hd + 2) + hd] = m_s[tid];
+    wsb[tid * (hd + 2) + hd + 1] = l_s[tid];
+  }
+}
+
 // grid (B * KV, ceil(qpk * hd / THREADS)); the live splits of each
 // (sequence, KV head) merged in split order, an output element a thread;
 // out (B, KV, qpk, hd) like q. Shared memory: the weights
@@ -415,6 +650,19 @@ struct Shape {
   float softcap, scale;
 };
 
+template <typename T>
+int launch_merge(void* ws, const void* lengths, void* out, const Shape& s, int nsplit,
+                 cudaStream_t stream) {
+  const size_t msmem = ((size_t)2 * s.qpk * nsplit + s.qpk) * sizeof(float);
+  cudaError_t err = port::allow_smem(decode_merge_kernel<T>, msmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 mgrid(s.B * s.KV, (s.qpk * s.hd + THREADS - 1) / THREADS);
+  decode_merge_kernel<T><<<mgrid, THREADS, msmem, stream>>>(
+      (const float*)ws, (const int*)lengths, (T*)out, s.KV, s.qpk, s.hd, s.tile, s.ntiles,
+      s.window, s.tps, nsplit);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int WPL, int NW, int QG, bool LAYOUT>
 int launch(const Source& src, const void* q, const void* lengths, void* ws, void* out,
            const Shape& s, cudaStream_t stream) {
@@ -431,14 +679,7 @@ int launch(const Source& src, const void* q, const void* lengths, void* ws, void
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const size_t msmem = ((size_t)2 * s.qpk * nsplit + s.qpk) * sizeof(float);
-  cudaError_t err = port::allow_smem(decode_merge_kernel<T>, msmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 mgrid(s.B * s.KV, (s.qpk * s.hd + THREADS - 1) / THREADS);
-  decode_merge_kernel<T><<<mgrid, THREADS, msmem, stream>>>(
-      (const float*)ws, (const int*)lengths, (T*)out, s.KV, s.qpk, s.hd, s.tile, s.ntiles,
-      s.window, s.tps, nsplit);
-  return (int)cudaGetLastError();
+  return launch_merge<T>(ws, lengths, out, s, nsplit, stream);
 }
 
 template <typename T, int WPL, bool LAYOUT>
@@ -488,9 +729,78 @@ int launch_any(int dtype, const Source& src, const void* q, const void* lengths,
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename T, int NS>
+int launch_int8(const void* q, const void* k, const void* ks, const void* v, const void* vs,
+                const void* lengths, const void* bt, void* ws, void* out, const Shape& s,
+                cudaStream_t stream) {
+  const int nsplit = (s.ntiles + s.tps - 1) / s.tps;
+  if (nsplit > 0) {
+    const size_t smem = i8_smem_bytes(s.qpk, s.hd, s.tile, s.stages);
+    auto kernel = decode_split_int8_kernel<T, NS>;
+    cudaError_t err = port::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3(s.B * s.KV, nsplit), THREADS, smem, stream>>>(
+        (const T*)q, (const int8_t*)k, (const float*)ks, (const int8_t*)v, (const float*)vs,
+        (const int*)lengths, (const int*)bt, (float*)ws, s.KV, s.qpk, s.hd, s.tile, s.ntiles,
+        s.window, s.tps, s.stages, s.softcap, s.scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return launch_merge<T>(ws, lengths, out, s, nsplit, stream);
+}
+
+template <typename T>
+int launch_int8_ns(const void* q, const void* k, const void* ks, const void* v, const void* vs,
+                   const void* lengths, const void* bt, void* ws, void* out, const Shape& s,
+                   cudaStream_t stream) {
+  const int words = s.qpk * s.hd / 4;           // output words, THREADS / 4 a pass
+#define I8_LAUNCH(NS) launch_int8<T, NS>(q, k, ks, v, vs, lengths, bt, ws, out, s, stream)
+  if (words <= 32) return I8_LAUNCH(1);
+  if (words <= 64) return I8_LAUNCH(2);
+  if (words <= 128) return I8_LAUNCH(4);
+  if (words <= 256) return I8_LAUNCH(8);
+  if (words <= 512) return I8_LAUNCH(16);
+  if (words <= 1024) return I8_LAUNCH(32);
+#undef I8_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
+
+// int8 pools (P, KV, page, hd) with float32 scale pools (P, KV, page); q
+// (B, KV, qpk, hd) and out in `dtype`; lengths (B,) and block_tables (B,
+// maxp) int32; ws (B, KV, ceil(maxp / pps), qpk, hd + 2) float32 scratch.
+// All contiguous, the pools and scale pools 16-byte aligned. hd a multiple
+// of 16 up to 256, page a multiple of 4 (a scale slab is then whole 16-byte
+// words), qpk * hd at most 4096, pps 1-32 pages a split, stages 1-4 (fewer
+// where they do not fit shared memory). Returns a cudaError_t code (0 =
+// launched).
+int paged_decode_attention_int8_sm90(int dtype, const void* q, const void* k_pages,
+                                     const void* k_scales, const void* v_pages,
+                                     const void* v_scales, const void* lengths,
+                                     const void* block_tables, void* ws, void* out, int B,
+                                     int KV, int qpk, int hd, int page, int maxp, int window,
+                                     int pps, int stages, float softcap, float scale,
+                                     void* stream) {
+  if (hd % 16 || hd < 16 || hd > 256 || page % 4 || page < 4 || qpk < 1 ||
+      qpk * hd > 4096 || pps < 1 || pps > MAX_TPS || stages < 1 || stages > MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
+  if (B * KV == 0) return (int)cudaSuccess;
+  Shape s{B, KV, qpk, hd, page, maxp, maxp * page, window, pps, stages, softcap, scale};
+  while (s.stages > 1 && i8_smem_bytes(qpk, hd, page, s.stages) > 227 * 1024) --s.stages;
+  if (i8_smem_bytes(qpk, hd, page, s.stages) > 227 * 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == DTYPE_F32)
+    return launch_int8_ns<float>(q, k_pages, k_scales, v_pages, v_scales, lengths,
+                                 block_tables, ws, out, s, st);
+  if (dtype == DTYPE_BF16)
+    return launch_int8_ns<__nv_bfloat16>(q, k_pages, k_scales, v_pages, v_scales, lengths,
+                                         block_tables, ws, out, s, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 
 // q (B, KV, qpk, hd); pools (P, KV, page, hd), 16-byte aligned; lengths (B,)
 // and block_tables (B, maxp) int32; ws (B, KV, ceil(maxp / pps), qpk, hd + 2)

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the tensor-core attention kernels
-// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, chunk_attn_sm90.cu), of the
-// decode's ring of bulk copies and TMA boxes (decode_sm90.cu) and of the
-// expert FFNs (moe_gemv_sm90.cu, moe_gemm_sm90.cu): mbarriers, TMA and bulk loads,
-// the 128-byte-swizzle wgmma descriptor, the bf16 wgmma products with
-// their fences, and the host-side encoding of TMA tensor maps.
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, chunk_attn_sm90.cu,
+// chunk_int8_sm90.cu), of the decode's ring of bulk copies and TMA boxes
+// (decode_sm90.cu) and of the expert FFNs (moe_gemv_sm90.cu,
+// moe_gemm_sm90.cu): mbarriers, TMA and bulk loads, ldmatrix, the
+// 128-byte-swizzle wgmma descriptor, the bf16 wgmma products with their
+// fences, and the host-side encoding of TMA tensor maps.
 //
 // Shared-memory operands are stored in the 128-byte-swizzled layout TMA
 // writes and wgmma reads: rows of 64 bf16 (128 bytes), the 16-byte chunk c
@@ -84,6 +85,13 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// Four 8x8 b16 matrices from shared memory, a lane's address a row each.
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
@@ -291,6 +299,26 @@ inline bool head_rows_map(CUtensorMap* map, const void* base, int N, int KV, int
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Tensor map of a contiguous int8 page pool (P, KV, page, hd), hd 64 or
+// 128: dims (hd, page, KV, P) innermost first, boxes of one whole page
+// (hd x page x 1 x 1), swizzled over hd-byte rows (128-byte swizzle at hd
+// 128, 64-byte at hd 64), so 16-byte fragment loads of 8 keys at one hd
+// offset hit 8 different bank groups.
+inline bool int8_pages_map(CUtensorMap* map, const void* base, int P, int KV, int page, int hd) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || (hd != 64 && hd != 128)) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)page, (cuuint64_t)KV, (cuuint64_t)P};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd, (cuuint64_t)page * hd,
+                                 (cuuint64_t)KV * page * hd};
+  const cuuint32_t box[4] = {(cuuint32_t)hd, (cuuint32_t)page, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                hd == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -65,12 +65,8 @@ struct Maps {
   CUtensorMap w0, w1, a;
 };
 
-// Four 8x8 b16 matrices from shared memory, a lane's address a row each.
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
+// Four 8x8 b16 matrices from shared memory, transposed, a lane's address a
+// row each (sm90::ldsm_x4 without the transpose).
 __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -187,7 +183,7 @@ cold_sm90_kernel(const __grid_constant__ Maps maps, const int* __restrict__ perm
         for (int gi = 0; gi < 4; ++gi) {
           if (gi >= ng) break;                    // the same for the whole warp
           uint32_t a[4];
-          ldsm_x4(sa + 2 * WBOX + (gi * NBX + kb) * ABOX + swz(ar, 2 * kk + ac), a);
+          sm90::ldsm_x4(sa + 2 * WBOX + (gi * NBX + kb) * ABOX + swz(ar, 2 * kk + ac), a);
           mma(acc[gi][0], a, b[0], b[1]);
           mma(acc[gi][1], a, b[2], b[3]);
           if constexpr (!DOWN) {

@@ -1,6 +1,6 @@
-"""Attention kernels (CUDA, ``csrc/decode_sm90.cu``, ``csrc/decode_attn.cu``
-and ``csrc/chunk_attn_sm90.cu``) and their plain PyTorch versions, in the
-kernel layouts.
+"""Attention kernels (CUDA, ``csrc/decode_sm90.cu``, ``csrc/decode_attn.cu``,
+``csrc/chunk_attn_sm90.cu`` and ``csrc/chunk_int8_sm90.cu``) and their plain
+PyTorch versions, in the kernel layouts.
 
 * ``decode_attention_kernel`` — GQA decode on the dense cache: one query
   token per sequence, ``qpk`` query heads per KV head, online softmax over
@@ -40,7 +40,13 @@ kernel layouts.
   bodies (``_paged_decode_kernel_int8``, ``_chunked_prefill_kernel_int8``).
   Their plain versions walk the page columns with a running max exactly as
   those bodies do; they are not the model-level paths of
-  ``models/attention.py``, which requantize once over the whole row.
+  ``models/attention.py``, which requantize once over the whole row. The
+  decode's pages of a multiple of 4 keys run ``decode_sm90.cu``'s int8
+  split (each split's pages walked from the split's own running max, then
+  merged; ``paged_decode_attention_int8_split_plain`` is that arithmetic),
+  other pages the scalar kernel of ``decode_attn.cu``; the chunk's
+  head_dim and page in ``SM90_SHAPES`` run ``chunk_int8_sm90.cu`` (int8
+  ``mma.sync``, the page walk as it is), other shapes the scalar kernel.
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
@@ -153,6 +159,15 @@ def _split_decode(q, tiles, lens, lim, ntiles, tile, tiles_per_split, window, so
             acc = acc * alpha + torch.matmul(p, v.float())
             m = m_new
         parts.append((m, l, acc))
+    return _merge_splits(q, parts, lo, hi, tps)
+
+
+def _merge_splits(q, parts, lo, hi, tps):
+    """The merge kernel's arithmetic: the live splits' float32 (m, l, acc)
+    (B, KV, qpk, 1 | hd) of sequences whose live tiles are [lo, hi), in runs
+    of ``tps`` tiles, combined in split order; a sequence with no live tile
+    comes back exact zeros."""
+    B, KV, qpk, hd = q.shape
     n_live = (hi - lo).clamp_min(0).add(tps - 1).div(tps, rounding_mode="floor")
     live = [(s < n_live)[:, None, None, None] for s in range(len(parts))]
     mx = torch.full((B, KV, qpk, 1), NEG_INF, device=q.device)
@@ -374,8 +389,9 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, lengths, block_tables, *,
     return out
 
 
-# (head_dim, page) the tensor-core route takes: wgmma over 64-column panels,
-# and pages of whole 8-row swizzle atoms that tile 64 keys
+# (head_dim, page) the tensor-core routes of the chunk attention take, bf16
+# and int8 pools alike: 64-column wgmma panels (bf16) or one swizzled row
+# of int8, and pages of whole 8-row swizzle atoms
 SM90_SHAPES = {(hd, page) for hd in (64, 128) for page in (8, 16, 32, 64)}
 
 
@@ -441,32 +457,48 @@ def _attend_int8_paged(q, k_pages, k_scales, v_pages, v_scales, block_tables,
     every sum stays below 2^24 (hd <= 256 and page <= 1040: n * 127^2)."""
     B, KV, R, hd = q.shape
     page = k_pages.shape[2]
-    scale = 1.0 / math.sqrt(hd)
     q8, q_sc = int8_quantize(q, keepdims=True)            # (B,KV,R,hd), (B,KV,R,1)
-    q8 = q8.float()
-    m = torch.full((B, KV, R, 1), NEG_INF, device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((B, KV, R, hd), device=q.device)
+    state = _int8_state(q)
     bt = block_tables.long()
     for j in range(bt.shape[1]):
         pid = bt[:, j]
         ok = valid[:, None, :, j * page:(j + 1) * page]   # (B, 1, R|1, page)
-        s = (torch.matmul(q8, k_pages[pid].float().transpose(-1, -2)) * q_sc
-             * k_scales[pid][:, :, None, :] * scale)
-        if softcap > 0.0:
-            # a tensor divisor, as in int8_quantize: p feeds a requantization
-            s = softcap * torch.tanh(s / torch.full_like(s, softcap))
-        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new) * ok
-        pv8, pv_sc = int8_quantize(p * v_scales[pid][:, :, None, :], keepdims=True)
-        pv = torch.matmul(pv8.float(), v_pages[pid].float())
-        live = needed[:, j][:, None, None, None]
-        l = torch.where(live, l * alpha + p.sum(dim=-1, keepdim=True), l)
-        acc = torch.where(live, acc * alpha + pv * pv_sc, acc)
-        m = torch.where(live, m_new, m)
+        state = _int8_page(q8, q_sc, k_pages[pid], k_scales[pid], v_pages[pid],
+                           v_scales[pid], ok, needed[:, j], state, softcap)
+    m, l, acc = state
     return (acc / l.clamp_min(1e-37)).to(q.dtype)
+
+
+def _int8_state(q):
+    """A fresh float32 running state (m, l, acc) for q's rows."""
+    B, KV, R, hd = q.shape
+    m = torch.full((B, KV, R, 1), NEG_INF, device=q.device)
+    return m, torch.zeros_like(m), torch.zeros((B, KV, R, hd), device=q.device)
+
+
+def _int8_page(q8, q_sc, k8, ks, v8, vs, ok, live, state, softcap):
+    """One page of the int8 bodies: folded-scale int8 QK^T, the online
+    softmax with p gated by the mask ``ok`` (B, 1, R|1, page), p * v_scale
+    requantized per row over this page, an int8 PV. k8, v8 (B, KV, page, hd)
+    and ks, vs (B, KV, page) are each sequence's page; rows of a sequence
+    whose ``live`` (B,) is False keep their state."""
+    m, l, acc = state
+    scale = 1.0 / math.sqrt(q8.shape[-1])
+    s = (torch.matmul(q8.float(), k8.float().transpose(-1, -2)) * q_sc
+         * ks[:, :, None, :] * scale)
+    if softcap > 0.0:
+        # a tensor divisor, as in int8_quantize: p feeds a requantization
+        s = softcap * torch.tanh(s / torch.full_like(s, softcap))
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new) * ok
+    pv8, pv_sc = int8_quantize(p * vs[:, :, None, :], keepdims=True)
+    pv = torch.matmul(pv8.float(), v8.float())
+    live = live[:, None, None, None]
+    return (torch.where(live, m_new, m),
+            torch.where(live, l * alpha + p.sum(dim=-1, keepdim=True), l),
+            torch.where(live, acc * alpha + pv * pv_sc, acc))
 
 
 def paged_decode_attention_int8_plain(q, k_pages, k_scales, v_pages, v_scales,
@@ -489,6 +521,49 @@ def paged_decode_attention_int8_plain(q, k_pages, k_scales, v_pages, v_scales,
                               block_tables, valid[:, None], needed, softcap)
 
 
+def paged_decode_attention_int8_split_plain(q, k_pages, k_scales, v_pages, v_scales,
+                                            lengths, block_tables, *, pages_per_split: int,
+                                            window: int = 0, softcap: float = 0.0):
+    """``paged_decode_attention_int8_plain`` computed as ``decode_sm90.cu``'s
+    int8 split computes it: the live pages [lo, hi) (the window's first
+    position's page up to the page of position length - 1, within the table)
+    cut into splits of ``pages_per_split`` pages, each split's float32 (m, l,
+    acc) walked a page at a time from its own running max exactly as the
+    page walk does (the per-page requantization of p * v_scale included),
+    then the live splits merged in split order (``_merge_splits``). Above
+    the recipe's 1e-8 scale floor a split's own max gives the same pv8 as
+    the sequence's in exact arithmetic, and in float a value within rounding
+    of a .5 step can land one int8 step away; a page whose p * v_scale under
+    the sequence's max falls below 1.27e-6 is requantized on the floor's
+    coarser grid by the page walk and on a finer one by a split whose own
+    max is lower (``tests/test_torch_int8.py`` bounds both)."""
+    page = k_pages.shape[2]
+    maxp = block_tables.shape[1]
+    tps = pages_per_split
+    lens = lengths.long()
+    lim = lens.clamp_max(maxp * page)
+    bt = block_tables.long()
+    rows = torch.arange(bt.shape[0], device=q.device)
+    first = (lens - window).clamp_min(0) if window > 0 else torch.zeros_like(lens)
+    lo, hi = first // page, ((lens + page - 1) // page).clamp_max(maxp)
+    t = torch.arange(page, device=q.device)
+    q8, q_sc = int8_quantize(q, keepdims=True)
+    parts = []
+    for s in range(-(-maxp // tps)):
+        state = _int8_state(q)
+        for j in range(tps):
+            tp = lo + s * tps + j
+            pid = bt[rows, tp.clamp(0, maxp - 1)]
+            kpos = tp[:, None] * page + t[None]                        # (B, page)
+            ok = kpos < lim[:, None]
+            if window > 0:
+                ok &= kpos > lens[:, None] - 1 - window
+            state = _int8_page(q8, q_sc, k_pages[pid], k_scales[pid], v_pages[pid],
+                               v_scales[pid], ok[:, None, None, :], tp < hi, state, softcap)
+        parts.append(state)
+    return _merge_splits(q, parts, lo, hi, tps)
+
+
 def chunked_prefill_attention_int8_plain(q, k_pages, k_scales, v_pages,
                                          v_scales, totals, starts, block_tables,
                                          *, qpk: int, softcap: float = 0.0):
@@ -508,11 +583,23 @@ def chunked_prefill_attention_int8_plain(q, k_pages, k_scales, v_pages,
                               block_tables, valid, needed, softcap)
 
 
+# pages a block of the int8 paged decode's split route covers; keys a step
+# of the int8 chunk kernel takes (whole pages, at least one)
+INT8_PAGES_PER_SPLIT = 8
+INT8_CHUNK_STEP_KEYS = 64
+
+
 def paged_decode_attention_int8_kernel(q, k_pages, k_scales, v_pages, v_scales,
                                        lengths, block_tables, *, window: int = 0,
                                        softcap: float = 0.0):
-    """Layout as ``paged_decode_attention_int8_plain``; runs the CUDA kernel
-    for CUDA tensors and the plain version for CPU tensors."""
+    """Layout as ``paged_decode_attention_int8_plain``; runs a CUDA kernel
+    for CUDA tensors and the plain version for CPU tensors. The kernel is
+    chosen before the launch: pages of a multiple of 4 keys run the split
+    kernels of ``decode_sm90.cu`` (runs of ``INT8_PAGES_PER_SPLIT`` pages,
+    ``STAGES`` in flight, then the merge; counted under
+    ``paged_decode_attention_int8_sm90`` as well;
+    ``paged_decode_attention_int8_split_plain`` is its arithmetic), other
+    pages the scalar kernel of ``decode_attn.cu``."""
     if q.device.type == "cpu":
         return paged_decode_attention_int8_plain(
             q, k_pages, k_scales, v_pages, v_scales, lengths, block_tables,
@@ -521,27 +608,57 @@ def paged_decode_attention_int8_kernel(q, k_pages, k_scales, v_pages, v_scales,
                  scales=(k_scales, v_scales))
     B, KV, qpk, hd = q.shape
     page = k_pages.shape[2]
-    smem = 4 * (qpk * (hd + page + 5) + 2 * page) + qpk * (hd + page) + page * hd + 32
-    if smem > 227 * 1024:
-        raise ValueError("qpk/head_dim/page too large for one block's shared memory")
+    maxp = block_tables.shape[1]
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(), v_pages.data_ptr(),
+            v_scales.data_ptr(), lengths.data_ptr(), block_tables.data_ptr())
+    tail = (float(softcap), 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    code = build.DTYPE_CODES[str(q.dtype).split(".")[1]]
     out = torch.empty_like(q)
-    fn = build.bind("decode_attn.cu", "paged_decode_attention_int8", 8, 7, 2)
-    err = fn(build.DTYPE_CODES[str(q.dtype).split(".")[1]], q.data_ptr(),
-             k_pages.data_ptr(), k_scales.data_ptr(), v_pages.data_ptr(),
-             v_scales.data_ptr(), lengths.data_ptr(), block_tables.data_ptr(),
-             out.data_ptr(), B, KV, qpk, hd, page, block_tables.shape[1],
-             int(window), float(softcap), 1.0 / math.sqrt(hd),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "paged_decode_attention_int8")
-    build.launch_counts["paged_decode_attention_int8"] += 1
+    if page % 4 == 0:
+        if any(t.data_ptr() % 16 for t in (k_scales, v_scales)):
+            raise ValueError("the int8 split kernel brings scale slabs in by bulk copies: "
+                             "the scale pools must be 16-byte aligned")
+        if qpk * hd > 4096:
+            raise ValueError(f"qpk {qpk} x head_dim {hd} exceeds the int8 split kernel's "
+                             "4096 accumulators")
+        nsplit = -(-maxp // INT8_PAGES_PER_SPLIT)
+        smem = (128 + 2 * page * hd + 8 * page + ((qpk * (page + 5) * 4 + 15) & ~15)
+                + qpk * (hd + page))
+        if smem > 227 * 1024:
+            raise ValueError("qpk/head_dim/page too large for one block's shared memory")
+        if (2 * nsplit + 1) * qpk * 4 > 227 * 1024:
+            raise ValueError(f"{nsplit} splits of {qpk} heads exceed the merge's shared memory")
+        ws = torch.empty((B, KV, nsplit, qpk, hd + 2), dtype=torch.float32, device=q.device)
+        name = "paged_decode_attention_int8_sm90"
+        fn = build.bind("decode_sm90.cu", name, 9, 9, 2)
+        err = fn(code, *ptrs, ws.data_ptr(), out.data_ptr(), B, KV, qpk, hd, page, maxp,
+                 int(window), INT8_PAGES_PER_SPLIT, STAGES, *tail)
+    else:
+        smem = 4 * (qpk * (hd + page + 5) + 2 * page) + qpk * (hd + page) + page * hd + 32
+        if smem > 227 * 1024:
+            raise ValueError("qpk/head_dim/page too large for one block's shared memory")
+        name = "paged_decode_attention_int8"
+        fn = build.bind("decode_attn.cu", name, 8, 7, 2)
+        err = fn(code, *ptrs, out.data_ptr(), B, KV, qpk, hd, page, maxp, int(window), *tail)
+    build.check(err, name)
+    build.launch_counts[name] += 1
+    if name != "paged_decode_attention_int8":
+        build.launch_counts["paged_decode_attention_int8"] += 1
     return out
 
 
 def chunked_prefill_attention_int8_kernel(q, k_pages, k_scales, v_pages,
                                           v_scales, totals, starts, block_tables,
                                           *, qpk: int, softcap: float = 0.0):
-    """Layout as ``chunked_prefill_attention_int8_plain``; runs the CUDA
-    kernel for CUDA tensors and the plain version for CPU tensors."""
+    """Layout as ``chunked_prefill_attention_int8_plain``; runs a CUDA kernel
+    for CUDA tensors and the plain version for CPU tensors. The kernel is
+    chosen before the launch: head_dim and page in ``SM90_SHAPES`` (float32
+    or bfloat16 q) run the int8 tensor-core kernel of ``chunk_int8_sm90.cu``
+    (``INT8_CHUNK_STEP_KEYS`` keys of whole pages a step; counted under
+    ``chunked_prefill_attention_int8_sm90`` as well), other shapes the
+    scalar kernel of ``decode_attn.cu``. Both walk the pages one at a time
+    as the plain version does."""
     if q.device.type == "cpu":
         return chunked_prefill_attention_int8_plain(
             q, k_pages, k_scales, v_pages, v_scales, totals, starts,
@@ -552,17 +669,32 @@ def chunked_prefill_attention_int8_kernel(q, k_pages, k_scales, v_pages,
     page = k_pages.shape[2]
     if R % qpk:
         raise ValueError(f"rows {R} not a multiple of qpk {qpk}")
+    sm90 = (hd, page) in SM90_SHAPES
+    if sm90 and any(t.data_ptr() % 16 for t in (k_scales, v_scales)):
+        raise ValueError("the int8 chunk kernel brings scale slabs in by bulk copies: the "
+                         "scale pools must be 16-byte aligned")
     smem = 4 * (16 * (hd + page + 5) + 2 * page) + 16 * (hd + page) + 2 * page * hd + 32
-    if smem > 227 * 1024:
+    if not sm90 and smem > 227 * 1024:
         raise ValueError("page/head_dim too large for one block's shared memory")
     out = torch.empty_like(q)
-    fn = build.bind("decode_attn.cu", "chunked_prefill_attention_int8", 9, 7, 2)
-    err = fn(build.DTYPE_CODES[str(q.dtype).split(".")[1]], q.data_ptr(),
-             k_pages.data_ptr(), k_scales.data_ptr(), v_pages.data_ptr(),
-             v_scales.data_ptr(), totals.data_ptr(), starts.data_ptr(),
-             block_tables.data_ptr(), out.data_ptr(), B, KV, R, qpk, hd, page,
-             block_tables.shape[1], float(softcap), 1.0 / math.sqrt(hd),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "chunked_prefill_attention_int8")
-    build.launch_counts["chunked_prefill_attention_int8"] += 1
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(), v_pages.data_ptr(),
+            v_scales.data_ptr(), totals.data_ptr(), starts.data_ptr(),
+            block_tables.data_ptr(), out.data_ptr())
+    ints = (B, KV, R, qpk, hd, page, block_tables.shape[1])
+    tail = (float(softcap), 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    code = build.DTYPE_CODES[str(q.dtype).split(".")[1]]
+    if sm90:
+        name = "chunked_prefill_attention_int8_sm90"
+        fn = build.bind("chunk_int8_sm90.cu", name, 9, 9, 2)
+        pps = max(1, min(8, INT8_CHUNK_STEP_KEYS // page))
+        err = fn(code, *ptrs, *ints, k_pages.shape[0], pps, *tail)
+    else:
+        name = "chunked_prefill_attention_int8"
+        fn = build.bind("decode_attn.cu", name, 9, 7, 2)
+        err = fn(code, *ptrs, *ints, *tail)
+    build.check(err, name)
+    build.launch_counts[name] += 1
+    if sm90:
+        build.launch_counts["chunked_prefill_attention_int8"] += 1
     return out

@@ -277,6 +277,126 @@ def test_cuda_paged_decode_matches_plain(card, monkeypatch, hd, page, qpk, windo
             assert torch.equal(got, again)
 
 
+# (hd, page, qpk, window, softcap, long) of the int8 paged decode: path b's
+# hd 128 / page 16 and hd 64 / page 8 at qpk 1 and 4, then qpk 12 at page 64
+# (a page past one warp's 32 lanes), the smallest page and hd 32, and a page
+# of 6 keys, which takes the scalar route; `long` puts one sequence past
+# 2048 keys
+INT8_DECODE_CASES = [(128, 16, 1, 0, 0.0, False), (128, 16, 4, 200, 30.0, True),
+                     (64, 8, 1, 7, 5.0, True), (64, 8, 4, 0, 0.0, False),
+                     (128, 64, 12, 0, 30.0, True), (32, 4, 2, 7, 5.0, False),
+                     (64, 6, 2, 0, 5.0, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,page,qpk,window,softcap,long", INT8_DECODE_CASES)
+def test_cuda_int8_paged_decode_matches_plain(card, monkeypatch, hd, page, qpk, window,
+                                             softcap, long):
+    """The int8 paged decode's split route (``decode_sm90.cu``: the live
+    page range split over blocks, each split walked from its own running
+    max with the per-page requantization, merged in a fixed order) against
+    its plain version, ``paged_decode_attention_int8_split_plain``, bf16
+    within 2e-2 and float32 within 1e-4: lengths 0 (exact zeros), 1, on and
+    off the page grid and a split's edge, block-table columns past the live
+    pages on a null page 0 of large values; runs of 1, 3 and 32 pages a
+    split beside the default, with 1-3 stages, and q x 12 so that pages
+    past a split's first move its running max; a second call gives the
+    same bits. A page that is not a multiple of 4 keys takes the scalar
+    route, held against the page walk."""
+    rng = np.random.default_rng(hd + page + qpk + window + 7)
+    KV = 2
+    pps0 = decode_attn.INT8_PAGES_PER_SPLIT
+    edge = pps0 * page
+    lens = [0, 1, page - 1, page, page + 1, edge, edge + 1, 300, 2100 if long else 517, 1000]
+    maxp = -(-max(lens) // page) + 2                  # columns past every live page
+    k, v, bt = _pools(rng, lens, KV=KV, hd=hd, page=page, maxp=maxp)
+    k[0] = v[0] = 1e4                                 # the null page: never live
+    q = rng.standard_normal((len(lens), KV, qpk, hd)).astype(np.float32)
+    t = lambda a: torch.tensor(a, device=card)
+    k8, ks = int8_quantize(t(k))
+    v8, vs = int8_quantize(t(v))
+    ints = (t(np.asarray(lens, np.int32)), t(bt))
+    kw = dict(window=window, softcap=softcap)
+    split = page % 4 == 0
+    runs = ((pps0, decode_attn.STAGES, 1.0), (pps0, decode_attn.STAGES, 12.0),
+            (1, 2, 1.0), (3, 1, 12.0), (32, 3, 12.0)) if split else ((pps0, 2, 1.0),)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for pps, stages, q_scale in runs:
+            args = (t(q * q_scale).to(dtype), k8, ks, v8, vs, *ints)
+            if split:
+                want = decode_attn.paged_decode_attention_int8_split_plain(
+                    *args, pages_per_split=pps, **kw)
+            else:
+                want = decode_attn.paged_decode_attention_int8_plain(*args, **kw)
+            monkeypatch.setattr(decode_attn, "INT8_PAGES_PER_SPLIT", pps)
+            monkeypatch.setattr(decode_attn, "STAGES", stages)
+            n = build.launch_counts["paged_decode_attention_int8"]
+            n_sm90 = build.launch_counts["paged_decode_attention_int8_sm90"]
+            got = decode_attn.paged_decode_attention_int8_kernel(*args, **kw)
+            assert build.launch_counts["paged_decode_attention_int8"] == n + 1
+            assert build.launch_counts["paged_decode_attention_int8_sm90"] == n_sm90 + split
+            torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+            assert not got[0].any()                   # length 0
+            again = decode_attn.paged_decode_attention_int8_kernel(*args, **kw)
+            assert torch.equal(got, again)
+
+
+# (hd, page, qpk, Sc, softcap, long) of the int8 chunk: path b's hd 128 /
+# page 16 and hd 64 / page 8 at qpk 1 and 4, pages of 32 and 64 keys, and
+# hd 16, which takes the scalar route; Sc 20 puts R off the 64-row items at
+# qpk 1 and 4; `long` puts one sequence's context past 2048 keys
+INT8_CHUNK_CASES = [(128, 16, 1, 64, 0.0, False), (128, 16, 4, 20, 30.0, True),
+                    (64, 8, 1, 20, 30.0, True), (64, 8, 4, 64, 0.0, False),
+                    (128, 32, 8, 20, 0.0, False), (64, 64, 1, 64, 30.0, True),
+                    (16, 8, 2, 20, 5.0, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,page,qpk,Sc,softcap,long", INT8_CHUNK_CASES)
+def test_cuda_int8_chunked_prefill_matches_plain(card, monkeypatch, hd, page, qpk, Sc, softcap,
+                                                 long):
+    """The int8 chunk attention's tensor-core route (``chunk_int8_sm90.cu``:
+    int8 ``mma.sync``, the reference's page walk) against its plain
+    version, bf16 within 2e-2 and float32 within 1e-4, at the default keys
+    a step and at one page a step, q at x1 and x12 (the scores spread over
+    tens, so the running max moves from page to page):
+    starts off the page grid, a chunk shorter than Sc (padded rows), a
+    sequence with total == 0 (exact zeros), block-table columns past the
+    live pages on a null page 0 of large values. The call must take the
+    route its shape names (hd 16: the scalar kernel), and a second call
+    give the same bits."""
+    rng = np.random.default_rng(hd + page + qpk + Sc + 11)
+    KV = 2
+    starts = np.asarray([0, 37, 2100 if long else 130, 0], np.int32)
+    totals = starts + np.asarray([Sc, Sc - 3, Sc, 0], np.int32)
+    maxp = -(-int(totals.max()) // page) + 2          # columns past every live page
+    k, v, bt = _pools(rng, list(totals), KV=KV, hd=hd, page=page, maxp=maxp)
+    k[0] = v[0] = 1e4                                 # the null page: never live
+    q = rng.standard_normal((len(starts), KV, Sc * qpk, hd)).astype(np.float32)
+    t = lambda a: torch.tensor(a, device=card)
+    k8, ks = int8_quantize(t(k))
+    v8, vs = int8_quantize(t(v))
+    ints = (t(totals), t(starts), t(bt))
+    sm90 = (hd, page) in decode_attn.SM90_SHAPES
+    kw = dict(qpk=qpk, softcap=softcap)
+    runs = ((decode_attn.INT8_CHUNK_STEP_KEYS, 1.0), (decode_attn.INT8_CHUNK_STEP_KEYS, 12.0),
+            (page, 12.0))
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        for step_keys, q_scale in runs:
+            monkeypatch.setattr(decode_attn, "INT8_CHUNK_STEP_KEYS", step_keys)
+            args = (t(q * q_scale).to(dtype), k8, ks, v8, vs, *ints)
+            n = build.launch_counts["chunked_prefill_attention_int8"]
+            n_sm90 = build.launch_counts["chunked_prefill_attention_int8_sm90"]
+            got = decode_attn.chunked_prefill_attention_int8_kernel(*args, **kw)
+            assert build.launch_counts["chunked_prefill_attention_int8"] == n + 1
+            assert build.launch_counts["chunked_prefill_attention_int8_sm90"] == n_sm90 + sm90
+            want = decode_attn.chunked_prefill_attention_int8_plain(*args, **kw)
+            torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+            assert not got[3].any()                   # total == 0
+            again = decode_attn.chunked_prefill_attention_int8_kernel(*args, **kw)
+            assert torch.equal(got, again)
+
+
 # (hd, page, qpk, Sc, softcap, long): each head size, page, qpk, chunk width
 # and softcap of the route, in turn; Sc 20 puts R off the 64-row tiles at
 # qpk 1 and 4; `long` puts one sequence's context past 2048 keys

@@ -119,6 +119,117 @@ def test_paged_decode_int8_plain_matches_pallas(qpk, window, softcap):
     assert not got[0].any()              # length 0: exact zeros
 
 
+def _pv8_flips(q, k8, ks, v8, vs, lens, bt, pps, window, softcap):
+    """Recomputes each live page's pv8 under the sequence's running max (the
+    page walk's) and under its split's own (runs of ``pps`` live pages), in
+    float32 as both plain versions do, and returns what the pv8s that
+    differ move in the page walk's output, (B, KV, qpk, hd): the sum over
+    pages of |pv8 * pv_scale - pv8' * pv_scale' * e^(m' - m)| @ |v8| over
+    the differing keys, times e^(m_page - m_final) / l_final. Asserts that
+    each difference is one of two kinds: a value within rounding of a .5
+    step landing one int8 step away, or a page whose requantization scale
+    in the page walk sits at the recipe's 1e-8 floor (p * v_scale below
+    1.27e-6 under the sequence's max), where the split's larger p is
+    requantized on a finer grid: requantization is scale-invariant only
+    above the floor."""
+    B, KV, qpk, hd = q.shape
+    page = k8.shape[2]
+    scale = 1.0 / np.sqrt(hd)
+    q8, q_sc = int8_quantize(q, keepdims=True)
+    ninf = decode_attn.NEG_INF
+    m_g = m_s = torch.full((B, KV, qpk, 1), ninf)
+    l_g = torch.zeros_like(m_g)
+    moved = []                                    # (m after the page, what it moved)
+    ln = lens.long()[:, None]
+    first = (ln - window).clamp_min(0) if window else torch.zeros_like(ln)
+    for j in range(bt.shape[1]):
+        pid = bt[:, j].long()
+        kpos = j * page + torch.arange(page)[None]
+        ok = kpos < ln
+        if window:
+            ok &= kpos > ln - 1 - window
+        live = ((j * page < ln) & (j * page + page > first))[:, :, None, None]
+        restart = ((j - first // page) % pps == 0)[:, :, None, None]
+        ok = ok[:, None, None, :]
+        sc = torch.matmul(q8.float(), k8[pid].float().transpose(-1, -2)) * q_sc \
+            * ks[pid][:, :, None, :] * scale
+        if softcap:
+            sc = softcap * torch.tanh(sc / torch.full_like(sc, softcap))
+        sc = torch.where(ok, sc, torch.full_like(sc, ninf))
+        mx = sc.amax(dim=-1, keepdim=True)
+        m_s = torch.where(restart, torch.full_like(m_s, ninf), m_s)
+        new_g, new_s = torch.maximum(m_g, mx), torch.maximum(m_s, mx)
+        a8, a_sc = int8_quantize(torch.exp(sc - new_g) * ok * vs[pid][:, :, None, :],
+                                 keepdims=True)
+        b8, b_sc = int8_quantize(torch.exp(sc - new_s) * ok * vs[pid][:, :, None, :],
+                                 keepdims=True)
+        differ = (a8 != b8) & live
+        one_step = (a8.int() - b8.int()).abs() <= 1
+        assert (one_step | (a_sc == np.float32(1e-8)))[differ].all(), \
+            "a pv8 differs by more than one int8 step on a page above the scale floor"
+        gap = (a8.float() * a_sc - b8.float() * b_sc * torch.exp(new_s - new_g)).abs()
+        moved.append((new_g, torch.matmul(gap * differ, v8[pid].float().abs())))
+        l_g = torch.where(live, l_g * torch.exp(m_g - new_g)
+                          + (torch.exp(sc - new_g) * ok).sum(-1, keepdim=True), l_g)
+        m_g = torch.where(live, new_g, m_g)
+        m_s = torch.where(live, new_s, m_s)
+    bound = sum(torch.exp(m - m_g) * mv for m, mv in moved)
+    return bound / l_g.clamp_min(1e-37)
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 12.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (7, 5.0)])
+@pytest.mark.parametrize("qpk", [1, 2])
+@pytest.mark.parametrize("pages_per_split", [1, 2, 3])
+def test_paged_decode_int8_split_plain_matches_pallas(pages_per_split, qpk, window,
+                                                      softcap, dtype, q_scale):
+    """The int8 split kernel's arithmetic (``paged_decode_attention_int8_
+    split_plain``: each split of ``pages_per_split`` live pages walked from
+    its own running max, the per-page requantization kept, the splits
+    merged in order) against the Pallas int8 body in interpret mode, within
+    2e-5: lengths 0, 1, a page edge and past it, split edges (16 and 24) and
+    past them, and the full table; q x 12 spreads the scores over tens, so
+    pages past a split's first move its running max. Where a split's own max
+    moves a requantized p * v_scale by one int8 step (``_pv8_flips`` shows
+    each is one step), the elements it touches are held to that step's
+    bound instead; every other element to 2e-5."""
+    rng = np.random.default_rng(70 + 10 * pages_per_split + qpk)
+    lens = [0, 1, 8, 9, 16, 17, 24, 25, 40]
+    pools, bt = _int8_pools(rng, lens)
+    jq = jnp.asarray(rng.standard_normal((len(lens), KV, qpk, HD)) * q_scale,
+                     getattr(jnp, dtype))
+    q = torch.tensor(np.asarray(jq.astype(jnp.float32))).to(getattr(torch, dtype))
+    lengths = np.asarray(lens, np.int32)
+    k8, ks, v8, vs = (torch.tensor(a) for a in pools)
+    kw = dict(window=window, softcap=softcap)
+    split = lambda x: decode_attn.paged_decode_attention_int8_split_plain(
+        x, k8, ks, v8, vs, torch.tensor(lengths), torch.tensor(bt),
+        pages_per_split=pages_per_split, **kw)
+    got = split(q)
+    assert got.dtype == q.dtype
+    jk8, jks, jv8, jvs = (jnp.asarray(a) for a in pools)
+    want = np.asarray(pallas_decode(jq, jk8, jv8, jnp.asarray(lengths), jnp.asarray(bt),
+                                    k_scale_pages=jks, v_scale_pages=jvs, interpret=True,
+                                    **kw).astype(jnp.float32))
+    band = 2e-5 + 2e-5 * np.abs(want)
+    if dtype == "bfloat16":
+        # both sides quantize the same bf16 values of q and cast a float32
+        # result to bf16 at the end: compare that float32 result, allowing
+        # the bf16 output its own rounding, half a step
+        exact = split(q.float())
+        assert torch.equal(got, exact.to(torch.bfloat16))
+        got = exact
+        band += np.abs(want) * 2.0 ** -8
+    got = got.float().numpy()
+    bound = _pv8_flips(q, k8, ks, v8, vs, torch.tensor(lengths), torch.tensor(bt),
+                       pages_per_split, window, softcap).numpy()
+    err = np.abs(got - want)
+    assert (err <= band + bound).all(), (err - band - bound).max()
+    assert (err[bound == 0] <= band[bound == 0]).all()
+    assert not got[0].any()              # length 0: exact zeros
+
+
 @pytest.mark.parametrize("qpk", [1, 2])
 @pytest.mark.parametrize("softcap", [0.0, 4.0])
 def test_chunked_prefill_int8_plain_matches_pallas(qpk, softcap):
@@ -234,10 +345,15 @@ def test_kv_byte_accounting_matches_reference(kv_quant):
         2 * 16 * (128 + 4) if kv_quant else 2 * 16 * 128 * 2)
 
 
-def test_int8_wrappers_do_not_fall_back_off_cpu():
-    q = torch.zeros((1, 1, 1, 16), device="meta")
-    k = torch.zeros((2, 1, 8, 16), dtype=torch.int8, device="meta")
-    s = torch.zeros((2, 1, 8), device="meta")
+# (head_dim, page): the scalar int8 chunk and the decode's split route; the
+# scalar decode (a page not a multiple of 4 keys); path b's shape, where the
+# decode takes the split route and the chunk the tensor-core one
+@pytest.mark.parametrize("hd,page", [(16, 8), (16, 6), (128, 16)])
+def test_int8_wrappers_do_not_fall_back_off_cpu(hd, page):
+    """Off the CPU a wrapper launches a kernel or raises, on every route."""
+    q = torch.zeros((1, 1, 1, hd), device="meta")
+    k = torch.zeros((2, 1, page, hd), dtype=torch.int8, device="meta")
+    s = torch.zeros((2, 1, page), device="meta")
     one = torch.zeros((1,), dtype=torch.int32, device="meta")
     bt = torch.zeros((1, 1), dtype=torch.int32, device="meta")
     before = dict(build.launch_counts)
