@@ -24,7 +24,9 @@ Phases, each printing a line:
      pair also at Jamba-v0.1's widths and path c's decode capacities, each
      MoE case judged on its error over max(1, the largest |plain| entry);
      the dense decode attention and the SSD decode at Jamba-v0.1's shapes,
-     the dense decode also at path c's decode lengths, the SSD decode also
+     the dense decode also at path c's decode lengths and at OLMoE-1B-7B's
+     heads (16 over 16, Smax 1024, also at path f's decode lengths), the
+     SSD decode also
      at Mamba2-2.7B's, judged on its error over max(1, the largest |plain|
      entry); the flash
      forward and backward at path d's shape, Jamba-v0.1's GQA heads, a
@@ -58,7 +60,26 @@ Phases, each printing a line:
      launches, all through ``decode_sm90.cu``), and that one mixed stage's
      logits through the kernels agree with the plain (kernel-free) torch
      path, then profiles a short run; b also prints both paths' KV pool
-     bytes. Then, with the OLMoE model freed,
+     bytes;
+       e. a shared system prompt on an oversubscribed pool: 16 requests of
+          one 256-token system prompt and a seeded private suffix of 64-256
+          tokens, bf16 pages and the ragged MoE with ``prefix_share`` and
+          ``preemption="recompute"``, ``kv_num_pages`` a quarter of the
+          pages the requests would need over their lifetimes without sharing
+          (shared, they need less than half); it checks completion, that requests were preempted and
+          shared prompt positions skipped, an empty ``kv.audit()`` and a
+          drained pool, kernels 1-4 launched (the chunk calls and the MoE
+          calls on their tensor-core routes), and one mixed stage whose
+          chunk row starts after an adopted shared prefix (its pages also
+          in a decode row's table) through the kernels against the plain
+          path, each on its own copy of the pool;
+       f. the dense KV layout with migrate preemption over 8 slots, path
+          a's 16 requests: completion, preemptions, the dense decode's
+          launches (all through ``decode_sm90.cu``) and the MoE kernels on
+          their tensor-core routes, and one dense mixed stage (chunk rows
+          and decode rows) through the kernels against the plain path;
+          prints the dense KV bytes and the bytes migrated to the host, and
+          profiles a short run. Then, with the OLMoE model freed,
        c. Jamba-v0.1 (Mamba-2 + GQA attention + MoE) at full width, depth
           cut to 16 of its 32 layers (two of four periods; the whole model,
           ~103 GB in bf16, does not fit one 80 GB card), the same 16
@@ -211,6 +232,8 @@ ROW_LENS = (0, 1, 15, 16, 17, 100, 257, 511, 512, 640, 700, 800, 900, 1000, 1023
 PATH_A_LENS = tuple(round(144 + i * 400 / 15) for i in range(16))
 # path c's decode lengths: the same prompts, from the first decode step on
 PATH_C_LENS = tuple(round(128 + i * 416 / 15) for i in range(16))
+# path f's: path a's lengths over its 8 dense slots
+PATH_F_LENS = tuple(round(144 + i * 400 / 7) for i in range(8))
 
 
 def check_decode(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0, int8=False,
@@ -356,14 +379,15 @@ def check_chunk(torch, gen, dtype, *, KV, qpk, int8=False, starts=(0, 64, 448, 0
 
 def check_dense(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0, lens=None, seed=None):
     """Decode attention over a dense (B, Smax, KV, hd) cache, read in place:
-    16 sequences, Smax 1024, by default seeded lengths 0-1024 (one at 0, one
-    at 1024). ``seed`` draws the inputs from a generator of their own, so
-    that the cases after this one draw what they drew without it."""
+    Smax 1024, by default 16 sequences of seeded lengths 0-1024 (one at 0,
+    one at 1024), else one a length of ``lens``. ``seed`` draws the inputs
+    from a generator of their own, so that the cases after this one draw
+    what they drew without it."""
     from repro_torch.kernels import decode_attn as da
     if seed is not None:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(seed)
-    B, hd, Smax = 16, 128, 1024
+    B, hd, Smax = 16 if lens is None else len(lens), 128, 1024
     if lens is None:
         lens = torch.randint(0, Smax + 1, (B,), generator=gen, device="cuda").to(torch.int32)
         lens[0], lens[1] = 0, Smax
@@ -686,7 +710,11 @@ KERNELS = [
       ("KV=8 qpk=1 window=200 softcap=30", check_dense,
        dict(KV=8, qpk=1, window=200, softcap=30.0)),
       ("path c B=16 KV=8 qpk=4 lengths 128-544", check_dense,
-       dict(KV=8, qpk=4, lens=PATH_C_LENS, seed=2))]),
+       dict(KV=8, qpk=4, lens=PATH_C_LENS, seed=2)),
+      # OLMoE-1B-7B's heads, served on the dense layout by path f
+      ("olmoe KV=16 qpk=1 Smax=1024", check_dense, dict(KV=16, qpk=1, seed=4)),
+      ("path f B=8 KV=16 qpk=1 lengths 144-544", check_dense,
+       dict(KV=16, qpk=1, lens=PATH_F_LENS, seed=5))]),
     ("ssd_decode",
      "src/repro/kernels/ssd_decode.py:46",
      "src/repro_torch/kernels/csrc/ssd_decode.cu",
@@ -843,7 +871,205 @@ def serve_phase(torch):
     log(f"serve: KV pool bytes [{a}] {na / 2**20:.1f} MiB, [{b}] {nb / 2**20:.1f} MiB, "
         f"ratio {na / nb:.3f} ({want:.3f} expected: 2*KV*hd*2 over 2*KV*(hd + 4) bytes "
         f"per token)")
+    shared_phase(torch, cfg, params)
+    dense_phase(torch, cfg, params)
     return launches
+
+
+# path e: one 256-token system prompt shared by 16 requests, each with a
+# seeded private suffix of 64-256 tokens and 32 new tokens, on a pool of a
+# quarter of the pages they would need over their lifetimes without
+# sharing: shared, they need less than half of that figure over their
+# lifetimes, so a pool of half would evict no one
+SHARED_LABEL = "shared prompt + oversubscribed pool"
+SHARED_KW = dict(max_slots=16, max_len=1024, kv_page_size=16, prefill_chunk_tokens=64,
+                 prefix_share=True, preemption="recompute")
+SHARED_PROMPT = 256
+SHARED_KERNELS = ("paged_decode_attention", "chunked_prefill_attention",
+                  "ragged_moe_gemm", "ragged_moe_gemv")
+# path f: the dense layout with migrate preemption, path a's 16 requests
+DENSE_LABEL = "dense KV + migrate"
+DENSE_KW = dict(max_slots=8, max_len=1024, prefill_chunk_tokens=64, kv_layout="dense",
+                preemption="migrate")
+DENSE_KERNELS = ("decode_attention", "ragged_moe_gemm", "ragged_moe_gemv")
+
+
+def shared_requests(cfg):
+    import numpy as np
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, cfg.vocab_size, SHARED_PROMPT).tolist()
+    return [Request(rid=i, prompt=system + rng.integers(
+        0, cfg.vocab_size, int(rng.integers(64, 257))).tolist(), max_new_tokens=32)
+        for i in range(16)]
+
+
+def shared_phase(torch, cfg, params):
+    """Path e; raises if a check fails."""
+    reqs = shared_requests(cfg)
+    page = SHARED_KW["kv_page_size"]
+    demand = sum(-(-(len(r.prompt) + r.max_new_tokens) // page) for r in reqs)
+    shared = SHARED_PROMPT // page + sum(
+        -(-(len(r.prompt) - SHARED_PROMPT + r.max_new_tokens) // page) for r in reqs)
+    pages = demand // 4
+    log(f"serve [{SHARED_LABEL}]: {len(reqs)} requests of a {SHARED_PROMPT}-token system "
+        f"prompt and a 64-256-token suffix need {demand} pages of {page} over their "
+        f"lifetimes without sharing, {shared} with the prompt's pages shared; the pool "
+        f"holds {pages} (+ the null page)")
+    counts, eng = serve_path(torch, cfg, params, SHARED_LABEL,
+                             dict(SHARED_KW, kv_num_pages=pages + 1), reqs)
+    missing = [k for k in SHARED_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"[{SHARED_LABEL}] kernels never launched on the path: {missing}")
+    sm90 = counts["chunked_prefill_attention_sm90"]
+    log(f"serve [{SHARED_LABEL}]: paged decode launches {counts['paged_decode_attention']}, "
+        f"each the split and merge kernels of decode_sm90.cu (its one route); chunked "
+        f"prefill launches {counts['chunked_prefill_attention']}, {sm90} of them on the "
+        f"tensor-core route (chunk_attn_sm90.cu)")
+    if sm90 != counts["chunked_prefill_attention"]:
+        raise AssertionError(f"[{SHARED_LABEL}] chunked prefill left the tensor-core route")
+    check_expert_routes(SHARED_LABEL, counts)
+    audit = eng.kv.audit(pins={})
+    peak_shared = max(r.shared_kv_pages for r in eng.reports)
+    log(f"serve [{SHARED_LABEL}]: preemptions {eng.preemptions}, shared prompt positions "
+        f"skipped {eng.shared_tokens_skipped}, copy-on-write copies {eng.kv.cow_copies}, "
+        f"dedupe merges {eng.kv.dedup_merges}, peak shared pages {peak_shared}, peak "
+        f"concurrent requests {eng.peak_active}; after the run {eng.kv.live_pages} live "
+        f"pages, {eng.kv.free_pages} of {eng.kv.num_pages - 1} free, audit {audit}")
+    if eng.preemptions == 0 or eng.shared_tokens_skipped == 0:
+        raise AssertionError(f"[{SHARED_LABEL}] no preemption or no shared prefix")
+    if audit or eng.kv.live_pages or eng.kv.free_pages != eng.kv.num_pages - 1:
+        raise AssertionError(f"[{SHARED_LABEL}] the pool did not drain cleanly")
+    del eng
+    check_shared_against_plain(torch, cfg, params)
+
+
+def check_shared_against_plain(torch, cfg, params):
+    """One mixed stage after a shared prefix: request 0's 256-token system
+    prompt is prefilled (4 chunks of 64) and indexed; a second request
+    pins and adopts its pages and runs its first private chunk (64 tokens
+    at 256), beside request 0's decode row whose table maps the same pages.
+    The stage runs through the kernels and through the plain path, each on
+    its own copy of the pool; logits to ``compare_logits``."""
+    from repro_torch.core.execution import ExecutionPlan
+    from repro_torch.models.model import mixed_step
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving.kvmanager import KVManager
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    V, page = cfg.vocab_size, 16
+    system = torch.randint(0, V, (1, SHARED_PROMPT), generator=gen, device="cuda")
+    suffix = torch.randint(0, V, (1, 64), generator=gen, device="cuda")
+    dec = torch.randint(0, V, (1, 1), generator=gen, device="cuda")
+    kv = KVManager(cfg, 2, 1024, page_size=page, num_pages=48, device="cuda")
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")
+    plan = lambda k: ExecutionPlan(moe_impl="duplex", k_cold=32, c_hot=64, c_cold=16,
+                                   moe_ragged=k, use_kernels=k)
+    a = kv.allocate()
+    kv.ensure_len(a, SHARED_PROMPT)
+    maxp = 32
+    with torch.no_grad():
+        for start in range(0, SHARED_PROMPT, 64):
+            mixed_step(params, cfg, dec, system[:, start:start + 64], kv.cache,
+                       attn_ctx={"lengths": i32([0]), "block_tables": i32([[0] * maxp]),
+                                 "valid": i32([0]) > 0},
+                       chunk_ctx={"starts": i32([start]), "chunk_lens": i32([64]),
+                                  "block_tables": torch.from_numpy(
+                                      kv.block_tables[a:a + 1, :maxp]).cuda()},
+                       plan=plan(True))
+    kv.lens[a] = SHARED_PROMPT
+    kv.register_prefix(a, system[0].tolist())
+    b = kv.allocate()
+    covered = kv.adopt_prefix(b, kv.pin_prefix(system[0].tolist() + suffix[0].tolist()))
+    if covered != SHARED_PROMPT:
+        raise AssertionError(f"[{SHARED_LABEL}] adopted {covered} positions, want "
+                             f"{SHARED_PROMPT}")
+    kv.ensure_len(b, SHARED_PROMPT + 64)
+    kv.ensure_len(a, SHARED_PROMPT + 1)      # the decode row's write opens a page
+    bt = lambda s: torch.from_numpy(kv.block_tables[s:s + 1, :maxp]).cuda()
+    shared = sum(kv.page_ref(p) > 1 for p in kv.block_tables[b, :SHARED_PROMPT // page])
+    out = {}
+    for use_kernels in (True, False):
+        cache = tree_map(kv.cache, lambda t: t.clone())
+        with torch.no_grad():
+            dl, cl, _, _ = mixed_step(
+                params, cfg, dec, suffix, cache,
+                attn_ctx={"lengths": i32([SHARED_PROMPT]), "block_tables": bt(a),
+                          "valid": i32([1]) > 0},
+                chunk_ctx={"starts": i32([SHARED_PROMPT]), "chunk_lens": i32([64]),
+                           "block_tables": bt(b)}, plan=plan(use_kernels))
+        out[use_kernels] = torch.cat([dl[:, 0], cl[:, 0]]).float()
+        del cache
+    compare_logits(torch, SHARED_LABEL, f"one mixed stage, a chunk after an adopted "
+                   f"{SHARED_PROMPT}-token prefix ({shared} pages in both tables) and a "
+                   f"decode row over the same pages", out[True], out[False])
+
+
+def dense_phase(torch, cfg, params):
+    """Path f; raises if a check fails."""
+    counts, eng = serve_path(torch, cfg, params, DENSE_LABEL, DENSE_KW)
+    missing = [k for k in DENSE_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"[{DENSE_LABEL}] kernels never launched on the path: {missing}")
+    check_expert_routes(DENSE_LABEL, counts)
+    kv_b = eng.kv._total_bytes()
+    slot_b = eng.kv.bytes_per_slot()
+    log(f"serve [{DENSE_LABEL}]: dense decode launches {counts['decode_attention']}, each "
+        f"the split and merge kernels of decode_sm90.cu (its one route); preemptions "
+        f"{eng.preemptions}, each a {slot_b / 2**20:.1f} MiB slot row (k/v/pos/len of "
+        f"{cfg.num_layers} layers x {DENSE_KW['max_len']} positions) to the host and back: "
+        f"{eng.preemptions * slot_b / 2**20:.1f} MiB migrated; dense KV cache "
+        f"{kv_b / 2**20:.1f} MiB ({DENSE_KW['max_slots']} slots); streamed KV bytes per "
+        f"decode stage {eng._dense_kv_bytes_per_stage / 2**20:.1f} MiB; peak concurrent "
+        f"requests {eng.peak_active}")
+    if eng.preemptions == 0:
+        raise AssertionError(f"[{DENSE_LABEL}] no request was preempted")
+    del eng
+    check_dense_against_plain(torch, cfg, params)
+    profile_stages(torch, cfg, params, DENSE_LABEL, DENSE_KW)
+
+
+def check_dense_against_plain(torch, cfg, params):
+    """One dense mixed stage over 8 slots of 1024: slots 0-5 hold prefills
+    of 64-384 tokens (written by chunks through the kernels) and decode,
+    slot 6 takes its second chunk (64 tokens at 64) and slot 7 its first,
+    through the kernels and through the plain path, each on its own copy of
+    the cache; the live rows' logits to ``compare_logits``."""
+    from repro_torch.core.execution import ExecutionPlan
+    from repro_torch.models.model import init_cache, mixed_step
+    from repro_torch.models.params import tree_map
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    V, S = cfg.vocab_size, 8
+    lens = (64, 128, 192, 256, 320, 384, 64, 0)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device="cuda")
+    plan = lambda k: ExecutionPlan(moe_impl="duplex", k_cold=32, c_hot=64, c_cold=16,
+                                   moe_ragged=k, use_kernels=k)
+    cache = init_cache(cfg, S, 1024, device="cuda")
+    toks = torch.randint(0, V, (S, 384), generator=gen, device="cuda")
+    none = i32([0] * S) > 0
+    with torch.no_grad():                    # write each slot's prefix, 64 at a time
+        for start in range(0, 384, 64):
+            rows = [s for s in range(S) if lens[s] > start]
+            mixed_step(params, cfg, toks[:, :1], toks[rows, start:start + 64], cache,
+                       attn_ctx={"valid": none},
+                       chunk_ctx={"slots": i32(rows), "starts": i32([start] * len(rows)),
+                                  "chunk_lens": i32([64] * len(rows))}, plan=plan(True))
+    dec = torch.randint(0, V, (S, 1), generator=gen, device="cuda")
+    chunk = torch.randint(0, V, (2, 64), generator=gen, device="cuda")
+    valid = i32([1] * 6 + [0, 0]) > 0
+    out = {}
+    for use_kernels in (True, False):
+        own = tree_map(cache, lambda t: t.clone())
+        with torch.no_grad():
+            dl, cl, _, _ = mixed_step(
+                params, cfg, dec, chunk, own, attn_ctx={"valid": valid},
+                chunk_ctx={"slots": i32([6, 7]), "starts": i32([64, 0]),
+                           "chunk_lens": i32([64, 64])}, plan=plan(use_kernels))
+        out[use_kernels] = torch.cat([dl[:6, 0], cl[:, 0]]).float()
+        del own
+    compare_logits(torch, DENSE_LABEL, "one dense mixed stage (6 decode rows of 64-384, "
+                   "two chunk rows)", out[True], out[False])
 
 
 def check_expert_routes(label, counts):
@@ -858,18 +1084,26 @@ def check_expert_routes(label, counts):
                 raise AssertionError(f"[{label}] {name} left the tensor-core route")
 
 
-def serve_path(torch, cfg, params, label, engine_kw):
-    """One path's run: every launch count set to 0 just before it and read
-    just after. Returns (launch counts, the engine)."""
+def path_a_requests(cfg):
+    """The 16 seeded requests of paths a-c and f: prompts of 128-512 random
+    tokens, 32 new tokens each."""
+    import numpy as np
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               int(rng.integers(128, 513))).tolist(),
+                    max_new_tokens=32) for i in range(16)]
+
+
+def serve_path(torch, cfg, params, label, engine_kw, reqs=None):
+    """One path's run (path a's requests unless ``reqs`` is given): every
+    launch count set to 0 just before it and read just after. Returns
+    (launch counts, the engine)."""
     import numpy as np
     from repro_torch.kernels import build
     from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.request import Request
-    rng = np.random.default_rng(0)
-    n_req, l_out = 16, 32
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                               int(rng.integers(128, 513))).tolist(),
-                    max_new_tokens=l_out) for i in range(n_req)]
+    reqs = path_a_requests(cfg) if reqs is None else reqs
+    n_req, l_out = len(reqs), reqs[0].max_new_tokens
     eng = ServingEngine(cfg, params, device="cuda", **engine_kw)
     pool = eng.kv._total_bytes()
     torch.cuda.reset_peak_memory_stats()

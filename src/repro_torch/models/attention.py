@@ -10,7 +10,10 @@ differentiated by autograd) or, past ``q_block`` positions,
 backward, as a ``torch.autograd.Function`` whose forward and backward are
 the flash kernels (``kernels/flash_attn.py``) or their plain versions. Dense
 caches ({"k", "v"} (B, Smax, KV, hd), "pos" (B, Smax), "len" (B,)) are
-updated in place like the page pools. The page pools
+updated in place like the page pools; a dense chunk step writes whole slot
+rows at targets that are distinct by construction (``dense_chunk_writes``),
+because the reference drops its padded rows' writes out of bounds and CUDA
+orders duplicate writes of one ``index_put_`` arbitrarily. The page pools
 are updated IN PLACE (advanced-index assignment, i.e. ``index_put_``) —
 unlike JAX's functional ``.at[].set()``, which builds a new pool per layer,
 the port never copies a pool. Write rules kept from the reference:
@@ -426,11 +429,12 @@ def _dense_only(cache, window: int, what: str) -> None:
     if window > 0 and cache["k"].shape[1] == window + 1:
         raise NotImplementedError(
             f"{what}: ring (sliding-window) caches are not ported yet; they come "
-            f"with the ATTN_LOCAL slice (ROADMAP queue 1, item 2)")
+            f"with the ring caches for sliding-window layers (ROADMAP queue 1, "
+            f"the other architectures)")
     if "k_scale" in cache:
         raise NotImplementedError(
             f"{what}: int8 dense caches are not ported yet; they come with the "
-            f"int8 dense-cache slice (ROADMAP queue 1, item 3)")
+            f"int8 dense caches (ROADMAP queue 1, the other architectures)")
 
 
 def write_prefill_cache(cache, k, v, true_len, *, window: int = 0):
@@ -482,4 +486,87 @@ def attention_decode_step(params, cfg: ModelConfig, x, cache, *, window: int = 0
                                kv_positions=cache["pos"])
     cache["len"].copy_(new_len)
     y = torch.matmul(out.reshape(B, 1, -1), params["wo"]["kernel"])
+    return y, cache
+
+
+def dense_chunk_writes(chunk_ctx, nrows: int, Smax: int, Sc: int) -> dict:
+    """Where a dense chunk step of ``Sc``-wide rows writes in a cache of
+    ``nrows`` slots of ``Smax`` positions, worked out on the device without
+    a host sync, once for every layer of a stage. The reference writes chunk
+    position j of row b at slot ``slots[b]``, position ``min(start + j,
+    Smax - 1)``, and drops (out of bounds) every write of a padded row
+    (``chunk_lens`` 0) and every position past a row's ``chunk_len``; where
+    the clamp sends several positions to ``Smax - 1`` the last one written
+    holds it. Here a step writes whole slot rows instead: ``m = min(Bc,
+    nrows)`` rows (every live row among them, live rows first), each at a
+    distinct target, a live row at its slot and a padded one at a slot no
+    live row takes (rewriting it unchanged). Returns {"order" (m,) the chunk
+    rows written, "targets" (m,) their slots, "keep" (m, Smax) the positions
+    a row writes, "src" (m, Smax) the chunk position each takes, "live"
+    (m,)}."""
+    slots = chunk_ctx["slots"].long()
+    starts = chunk_ctx["starts"].long()
+    clens = chunk_ctx["chunk_lens"].long()
+    dev = slots.device
+    live = clens > 0
+    order = torch.argsort((~live).to(torch.int8), stable=True)[:min(len(slots), nrows)]
+    live_m, slots_m = live[order], slots[order]
+    rows = torch.arange(nrows, device=dev)
+    taken = ((slots_m[None] == rows[:, None]) & live_m[None]).any(1)
+    spare = torch.argsort(taken.to(torch.int8), stable=True)      # untaken slots first
+    rank = torch.clamp(torch.cumsum((~live_m).long(), 0) - 1, min=0)
+    targets = torch.where(live_m, slots_m, spare[rank])
+    st, cl = starts[order][:, None], clens[order][:, None]
+    s = torch.arange(Smax, device=dev)[None]
+    j = s - st
+    at_end = (s == Smax - 1) & (cl > 0) & (st + cl - 1 >= Smax - 1)
+    keep = ((j >= 0) & (j < cl) & (s < Smax - 1)) | at_end
+    src = torch.clamp(torch.where(at_end, cl - 1, j), 0, Sc - 1)
+    return {"order": order, "targets": targets, "keep": keep, "src": src,
+            "live": live_m}
+
+
+def _write_rows(leaf, w, values):
+    """Write ``values`` (m, Smax, ...) into ``leaf``'s rows ``w["targets"]``
+    where ``w["keep"]`` holds, keeping the rest of each row."""
+    t = w["targets"]
+    keep = w["keep"].reshape(w["keep"].shape + (1,) * (values.dim() - 2))
+    leaf[t] = torch.where(keep, values.to(leaf.dtype), leaf[t])
+
+
+def attention_chunk_step(params, cfg: ModelConfig, x, cache, chunk_ctx):
+    """Chunked prefill against a dense slot cache (updated in place). x
+    (Bc,Sc,D); chunk_ctx {"slots" (Bc,) cache rows, "starts" (Bc,) first
+    positions, "chunk_lens" (Bc,) live chunk tokens, optionally "writes"
+    (``dense_chunk_writes``)}. Writes the chunk's K/V and positions
+    (clamped to Smax - 1) and, for rows with chunk_len > 0, "len" = start +
+    chunk_len; padded rows and positions past a row's chunk_len write
+    nothing. Then the queries attend over the gathered slot rows through
+    ``chunk_attention`` (the reference runs this in XLA, not in a kernel).
+    Returns (y, cache)."""
+    _dense_only(cache, 0, "attention_chunk_step")
+    Bc, Sc, _ = x.shape
+    dev = x.device
+    slots = chunk_ctx["slots"].long()
+    starts = chunk_ctx["starts"].long()
+    clens = chunk_ctx["chunk_lens"].long()
+    positions = starts[:, None] + torch.arange(Sc, device=dev)[None]
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    nrows, Smax = cache["k"].shape[:2]
+    w = chunk_ctx.get("writes")
+    if w is None:
+        w = dense_chunk_writes(chunk_ctx, nrows, Smax, Sc)
+    order, src = w["order"], w["src"]
+    r = torch.arange(len(order), device=dev)[:, None]
+    _write_rows(cache["k"], w, k[order][r, src])
+    _write_rows(cache["v"], w, v[order][r, src])
+    _write_rows(cache["pos"], w, positions[order][r, src])
+    total = starts + clens
+    t = w["targets"]
+    cache["len"][t] = torch.where(w["live"], total[order], cache["len"][t].long()
+                                  ).to(cache["len"].dtype)
+    out = chunk_attention(q, cache["k"][slots], cache["v"][slots], positions,
+                          cache["pos"][slots].long(), total,
+                          softcap=cfg.attn_logit_softcap)
+    y = torch.matmul(out.reshape(Bc, Sc, -1), params["wo"]["kernel"])
     return y, cache

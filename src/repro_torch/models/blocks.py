@@ -1,5 +1,5 @@
 """Decoder blocks and the segment loops: the training forward, decode
-steps on the paged and dense KV layouts, unified mixed stages (paged), and
+steps and unified mixed stages on the paged and dense KV layouts, and
 whole-prompt prefill.
 
 Port of ``repro/models/blocks.py`` for full self-attention and Mamba-2
@@ -21,8 +21,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MOE, NONE, LayerKind,
                                       ModelConfig)
 from repro_torch.core.execution import ExecutionPlan, moe_execute
-from repro_torch.models.attention import (POS_EMPTY, AttnCall, attention_decode_step,
-                                          attention_forward,
+from repro_torch.models.attention import (POS_EMPTY, AttnCall, attention_chunk_step,
+                                          attention_decode_step, attention_forward,
                                           paged_attention_chunk_step,
                                           paged_attention_decode_step,
                                           write_prefill_cache)
@@ -35,8 +35,9 @@ def _check_kind(kind: LayerKind) -> None:
     if kind.mixer not in (ATTN, MAMBA) or kind.ffn not in (DENSE, MOE, NONE):
         raise NotImplementedError(
             f"the port serves full self-attention and Mamba-2 blocks, got {kind}; "
-            f"windowed (queue 1 item 2), cross-attention (item 6) and "
-            f"bidirectional mixers come in later slices (ROADMAP queue 1)")
+            f"windowed (the ring caches), cross-attention (whisper) and "
+            f"bidirectional mixers come with the other architectures (ROADMAP "
+            f"queue 1)")
 
 
 def block_init_cache(cfg: ModelConfig, kind: LayerKind, batch: int = 0,
@@ -58,8 +59,8 @@ def block_init_cache(cfg: ModelConfig, kind: LayerKind, batch: int = 0,
             return {"mamba": mamba_init_cache(cfg, batch, dtype, device, layers)}
         if kv_quant:
             raise NotImplementedError("int8 dense caches are not ported yet; they "
-                                      "come with the int8 dense-cache slice "
-                                      "(ROADMAP queue 1, item 3)")
+                                      "come with the int8 dense caches (ROADMAP "
+                                      "queue 1, the other architectures)")
         shape = (layers, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -224,27 +225,36 @@ def block_mixed_step(params, cfg: ModelConfig, kind: LayerKind, xd, xc, cache,
     """One block of a unified mixed stage: decode rows xd (Bd,1,d) write and
     attend first, then chunk rows xc (Bc,Sc,d) write their span and attend;
     norms and the FFN/MoE run over the concatenated token stream, so the
-    duplex MoE covers both halves. Full self-attention mixers with an FFN
-    on the paged layout only. Returns (xd, xc)."""
+    duplex MoE covers both halves. On the dense layout the decode half runs
+    over every slot, and a slot mid-prefill gets the decode half's write at
+    its length, which its chunk (starting there) then overwrites: the order
+    is part of the result. Full self-attention mixers only. Returns (xd,
+    xc)."""
     _check_kind(kind)
-    if kind.mixer != ATTN or kind.ffn == NONE or "k_pages" not in cache:
-        raise NotImplementedError(
-            f"unified mixed stages are ported for paged full self-attention "
-            f"blocks with an FFN, got {kind}")
+    if kind.mixer != ATTN:
+        raise ValueError(f"unified mixed stages support full self-attention decoder "
+                         f"layers only, got mixer={kind.mixer}")
     Bd = xd.shape[0]
     Bc, Sc, d = xc.shape
     h_d = rmsnorm(params["norm1"], xd, cfg.norm_eps)
     h_c = rmsnorm(params["norm1"], xc, cfg.norm_eps)
-    mixer_d, _ = paged_attention_decode_step(params["mixer"], cfg, h_d, cache,
-                                             attn_ctx, use_kernels=plan.use_kernels)
-    mixer_c, _ = paged_attention_chunk_step(params["mixer"], cfg, h_c, cache,
-                                            chunk_ctx, use_kernels=plan.use_kernels)
-    if cfg.parallel_block:
+    if "k_pages" in cache:
+        mixer_d, _ = paged_attention_decode_step(params["mixer"], cfg, h_d, cache,
+                                                 attn_ctx, use_kernels=plan.use_kernels)
+        mixer_c, _ = paged_attention_chunk_step(params["mixer"], cfg, h_c, cache,
+                                                chunk_ctx, use_kernels=plan.use_kernels)
+    else:
+        mixer_d, _ = attention_decode_step(params["mixer"], cfg, h_d, cache,
+                                           use_kernels=plan.use_kernels)
+        mixer_c, _ = attention_chunk_step(params["mixer"], cfg, h_c, cache, chunk_ctx)
+    if cfg.parallel_block and kind.ffn != NONE:
         ffn_in_d, ffn_in_c = h_d, h_c
         base_d, base_c = xd + mixer_d, xc + mixer_c
     else:
         xd = xd + mixer_d
         xc = xc + mixer_c
+        if kind.ffn == NONE:
+            return xd, xc
         ffn_in_d = rmsnorm(params["norm2"], xd, cfg.norm_eps)
         ffn_in_c = rmsnorm(params["norm2"], xc, cfg.norm_eps)
         base_d, base_c = xd, xc

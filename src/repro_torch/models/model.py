@@ -3,8 +3,8 @@
 Port of ``repro/models/model.py``: for training ``forward`` (full-sequence
 logits) and ``loss_fn`` (next-token cross-entropy plus the MoE load-balance
 loss); for serving ``init_cache`` (dense or paged), ``prefill`` (whole
-prompts into a dense cache), ``decode_step`` (either layout) and
-``mixed_step`` (paged). The
+prompts into a dense cache), ``decode_step`` and ``mixed_step`` (either
+layout). The
 cache is a list (one entry per segment) of ``{"blocks": (block cache, ...)}``
 with stacked leaves: paged (layers, P, KV, page, hd) pools (int8 pools add
 "k_scale_pages"/"v_scale_pages" (layers, P, KV, page)); dense attention
@@ -17,8 +17,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.core.execution import DEFAULT_PLAN, ExecutionPlan
+from repro_torch.models.attention import dense_chunk_writes
 from repro_torch.models.blocks import (segment_decode_step, segment_forward,
                                        segment_init_cache, segment_mixed_step,
                                        segment_prefill)
@@ -168,10 +169,19 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, attn_ctx, *,
 def mixed_step(params, cfg: ModelConfig, dec_tokens, chunk_tokens, cache, *,
                attn_ctx, chunk_ctx, plan: ExecutionPlan = DEFAULT_PLAN):
     """One unified mixed stage: decode rows (Bd,1) and prefill-chunk rows
-    (Bc,Sc) through the stack as one token stream. ``chunk_ctx`` =
-    {"starts", "chunk_lens", "block_tables"}. Returns (dec_logits (Bd,1,V),
-    chunk_logits (Bc,1,V) at each chunk's last live position, cache, moe
-    counts (E,) float32 or None)."""
+    (Bc,Sc) through the stack as one token stream. Paged: ``attn_ctx`` as in
+    ``decode_step`` and ``chunk_ctx`` = {"starts", "chunk_lens",
+    "block_tables"}. Dense: the decode rows are the cache's rows (``attn_ctx``
+    = {"valid"}) and ``chunk_ctx`` = {"starts", "chunk_lens", "slots"}, the
+    chunk rows' cache rows; where they write is worked out here once for
+    every layer. Returns (dec_logits (Bd,1,V), chunk_logits (Bc,1,V) at each
+    chunk's last live position, cache, moe counts (E,) float32 or None)."""
+    if "slots" in chunk_ctx:
+        kv = next(blk for seg, seg_cache in zip(cfg.segments, cache)
+                  for kind, blk in zip(seg.pattern, seg_cache["blocks"])
+                  if kind.mixer == ATTN)["k"]
+        chunk_ctx = dict(chunk_ctx, writes=dense_chunk_writes(
+            chunk_ctx, kv.shape[1], kv.shape[2], chunk_tokens.shape[1]))
     dtype = DTYPES[cfg.dtype]
     xd = embed_lookup(params["embed"], dec_tokens).to(dtype)
     xc = embed_lookup(params["embed"], chunk_tokens).to(dtype)

@@ -1,5 +1,5 @@
 """KV-cache manager: slot bookkeeping plus the paged or the dense cache (port
-of the paged and dense cores of ``repro/serving/kvmanager.py``).
+of ``repro/serving/kvmanager.py``).
 
 Dense (``layout="dense"``): one cache sized ``max_slots x max_len`` for every
 slot (Mamba layers: one state per slot); the manager tracks slot occupancy
@@ -7,18 +7,30 @@ and ``scatter``s freshly prefilled per-request caches into slot rows.
 
 Paged (``layout="paged"``): K/V live in a shared pool of fixed-size pages on
 the device; each sequence slot owns a block table (the page ids holding its
-context), grown on demand by ``ensure_len`` and returned on ``free``. Page
-0 is the reserved null page: tables are zero-filled and padded rows write
-there, so a dummy row never touches a live sequence. Slot and page ids are handed out lowest
-first from heaps. Every page has one owner in this slice (no prefix
-sharing, no copy-on-write). With ``kv_quant`` the pools hold int8 values
-plus float32 per-(token, KV head) scales (``kv_token_bytes`` is the byte
-factor either way).
+context), grown on demand by ``ensure_len``. Page 0 is the reserved null
+page: tables are zero-filled and padded rows write there, so a dummy row
+never touches a live sequence. Slot and page ids are handed out lowest
+first from heaps. With ``kv_quant`` the pools hold int8 values plus float32
+per-(token, KV head) scales (``kv_token_bytes`` is the byte factor either
+way).
+
+Pages are refcounted and copy-on-write. A page with refcount 1 is private
+and written in place; one with refcount > 1 is mapped into several block
+tables (or pinned by a queued request) and is immutable: a write goes
+through ``ensure_writable``, which copies it into a private page first.
+``free`` decrefs, so a shared prefix survives under its other owners. Full
+pages are indexed by their token ids, each key the hash of the page's
+tokens chained on its predecessor's key (``_chain_keys``), so a new prompt
+can ``match_prefix`` / ``pin_prefix`` the resident pages of its prefix and
+``adopt_prefix`` them into its block table; ``register_prefix`` indexes a
+slot's full pages at commit and merges a duplicate of an indexed page onto
+it. The keys are ``hash`` of tuples of Python ints, the same in every
+process, so both packages walk the same chain.
 """
 from __future__ import annotations
 
 import heapq
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +99,20 @@ class KVManager:
                                 device=device, kv_quant=kv_quant)
         self._page_free: List[int] = list(range(1, num_pages))
         self._slot_pages: Dict[int, List[int]] = {}
+        # page id -> refcount (>= 1 for every allocated page; absent = free);
+        # a pinned, not yet adopted prefix match holds a reference too
+        self._page_refs: Dict[int, int] = {}
+        # the prefix index: chain key -> page id, its reverse, and the exact
+        # (previous key, tokens) each key stands for, so that a hash
+        # collision never aliases two prefixes
+        self._hash_page: Dict[int, int] = {}
+        self._page_hash: Dict[int, int] = {}
+        self._page_key: Dict[int, Tuple[int, Tuple[int, ...]]] = {}
+        # bumped whenever the index gains or loses an entry, so queued
+        # requests are re-matched only against a changed index
+        self.index_version = 0
+        self.cow_copies = 0
+        self.dedup_merges = 0
         self.block_tables = np.zeros((max_slots, self.max_pages_per_slot), np.int32)
         self.lens = np.zeros((max_slots,), np.int32)
 
@@ -100,7 +126,19 @@ class KVManager:
 
     @property
     def live_pages(self) -> int:
-        return self.num_pages - 1 - len(self._page_free) if self.paged else 0
+        """Unique allocated pages: a page in five block tables counts once."""
+        return len(self._page_refs) if self.paged else 0
+
+    @property
+    def shared_pages(self) -> int:
+        """Pages mapped (or pinned) by more than one owner."""
+        if not self.paged:
+            return 0
+        return sum(1 for c in self._page_refs.values() if c > 1)
+
+    def page_ref(self, pid: int) -> int:
+        """Refcount of page ``pid`` (0 when free)."""
+        return self._page_refs.get(pid, 0)
 
     def slot_page_count(self, slot: int) -> int:
         return len(self._slot_pages.get(slot, ()))
@@ -114,7 +152,8 @@ class KVManager:
         return slot
 
     def free(self, slot: int) -> None:
-        """Release a slot and its pages. Idempotent."""
+        """Release a slot. Paged: decref each of its pages; pages shared with
+        other slots (or pinned) stay resident and indexed. Idempotent."""
         if slot not in self._active:
             return
         self._active.discard(slot)
@@ -122,23 +161,173 @@ class KVManager:
         if not self.paged:
             return
         for pid in self._slot_pages.pop(slot, []):
-            heapq.heappush(self._page_free, pid)
+            self._decref(pid)
         self.block_tables[slot] = 0
         self.lens[slot] = 0
 
+    # ---- page refcounts ------------------------------------------------------
+    def _alloc_page(self) -> int:
+        if not self._page_free:
+            raise RuntimeError(
+                f"KV page pool exhausted ({self.num_pages} pages, {self.live_pages} "
+                f"live): raise num_pages, enable preemption, or free sequences first")
+        pid = heapq.heappop(self._page_free)
+        self._page_refs[pid] = 1
+        return pid
+
+    def _decref(self, pid: int) -> None:
+        refs = self._page_refs.get(pid, 0)
+        assert refs > 0, f"double free of page {pid}"
+        if refs > 1:
+            self._page_refs[pid] = refs - 1
+            return
+        del self._page_refs[pid]
+        self._deindex(pid)
+        heapq.heappush(self._page_free, pid)
+
+    def _deindex(self, pid: int) -> None:
+        h = self._page_hash.pop(pid, None)
+        if h is not None:
+            self._hash_page.pop(h, None)
+            self._page_key.pop(pid, None)
+            self.index_version += 1
+
+    # ---- paged capacity ------------------------------------------------------
+    def page_need(self, slot: int, target_len: int) -> int:
+        """Fresh pages ``ensure_len(slot, target_len)`` would allocate now."""
+        assert self.paged and slot in self._active, slot
+        need = _cdiv(max(target_len, 1), self.page_size)
+        return max(need - len(self._slot_pages[slot]), 0)
+
     def ensure_len(self, slot: int, target_len: int) -> None:
         """Grow ``slot``'s block table to cover ``target_len`` positions
-        (monotonic). Raises RuntimeError when the pool is exhausted."""
+        (monotonic) with private pages. Raises RuntimeError when the pool is
+        exhausted."""
         assert self.paged and slot in self._active, slot
         pages = self._slot_pages[slot]
         need = _cdiv(max(target_len, 1), self.page_size)
         assert need <= self.max_pages_per_slot, (target_len, self.max_len)
         while len(pages) < need:
-            if not self._page_free:
-                raise RuntimeError(f"KV page pool exhausted ({self.num_pages} pages)")
-            pid = heapq.heappop(self._page_free)
+            pid = self._alloc_page()
             self.block_tables[slot, len(pages)] = pid
             pages.append(pid)
+
+    def ensure_writable(self, slot: int, start: int, end: int) -> int:
+        """Make write positions [start, end) of ``slot`` private: a page
+        there with refcount > 1 is copied into a fresh page (its block-table
+        entry swapped, the original decref'd); a private page still in the
+        index leaves it (an indexed page must keep matching its tokens).
+        Returns the pages copied. ``ensure_len`` must already cover ``end``."""
+        if end <= start:
+            return 0
+        assert self.paged and slot in self._active, slot
+        pages = self._slot_pages[slot]
+        first, last = start // self.page_size, _cdiv(end, self.page_size)
+        assert last <= len(pages), (slot, start, end, len(pages))
+        copied = 0
+        for idx in range(first, last):
+            pid = pages[idx]
+            if self._page_refs.get(pid, 0) > 1:
+                new = self._alloc_page()
+                self._copy_page(pid, new)
+                pages[idx] = new
+                self.block_tables[slot, idx] = new
+                self._decref(pid)
+                self.cow_copies += 1
+                copied += 1
+            else:
+                self._deindex(pid)
+        return copied
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy one pool page on the device, in place, in every leaf (K/V and
+        scale pools alike are laid out (layers, num_pages, ...))."""
+        for leaf in tree_leaves(self.cache):
+            leaf[:, dst].copy_(leaf[:, src])
+
+    # ---- prefix sharing ------------------------------------------------------
+    def _chain_keys(self, tokens: Sequence[int]):
+        """(page index, chain key, (previous key, token tuple)) for each full
+        page of ``tokens``; equal keys mean equal full-page prefixes
+        (verified exactly on lookup)."""
+        page = self.page_size
+        prev = 0
+        for i in range(len(tokens) // page):
+            tup = tuple(tokens[i * page:(i + 1) * page])
+            key = hash((prev, tup))
+            yield i, key, (prev, tup)
+            prev = key
+
+    def match_prefix(self, tokens: Sequence[int]) -> List[int]:
+        """The longest resident full-page prefix of ``tokens``, as page ids in
+        position order (possibly empty)."""
+        if not self.paged:
+            return []
+        out: List[int] = []
+        for _, key, exact in self._chain_keys(tokens):
+            pid = self._hash_page.get(key)
+            if pid is None or self._page_key.get(pid) != exact:
+                break
+            out.append(pid)
+        return out
+
+    def pin_prefix(self, tokens: Sequence[int]) -> List[int]:
+        """``match_prefix`` plus one reference on each matched page, so the
+        pages stay resident while the request waits. ``adopt_prefix`` hands
+        the pin to a slot; ``unpin`` releases it."""
+        pids = self.match_prefix(tokens)
+        for pid in pids:
+            self._page_refs[pid] += 1
+        return pids
+
+    def unpin(self, pids: Sequence[int]) -> None:
+        """Release a ``pin_prefix`` hold that will not be adopted."""
+        for pid in pids:
+            self._decref(pid)
+
+    def adopt_prefix(self, slot: int, pids: Sequence[int]) -> int:
+        """Map pinned pages into a fresh slot's empty block table, taking
+        over the pin's references. Returns the positions covered."""
+        assert self.paged and slot in self._active, slot
+        pages = self._slot_pages[slot]
+        assert not pages, "adopt_prefix needs an empty block table"
+        for i, pid in enumerate(pids):
+            self.block_tables[slot, i] = pid
+            pages.append(pid)
+        return len(pages) * self.page_size
+
+    def register_prefix(self, slot: int, tokens: Sequence[int]) -> int:
+        """Index ``slot``'s full pages under the tokens they hold (``tokens``
+        the slot's processed stream). A page already indexed is skipped; a
+        private page whose key another page holds with the same tokens is
+        merged onto that page (its reference moves there and it is freed).
+        Returns the pages newly indexed."""
+        assert self.paged and slot in self._active, slot
+        pages = self._slot_pages[slot]
+        added = 0
+        for i, key, exact in self._chain_keys(tokens):
+            if i >= len(pages):
+                break
+            pid = pages[i]
+            if self._page_hash.get(pid) is not None:
+                continue
+            qid = self._hash_page.get(key)
+            if qid is not None:
+                if (qid != pid and self._page_key.get(qid) == exact
+                        and self._page_refs.get(pid, 0) == 1):
+                    self._page_refs[qid] += 1
+                    self.block_tables[slot, i] = qid
+                    pages[i] = qid
+                    self._decref(pid)
+                    self.dedup_merges += 1
+                continue
+            self._hash_page[key] = pid
+            self._page_hash[pid] = key
+            self._page_key[pid] = exact
+            added += 1
+        if added:
+            self.index_version += 1
+        return added
 
     def scatter(self, local_cache, slots: Sequence[int]) -> None:
         """Dense layout: copy per-request caches (batch = len(slots)) into the
@@ -166,3 +355,91 @@ class KVManager:
         if self._active:
             return per_page * max(self.live_pages, 1) // len(self._active)
         return per_page * self.max_pages_per_slot
+
+    def stats(self) -> dict:
+        out = {"max_slots": self.max_slots, "free": self.free_slots,
+               "active": len(self._active), "bytes_per_slot": self.bytes_per_slot(),
+               "layout": self.layout}
+        if self.paged:
+            out.update({"num_pages": self.num_pages, "page_size": self.page_size,
+                        "live_pages": self.live_pages, "free_pages": self.free_pages,
+                        "shared_pages": self.shared_pages,
+                        "indexed_pages": len(self._hash_page),
+                        "cow_copies": self.cow_copies,
+                        "dedup_merges": self.dedup_merges})
+        return out
+
+    def audit(self, *, pins: Optional[Dict[int, int]] = None) -> List[str]:
+        """Every structural invariant of the manager, as a list of violations
+        (empty when healthy): free and active slots partition the slots;
+        free and allocated pages partition pages 1..num_pages-1; every
+        allocated page has refcount >= its block-table mappings (== mappings
+        plus ``pins`` when given: page id -> expected pin count); block
+        tables match their page lists and are zero past them and on
+        inactive slots; lengths fit the mapped pages; the index is a
+        bijection over allocated pages."""
+        errors: List[str] = []
+        free_slots = set(self._free)
+        if free_slots & self._active:
+            errors.append(f"slots both free and active: {sorted(free_slots & self._active)}")
+        if free_slots | self._active != set(range(self.max_slots)):
+            errors.append("free+active slots != range(max_slots)")
+        if not self.paged:
+            return errors
+        free = list(self._page_free)
+        free_set = set(free)
+        if len(free) != len(free_set):
+            errors.append("duplicate page ids in the free heap")
+        if 0 in free_set or 0 in self._page_refs:
+            errors.append("null page 0 entered circulation")
+        if free_set & self._page_refs.keys():
+            errors.append(f"pages both free and allocated: "
+                          f"{sorted(free_set & self._page_refs.keys())}")
+        if free_set | self._page_refs.keys() != set(range(1, self.num_pages)):
+            errors.append("free+allocated pages != range(1, num_pages)")
+        mapped: Dict[int, int] = {}
+        for slot in range(self.max_slots):
+            pages = self._slot_pages.get(slot)
+            if slot not in self._active:
+                if pages is not None:
+                    errors.append(f"inactive slot {slot} has a block table")
+                if self.block_tables[slot].any() or self.lens[slot] != 0:
+                    errors.append(f"inactive slot {slot} row not zeroed")
+                continue
+            pages = pages if pages is not None else []
+            row = self.block_tables[slot]
+            if list(row[:len(pages)]) != pages:
+                errors.append(f"slot {slot} block table desynced from _slot_pages")
+            if row[len(pages):].any():
+                errors.append(f"slot {slot} block table has stale entries past its "
+                              f"{len(pages)} pages")
+            if self.lens[slot] > len(pages) * self.page_size:
+                errors.append(f"slot {slot} len {int(self.lens[slot])} exceeds its "
+                              f"{len(pages)} mapped pages")
+            for pid in pages:
+                mapped[pid] = mapped.get(pid, 0) + 1
+                if pid not in self._page_refs:
+                    errors.append(f"slot {slot} maps unallocated page {pid}")
+        for pid, refs in self._page_refs.items():
+            if refs < 1:
+                errors.append(f"page {pid} has refcount {refs} < 1")
+            n_mapped = mapped.get(pid, 0)
+            if refs < n_mapped:
+                errors.append(f"page {pid} refcount {refs} < {n_mapped} block-table "
+                              f"mappings")
+            elif pins is not None and refs != n_mapped + pins.get(pid, 0):
+                errors.append(f"page {pid} refcount {refs} != {n_mapped} mappings + "
+                              f"{pins.get(pid, 0)} pins (leaked pin or lost ref)")
+        for key, pid in self._hash_page.items():
+            if self._page_hash.get(pid) != key:
+                errors.append(f"index asymmetry: key {key} -> page {pid} but page maps "
+                              f"{self._page_hash.get(pid)}")
+            if pid not in self._page_refs:
+                errors.append(f"index points at free page {pid}")
+        for pid, key in self._page_hash.items():
+            if self._hash_page.get(key) != pid:
+                errors.append(f"index asymmetry: page {pid} -> key {key} but key maps "
+                              f"{self._hash_page.get(key)}")
+            if pid not in self._page_key:
+                errors.append(f"indexed page {pid} lost its exact key")
+        return errors

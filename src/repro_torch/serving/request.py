@@ -1,6 +1,6 @@
-"""Inference request lifecycle (port of ``repro/serving/request.py``, without
-deadlines, priorities and preemption state, which this slice does not
-serve)."""
+"""Inference request lifecycle (port of ``repro/serving/request.py``, with
+the priority, preemption and prefix-sharing state; the deadline sweep,
+cancellation and TTFT objectives are not ported yet)."""
 from __future__ import annotations
 
 import enum
@@ -25,10 +25,26 @@ class Request:
     state: RequestState = RequestState.QUEUED
     slot: int = -1
     output: List[int] = field(default_factory=list)
+    # absolute finish deadline on the clock of ``arrival_time`` (None: none);
+    # preemption prefers a victim already past it
+    deadline: Optional[float] = None
+    # higher is more important: admitted ahead of lower priorities, evicted
+    # last; ``queue_seq`` is the scheduler's submit sequence number
+    priority: int = 0
+    queue_seq: int = 0
     # chunked prefill (scheduler-owned): positions [0, prefill_pos) are
     # processed and their KV written; prefill_target is frozen at admission
     prefill_pos: int = 0
     prefill_target: Optional[int] = None
+    # preemption: the slot's cache saved to the host (migrate), and the mark
+    # that keeps a preempted queue head from evicting in turn
+    saved_cache: Optional[list] = None
+    was_preempted: bool = False
+    # prefix sharing: page ids matched and pinned while queued, mapped into
+    # the slot's block table at admission; ``match_version`` is the index
+    # version the last match ran against
+    shared_pages: Optional[List[int]] = None
+    match_version: int = -1
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
     token_times: List[float] = field(default_factory=list)
@@ -57,6 +73,11 @@ class Request:
     def done(self) -> bool:
         """Completed generation (end-of-sequence id or max_new_tokens)."""
         return self.state == RequestState.DONE
+
+    def past_deadline(self, now: float) -> bool:
+        """True when ``now`` is at or past the deadline of a live request."""
+        return (not self.done and self.deadline is not None
+                and now >= self.deadline)
 
     def record_token(self, token: int, now: float) -> None:
         self.output.append(token)

@@ -10,13 +10,18 @@ None each admitted prompt comes as one whole-prompt span, within a
 ``max_prefill_tokens`` budget per stage (a single over-budget prompt still
 runs alone). The composition rules are the reference's, step for step: the
 stage composition decides the bucketed shapes, the MoE capacities and
-therefore which tokens an expert drops. Shedding, deadlines, priorities,
+therefore which tokens an expert drops. A queued request admits ahead of
+lower priorities; a preempted one re-enters just behind the queue head, and
+a migrated one (its cache saved on the host) comes back as a ``restored``
+admission that takes a slot and no prefill tokens. With prefix sharing the
+engine moves a queued request's ``prefill_pos`` to its first unshared
+position, and its first span starts there. Shedding, the deadline sweep,
 aging, drafts and the async plan/activate split are not ported yet.
 """
 from __future__ import annotations
 
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Deque, List, Optional
 
 from repro_torch.core.opb import StageMix
@@ -48,6 +53,8 @@ class ChunkSpan:
 class StageDecision:
     chunks: List[ChunkSpan]
     decoding: List[Request]
+    # migrated requests coming back: a slot and their saved cache, no prefill
+    restored: List[Request] = field(default_factory=list)
 
     @property
     def is_mixed(self) -> bool:
@@ -71,9 +78,51 @@ class ContinuousBatchingScheduler:
         self.max_prefill_seqs = max_prefill_seqs
         self.prefill_chunk_tokens = prefill_chunk_tokens
         self.max_prefill_tokens = max_prefill_tokens
+        self._submit_seq = 0
 
     def submit(self, req: Request) -> None:
-        self.queue.append(req)
+        """Enqueue ``req`` ahead of strictly lower-priority queued work and
+        behind its own priority band."""
+        self._submit_seq += 1
+        req.queue_seq = self._submit_seq
+        idx = next((i for i, r in enumerate(self.queue) if r.priority < req.priority),
+                   None)
+        if idx is None:
+            self.queue.append(req)
+        else:
+            self.queue.insert(idx, req)
+
+    def remove(self, req: Request) -> None:
+        """Drop ``req`` from whichever structure holds it. Idempotent; the
+        caller releases its resources."""
+        try:
+            self.queue.remove(req)
+        except ValueError:
+            pass
+        if req in self.running:
+            self.running.remove(req)
+        if req in self.prefilling:
+            self.prefilling.remove(req)
+
+    def resubmit_preempted(self, req: Request) -> None:
+        """A preempted request re-enters just behind the queue head (ahead of
+        everything newer), to prefill from position 0 (or, migrated, to be
+        restored)."""
+        req.was_preempted = True
+        req.prefill_pos = 0
+        req.prefill_target = None
+        self._submit_seq += 1
+        req.queue_seq = -self._submit_seq
+        if req in self.running:
+            self.running.remove(req)
+        if req in self.prefilling:
+            self.prefilling.remove(req)
+        if self.queue:
+            head = self.queue.popleft()
+            self.queue.appendleft(req)
+            self.queue.appendleft(head)
+        else:
+            self.queue.appendleft(req)
 
     @property
     def has_work(self) -> bool:
@@ -82,6 +131,7 @@ class ContinuousBatchingScheduler:
     def next_stage(self, free_slots: int) -> Optional[StageDecision]:
         """Form the next stage and admit its new requests."""
         chunks: List[ChunkSpan] = []
+        restored: List[Request] = []
         chunked = self.prefill_chunk_tokens is not None
         budget = self.prefill_chunk_tokens if chunked else self.max_prefill_tokens
         used = 0
@@ -95,7 +145,13 @@ class ContinuousBatchingScheduler:
             used += n
         free = free_slots
         for r in self.queue:               # the head blocks everything behind it
-            if free <= 0 or len(chunks) >= self.max_prefill_seqs:
+            if free <= 0:
+                break
+            if r.saved_cache is not None:  # migrated back: a slot, no prefill
+                restored.append(r)
+                free -= 1
+                continue
+            if len(chunks) >= self.max_prefill_seqs:
                 break
             total = min(len(r.prompt) + len(r.output), self.max_prefill_target)
             start = min(r.prefill_pos, total - 1) if total > 0 else 0
@@ -112,14 +168,16 @@ class ContinuousBatchingScheduler:
             used += span.tokens
             free -= 1
         decoding = [r for r in self.running if r.state == RequestState.DECODE]
-        if not chunks and not decoding:
+        if not chunks and not decoding and not restored:
             return None
         for c in chunks:                   # admission
             if c.first:
                 self.queue.remove(c.req)
                 c.req.prefill_target = c.target
                 c.req.state = RequestState.PREFILL
-        return StageDecision(chunks, decoding)
+        for r in restored:
+            self.queue.remove(r)
+        return StageDecision(chunks, decoding, restored)
 
     def commit_stage(self, decision: StageDecision) -> None:
         """After the engine ran the stage: advance chunk positions, promote
@@ -135,4 +193,8 @@ class ContinuousBatchingScheduler:
                 self.running.append(r)
             elif r not in self.prefilling:
                 self.prefilling.append(r)
+        for r in decision.restored:
+            if not r.done:
+                r.state = RequestState.DECODE
+            self.running.append(r)
         self.running = [r for r in self.running if not r.done]

@@ -692,3 +692,44 @@ def test_cuda_moe_input_gradient_is_the_same_from_run_to_run(card):
             xi = x.clone().requires_grad_(True)
             grads.append(torch.autograd.grad(layer(xi), xi, g)[0])
         assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+def test_cuda_dense_chunk_step_writes_without_a_host_sync(card):
+    """The dense chunk step (``attention_chunk_step``) on the card runs with
+    torch's sync debug mode set to raise (its dropped writes need no mask
+    and no ``nonzero``), and writes and returns what it does on the CPU
+    (float32: outputs within 1e-4, positions and lengths exactly). Three
+    slots, four chunk rows: slot 1 from 3, slot 0 from 12 up to the
+    ``Smax - 1`` clamp, two padded rows at slot 0."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.models.attention import attention_chunk_step
+    from repro_torch.models.params import init_model, tree_map
+    cfg = resolve_config("tiny-moe")
+    mixer = tree_map(init_model(cfg, seed=0, device="cpu")["segments"][0]["blocks"][0]["mixer"],
+                     lambda t: t[0])
+    gen = torch.Generator().manual_seed(0)
+    cache = {"k": torch.randn((3, 16, 2, 16), generator=gen),
+             "v": torch.randn((3, 16, 2, 16), generator=gen),
+             "pos": torch.arange(16, dtype=torch.int32).repeat(3, 1),
+             "len": torch.tensor([12, 3, 5], dtype=torch.int32)}
+    x = torch.randn((4, 8, cfg.d_model), generator=gen)
+    ctx = {"slots": torch.tensor([1, 0, 0, 0], dtype=torch.int32),
+           "starts": torch.tensor([3, 12, 0, 0], dtype=torch.int32),
+           "chunk_lens": torch.tensor([8, 7, 0, 0], dtype=torch.int32)}
+    on = lambda tree: tree_map(tree, lambda t: t.to(card))
+    gpu_cache, gpu_args = on(cache), (on(mixer), cfg, x.to(card))
+    y_cpu, cpu_cache = attention_chunk_step(mixer, cfg, x, tree_map(cache, torch.clone), ctx)
+    gpu_ctx = on(ctx)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y_gpu, _ = attention_chunk_step(*gpu_args, gpu_cache, gpu_ctx)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.testing.assert_close(y_gpu.cpu(), y_cpu, atol=1e-4, rtol=1e-4)
+    for name in ("k", "v"):
+        torch.testing.assert_close(gpu_cache[name].cpu(), cpu_cache[name], atol=1e-5, rtol=1e-5)
+    for name in ("pos", "len"):
+        assert torch.equal(gpu_cache[name].cpu(), cpu_cache[name])
+    assert int(gpu_cache["pos"][0, 15]) == 18

@@ -236,9 +236,9 @@ def test_engine_emits_the_reference_greedy_tokens(use_kernels):
 
 
 def test_engine_routes_a_hybrid_stack_like_the_reference():
-    """Chunked prefill and paged caches are refused for a Mamba stack, and
-    the dense layout for a full-attention stack is not ported yet; so the
-    default layout is the one the stack has."""
+    """Chunked prefill and paged caches are refused for a Mamba stack; a
+    full-attention stack takes either layout; the default layout is paged
+    for a full-attention stack and dense for a hybrid one."""
     cfg_t = _hybrid(tb, 1)
     params = {"embed": {"table": torch.zeros(1)}, "lm_head": {"table": torch.zeros(1)}}
     with pytest.raises(NotImplementedError, match="chunked prefill"):
@@ -247,9 +247,11 @@ def test_engine_routes_a_hybrid_stack_like_the_reference():
     with pytest.raises(ValueError, match="paged KV cache"):
         ServingEngine(cfg_t, params, max_slots=2, max_len=32, kv_layout="paged",
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="dense layout"):
-        ServingEngine(resolve_config("tiny-moe"), params, max_slots=2, max_len=32,
-                      kv_layout="dense", device="cpu")
+    for layout, paged in (("dense", False), (None, True)):
+        eng = ServingEngine(resolve_config("tiny-moe"), params, max_slots=2, max_len=32,
+                            kv_layout=layout, device="cpu")
+        assert eng.paged == paged
+    assert not ServingEngine(cfg_t, params, max_slots=2, max_len=32, device="cpu").paged
     with pytest.raises(NotImplementedError, match="chunked prefill"):
         ServingEngine(cfg_t, params, max_slots=2, max_len=32, prefill_chunk_tokens=16,
                       device="cpu")

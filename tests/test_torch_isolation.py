@@ -22,6 +22,7 @@ for n in ("repro_torch.kernels.quant", "repro_torch.kernels.decode_attn",
           "repro_torch.kernels.moe_gemm", "repro_torch.kernels.moe_gemv",
           "repro_torch.kernels.ssd_decode", "repro_torch.models.ssm",
           "repro_torch.models.attention", "repro_torch.serving.kvmanager",
+          "repro_torch.serving.preemption",
           "repro_torch.configs.jamba_v0_1_52b", "repro_torch.kernels.flash_attn",
           "repro_torch.training.optimizer", "repro_torch.training.data",
           "repro_torch.training.train_state", "repro_torch.training.loop",
@@ -51,13 +52,16 @@ else:
     raise AssertionError("init_model ran without a card")
 params = init_model(cfg, device="cpu")
 hybrid = resolve_config("jamba-v0.1-52b")
-for flags in ({"kv_page_size": 8, "prefill_chunk_tokens": 16},
-              {"kv_page_size": 8, "prefill_chunk_tokens": 16, "kv_quant": True,
-               "moe_ragged": False},
-              {"kv_layout": "dense"}):
+for stack, flags in ((cfg, {"kv_page_size": 8, "prefill_chunk_tokens": 16}),
+                     (cfg, {"kv_page_size": 8, "prefill_chunk_tokens": 16,
+                            "kv_quant": True, "moe_ragged": False}),
+                     (cfg, {"kv_page_size": 8, "prefix_share": True,
+                            "preemption": "recompute", "kv_num_pages": 9}),
+                     (cfg, {"kv_layout": "dense", "prefill_chunk_tokens": 16,
+                            "preemption": "migrate"}),
+                     (hybrid, {"kv_layout": "dense"})):
     try:
-        ServingEngine(hybrid if "kv_layout" in flags else cfg, params, max_slots=2,
-                      max_len=32, **flags)
+        ServingEngine(stack, params, max_slots=2, max_len=32, **flags)
     except RuntimeError as e:
         assert "cuda" in str(e).lower()
     else:
