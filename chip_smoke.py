@@ -79,7 +79,25 @@ Phases, each printing a line:
           their tensor-core routes, and one dense mixed stage (chunk rows
           and decode rows) through the kernels against the plain path;
           prints the dense KV bytes and the bytes migrated to the host, and
-          profiles a short run. Then, with the OLMoE model freed,
+          profiles a short run;
+       g. overload and faults, two runs: g1 serves path e's requests on path
+          e's engine under a seeded ``FaultInjector`` (page-allocation
+          failures, forced evictions, step errors, latency spikes) with the
+          per-stage audit, on the wall clock; g2 serves 32 requests (path
+          a's lengths twice) on path a's engine with a queue of 8 that sheds
+          its oldest, aging every 4 stages, finish deadlines, first-token
+          SLOs and two cancels (one queued, one mid-prefill), on a virtual
+          clock of 0.1 s a stage. Each checks the launches of kernels 1-4
+          (the chunk and MoE calls on their tensor-core routes), an empty
+          audit and a drained pool, and holds its counters (g1: stages,
+          aborts, retries, preemptions, forced evictions, fault counts; g2:
+          stages, sheds, expiries by deadline and by SLO, cancels, rejects,
+          aging promotions, completions) equal to the schedule the port's
+          engine forms on the CPU (``G1_EXPECT``, ``G2_EXPECT``); g1 also
+          needs every request completed, an aborted stage and a retry, and
+          prints how many requests emitted path e's tokens, g2 every request
+          terminal as length, shed, expired or cancelled. Then, with the
+          OLMoE model freed,
        c. Jamba-v0.1 (Mamba-2 + GQA attention + MoE) at full width, depth
           cut to 16 of its 32 layers (two of four periods; the whole model,
           ~103 GB in bf16, does not fit one 80 GB card), the same 16
@@ -871,8 +889,9 @@ def serve_phase(torch):
     log(f"serve: KV pool bytes [{a}] {na / 2**20:.1f} MiB, [{b}] {nb / 2**20:.1f} MiB, "
         f"ratio {na / nb:.3f} ({want:.3f} expected: 2*KV*hd*2 over 2*KV*(hd + 4) bytes "
         f"per token)")
-    shared_phase(torch, cfg, params)
+    e_tokens = shared_phase(torch, cfg, params)
     dense_phase(torch, cfg, params)
+    overload_phase(torch, cfg, params, e_tokens)
     return launches
 
 
@@ -904,20 +923,27 @@ def shared_requests(cfg):
         for i in range(16)]
 
 
+def shared_engine_kw(reqs):
+    """Path e's engine flags: SHARED_KW and a pool (+ the null page) of a
+    quarter of the pages ``reqs`` need over their lifetimes unshared."""
+    page = SHARED_KW["kv_page_size"]
+    demand = sum(-(-(len(r.prompt) + r.max_new_tokens) // page) for r in reqs)
+    return dict(SHARED_KW, kv_num_pages=demand // 4 + 1)
+
+
 def shared_phase(torch, cfg, params):
-    """Path e; raises if a check fails."""
+    """Path e; raises if a check fails. Returns each request's tokens."""
     reqs = shared_requests(cfg)
     page = SHARED_KW["kv_page_size"]
     demand = sum(-(-(len(r.prompt) + r.max_new_tokens) // page) for r in reqs)
     shared = SHARED_PROMPT // page + sum(
         -(-(len(r.prompt) - SHARED_PROMPT + r.max_new_tokens) // page) for r in reqs)
-    pages = demand // 4
+    engine_kw = shared_engine_kw(reqs)
     log(f"serve [{SHARED_LABEL}]: {len(reqs)} requests of a {SHARED_PROMPT}-token system "
         f"prompt and a 64-256-token suffix need {demand} pages of {page} over their "
         f"lifetimes without sharing, {shared} with the prompt's pages shared; the pool "
-        f"holds {pages} (+ the null page)")
-    counts, eng = serve_path(torch, cfg, params, SHARED_LABEL,
-                             dict(SHARED_KW, kv_num_pages=pages + 1), reqs)
+        f"holds {engine_kw['kv_num_pages'] - 1} (+ the null page)")
+    counts, eng = serve_path(torch, cfg, params, SHARED_LABEL, engine_kw, reqs)
     missing = [k for k in SHARED_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"[{SHARED_LABEL}] kernels never launched on the path: {missing}")
@@ -942,6 +968,7 @@ def shared_phase(torch, cfg, params):
         raise AssertionError(f"[{SHARED_LABEL}] the pool did not drain cleanly")
     del eng
     check_shared_against_plain(torch, cfg, params)
+    return {r.rid: list(r.output) for r in reqs}
 
 
 def check_shared_against_plain(torch, cfg, params):
@@ -1072,6 +1099,215 @@ def check_dense_against_plain(torch, cfg, params):
                    "two chunk rows)", out[True], out[False])
 
 
+# path g: overload and faults on OLMoE-1B-7B, in two runs. The host schedule
+# (stages, aborts, evictions, sheds, expiries, the fault draws) depends on
+# the lengths, the clock and the order of the fault consultations, not on
+# the model's widths or numbers (no EOS; k_cold feeds no decision; page
+# counts come from lengths), so each counter is gated against what the
+# port's engine forms on the CPU with a narrow config
+# (tests/test_torch_overload.py::test_path_g_counters_match_the_smoke_gates
+# runs these same functions there and holds these constants).
+CHAOS_LABEL = "chaos: shared prompt, faults injected"
+CHAOS_SEED = 0
+CHAOS_FAULTS = dict(p_page_alloc_fail=0.01, p_forced_evict=0.05, p_step_error=0.05,
+                    p_latency_spike=0.05, max_retries=4)
+OVERLOAD_LABEL = "overload: bounded queue, deadlines, cancels"
+OVERLOAD_KW = dict(ENGINE_KW, queue_cap=8, overload_policy="shed-oldest", aging_rounds=4)
+STAGE_S = 0.1                  # g2's virtual seconds a stage
+ARRIVE_EVERY, ARRIVE_N = 5, 4  # g2: 4 arrivals every 5 stages
+DEADLINE_S = 4.05              # every 8th request from rid 1: finish deadline after arrival
+TTFT_SLO_S = 2.25              # every 8th request from rid 5: first-token objective
+CANCEL_QUEUED_AT, CANCEL_PREFILL_AT = 12, 23   # g2 stages of its two cancels
+G1_EXPECT = dict(stages=92, stage_aborts=3, retries=2, preemptions=10, forced_evictions=2,
+                 fault_counts=dict(page_alloc_fail=3, forced_evict=3, step_error=2,
+                                   latency_spike=5, replica_kill=0, replica_spike=0))
+G2_EXPECT = dict(stages=100, shed=16, expired=2, cancelled=2, rejected=0,
+                 aging_promotions=81, expired_deadline=1, expired_ttft=1, completed=12)
+
+
+def chaos_injector():
+    from repro_torch.serving.faults import FaultInjector
+    return FaultInjector(CHAOS_SEED, **CHAOS_FAULTS)
+
+
+def chaos_counters(eng):
+    """g1's gated counters."""
+    st = eng.stats()
+    return dict({k: st[k] for k in ("stages", "stage_aborts", "retries", "preemptions",
+                                    "forced_evictions")}, fault_counts=st["fault_counts"])
+
+
+def overload_requests(cfg):
+    """g2's 32 requests: path a's 16 prompt lengths twice (tokens seeded anew),
+    32 new tokens each, arriving 4 every 5 stages (arrival times on the
+    virtual clock); every fourth has priority 1, every eighth from rid 1 a
+    finish deadline and every eighth from rid 5 a first-token SLO."""
+    import numpy as np
+    from repro_torch.serving.request import Request
+    lens = [len(r.prompt) for r in path_a_requests(cfg)] * 2
+    rng = np.random.default_rng(1)
+    reqs = []
+    for i, n in enumerate(lens):
+        t = ARRIVE_EVERY * (i // ARRIVE_N) * STAGE_S
+        reqs.append(Request(
+            rid=i, prompt=rng.integers(0, cfg.vocab_size, n).tolist(), max_new_tokens=32,
+            arrival_time=t, priority=1 if i % 4 == 3 else 0,
+            deadline=t + DEADLINE_S if i % 8 == 1 else None,
+            ttft_slo=TTFT_SLO_S if i % 8 == 5 else None))
+    return reqs
+
+
+def drive_overload(eng, reqs):
+    """Submit and step g2 on the virtual clock (stage k at k * STAGE_S),
+    cancelling at stage CANCEL_QUEUED_AT the queue's last request and at
+    CANCEL_PREFILL_AT the first request in the middle of its chunked
+    prefill. Returns the cancelled rids; raises if either has no such
+    request or the run does not drain."""
+    cancelled = []
+    i = k = 0
+    while i < len(reqs) or eng.scheduler.has_work:
+        if k > 5000:
+            raise AssertionError(f"[{OVERLOAD_LABEL}] did not drain in 5000 stages")
+        now = k * STAGE_S
+        while i < len(reqs) and ARRIVE_EVERY * (i // ARRIVE_N) <= k:
+            eng.submit(reqs[i], now=now)     # shed-oldest sheds, never rejects
+            i += 1
+        if k == CANCEL_QUEUED_AT:
+            q = [r for r in eng.scheduler.queue if not r.done]
+            if not q:
+                raise AssertionError(f"[{OVERLOAD_LABEL}] no queued request to cancel")
+            cancelled.append(q[-1].rid)
+        elif k == CANCEL_PREFILL_AT:
+            p = [r for r in eng.scheduler.prefilling
+                 if 0 < r.prefill_pos < r.prefill_total]
+            if not p:
+                raise AssertionError(f"[{OVERLOAD_LABEL}] no request mid-prefill to cancel")
+            cancelled.append(p[0].rid)
+        if k in (CANCEL_QUEUED_AT, CANCEL_PREFILL_AT) and not eng.cancel(cancelled[-1],
+                                                                         now=now):
+            raise AssertionError(f"[{OVERLOAD_LABEL}] cancel of {cancelled[-1]} refused")
+        eng.step(now=now)
+        k += 1
+    return cancelled
+
+
+def overload_counters(eng, reqs):
+    """g2's gated counters."""
+    st = eng.stats()
+    exp = [r for r in reqs if r.finish_reason == "expired"]
+    return dict({k: st[k] for k in ("stages", "shed", "expired", "cancelled", "rejected",
+                                    "aging_promotions")},
+                expired_deadline=sum(r.deadline is not None for r in exp),
+                expired_ttft=sum(r.ttft_slo is not None for r in exp),
+                completed=sum(r.completed for r in reqs))
+
+
+def check_overload_gates(label, got, want):
+    if got != want:
+        raise AssertionError(f"[{label}] counters {got} differ from the CPU schedule's "
+                             f"{want}")
+
+
+def drained(eng):
+    """The pool drained: no live page, an empty audit with no pins, every
+    slot free."""
+    return (eng.kv.live_pages == 0 and eng.kv.audit(pins={}) == []
+            and eng.kv.free_slots == eng.kv.max_slots)
+
+
+def overload_phase(torch, cfg, params, e_tokens):
+    """Path g: g1, path e's requests and engine under the seeded fault
+    injector on the wall clock; g2, path a's engine with a bounded queue,
+    shedding and aging under 32 arrivals with deadlines, first-token SLOs
+    and two cancels on a virtual clock. Each with every launch count set to
+    0 before and read after; raises if a gate fails."""
+    import numpy as np
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import ServingEngine
+
+    def launched(label, counts):
+        missing = [k for k in SHARED_KERNELS if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"[{label}] kernels never launched on the path: {missing}")
+        sm90 = counts["chunked_prefill_attention_sm90"]
+        log(f"serve [{label}]: kernel launches {json.dumps(counts)}")
+        if sm90 != counts["chunked_prefill_attention"]:
+            raise AssertionError(f"[{label}] chunked prefill left the tensor-core route")
+        check_expert_routes(label, counts)
+
+    def stage_line(label, eng, reqs, wall):
+        reps = eng.reports
+        gen = sum(len(r.output) for r in reqs)
+        log(f"serve [{label}]: stages={len(reps)} (with prefill {sum(r.is_mixed for r in reps)}"
+            f", aborted {sum(r.aborted for r in reps)}) in {wall:.2f}s of host wall; "
+            f"{gen} tokens generated, {gen / wall:.1f}/s; counters "
+            f"{json.dumps({k: v for k, v in eng.stats().items() if k not in ('kv', 'delta')})}")
+
+    # g1: chaos
+    reqs = shared_requests(cfg)
+    inj = chaos_injector()
+    eng = ServingEngine(cfg, params, device="cuda", injector=inj, audit_stages=True,
+                        **shared_engine_kw(reqs))
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        r.arrival_time = eng._now()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.launch_counts)
+    stage_line(CHAOS_LABEL, eng, reqs, wall)
+    tbt = [t for r in reqs for t in r.tbts()]
+    same = [r.rid for r in reqs if r.output == e_tokens[r.rid]]
+    depart = {r.rid: next(i for i, (a, b) in enumerate(zip(r.output, e_tokens[r.rid]))
+                          if a != b) for r in reqs if r.rid not in same}
+    log(f"serve [{CHAOS_LABEL}]: fault counts {json.dumps(inj.counts)} (seed {CHAOS_SEED}); "
+        f"median TBT={np.median(tbt) * 1e3:.1f}ms, median TTFT="
+        f"{np.median([r.t2ft() for r in reqs]) * 1e3:.0f}ms (the engine clock: injected "
+        f"spikes included); {len(same)}/16 requests emitted path e's fault-free tokens "
+        f"exactly, the others first depart at {depart} (rid: position; an aborted or "
+        f"replayed stage re-forms the stages after it, and a stage's token count sets "
+        f"its MoE capacities and k_cold, so which tokens overflow an expert)")
+    launched(CHAOS_LABEL, counts)
+    st = eng.stats()
+    if not all(r.completed for r in reqs):
+        raise AssertionError(f"[{CHAOS_LABEL}] not every request completed")
+    if st["audit_violations"] or not drained(eng):
+        raise AssertionError(f"[{CHAOS_LABEL}] audit {eng.audit_log[:5]}; the pool did not "
+                             f"drain cleanly")
+    if not st["stage_aborts"] or not st["retries"]:
+        raise AssertionError(f"[{CHAOS_LABEL}] no aborted stage or no retry")
+    check_overload_gates(CHAOS_LABEL, chaos_counters(eng), G1_EXPECT)
+    del eng
+
+    # g2: overload on a virtual clock
+    reqs = overload_requests(cfg)
+    eng = ServingEngine(cfg, params, device="cuda", audit_stages=True, **OVERLOAD_KW)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    cancelled = drive_overload(eng, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.launch_counts)
+    stage_line(OVERLOAD_LABEL, eng, reqs, wall)
+    reasons = {}
+    for r in reqs:
+        reasons[r.finish_reason] = reasons.get(r.finish_reason, 0) + 1
+    log(f"serve [{OVERLOAD_LABEL}]: finish reasons {json.dumps(reasons)}; cancelled rids "
+        f"{cancelled} (queued, mid-prefill); median stage wall "
+        f"{np.median([r.wall_time for r in eng.reports]) * 1e3:.1f}ms (token times are "
+        f"virtual)")
+    launched(OVERLOAD_LABEL, counts)
+    if not all(r.done and r.finish_reason in ("length", "shed", "expired", "cancelled")
+               for r in reqs):
+        raise AssertionError(f"[{OVERLOAD_LABEL}] a request ended otherwise: {reasons}")
+    if eng.stats()["audit_violations"] or not drained(eng):
+        raise AssertionError(f"[{OVERLOAD_LABEL}] audit {eng.audit_log[:5]}; the pool did "
+                             f"not drain cleanly")
+    check_overload_gates(OVERLOAD_LABEL, overload_counters(eng, reqs), G2_EXPECT)
+    del eng
+
+
 def check_expert_routes(label, counts):
     """Every hot GEMM and cold GEMV launch of a (bf16) path ran the
     tensor-core kernels of ``moe_gemm_sm90.cu`` and ``moe_gemv_sm90.cu``."""
@@ -1116,7 +1352,7 @@ def serve_path(torch, cfg, params, label, engine_kw, reqs=None):
     wall = time.perf_counter() - t0
     launches = dict(build.launch_counts)
 
-    done = sum(r.done for r in reqs)
+    done = sum(r.completed for r in reqs)
     ok_tokens = all(len(r.output) == l_out and all(0 <= t < cfg.vocab_size for t in r.output)
                     for r in reqs)
     reps = eng.reports

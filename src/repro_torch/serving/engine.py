@@ -42,6 +42,25 @@ restores it later; "recompute" drops it and prefills prompt plus output
 again. Each host step happens in the reference's order, because parity is
 judged on tokens.
 
+Overload and faults: the admission queue may be bounded (``queue_cap``,
+``overload_policy``: a full queue rejects with ``AdmissionRejected`` or
+sheds a queued request), queued requests age into higher priority bands
+(``aging_rounds``), ``cancel`` ends a request wherever it is, and a
+per-stage sweep expires requests past their deadline or first-token SLO;
+each releases its slot, pages and pins. A seeded ``FaultInjector`` fails
+page allocations and stage steps, forces evictions and spikes the clock.
+``step`` is the reference's synchronous split: ``plan_stage`` (maintenance,
+admission, the scheduler's stage), ``dispatch_stage`` (slots, pages and the
+device step; an injected fault raises out of it and ``_abort_stage`` sends
+the stage's admissions back to the queue head) and ``commit_stage`` (the
+one device sync, the durable commit, then the report and, with
+``audit_stages``, the KV audit). The KV cache is written in place, so every
+fault of a stage is drawn before its first device step; a dense legacy
+stage, like the reference's, runs its decode before the prefill's draw. All
+clock reads go through ``_now(now)``: a caller's virtual ``now`` drives
+deadlines deterministically, and injected latency adds to it. ``run``'s
+watchdog raises ``EngineStalledError`` instead of spinning.
+
 Where the reference keys one jitted function per bucketed shape, the port
 simply calls the model with the same bucketed shapes. The engine runs on
 ``device`` ("cuda" unless the caller asks for the CPU, as the tests do);
@@ -49,9 +68,10 @@ asking for CUDA without a card raises.
 """
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,10 +84,12 @@ from repro_torch.core.partition import DuplexPlanner, build_luts
 from repro_torch.models.model import decode_step, init_cache, mixed_step, prefill
 from repro_torch.models.params import DTYPES, tree_map
 from repro_torch.serving import preemption as pre
+from repro_torch.serving.faults import FaultInjector, InjectedFault, InjectedStepError
 from repro_torch.serving.kvmanager import KVManager, kv_token_bytes
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.sampling import sample
-from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+from repro_torch.serving.scheduler import (AdmissionRejected,
+                                           ContinuousBatchingScheduler,
                                            StageDecision)
 
 MAX_PREFILL_SEQS = 4     # chunk spans per stage (the reference's default)
@@ -112,6 +134,51 @@ class StageReport:
     chunk_tokens: int = 0        # prefill positions the stage's spans cover
     stage_tokens: int = 0        # live tokens through the MoE stream
     shared_kv_pages: int = 0     # pages mapped by more than one owner after it
+    # robustness: ``aborted`` marks a stage an injected fault unwound (its
+    # admissions went back to the queue head, nothing advanced); the rest
+    # are this stage's deltas of the engine's totals
+    aborted: bool = False
+    shed: int = 0
+    expired: int = 0
+    cancelled: int = 0
+    retries: int = 0
+    audit_violations: int = 0
+
+
+@dataclass
+class StagePlan:
+    """A formed stage not yet dispatched: the scheduler's decision, its
+    k_cold, the host clock at plan start, the (shed, expired, cancelled,
+    retries) totals before it and the engine clock its tokens are stamped
+    with."""
+    decision: StageDecision
+    k_cold: int
+    t0: float
+    snap: Tuple[int, int, int, int]
+    tnow: float
+
+
+@dataclass
+class StageFuture:
+    """A dispatched stage: its device outputs and what the commit needs.
+    Nothing durable (lengths, tokens, scheduler positions) has moved yet."""
+    plan: StagePlan
+    nxt: Any = None               # decode next tokens (device)
+    cn: Any = None                # chunk next tokens (device)
+    counts: Any = None            # summed per-expert router counts (device)
+    legacy_nxt: Any = None        # legacy prefill next tokens (device)
+    legacy_cache: Any = None      # legacy prefill's local cache, scattered at commit
+    kv_bytes: int = 0
+    moe_caps: Optional[Tuple[int, int, int]] = None
+    # the stage's (shed, expired, cancelled, retries) deltas, frozen at commit
+    deltas: Tuple[int, int, int, int] = (0, 0, 0, 0)
+
+
+class EngineStalledError(RuntimeError):
+    """``run``'s watchdog: no stage can make progress (capacity livelock, a
+    fault schedule that never relents, or a spent stage or wall budget).
+    The message lists the stuck request ids, queue depth and free
+    capacity."""
 
 
 class ServingEngine:
@@ -122,7 +189,10 @@ class ServingEngine:
                  use_duplex: bool = True, use_kernels: bool = True,
                  kv_quant: bool = False, moe_ragged: bool = True,
                  moe_c_block: int = 256, preemption: str = "none",
-                 prefix_share: bool = False, device="cuda"):
+                 prefix_share: bool = False, queue_cap: Optional[int] = None,
+                 overload_policy: str = "reject", aging_rounds: Optional[int] = None,
+                 injector: Optional[FaultInjector] = None,
+                 audit_stages: Optional[bool] = None, device="cuda"):
         """Greedy sampling only. ``kv_layout`` None takes "paged" for a full
         self-attention stack and "dense" for the others. Paged: the page
         pool holds ``kv_num_pages`` pages (default every slot at max_len,
@@ -136,7 +206,13 @@ class ServingEngine:
         capacity-padded ones; without ``use_duplex`` the MoE is the plain
         grouped path, as the reference runs XLA there. Chunked prefill
         (``prefill_chunk_tokens``) needs a full self-attention stack, as in
-        the reference."""
+        the reference. ``queue_cap`` bounds the admission queue and
+        ``overload_policy`` ("reject", "shed-oldest", "shed-past-deadline")
+        decides what a submit to a full one does; ``aging_rounds`` promotes
+        a queued request one band per that many stages. ``injector`` (a
+        ``FaultInjector``) injects faults into the KV manager and the stage
+        loop; ``audit_stages`` audits the KV manager after every stage, by
+        default exactly when an injector is given."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServingEngine(device='cuda') but no CUDA device "
@@ -167,9 +243,12 @@ class ServingEngine:
         if not self._unified and kv_layout == "paged":
             raise ValueError("a Mamba or hybrid stack has no paged KV cache; use "
                              "kv_layout='dense' (the default for such a stack)")
+        self.injector = injector
+        self.audit_stages = (injector is not None if audit_stages is None
+                             else bool(audit_stages))
         self.kv = KVManager(cfg, max_slots, max_len, layout=kv_layout,
                             page_size=kv_page_size, num_pages=kv_num_pages,
-                            kv_quant=kv_quant, device=self.device)
+                            kv_quant=kv_quant, device=self.device, injector=injector)
         self.paged = self.kv.paged
         if self.paged and preemption == "migrate":
             raise NotImplementedError(
@@ -188,7 +267,27 @@ class ServingEngine:
         self.scheduler = ContinuousBatchingScheduler(
             max_prefill_seqs=MAX_PREFILL_SEQS,
             prefill_chunk_tokens=prefill_chunk_tokens, max_prefill_target=max_len,
-            max_prefill_tokens=MAX_PREFILL_TOKENS)
+            max_prefill_tokens=MAX_PREFILL_TOKENS, queue_cap=queue_cap,
+            overload_policy=overload_policy, aging_rounds=aging_rounds)
+        # robustness totals over the engine's life; StageReport carries each
+        # stage's deltas, stats() the roll-up and a window's deltas
+        self.cancelled = 0
+        self.expired = 0
+        self.shed = 0
+        self.rejected = 0
+        self.retries = 0
+        self.stage_aborts = 0
+        self.forced_evictions = 0
+        self.audit_violations = 0
+        self.audit_log: List[str] = []
+        self._stats_base: Dict[str, int] = {}
+        # injected latency and retry backoff, added to every clock read
+        self.fault_delay = 0.0
+        # every submitted request by rid: cancel finds it anywhere
+        self._requests: Dict[int, Request] = {}
+        # submit, cancel, step and stats hold it: calls from other threads
+        # land between stages
+        self._lock = threading.RLock()
         self.use_duplex = use_duplex and cfg.moe is not None
         self.use_kernels = use_kernels
         self.moe_ragged = bool(moe_ragged and use_kernels and self.use_duplex)
@@ -325,6 +424,21 @@ class ServingEngine:
         if victim is not None:
             self._evict(victim)
 
+    def _forced_evict(self, tnow: float) -> None:
+        """Injected fault: evict a victim although capacity is fine, unless
+        fewer than two requests are resident (the rule genuine page pressure
+        keeps)."""
+        cands = [r for r in self.scheduler.running + self.scheduler.prefilling
+                 if r.slot >= 0]
+        if len(cands) < 2:
+            return
+        victim = (pre.pick_victim_paged(cands, tnow) if self.paged
+                  else pre.pick_victim(self.scheduler.running, tnow))
+        if victim is None:
+            return
+        self._evict(victim)
+        self.forced_evictions += 1
+
     def _evict(self, victim: Request) -> None:
         if self.preemption == "migrate":
             pre.migrate_out(self.kv, victim)
@@ -395,16 +509,27 @@ class ServingEngine:
         self._tokens[slot] = req.output[-1]
         req.state = RequestState.DECODE
 
-    def _stage_maintenance(self) -> None:
-        """Before a stage, in the reference's order: preemption reshapes
-        residency, then the admissible queue heads re-match the prefix
-        index (requests submitted together find their donor's pages only
-        once it has prefilled)."""
-        self._maybe_preempt(time.monotonic())
+    def _stage_maintenance(self, now: Optional[float] = None) -> float:
+        """Before a stage, in the reference's order: injected latency lands
+        on the clock, the expiry sweep releases past-deadline work,
+        preemption and the injected forced eviction reshape residency, and
+        the admissible queue heads re-match the prefix index (requests
+        submitted together find their donor's pages only once it has
+        prefilled). Returns the stage clock."""
+        if self.injector is not None:
+            self.fault_delay += self.injector.latency_spike()
+        tnow = self._now(now)
+        for r in self.scheduler.sweep_expired(tnow):
+            self._finish_abnormal(r, "expired", tnow)
+        self._maybe_preempt(tnow)
+        if (self.injector is not None and self.preemption != "none"
+                and self.injector.forced_eviction()):
+            self._forced_evict(tnow)
         if self.paged and self.prefix_share:
             for r in list(self.scheduler.queue)[:self.scheduler.max_prefill_seqs]:
-                if r.saved_cache is None:
+                if r.saved_cache is None and not r.done:
                     self._match_prefix(r)
+        return tnow
 
     def _page_admission_cap(self) -> int:
         """Paged admission: walk the queue in admission order, adding each
@@ -441,9 +566,29 @@ class ServingEngine:
             return 0
         return self.planner.k_cold_static(self._expected_counts(n))
 
+
     # --------------------------------------------------------------- stages
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _invoke(self, fn):
+        """Run a stage's device step ``fn`` through the injector's
+        transient-error schedule: each attempt may fail (a drawn step
+        error), costing a retry and a virtual backoff; ``max_retries``
+        consecutive failures raise InjectedStepError and the stage aborts.
+        Every draw comes before ``fn`` touches the device, so a retry reads
+        the cache the failed attempt would have."""
+        if self.injector is not None:
+            attempt = 0
+            while self.injector.step_error():
+                attempt += 1
+                self.retries += 1
+                self.fault_delay += self.injector.backoff(attempt)
+                if attempt >= self.injector.max_retries:
+                    raise InjectedStepError(
+                        f"stage step failed {attempt} consecutive times "
+                        f"(max_retries={self.injector.max_retries})")
+        return fn()
 
     def _unique_page_bytes(self, slot_pages) -> int:
         seen = set()
@@ -480,37 +625,50 @@ class ServingEngine:
             bt[i] = self.kv.block_tables[s, :mp]
         return tokens, lengths, bt, live_pages
 
-    def _run_decode(self, decision: StageDecision, k_cold: int):
-        slots = [r.slot for r in decision.decoding]
-        tokens, lengths, bt, live_pages = self._decode_inputs(slots)
-        kv_bytes = self._unique_page_bytes(zip(slots, live_pages))
-        caps = self._moe_caps(tokens.shape[0], k_cold)
-        lens_t = self._t(lengths)
-        logits, _, counts = decode_step(
-            self.params, self.cfg, self._t(tokens), self.kv.cache,
-            {"lengths": lens_t, "block_tables": self._t(bt), "valid": lens_t > 0},
-            plan=self._moe_plan(k_cold, caps[0], caps[1]))
-        return sample(logits), None, counts, kv_bytes, caps
-
-    def _run_dense_decode(self, decision: StageDecision, k_cold: int):
-        """Dense decode over ALL slots: inactive rows' outputs are discarded
-        (and masked out of MoE routing), their cache rows are overwritten on
-        reuse, and every row's whole cache is streamed."""
+    def _dense_valid(self, decision: StageDecision) -> np.ndarray:
         valid = np.zeros((self.kv.max_slots,), bool)
         for r in decision.decoding:
             valid[r.slot] = True
-        caps = self._moe_caps(self.kv.max_slots, k_cold)
-        logits, _, counts = decode_step(
-            self.params, self.cfg, self._t(self._tokens[:, None].copy()), self.kv.cache,
-            {"valid": self._t(valid)}, plan=self._moe_plan(k_cold, caps[0], caps[1]))
-        return sample(logits), counts, self._dense_kv_bytes_per_stage, caps
+        return valid
 
-    def _run_legacy_prefill(self, decision: StageDecision):
+    def _dispatch_decode(self, fut: StageFuture) -> None:
+        """A decode-only stage. Paged: the stage's rows, their tables grown.
+        Dense: ALL slots (inactive rows' outputs are discarded and masked
+        out of MoE routing, their cache rows overwritten on reuse, every
+        row's whole cache streamed)."""
+        decision, k_cold = fut.plan.decision, fut.plan.k_cold
+        if self.paged:
+            slots = [r.slot for r in decision.decoding]
+            tokens, lengths, bt, live_pages = self._decode_inputs(slots)
+            fut.kv_bytes = self._unique_page_bytes(zip(slots, live_pages))
+            fut.moe_caps = caps = self._moe_caps(tokens.shape[0], k_cold)
+
+            def step():
+                lens_t = self._t(lengths)
+                logits, _, counts = decode_step(
+                    self.params, self.cfg, self._t(tokens), self.kv.cache,
+                    {"lengths": lens_t, "block_tables": self._t(bt), "valid": lens_t > 0},
+                    plan=self._moe_plan(k_cold, caps[0], caps[1]))
+                return sample(logits), counts
+        else:
+            valid = self._dense_valid(decision)
+            tokens = self._tokens[:, None].copy()
+            fut.kv_bytes = self._dense_kv_bytes_per_stage
+            fut.moe_caps = caps = self._moe_caps(self.kv.max_slots, k_cold)
+
+            def step():
+                logits, _, counts = decode_step(
+                    self.params, self.cfg, self._t(tokens), self.kv.cache,
+                    {"valid": self._t(valid)}, plan=self._moe_plan(k_cold, caps[0], caps[1]))
+                return sample(logits), counts
+        fut.nxt, fut.counts = self._invoke(step)
+
+    def _dispatch_legacy_prefill(self, fut: StageFuture) -> None:
         """Monolithic whole-prompt prefill into a fresh local cache (stacks
         the unified stream cannot serve): prompts padded to a length bucket,
-        rows to a row bucket, the grouped MoE plan. Returns (first tokens,
-        local cache); slots are claimed at commit."""
-        seqs = [c.req.token_stream(c.end) for c in decision.chunks]
+        rows to a row bucket, the grouped MoE plan. Slots are claimed and
+        the local cache scattered at commit."""
+        seqs = [c.req.token_stream(c.end) for c in fut.plan.decision.chunks]
         n_b = _bucket(len(seqs), self.seq_buckets)
         l_b = _bucket(max(len(sq) for sq in seqs), self.prefill_len_buckets)
         tokens = np.zeros((n_b, l_b), np.int32)
@@ -518,11 +676,14 @@ class ServingEngine:
         for i, sq in enumerate(seqs):
             tokens[i, :len(sq)] = sq
             true_len[i] = len(sq)
-        plan = ExecutionPlan(moe_impl="grouped", use_kernels=self.use_kernels)
-        cache = init_cache(self.cfg, n_b, self.kv.max_len, device=self.device)
-        logits, cache = prefill(self.params, self.cfg, {"tokens": self._t(tokens)},
-                                cache, self._t(true_len), plan=plan)
-        return sample(logits), cache
+
+        def step():
+            plan = ExecutionPlan(moe_impl="grouped", use_kernels=self.use_kernels)
+            cache = init_cache(self.cfg, n_b, self.kv.max_len, device=self.device)
+            logits, cache = prefill(self.params, self.cfg, {"tokens": self._t(tokens)},
+                                    cache, self._t(true_len), plan=plan)
+            return sample(logits), cache
+        fut.legacy_nxt, fut.legacy_cache = self._invoke(step)
 
     def _chunk_inputs(self, decision: StageDecision):
         """Claim the first chunks' slots (adopting a pinned shared prefix) and
@@ -548,120 +709,275 @@ class ServingEngine:
             clens[i] = c.tokens
         return ctokens, starts, clens
 
-    def _run_mixed(self, decision: StageDecision, k_cold: int):
+    def _dispatch_mixed(self, fut: StageFuture) -> None:
+        """A unified mixed stage: the first chunks claim their slots (undone
+        by ``_abort_stage``), the tables grow, and one step runs the decode
+        rows and the chunk rows. Dense: the decode half over every slot,
+        the chunk rows at their slots, each chunk streaming its slot's
+        whole row besides the decode's every row."""
+        decision, k_cold = fut.plan.decision, fut.plan.k_cold
         chunks = decision.chunks
         ctokens, starts, clens = self._chunk_inputs(decision)
         nc_b, sc_b = ctokens.shape
-        dslots = [r.slot for r in decision.decoding]
-        dtokens, lengths, bt, live_pages = self._decode_inputs(dslots, n_min=1)
-        cpages = []
-        for c in chunks:
-            self.kv.ensure_len(c.req.slot, c.end)
-            if self.prefix_share:
-                # copy a shared page the chunk writes into (the last page
-                # of a prompt shared whole)
-                self.kv.ensure_writable(c.req.slot, c.start, c.end)
-            cpages.append(-(-c.end // self.kv.page_size))
-        mpc = _bucket(max(cpages), self.pages_buckets)
-        bt_c = np.zeros((nc_b, mpc), np.int32)
-        for i, c in enumerate(chunks):
-            bt_c[i] = self.kv.block_tables[c.req.slot, :mpc]
-        kv_bytes = self._unique_page_bytes(
-            list(zip(dslots, live_pages)) + [(c.req.slot, n) for c, n in zip(chunks, cpages)])
-        caps = self._moe_caps(dtokens.shape[0] + nc_b * sc_b, k_cold)
-        lens_t = self._t(lengths)
-        dl, cl, _, counts = mixed_step(
-            self.params, self.cfg, self._t(dtokens), self._t(ctokens), self.kv.cache,
-            attn_ctx={"lengths": lens_t, "block_tables": self._t(bt),
-                      "valid": lens_t > 0},
-            chunk_ctx={"starts": self._t(starts), "chunk_lens": self._t(clens),
-                       "block_tables": self._t(bt_c)},
-            plan=self._moe_plan(k_cold, caps[0], caps[1]))
-        return sample(dl), sample(cl), counts, kv_bytes, caps
+        if self.paged:
+            dslots = [r.slot for r in decision.decoding]
+            dtokens, lengths, bt, live_pages = self._decode_inputs(dslots, n_min=1)
+            cpages = []
+            for c in chunks:
+                self.kv.ensure_len(c.req.slot, c.end)
+                if self.prefix_share:
+                    # copy a shared page the chunk writes into (the last page
+                    # of a prompt shared whole)
+                    self.kv.ensure_writable(c.req.slot, c.start, c.end)
+                cpages.append(-(-c.end // self.kv.page_size))
+            mpc = _bucket(max(cpages), self.pages_buckets)
+            bt_c = np.zeros((nc_b, mpc), np.int32)
+            for i, c in enumerate(chunks):
+                bt_c[i] = self.kv.block_tables[c.req.slot, :mpc]
+            fut.kv_bytes = self._unique_page_bytes(
+                list(zip(dslots, live_pages))
+                + [(c.req.slot, n) for c, n in zip(chunks, cpages)])
+            fut.moe_caps = caps = self._moe_caps(dtokens.shape[0] + nc_b * sc_b, k_cold)
 
-    def _run_dense_mixed(self, decision: StageDecision, k_cold: int):
-        """Dense mixed stage: the decode half over every slot, the chunk rows
-        at their slots; each chunk streams its slot's whole row besides the
-        decode's every row."""
-        chunks = decision.chunks
-        ctokens, starts, clens = self._chunk_inputs(decision)
-        nc_b, sc_b = ctokens.shape
-        cslots = np.zeros((nc_b,), np.int32)
-        for i, c in enumerate(chunks):
-            cslots[i] = c.req.slot
-        valid = np.zeros((self.kv.max_slots,), bool)
-        for r in decision.decoding:
-            valid[r.slot] = True
-        kv_bytes = (self._dense_kv_bytes_per_stage
-                    + len(chunks) * self.kv.max_len * self._kv_bytes_per_token)
-        caps = self._moe_caps(self.kv.max_slots + nc_b * sc_b, k_cold)
-        dl, cl, _, counts = mixed_step(
-            self.params, self.cfg, self._t(self._tokens[:, None].copy()),
-            self._t(ctokens), self.kv.cache, attn_ctx={"valid": self._t(valid)},
-            chunk_ctx={"slots": self._t(cslots), "starts": self._t(starts),
-                       "chunk_lens": self._t(clens)},
-            plan=self._moe_plan(k_cold, caps[0], caps[1]))
-        return sample(dl), sample(cl), counts, kv_bytes, caps
+            def ctx():
+                lens_t = self._t(lengths)
+                return ({"lengths": lens_t, "block_tables": self._t(bt), "valid": lens_t > 0},
+                        {"starts": self._t(starts), "chunk_lens": self._t(clens),
+                         "block_tables": self._t(bt_c)})
+        else:
+            cslots = np.zeros((nc_b,), np.int32)
+            for i, c in enumerate(chunks):
+                cslots[i] = c.req.slot
+            valid = self._dense_valid(decision)
+            dtokens = self._tokens[:, None].copy()
+            fut.kv_bytes = (self._dense_kv_bytes_per_stage
+                            + len(chunks) * self.kv.max_len * self._kv_bytes_per_token)
+            fut.moe_caps = caps = self._moe_caps(self.kv.max_slots + nc_b * sc_b, k_cold)
 
-    def _commit(self, decision: StageDecision, nxt, cn, tnow: float,
-                legacy=None) -> None:
-        """Apply a stage's sampled tokens. Paged: decode rows are the stage's
-        rows, lengths advance, chunks set theirs and (with sharing) index
-        their full pages. Dense: decode rows are the slots; ``legacy`` =
-        (first tokens, local cache) of a legacy prefill, whose prompts
-        claim slots here and get their rows. Then migrated requests come
-        back (after the stage: its dense decode sweeps every slot and would
-        advance a restored row), finished requests free their slots, and
-        the scheduler advances."""
+            def ctx():
+                return ({"valid": self._t(valid)},
+                        {"slots": self._t(cslots), "starts": self._t(starts),
+                         "chunk_lens": self._t(clens)})
+
+        def step():
+            attn_ctx, chunk_ctx = ctx()
+            dl, cl, _, counts = mixed_step(
+                self.params, self.cfg, self._t(dtokens), self._t(ctokens), self.kv.cache,
+                attn_ctx=attn_ctx, chunk_ctx=chunk_ctx,
+                plan=self._moe_plan(k_cold, caps[0], caps[1]))
+            return sample(dl), sample(cl), counts
+        fut.nxt, fut.cn, fut.counts = self._invoke(step)
+
+    def _commit_decode_rows(self, decoding: List[Request], nxt, tnow: float) -> None:
+        """The decode rows' sampled tokens. Paged: row i is decoding[i] and
+        the lengths advance; dense: the rows are the slots."""
         adv = []
-        for i, r in enumerate(decision.decoding):
-            tok = int(nxt[r.slot if not self.paged else i])
+        for i, r in enumerate(decoding):
+            tok = int(nxt[i if self.paged else r.slot])
             self._tokens[r.slot] = tok
             r.record_token(tok, tnow)
             adv.append(r.slot)
         if adv and self.paged:
             self.kv.lens[np.asarray(adv)] += 1
-        if legacy is not None:
-            first, local = legacy
-            n = len(decision.chunks)
-            slots = [self.kv.allocate() for _ in range(n)]
-            self.kv.scatter(tree_map(local, lambda a: a[:, :n]), slots)
-            for i, (c, s) in enumerate(zip(decision.chunks, slots)):
-                c.req.slot = s
-                tok = int(first[i])
-                self._tokens[s] = tok
+
+    def _commit_mixed(self, fut: StageFuture, mat: Dict[str, Any], tnow: float) -> None:
+        """Decode rows as a decode stage's; paged chunks set their lengths
+        to their ends and (with sharing) index their full pages; each final
+        chunk's sampled token is its request's first."""
+        decision = fut.plan.decision
+        self._commit_decode_rows(decision.decoding, mat["nxt"], tnow)
+        if self.paged:
+            for c in decision.chunks:
+                self.kv.lens[c.req.slot] = c.end
+                if self.prefix_share:
+                    self.kv.register_prefix(c.req.slot, c.req.token_stream(c.end))
+        cn = mat["cn"]
+        for i, c in enumerate(decision.chunks):
+            if c.is_last:
+                tok = int(cn[i])
+                self._tokens[c.req.slot] = tok
                 c.req.record_token(tok, tnow)
+
+    def _commit_legacy_prefill(self, fut: StageFuture, mat: Dict[str, Any],
+                               tnow: float) -> None:
+        """The legacy prefill's prompts claim slots, their local cache rows
+        are scattered in and their first tokens recorded."""
+        nxt = mat["legacy_nxt"]
+        fresh = [c.req for c in fut.plan.decision.chunks]
+        local, fut.legacy_cache = fut.legacy_cache, None
+        slots = [self.kv.allocate() for _ in fresh]
+        self.kv.scatter(tree_map(local, lambda a: a[:, :len(fresh)]), slots)
+        for i, (r, s) in enumerate(zip(fresh, slots)):
+            r.slot = s
+            tok = int(nxt[i])
+            self._tokens[s] = tok
+            r.record_token(tok, tnow)
+
+    def _abort_stage(self, decision: StageDecision) -> None:
+        """Unwind a stage an injected fault interrupted. Lengths, tokens and
+        scheduler positions move only at commit, so what is undone is the
+        stage's admissions: a request whose first chunk claimed a slot gives
+        it back (adopted prefix pages decref and survive under their other
+        owners) and re-matches from scratch, and it and the restored
+        migrations requeue at the head. Pages a continuing prefill's
+        ``ensure_len`` already grew stay mapped (private; the retry reuses
+        them), and a copy-on-write copy keeps its content, as in the
+        reference. A legacy prefill claims slots only at commit, so its
+        queued-time pins stay held."""
+        self.stage_aborts += 1
+        requeue: List[Request] = []
+        for c in decision.chunks:
+            if not c.first:
+                continue                 # a continuing chunk keeps slot and position
+            r = c.req
+            if r.slot >= 0:
+                self.kv.free(r.slot)
+                r.slot = -1
+                r.shared_pages = None
+                r.match_version = -1
+                r.prefill_pos = 0
+            r.state = RequestState.QUEUED
+            r.prefill_target = None
+            requeue.append(r)
+        requeue.extend(decision.restored)
+        for r in reversed(requeue):
+            self.scheduler.queue.appendleft(r)
+        for r in requeue:
+            if r.saved_cache is None:
+                self._match_prefix(r)
+
+    def _run_audit(self) -> int:
+        """Post-stage KV audit (with ``audit_stages``), with exact pin
+        expectations: the queued requests' ``shared_pages`` are the only pin
+        holders. Returns this stage's violation count."""
+        if not self.audit_stages:
+            return 0
+        pins: Optional[Dict[int, int]] = None
+        if self.paged:
+            pins = {}
+            for r in self.scheduler.queue:
+                for pid in (r.shared_pages or ()):
+                    pins[pid] = pins.get(pid, 0) + 1
+        errs = self.kv.audit(pins=pins)
+        if errs:
+            self.audit_violations += len(errs)
+            self.audit_log.extend(f"stage {self._stage_idx}: {e}" for e in errs)
+        return len(errs)
+
+    def _page_admission_cap(self) -> int:
+        """Paged admission: walk the queue in admission order, adding each
+        candidate's page demand less the prefix pages it already shares, and
+        admit the prefix that fits. Without preemption the demand is the
+        whole lifetime of admitted and candidate work, so ``ensure_len``
+        never fails; with it, only the next stage's growth and each
+        candidate's first chunk (eviction reclaims the rest)."""
+        page = self.kv.page_size
+        conservative = self.preemption == "none"
+        budget = self.prefill_chunk_tokens or self.kv.max_len
+        need = (self._remaining_demand_pages() if conservative
+                else self._stage_page_need())
+        admit = 0
+        for r in list(self.scheduler.queue)[:self.scheduler.max_prefill_seqs]:
+            shared = len(r.shared_pages or ())
+            if conservative:
+                d = max(self._lifetime_pages(r) - shared, 0)
+            else:
+                total = min(r.l_in + len(r.output), self.kv.max_len)
+                end = min(r.prefill_pos + budget, total)
+                d = max(-(-end // page) - shared, 0)
+            need += d + (1 if shared and self.prefix_share else 0)
+            if self.kv.free_pages < need:
+                break
+            admit += 1
+        return admit
+
+    def _k_cold(self, decision: StageDecision) -> int:
+        """The planner's k_cold from the count EMA, rescaled to this stage's
+        live tokens (one-stage-stale statistics)."""
+        n = decision.mix().num_tokens
+        if not self.use_duplex or n == 0:
+            return 0
+        return self.planner.k_cold_static(self._expected_counts(n))
+
+    # ------------------------------------------------- plan / dispatch / commit
+    def plan_stage(self, now: Optional[float] = None) -> Optional[StagePlan]:
+        """Stage maintenance, the paged admission cap and the scheduler's
+        stage; host work only. None when no stage can be formed."""
+        t0 = time.monotonic()
+        snap = (self.shed, self.expired, self.cancelled, self.retries)
+        tnow = self._stage_maintenance(now)
+        free = self.kv.free_slots
+        if self.paged:
+            free = min(free, self._page_admission_cap())
+        decision = self.scheduler.next_stage(free)
+        if decision is None:
+            return None
+        return StagePlan(decision, self._k_cold(decision), t0, snap, tnow)
+
+    @torch.no_grad()
+    def dispatch_stage(self, plan: StagePlan) -> StageFuture:
+        """Claim slots and pages and run the stage's device step, without
+        waiting for its outputs. An injected fault raises InjectedFault out
+        of here; the caller unwinds with ``_abort_stage``."""
+        fut = StageFuture(plan=plan)
+        decision = plan.decision
+        if decision.chunks and self._unified:
+            self._dispatch_mixed(fut)
         else:
-            if self.paged:
-                for c in decision.chunks:
-                    self.kv.lens[c.req.slot] = c.end
-                    if self.prefix_share:
-                        self.kv.register_prefix(c.req.slot, c.req.token_stream(c.end))
-            for i, c in enumerate(decision.chunks):
-                if c.is_last:                  # final chunk -> first token
-                    tok = int(cn[i])
-                    self._tokens[c.req.slot] = tok
-                    c.req.record_token(tok, tnow)
+            # a dense stage: the decode over every slot first, then the
+            # legacy prefill (the reference's dispatch order)
+            if decision.decoding:
+                self._dispatch_decode(fut)
+            if decision.chunks:
+                self._dispatch_legacy_prefill(fut)
+        return fut
+
+    def _materialize(self, fut: StageFuture) -> Dict[str, Any]:
+        """The stage's one device sync: tokens and router counts."""
+        return {k: v.cpu().numpy() for k, v in (
+            ("nxt", fut.nxt), ("cn", fut.cn), ("counts", fut.counts),
+            ("legacy_nxt", fut.legacy_nxt)) if v is not None}
+
+    def _commit_critical(self, fut: StageFuture, mat: Dict[str, Any]) -> None:
+        """The durable commit: sampled tokens, lengths, the prefix index,
+        migrated requests back (after the stage: its dense decode sweeps
+        every slot and would advance a restored row), finished requests'
+        slots freed, the scheduler advanced; then the stage's robustness
+        deltas are frozen."""
+        plan = fut.plan
+        decision, tnow = plan.decision, plan.tnow
+        if decision.chunks and self._unified:
+            self._commit_mixed(fut, mat, tnow)
+        else:
+            if decision.decoding:
+                self._commit_decode_rows(decision.decoding, mat["nxt"], tnow)
+            if decision.chunks:
+                self._commit_legacy_prefill(fut, mat, tnow)
         for r in decision.restored:
             self._admit_restored(r)
         for r in [c.req for c in decision.chunks] + decision.decoding + decision.restored:
             if r.done and r.slot >= 0:
                 self.kv.free(r.slot)
         self.scheduler.commit_stage(decision)
+        fut.deltas = (self.shed - plan.snap[0], self.expired - plan.snap[1],
+                      self.cancelled - plan.snap[2], self.retries - plan.snap[3])
 
-    def _report(self, decision: StageDecision, k_cold: int, counts, kv_bytes,
-                caps, t0: float) -> StageReport:
+    def _commit_deferred(self, fut: StageFuture, counts) -> StageReport:
+        """The accounting: the router-count EMA, the modelled MoE traffic,
+        the StageReport and the post-stage audit."""
+        plan = fut.plan
+        decision, k_cold = plan.decision, plan.k_cold
         counts_layer = self._update_counts(counts)
         chunk_tokens = sum(c.tokens for c in decision.chunks)
         live = len(decision.decoding) + chunk_tokens
         moe_bytes = moe_live = moe_padded = 0
-        if (self.use_duplex and live and self._moe_layers and caps is not None
+        if (self.use_duplex and live and self._moe_layers and fut.moe_caps is not None
                 and (k_cold > 0 or self.moe_ragged)):
             if counts_layer is not None and counts_layer.sum() > 0:
                 dcounts = np.round(counts_layer).astype(np.int64)
             else:
                 dcounts = np.round(self._expected_counts(live)).astype(np.int64)
-            ch, cc, cb = caps
+            ch, cc, cb = fut.moe_caps
             st = moe_traffic_model(dcounts, k_cold=k_cold, c_hot=ch, c_cold=cc,
                                    d_model=self.cfg.d_model,
                                    d_ff=self.cfg.moe.d_ff_expert, c_block=cb,
@@ -670,77 +986,212 @@ class ServingEngine:
             moe_bytes = st[f"{which}_bytes"] * self._moe_layers
             moe_live = st["ragged_flops"] * self._moe_layers
             moe_padded = st["padded_flops"] * self._moe_layers
+        shed, expired, cancelled, retries = fut.deltas
         report = StageReport(
             stage_index=self._stage_idx, is_mixed=decision.is_mixed,
             num_decode=len(decision.decoding), num_prefill=len(decision.chunks),
-            k_cold=k_cold, wall_time=time.monotonic() - t0,
-            kv_bytes_streamed=int(kv_bytes), moe_bytes_streamed=int(moe_bytes),
+            k_cold=k_cold, wall_time=time.monotonic() - plan.t0,
+            kv_bytes_streamed=int(fut.kv_bytes), moe_bytes_streamed=int(moe_bytes),
             moe_flops_live=int(moe_live), moe_flops_padded=int(moe_padded),
             chunk_tokens=int(chunk_tokens), stage_tokens=int(live),
-            shared_kv_pages=self.kv.shared_pages)
+            shared_kv_pages=self.kv.shared_pages, shed=shed, expired=expired,
+            cancelled=cancelled, retries=retries, audit_violations=self._run_audit())
         self.reports.append(report)
         self.peak_active = max(self.peak_active, len(decision.decoding)
                                + len(decision.chunks) + len(decision.restored))
         self._stage_idx += 1
         return report
 
+    def _abort_report(self, plan: StagePlan) -> StageReport:
+        """Report a stage ``_abort_stage`` unwound: nothing advanced."""
+        decision = plan.decision
+        report = StageReport(
+            stage_index=self._stage_idx, is_mixed=decision.is_mixed,
+            num_decode=len(decision.decoding), num_prefill=len(decision.chunks),
+            k_cold=plan.k_cold, wall_time=time.monotonic() - plan.t0, aborted=True,
+            shed=self.shed - plan.snap[0], expired=self.expired - plan.snap[1],
+            cancelled=self.cancelled - plan.snap[2],
+            retries=self.retries - plan.snap[3], audit_violations=self._run_audit())
+        self.reports.append(report)
+        self._stage_idx += 1
+        return report
+
+    @torch.no_grad()
+    def commit_stage(self, fut: StageFuture) -> StageReport:
+        """Wait for a dispatched stage's outputs and commit it."""
+        mat = self._materialize(fut)
+        self._commit_critical(fut, mat)
+        return self._commit_deferred(fut, mat.get("counts"))
+
     # ------------------------------------------------------------------ api
-    def submit(self, req: Request) -> None:
+    def _now(self, now: Optional[float] = None) -> float:
+        """The engine clock: the caller's virtual ``now`` or the host clock,
+        plus the injected latency."""
+        return (now if now is not None else time.monotonic()) + self.fault_delay
+
+    def submit(self, req: Request, now: Optional[float] = None) -> None:
+        """Queue ``req``. Raises AdmissionRejected when the bounded queue is
+        full of live work; under the shedding policies the displaced
+        requests end with reason "shed" and release what they hold. The
+        prefix match runs after admission, so a rejected request holds no
+        pin."""
         if req.l_in >= self.kv.max_len:
             raise ValueError(
                 f"prompt of {req.l_in} tokens cannot fit max_len={self.kv.max_len} "
                 f"KV (plus at least one generated token); prompts are never "
                 f"silently truncated")
-        self.scheduler.submit(req)
-        self._match_prefix(req)
+        with self._lock:
+            tnow = self._now(now)
+            try:
+                shed = self.scheduler.submit(req, now=tnow)
+            except AdmissionRejected:
+                self.rejected += 1
+                raise
+            for victim in shed:
+                self._finish_abnormal(victim, "shed", tnow)
+            self._requests[req.rid] = req
+            self._match_prefix(req)
 
-    def step(self) -> Optional[StageReport]:
-        """Plan, run and commit one stage; None when nothing can run."""
-        t0 = time.monotonic()
-        self._stage_maintenance()
-        free = self.kv.free_slots
+    def cancel(self, rid: int, now: Optional[float] = None) -> bool:
+        """Cancel a request wherever it is: dropped from the queue (its
+        prefix pins released) or pulled out of prefill or decode with its
+        slot and pages freed. False for an unknown or terminal request."""
+        with self._lock:
+            req = self._requests.get(rid)
+            if req is None or req.done:
+                return False
+            self._finish_abnormal(req, "cancelled", self._now(now))
+            return True
+
+    def _finish_abnormal(self, req: Request, reason: str, tnow: float) -> None:
+        """Cancel, shed or expire ``req``: detach it from the scheduler and
+        release its slot (paged: its pages decref, a shared prefix survives
+        under its other owners), its queued prefix pins and any saved
+        cache."""
+        self.scheduler.remove(req)
+        if req.slot >= 0:
+            self.kv.free(req.slot)
+            req.slot = -1
+        if req.shared_pages:
+            self.kv.unpin(req.shared_pages)
+            req.shared_pages = None
+        req.saved_cache = None
+        req.finish(reason, tnow)
+        if reason == "expired":
+            self.expired += 1
+        elif reason == "shed":
+            self.shed += 1
+        else:
+            self.cancelled += 1
+
+    def step(self, now: Optional[float] = None) -> Optional[StageReport]:
+        """Plan, dispatch and commit one stage (None when nothing can run).
+        ``now`` replaces the host clock (virtual time drives the deadlines
+        deterministically). A stage an injected fault interrupts is unwound
+        and reported with ``aborted=True``."""
+        with self._lock:
+            plan = self.plan_stage(now)
+            if plan is None:
+                return None
+            try:
+                fut = self.dispatch_stage(plan)
+            except InjectedFault:
+                self._abort_stage(plan.decision)
+                return self._abort_report(plan)
+            return self.commit_stage(fut)
+
+    def _progress(self) -> int:
+        """The watchdog's monotone progress: tokens generated plus requests
+        terminal (outputs survive recompute preemption)."""
+        return (sum(len(r.output) for r in self._requests.values())
+                + sum(1 for r in self._requests.values() if r.done))
+
+    def _stall_msg(self, why: str) -> str:
+        stuck = sorted(r.rid for r in (list(self.scheduler.queue)
+                                       + self.scheduler.prefilling
+                                       + self.scheduler.running) if not r.done)
+        shown = ", ".join(map(str, stuck[:16])) + (", ..." if len(stuck) > 16 else "")
+        msg = (f"engine stalled: {why}; stuck rids=[{shown}], "
+               f"queue_depth={self.scheduler.pending}, "
+               f"free_slots={self.kv.free_slots}/{self.kv.max_slots}, "
+               f"preemption={self.preemption}")
         if self.paged:
-            free = min(free, self._page_admission_cap())
-        decision = self.scheduler.next_stage(free)
-        if decision is None:
-            return None
-        k_cold = self._k_cold(decision)
-        nxt = cn = counts = caps = legacy = None
-        kv_bytes = 0
-        with torch.no_grad():
-            if decision.chunks and self._unified:
-                run = self._run_mixed if self.paged else self._run_dense_mixed
-                nxt, cn, counts, kv_bytes, caps = run(decision, k_cold)
-            elif self.paged:
-                if decision.decoding:
-                    nxt, cn, counts, kv_bytes, caps = self._run_decode(decision, k_cold)
-            else:
-                # a dense stage: the decode over every slot first, then the
-                # legacy prefill (the reference's dispatch order)
-                if decision.decoding:
-                    nxt, counts, kv_bytes, caps = self._run_dense_decode(decision, k_cold)
-                if decision.chunks:
-                    legacy = self._run_legacy_prefill(decision)
-            # the stage's only device sync: tokens and router counts
-            nxt = nxt.cpu().numpy() if nxt is not None else None
-            cn = cn.cpu().numpy() if cn is not None else None
-            counts = counts.cpu().numpy() if counts is not None else None
-            if legacy is not None:
-                legacy = (legacy[0].cpu().numpy(), legacy[1])
-            self._commit(decision, nxt, cn, time.monotonic(), legacy)
-        return self._report(decision, k_cold, counts, kv_bytes, caps, t0)
+            msg += f", free_pages={self.kv.free_pages}/{self.kv.num_pages - 1}"
+        return msg
 
-    def run(self, requests: List[Request], *, max_stages: int = 100_000) -> List[Request]:
-        """Submit ``requests`` and step until every one is done."""
+    def run(self, requests: List[Request], *, max_stages: int = 10_000,
+            stall_stages: int = 500, max_wall_s: Optional[float] = None) -> List[Request]:
+        """Submit ``requests`` and step until every one is terminal. A
+        request the bounded queue rejects ends with reason "rejected" and
+        the rest go on; the watchdog raises EngineStalledError when no stage
+        can be formed while work remains, when ``stall_stages`` stages pass
+        without a token or a terminal request, or when the stage or wall
+        budget runs out."""
+        t_start = time.monotonic()
         for r in requests:
-            self.submit(r)
+            try:
+                self.submit(r)
+            except AdmissionRejected:
+                r.finish("rejected", self._now())
         stages = 0
+        idle = 0
+        last = self._progress()
         while self.scheduler.has_work:
-            if stages >= max_stages or self.step() is None:
-                raise RuntimeError(
-                    f"engine stalled after {stages} stages with "
-                    f"{len(self.scheduler.queue)} queued, "
-                    f"{len(self.scheduler.running)} running, "
-                    f"{self.kv.free_pages} free pages")
+            if stages >= max_stages:
+                raise EngineStalledError(self._stall_msg(
+                    f"max_stages={max_stages} exhausted with work pending"))
+            if max_wall_s is not None and time.monotonic() - t_start > max_wall_s:
+                raise EngineStalledError(self._stall_msg(
+                    f"wall budget {max_wall_s}s exhausted"))
+            if self.step() is None:
+                if not self.scheduler.has_work:
+                    break                   # drained by the expiry sweep
+                raise EngineStalledError(self._stall_msg(
+                    "no stage could be formed (capacity livelock — queued work "
+                    "cannot be admitted and nothing is running)"))
             stages += 1
+            prog = self._progress()
+            if prog > last:
+                last, idle = prog, 0
+            else:
+                idle += 1
+                if idle >= stall_stages:
+                    raise EngineStalledError(self._stall_msg(
+                        f"no progress across {idle} consecutive stages"))
         return requests
+
+    #: cumulative counters stats() also reports as a window's deltas
+    STATS_DELTA_KEYS = ("stages", "preemptions", "forced_evictions", "stage_aborts",
+                        "retries", "shed", "expired", "cancelled", "rejected",
+                        "audit_violations", "shared_tokens_skipped")
+
+    def stats(self, reset: bool = False) -> dict:
+        """The engine's robustness and capacity totals, plus ``delta``: each
+        STATS_DELTA_KEYS counter's change since the last
+        ``stats(reset=True)``, which starts a new window (totals are never
+        cleared); ``fault_counts`` with an injector. The reference's keys of
+        speculative decoding and the async loop (``spec_*``,
+        ``chained_stages``, ``host_gap_s``, ``gap_stages``) are left out
+        with the machinery they count."""
+        with self._lock:
+            out = {"stages": self._stage_idx,
+                   "preemptions": self.preemptions,
+                   "forced_evictions": self.forced_evictions,
+                   "stage_aborts": self.stage_aborts,
+                   "retries": self.retries,
+                   "shed": self.shed,
+                   "expired": self.expired,
+                   "cancelled": self.cancelled,
+                   "rejected": self.rejected,
+                   "audit_violations": self.audit_violations,
+                   "peak_active": self.peak_active,
+                   "shared_tokens_skipped": self.shared_tokens_skipped,
+                   "aging_promotions": self.scheduler.aging_promotions,
+                   "kv": self.kv.stats()}
+            out["delta"] = {k: out[k] - self._stats_base.get(k, 0)
+                            for k in self.STATS_DELTA_KEYS}
+            if reset:
+                self._stats_base = {k: out[k] for k in self.STATS_DELTA_KEYS}
+            if self.injector is not None:
+                out["fault_counts"] = dict(self.injector.counts)
+            return out

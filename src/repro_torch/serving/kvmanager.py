@@ -25,7 +25,10 @@ can ``match_prefix`` / ``pin_prefix`` the resident pages of its prefix and
 ``adopt_prefix`` them into its block table; ``register_prefix`` indexes a
 slot's full pages at commit and merges a duplicate of an indexed page onto
 it. The keys are ``hash`` of tuples of Python ints, the same in every
-process, so both packages walk the same chain.
+process, so both packages walk the same chain. ``audit`` lists every broken
+invariant. With a ``FaultInjector``, ``_alloc_page`` may raise
+``InjectedPageFault`` (drawn first, so a faulted allocation changes
+nothing).
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ import torch
 from repro_torch.configs.base import MAMBA, ModelConfig
 from repro_torch.models.model import init_cache
 from repro_torch.models.params import DTYPES, tree_leaves
+from repro_torch.serving.faults import InjectedPageFault
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -73,10 +77,13 @@ class KVManager:
     def __init__(self, cfg: ModelConfig, max_slots: int, max_len: int, *,
                  layout: str = "paged", page_size: int = 64,
                  num_pages: Optional[int] = None, kv_quant: bool = False,
-                 device="cuda"):
+                 device="cuda", injector=None):
         if layout not in ("dense", "paged"):
             raise ValueError(f"layout must be 'dense' or 'paged', got {layout!r}")
         self.cfg = cfg
+        # fault injection: with an injector, ``_alloc_page`` may raise
+        # InjectedPageFault instead of allocating (None: never)
+        self.injector = injector
         self.kv_quant = kv_quant
         self.max_slots = max_slots
         self.max_len = max_len
@@ -167,6 +174,11 @@ class KVManager:
 
     # ---- page refcounts ------------------------------------------------------
     def _alloc_page(self) -> int:
+        # drawn before the pool check and before any state or device change,
+        # so a faulted allocation leaves the manager as it was
+        if self.injector is not None and self.injector.page_alloc_fails():
+            raise InjectedPageFault(f"injected page-allocation failure "
+                                    f"({self.free_pages} pages actually free)")
         if not self._page_free:
             raise RuntimeError(
                 f"KV page pool exhausted ({self.num_pages} pages, {self.live_pages} "

@@ -1,6 +1,6 @@
-"""Inference request lifecycle (port of ``repro/serving/request.py``, with
-the priority, preemption and prefix-sharing state; the deadline sweep,
-cancellation and TTFT objectives are not ported yet)."""
+"""Inference request lifecycle (port of ``repro/serving/request.py``): the
+states, the priority, preemption and prefix-sharing state, deadlines and
+the first-token SLO, and the reason a request reached its terminal state."""
 from __future__ import annotations
 
 import enum
@@ -13,6 +13,13 @@ class RequestState(enum.Enum):
     PREFILL = "prefill"     # scheduled for the next mixed stage
     DECODE = "decode"
     DONE = "done"           # completed generation (eos / length)
+    CANCELLED = "cancelled"  # caller cancel / queue shed / admission reject
+    EXPIRED = "expired"      # deadline or TTFT SLO passed
+
+
+#: states a request never leaves; ``finish_reason`` says why it got there
+TERMINAL_STATES = frozenset({RequestState.DONE, RequestState.CANCELLED,
+                             RequestState.EXPIRED})
 
 
 @dataclass
@@ -25,13 +32,22 @@ class Request:
     state: RequestState = RequestState.QUEUED
     slot: int = -1
     output: List[int] = field(default_factory=list)
-    # absolute finish deadline on the clock of ``arrival_time`` (None: none);
-    # preemption prefers a victim already past it
+    # absolute finish deadline and first-token SLO (seconds after arrival),
+    # on the clock of ``arrival_time``; the engine's per-stage expiry sweep
+    # moves a request past either to EXPIRED, and preemption prefers a
+    # victim already past its deadline
     deadline: Optional[float] = None
+    ttft_slo: Optional[float] = None
     # higher is more important: admitted ahead of lower priorities, evicted
-    # last; ``queue_seq`` is the scheduler's submit sequence number
+    # last; ``queue_seq`` is the scheduler's submit sequence number (the
+    # FIFO tiebreak within a band); ``aging_skips`` counts the stages formed
+    # while the request sat queued (priority aging promotes on it)
     priority: int = 0
+    aging_skips: int = 0
     queue_seq: int = 0
+    # why the request is terminal: "stop" (eos), "length", "cancelled",
+    # "shed", "rejected" or "expired"; None while live
+    finish_reason: Optional[str] = None
     # chunked prefill (scheduler-owned): positions [0, prefill_pos) are
     # processed and their KV written; prefill_target is frozen at admission
     prefill_pos: int = 0
@@ -71,28 +87,55 @@ class Request:
 
     @property
     def done(self) -> bool:
-        """Completed generation (end-of-sequence id or max_new_tokens)."""
+        """Terminal: completed, cancelled or expired (``completed`` tells the
+        requests that finished generating)."""
+        return self.state in TERMINAL_STATES
+
+    @property
+    def completed(self) -> bool:
         return self.state == RequestState.DONE
 
     def past_deadline(self, now: float) -> bool:
-        """True when ``now`` is at or past the deadline of a live request."""
-        return (not self.done and self.deadline is not None
-                and now >= self.deadline)
+        """True when ``now`` is at or past the deadline of a live request, or
+        its TTFT SLO has lapsed without a first token."""
+        if self.state in TERMINAL_STATES:
+            return False
+        if self.deadline is not None and now >= self.deadline:
+            return True
+        return (self.ttft_slo is not None and self.first_token_time is None
+                and now >= self.arrival_time + self.ttft_slo)
+
+    def finish(self, reason: str, now: float) -> None:
+        """Abnormal termination: cancel, shed, reject or expire. The engine
+        releases the request's slot, pages and pins."""
+        self.state = (RequestState.EXPIRED if reason == "expired"
+                      else RequestState.CANCELLED)
+        self.finish_reason = reason
+        self.finish_time = now
 
     def record_token(self, token: int, now: float) -> None:
         self.output.append(token)
         self.token_times.append(now)
         if self.first_token_time is None:
             self.first_token_time = now
-        if ((self.eos_id is not None and token == self.eos_id)
-                or len(self.output) >= self.max_new_tokens):
+        if self.eos_id is not None and token == self.eos_id:
             self.state = RequestState.DONE
+            self.finish_reason = "stop"
+            self.finish_time = now
+        elif len(self.output) >= self.max_new_tokens:
+            self.state = RequestState.DONE
+            self.finish_reason = "length"
             self.finish_time = now
 
     def t2ft(self) -> Optional[float]:
         if self.first_token_time is None:
             return None
         return self.first_token_time - self.arrival_time
+
+    def e2e(self) -> Optional[float]:
+        if self.finish_time is None:
+            return None
+        return self.finish_time - self.arrival_time
 
     def tbts(self) -> List[float]:
         return [b - a for a, b in zip(self.token_times, self.token_times[1:])]

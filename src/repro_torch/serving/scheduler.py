@@ -15,8 +15,19 @@ lower priorities; a preempted one re-enters just behind the queue head, and
 a migrated one (its cache saved on the host) comes back as a ``restored``
 admission that takes a slot and no prefill tokens. With prefix sharing the
 engine moves a queued request's ``prefill_pos`` to its first unshared
-position, and its first span starts there. Shedding, the deadline sweep,
-aging, drafts and the async plan/activate split are not ported yet.
+position, and its first span starts there.
+
+Overload: the admission queue may be bounded (``queue_cap``); when a submit
+finds it full, ``overload_policy`` decides: ``reject`` raises a typed
+:class:`AdmissionRejected`, ``shed-oldest`` drops the oldest request of the
+lowest priority band, ``shed-past-deadline`` drops a queued request already
+past its deadline (and rejects when the queue is full of live work).
+``sweep_expired`` is the per-stage expiry sweep. With ``aging_rounds=K`` a
+queued request's effective priority rises by one band per K stages formed
+while it waits, so a starved low band eventually admits. The scheduler
+only reorganises its own structures; the engine releases the slots, pages
+and pins of the requests these paths return. Drafts and the async
+plan/activate split are not ported yet.
 """
 from __future__ import annotations
 
@@ -26,6 +37,22 @@ from typing import Deque, List, Optional
 
 from repro_torch.core.opb import StageMix
 from repro_torch.serving.request import Request, RequestState
+
+OVERLOAD_POLICIES = ("reject", "shed-oldest", "shed-past-deadline")
+
+
+class AdmissionRejected(RuntimeError):
+    """Typed admission failure: the bounded queue is full (of live work,
+    under ``shed-past-deadline``); carries what a client needs to back off."""
+
+    def __init__(self, rid: int, queue_depth: int, queue_cap: int, policy: str):
+        super().__init__(
+            f"request {rid} rejected: admission queue full "
+            f"({queue_depth}/{queue_cap} queued, policy={policy})")
+        self.rid = rid
+        self.queue_depth = queue_depth
+        self.queue_cap = queue_cap
+        self.policy = policy
 
 
 @dataclass
@@ -67,10 +94,25 @@ class StageDecision:
 
 
 class ContinuousBatchingScheduler:
-    def __init__(self, *, max_prefill_seqs: int, prefill_chunk_tokens: Optional[int],
-                 max_prefill_target: int, max_prefill_tokens: int):
+    def __init__(self, *, max_prefill_seqs: int = 4,
+                 prefill_chunk_tokens: Optional[int] = None,
+                 max_prefill_target: Optional[int] = None,
+                 max_prefill_tokens: int = 8192, queue_cap: Optional[int] = None,
+                 overload_policy: str = "reject", aging_rounds: Optional[int] = None):
         if prefill_chunk_tokens is not None and prefill_chunk_tokens < 1:
             raise ValueError(f"prefill_chunk_tokens must be >= 1, got {prefill_chunk_tokens}")
+        if overload_policy not in OVERLOAD_POLICIES:
+            raise ValueError(f"overload_policy must be one of {OVERLOAD_POLICIES}, "
+                             f"got {overload_policy!r}")
+        if queue_cap is not None and queue_cap < 1:
+            raise ValueError(f"queue_cap must be >= 1, got {queue_cap}")
+        if aging_rounds is not None and aging_rounds < 1:
+            raise ValueError(f"aging_rounds must be >= 1, got {aging_rounds}")
+        self.queue_cap = queue_cap
+        self.overload_policy = overload_policy
+        self.aging_rounds = aging_rounds
+        self.aging_promotions = 0
+        self.shed_count = 0
         self.max_prefill_target = max_prefill_target   # the KV capacity
         self.queue: Deque[Request] = deque()
         self.running: List[Request] = []
@@ -80,17 +122,59 @@ class ContinuousBatchingScheduler:
         self.max_prefill_tokens = max_prefill_tokens
         self._submit_seq = 0
 
-    def submit(self, req: Request) -> None:
-        """Enqueue ``req`` ahead of strictly lower-priority queued work and
-        behind its own priority band."""
+    def effective_priority(self, req: Request) -> int:
+        """Admission priority after aging: the band plus one promotion per
+        ``aging_rounds`` stages the request spent queued."""
+        if self.aging_rounds is None:
+            return req.priority
+        return req.priority + req.aging_skips // self.aging_rounds
+
+    def submit(self, req: Request, *, now: float = 0.0) -> List[Request]:
+        """Enqueue ``req`` ahead of strictly lower (effective) priorities and
+        behind its own band. With a bounded queue the overload policy makes
+        room first: returns the shed victims (the caller releases what they
+        hold) or raises :class:`AdmissionRejected` when nothing may be
+        shed."""
+        shed: List[Request] = []
+        if self.queue_cap is not None:
+            while len(self.queue) >= self.queue_cap:
+                victim = self._shed_victim(now)
+                if victim is None:
+                    raise AdmissionRejected(req.rid, len(self.queue), self.queue_cap,
+                                            self.overload_policy)
+                self.queue.remove(victim)
+                self.shed_count += 1
+                shed.append(victim)
         self._submit_seq += 1
         req.queue_seq = self._submit_seq
-        idx = next((i for i, r in enumerate(self.queue) if r.priority < req.priority),
-                   None)
+        eff = self.effective_priority(req)
+        idx = next((i for i, r in enumerate(self.queue)
+                    if self.effective_priority(r) < eff), None)
         if idx is None:
             self.queue.append(req)
         else:
             self.queue.insert(idx, req)
+        return shed
+
+    def _shed_victim(self, now: float) -> Optional[Request]:
+        if self.overload_policy == "reject":
+            return None
+        if self.overload_policy == "shed-past-deadline":
+            for r in self.queue:
+                if r.past_deadline(now):
+                    return r
+            return None                  # full of live work: a typed reject
+        # shed-oldest: the oldest request of the lowest priority band
+        return min(self.queue, key=lambda r: (r.priority, r.arrival_time))
+
+    def sweep_expired(self, now: float) -> List[Request]:
+        """Per-stage expiry sweep: pull every queued, prefilling or running
+        request past its deadline (or TTFT SLO) out and return them."""
+        expired = [r for r in list(self.queue) + self.prefilling + self.running
+                   if r.past_deadline(now)]
+        for r in expired:
+            self.remove(r)
+        return expired
 
     def remove(self, req: Request) -> None:
         """Drop ``req`` from whichever structure holds it. Idempotent; the
@@ -125,6 +209,10 @@ class ContinuousBatchingScheduler:
             self.queue.appendleft(req)
 
     @property
+    def pending(self) -> int:
+        return len(self.queue)
+
+    @property
     def has_work(self) -> bool:
         return bool(self.queue) or bool(self.running) or bool(self.prefilling)
 
@@ -147,13 +235,17 @@ class ContinuousBatchingScheduler:
         for r in self.queue:               # the head blocks everything behind it
             if free <= 0:
                 break
+            if r.done:                     # cancelled or expired while queued
+                continue
             if r.saved_cache is not None:  # migrated back: a slot, no prefill
                 restored.append(r)
                 free -= 1
                 continue
             if len(chunks) >= self.max_prefill_seqs:
                 break
-            total = min(len(r.prompt) + len(r.output), self.max_prefill_target)
+            total = len(r.prompt) + len(r.output)
+            if self.max_prefill_target is not None:
+                total = min(total, self.max_prefill_target)
             start = min(r.prefill_pos, total - 1) if total > 0 else 0
             if chunked:
                 if used >= budget:
@@ -168,6 +260,8 @@ class ContinuousBatchingScheduler:
             used += span.tokens
             free -= 1
         decoding = [r for r in self.running if r.state == RequestState.DECODE]
+        if any(r.done for r in self.queue):   # purge terminal queued requests
+            self.queue = deque(r for r in self.queue if not r.done)
         if not chunks and not decoding and not restored:
             return None
         for c in chunks:                   # admission
@@ -177,6 +271,18 @@ class ContinuousBatchingScheduler:
                 c.req.state = RequestState.PREFILL
         for r in restored:
             self.queue.remove(r)
+        if self.aging_rounds is not None and self.queue:
+            # the passed-over queue ages; a promotion re-sorts it by
+            # effective priority, FIFO (submit order) within a band
+            promoted = False
+            for r in self.queue:
+                r.aging_skips += 1
+                if r.aging_skips % self.aging_rounds == 0:
+                    promoted = True
+                    self.aging_promotions += 1
+            if promoted:
+                self.queue = deque(sorted(
+                    self.queue, key=lambda r: (-self.effective_priority(r), r.queue_seq)))
         return StageDecision(chunks, decoding, restored)
 
     def commit_stage(self, decision: StageDecision) -> None:
@@ -191,6 +297,11 @@ class ContinuousBatchingScheduler:
                 if not r.done:
                     r.state = RequestState.DECODE
                 self.running.append(r)
+            elif r.done:
+                # cancelled or expired while its stage was in flight:
+                # ``remove`` already pulled it, do not bring it back
+                if r in self.prefilling:
+                    self.prefilling.remove(r)
             elif r not in self.prefilling:
                 self.prefilling.append(r)
         for r in decision.restored:

@@ -22,7 +22,8 @@ for n in ("repro_torch.kernels.quant", "repro_torch.kernels.decode_attn",
           "repro_torch.kernels.moe_gemm", "repro_torch.kernels.moe_gemv",
           "repro_torch.kernels.ssd_decode", "repro_torch.models.ssm",
           "repro_torch.models.attention", "repro_torch.serving.kvmanager",
-          "repro_torch.serving.preemption",
+          "repro_torch.serving.preemption", "repro_torch.serving.faults",
+          "repro_torch.serving.scheduler", "repro_torch.serving.request",
           "repro_torch.configs.jamba_v0_1_52b", "repro_torch.kernels.flash_attn",
           "repro_torch.training.optimizer", "repro_torch.training.data",
           "repro_torch.training.train_state", "repro_torch.training.loop",
@@ -36,6 +37,7 @@ assert not torch.cuda.is_available()
 from repro_torch.configs import resolve_config
 from repro_torch.models.params import init_model
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.faults import FaultInjector
 from repro_torch.launch.train import main as train_main
 cfg = resolve_config("tiny-moe")
 try:
@@ -59,7 +61,10 @@ for stack, flags in ((cfg, {"kv_page_size": 8, "prefill_chunk_tokens": 16}),
                             "preemption": "recompute", "kv_num_pages": 9}),
                      (cfg, {"kv_layout": "dense", "prefill_chunk_tokens": 16,
                             "preemption": "migrate"}),
-                     (hybrid, {"kv_layout": "dense"})):
+                     (hybrid, {"kv_layout": "dense"}),
+                     (cfg, {"kv_page_size": 8, "queue_cap": 2,
+                            "overload_policy": "shed-oldest", "aging_rounds": 2,
+                            "injector": FaultInjector(0), "audit_stages": True})):
     try:
         ServingEngine(stack, params, max_slots=2, max_len=32, **flags)
     except RuntimeError as e:

@@ -219,9 +219,10 @@ def test_oversubscribed_pool_departs_at_a_near_tie(setup, monkeypatch):
                 for i in range(6)]
         for r in reqs:
             eng.submit(r)
-        commit = eng._commit
+        commit = eng._commit_critical
 
-        def watch(decision, nxt, cn, tnow, legacy=None):
+        def watch(fut, mat):
+            decision = fut.plan.decision
             r3 = reqs[3]
             if len(r3.output) == 4:
                 rows = [(seen[-2 if decision.chunks else -1], i)
@@ -231,9 +232,9 @@ def test_oversubscribed_pool_departs_at_a_near_tie(setup, monkeypatch):
                 for logits, i in rows:
                     row = logits[i, 0]
                     picks[policy] = (row.argmax().item(), (row[159] - row[155]).item())
-            return commit(decision, nxt, cn, tnow, legacy)
+            return commit(fut, mat)
 
-        eng._commit = watch
+        eng._commit_critical = watch
         while eng.scheduler.has_work:
             eng.step()
     print(picks)
