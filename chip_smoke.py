@@ -96,8 +96,21 @@ Phases, each printing a line:
           engine forms on the CPU (``G1_EXPECT``, ``G2_EXPECT``); g1 also
           needs every request completed, an aborted stage and a retry, and
           prints how many requests emitted path e's tokens, g2 every request
-          terminal as length, shed, expired or cancelled. Then, with the
-          OLMoE model freed,
+          terminal as length, shed, expired or cancelled;
+       h. the async loop: path a's engine and requests through ``run`` and
+          ``run_async``, three pairs in the order sync async, async sync,
+          sync async, every ``dispatch_stage`` under torch's sync debug
+          mode "error"; each run checks 16/16 completed with 32 tokens, a
+          drained pool with an empty audit, kernels 1-4 on their
+          tensor-core routes and the schedule counters (stages, chained
+          stages, spec hits and misses, gap stages) equal to the CPU's
+          (``H_EXPECT``), and prints its wall, tokens/s, TBT, TTFT, host
+          gap, the mean host time a stage in plan, enqueue, wait, commit
+          and deferred commit, and how many requests emit path a's tokens
+          (each other one with its first departing position and the top-2
+          logit gap there); then a short profile in each loop (its launch
+          counts stay out of the ``kernels`` line). Then, with the OLMoE
+          model freed,
        c. Jamba-v0.1 (Mamba-2 + GQA attention + MoE) at full width, depth
           cut to 16 of its 32 layers (two of four periods; the whole model,
           ~103 GB in bf16, does not fit one 80 GB card), the same 16
@@ -849,9 +862,12 @@ def serve_phase(torch):
     log(f"serve: {cfg.name} random init (seed 0) {n_params / 1e9:.2f}B params "
         f"in {time.perf_counter() - t0:.1f}s")
     launches, pool_bytes = {}, {}
+    a_tokens = None
     for label, flags, kernels in PATHS:
         engine_kw = {**ENGINE_KW, **flags}
-        counts, eng = serve_path(torch, cfg, params, label, engine_kw)
+        reqs = path_a_requests(cfg)
+        counts, eng = serve_path(torch, cfg, params, label, engine_kw, reqs)
+        a_tokens = a_tokens or {r.rid: list(r.output) for r in reqs}
         pool_bytes[label] = eng.kv._total_bytes()
         del eng
         missing = [k for k in kernels if counts[k] == 0]
@@ -892,6 +908,7 @@ def serve_phase(torch):
     e_tokens = shared_phase(torch, cfg, params)
     dense_phase(torch, cfg, params)
     overload_phase(torch, cfg, params, e_tokens)
+    async_phase(torch, cfg, params, a_tokens)
     return launches
 
 
@@ -1125,6 +1142,24 @@ G2_EXPECT = dict(stages=100, shed=16, expired=2, cancelled=2, rejected=0,
                  aging_promotions=81, expired_deadline=1, expired_ttft=1, completed=12)
 
 
+ASYNC_LABEL = "async loop: path a's engine"
+ASYNC_KW = dict(ENGINE_KW, **PATHS[0][1])
+H_PAIRS = 3                    # sync/async pairs, in the order S A, A S, S A
+# the async runs' schedule as the port's engine forms it on the CPU
+# (tests/test_torch_async.py): every stage after the first planned from the
+# projection and chained; the sync runs form the same stages, none chained
+H_EXPECT = dict(stages=110, chained_stages=109, spec_hits=109, spec_misses=0,
+                spec_miss_reasons={}, gap_stages=109, mixed=79)
+
+
+def async_counters(eng):
+    """Path h's gated counters: the schedule the async loop forms."""
+    st = eng.stats()
+    return dict({k: st[k] for k in ("stages", "chained_stages", "spec_hits", "spec_misses",
+                                    "spec_miss_reasons", "gap_stages")},
+                mixed=sum(r.is_mixed for r in eng.reports))
+
+
 def chaos_injector():
     from repro_torch.serving.faults import FaultInjector
     return FaultInjector(CHAOS_SEED, **CHAOS_FAULTS)
@@ -1306,6 +1341,146 @@ def overload_phase(torch, cfg, params, e_tokens):
                              f"not drain cleanly")
     check_overload_gates(OVERLOAD_LABEL, overload_counters(eng, reqs), G2_EXPECT)
     del eng
+
+
+class HostSplit:
+    """The host seconds a run spends in each part of its stages, by wrapping
+    the engine's methods (the outermost call counts): plan (maintenance,
+    planning, chaining, validation), enqueue (``dispatch_stage``, run under
+    torch's sync debug mode "error", so an implicit device sync on the
+    enqueue path fails the run), wait (``_materialize``), commit
+    (``_commit_critical``) and deferred (``_commit_deferred``)."""
+    PARTS = {"plan": ("_stage_maintenance", "plan_stage", "_plan_speculative", "_build_chain",
+                      "_validate_speculative"),
+             "enqueue": ("dispatch_stage",), "wait": ("_materialize",),
+             "commit": ("_commit_critical",), "deferred": ("_commit_deferred",)}
+
+    def __init__(self, torch, eng):
+        self.seconds = dict.fromkeys(self.PARTS, 0.0)
+        self.depth = 0
+        for part, names in self.PARTS.items():
+            for name in names:
+                setattr(eng, name, self._timed(torch, part, getattr(eng, name)))
+
+    def _timed(self, torch, part, fn):
+        def timed(*args, **kw):
+            outer = self.depth == 0
+            self.depth += 1
+            t0 = time.perf_counter()
+            if part == "enqueue":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                if part == "enqueue":
+                    torch.cuda.set_sync_debug_mode("default")
+                self.depth -= 1
+                if outer:
+                    self.seconds[part] += time.perf_counter() - t0
+        return timed
+
+
+def async_run(torch, cfg, params, loop):
+    """One of path h's runs: path a's engine and requests through ``run``
+    ("sync") or ``run_async`` ("async"), every launch count set to 0 just
+    before and read just after, the host split recorded. Raises if a gate
+    fails; returns (requests, the engine, wall seconds, the host split)."""
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import ServingEngine
+    reqs = path_a_requests(cfg)
+    eng = ServingEngine(cfg, params, device="cuda", **ASYNC_KW)
+    split = HostSplit(torch, eng)
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        r.arrival_time = time.monotonic()
+    (eng.run_async if loop == "async" else eng.run)(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(build.launch_counts)
+    label = f"{ASYNC_LABEL}, {loop}"
+    log(f"serve [{label}]: kernel launches "
+        f"{json.dumps({k: counts[k] for k in PATHS[0][2]})}")
+    missing = [k for k in PATHS[0][2] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"[{label}] kernels never launched on the path: {missing}")
+    if counts["chunked_prefill_attention_sm90"] != counts["chunked_prefill_attention"]:
+        raise AssertionError(f"[{label}] chunked prefill left the tensor-core route")
+    check_expert_routes(label, counts)
+    if not all(r.completed and len(r.output) == 32 for r in reqs) or not drained(eng):
+        raise AssertionError(f"[{label}] not every request completed with 32 tokens, or the "
+                             f"pool did not drain cleanly")
+    want = H_EXPECT if loop == "async" else dict(H_EXPECT, chained_stages=0, spec_hits=0)
+    check_overload_gates(label, async_counters(eng), want)
+    return reqs, eng, wall, split.seconds
+
+
+def top2_gap(torch, cfg, params, tokens):
+    """The top-2 logit gap of the next token after ``tokens``, from a
+    one-sequence prefill (grouped MoE, the kernels)."""
+    from repro_torch.core.execution import ExecutionPlan
+    from repro_torch.models.model import init_cache, prefill
+    cache = init_cache(cfg, 1, ENGINE_KW["max_len"], device="cuda")
+    toks = torch.tensor([tokens], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        logits, _ = prefill(params, cfg, {"tokens": toks}, cache,
+                            torch.tensor([len(tokens)], dtype=torch.int32, device="cuda"),
+                            plan=ExecutionPlan(moe_impl="grouped", use_kernels=True))
+    top = logits[0, -1].float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def async_phase(torch, cfg, params, a_tokens):
+    """Path h: path a's engine and requests through the sync loop and the
+    async loop, three pairs in the order S A, A S, S A within this call (a
+    run's place in a call moves host clocks by seconds). Each run: wall and
+    generated tokens/s over its wall (under async the stage walls overlap),
+    median TBT and TTFT, the schedule counters (gated to ``H_EXPECT``), the
+    host gap, the mean host seconds a stage in each part (``HostSplit``),
+    and how many requests emit path a's tokens, each other one with its
+    first departing position and the top-2 logit gap there. Then one short
+    profiled run in each loop for the device's busy share."""
+    import numpy as np
+    gaps = {}
+    walls = {"sync": [], "async": []}
+    for pair in range(H_PAIRS):
+        for loop in (("sync", "async") if pair % 2 == 0 else ("async", "sync")):
+            reqs, eng, wall, split = async_run(torch, cfg, params, loop)
+            st = eng.stats()
+            n = len(eng.reports)
+            gen = sum(len(r.output) for r in reqs)
+            tbt = [t for r in reqs for t in r.tbts()]
+            same = [r.rid for r in reqs if r.output == a_tokens[r.rid]]
+            depart = {}
+            for r in reqs:
+                if r.rid in same:
+                    continue
+                i = next(i for i, (x, y) in enumerate(zip(r.output, a_tokens[r.rid])) if x != y)
+                key = (r.rid, i)
+                if key not in gaps:
+                    gaps[key] = top2_gap(torch, cfg, params, r.prompt + r.output[:i])
+                depart[r.rid] = f"{i} (gap {gaps[key]:.4f})"
+            walls[loop].append(wall)
+            log(f"serve [{ASYNC_LABEL}, {loop}, pair {pair + 1}]: 16/16 completed in "
+                f"{wall:.3f}s; generated tokens/s={gen / wall:.1f} (over the run's wall); "
+                f"median TBT={np.median(tbt) * 1e3:.1f}ms, median TTFT="
+                f"{np.median([r.t2ft() for r in reqs]) * 1e3:.0f}ms; stages={n} (with prefill "
+                f"{sum(r.is_mixed for r in eng.reports)}), chained {st['chained_stages']}, "
+                f"spec hits {st['spec_hits']}, misses {st['spec_misses']} "
+                f"{json.dumps(st['spec_miss_reasons'])}; host gap {st['host_gap_s'] * 1e3:.1f}ms "
+                f"over {st['gap_stages']} stages; host ms a stage: "
+                + ", ".join(f"{k} {v / n * 1e3:.2f}" for k, v in split.items())
+                + f"; {len(same)}/16 requests emit path a's tokens"
+                + (f", the others depart at {depart} (rid: position, the top-2 logit gap "
+                   f"there from a one-sequence prefill)" if depart else ""))
+            del eng
+    s, a = (np.mean(walls[k]) for k in ("sync", "async"))
+    log(f"serve [{ASYNC_LABEL}]: mean wall sync {s:.3f}s, async {a:.3f}s (async/sync "
+        f"{a / s:.3f}); per pair " + ", ".join(
+            f"{x / y:.3f}" for x, y in zip(walls["async"], walls["sync"])))
+    for loop in ("sync", "async"):
+        profile_stages(torch, cfg, params, f"{ASYNC_LABEL}, {loop}", ASYNC_KW,
+                       loop="run_async" if loop == "async" else "run")
 
 
 def check_expert_routes(label, counts):
@@ -1541,12 +1716,12 @@ def check_decode_against_plain(torch, cfg, params, label):
                        f"the kernel path's expert choice)", a, b)
 
 
-def profile_stages(torch, cfg, params, label, engine_kw, top: int = 12):
-    """A short profiled run (4 requests, 8 new tokens each) through
-    torch.profiler, device activity only (each kernel counted once, no
-    host-op events): device time by kernel and the device's busy share of
-    the run's host wall time (tracing overhead can only inflate the wall
-    time, so the busy share is a lower bound)."""
+def profile_stages(torch, cfg, params, label, engine_kw, top: int = 12, loop: str = "run"):
+    """A short profiled run (4 requests, 8 new tokens each, through the
+    engine's ``loop``) in torch.profiler, device activity only (each kernel
+    counted once, no host-op events): device time by kernel and the
+    device's busy share of the run's host wall time (tracing overhead can
+    only inflate the wall time, so the busy share is a lower bound)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import ServingEngine
@@ -1558,7 +1733,7 @@ def profile_stages(torch, cfg, params, label, engine_kw, top: int = 12):
     eng = ServingEngine(cfg, params, device="cuda", **engine_kw)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run(reqs)
+        getattr(eng, loop)(reqs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     log_profile(prof, label, f"{len(eng.reports)} stages", wall, top,

@@ -1,6 +1,7 @@
-"""Continuous-batching serving engine with the duplex MoE (port of the
-synchronous core of ``repro/serving/engine.py``), on the paged or the dense
-KV layout, with prefix sharing and preemption.
+"""Continuous-batching serving engine with the duplex MoE (port of
+``repro/serving/engine.py`` without speculative decoding), on the paged or
+the dense KV layout, with prefix sharing, preemption, overload handling and
+the async loop.
 
 Each stage is one token stream: the scheduler picks decode rows and prefill
 spans; the engine stages the inputs into bucketed shapes (powers of two,
@@ -49,28 +50,41 @@ sheds a queued request), queued requests age into higher priority bands
 per-stage sweep expires requests past their deadline or first-token SLO;
 each releases its slot, pages and pins. A seeded ``FaultInjector`` fails
 page allocations and stage steps, forces evictions and spikes the clock.
-``step`` is the reference's synchronous split: ``plan_stage`` (maintenance,
-admission, the scheduler's stage), ``dispatch_stage`` (slots, pages and the
-device step; an injected fault raises out of it and ``_abort_stage`` sends
-the stage's admissions back to the queue head) and ``commit_stage`` (the
-one device sync, the durable commit, then the report and, with
-``audit_stages``, the KV audit). The KV cache is written in place, so every
-fault of a stage is drawn before its first device step; a dense legacy
-stage, like the reference's, runs its decode before the prefill's draw. All
-clock reads go through ``_now(now)``: a caller's virtual ``now`` drives
-deadlines deterministically, and injected latency adds to it. ``run``'s
-watchdog raises ``EngineStalledError`` instead of spinning.
+The KV cache is written in place, so every fault of a stage is drawn
+before its first device step; a dense legacy stage, like the reference's,
+runs its decode before the prefill's draw. All clock reads go through
+``_now(now)``: a caller's virtual ``now`` drives deadlines
+deterministically, and injected latency adds to it.
 
-Where the reference keys one jitted function per bucketed shape, the port
-simply calls the model with the same bucketed shapes. The engine runs on
-``device`` ("cuda" unless the caller asks for the CPU, as the tests do);
-asking for CUDA without a card raises.
+A stage is ``plan_stage`` (maintenance, admission, the scheduler's stage;
+host work), ``dispatch_stage`` (slots, pages, input staging and the device
+step, enqueued without waiting; an injected fault raises out of it and
+``_abort_stage`` sends the stage's admissions back to the queue head) and
+``commit_stage`` (the one wait, the durable commit, then the report and,
+with ``audit_stages``, the KV audit). ``step`` runs the three in turn;
+``run`` steps to drain, its watchdog raising ``EngineStalledError``
+instead of spinning. ``run_async`` and ``step_async`` pipeline them: while
+stage N runs on the device, the host plans N+1 from N's projected
+post-commit state and, when N+1's decode tokens are rows of N's sampled
+tokens, enqueues it before N is read, its tokens gathered on the device
+(``_select_tokens``); N's accounting runs after N+1's dispatch. A commit
+that contradicts the projection, or any submit, cancel, eviction or expiry
+(the mutation epoch), sends the plan back to be formed from real state.
+
+The device boundary: inputs are staged in two alternating sets of host
+buffers (pinned on the card, uploaded without blocking), and each stage's
+outputs are copied into pinned host tensors behind one CUDA event, which
+is all ``_materialize`` waits for; nothing else on the enqueue path waits
+for the device. Where the reference keys one jitted function per bucketed
+shape, the port calls the model with the same bucketed shapes. The engine
+runs on ``device`` ("cuda" unless the caller asks for the CPU, as the
+tests do); asking for CUDA without a card raises.
 """
 from __future__ import annotations
 
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -119,6 +133,27 @@ def _pow2_ceil(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
+def _select_tokens(prev_nxt, prev_cn, src_nxt, src_cn, fallback, mode: str):
+    """A chained stage's decode input tokens, gathered on the device from
+    the previous stage's sampled tokens before the host has read them: row
+    i takes ``prev_nxt[src_nxt[i]]`` or ``prev_cn[src_cn[i]]`` where the
+    index is >= 0, else the host-known ``fallback[i]``. ``mode`` (see
+    ``ChainInfo.mode``) skips the gathers a stage does not need: "pure"
+    reads only ``prev_nxt`` (``src_cn`` and ``fallback`` unused),
+    "nxt_only" no chunk source, "full" both. Returns (n, 1) int32."""
+    flat_n = prev_nxt.reshape(-1)
+    if mode == "pure":
+        return flat_n.index_select(0, src_nxt)[:, None].to(torch.int32)
+    t = torch.where(src_nxt >= 0, flat_n.index_select(0, src_nxt.clamp_min(0)), fallback)
+    if mode == "full":
+        flat_c = prev_cn.reshape(-1)
+        t = torch.where(src_cn >= 0, flat_c.index_select(0, src_cn.clamp_min(0)), t)
+    return t[:, None].to(torch.int32)
+
+
+_TORCH_DTYPES = {np.dtype(np.int32): torch.int32, np.dtype(bool): torch.bool}
+
+
 @dataclass
 class StageReport:
     stage_index: int
@@ -146,16 +181,46 @@ class StageReport:
 
 
 @dataclass
+class ChainInfo:
+    """Device-side token chaining for a speculative stage N+1 dispatched
+    before stage N is read. ``src_nxt`` / ``src_cn`` map each of N+1's
+    decode input rows to the row of N's ``nxt`` / ``cn`` that feeds it (-1:
+    none, take ``fallback``, a token the host knows); ``proj_lens`` holds
+    each paged decode slot's length once N commits, which the staging reads
+    in place of ``kv.lens``."""
+    src_nxt: np.ndarray
+    src_cn: np.ndarray
+    fallback: np.ndarray
+    prev_nxt: Any                 # stage N's nxt (device)
+    prev_cn: Any                  # stage N's cn (device), None without chunks
+    proj_lens: Dict[int, int]     # slot -> projected length before the write
+
+    @property
+    def mode(self) -> str:
+        """"full" when a row reads N's ``cn``; else "pure" when every row
+        reads N's ``nxt``, "nxt_only" otherwise."""
+        if (self.src_cn >= 0).any():
+            return "full"
+        return "pure" if (self.src_nxt >= 0).all() else "nxt_only"
+
+
+@dataclass
 class StagePlan:
     """A formed stage not yet dispatched: the scheduler's decision, its
     k_cold, the host clock at plan start, the (shed, expired, cancelled,
     retries) totals before it and the engine clock its tokens are stamped
-    with."""
+    with. A ``speculative`` plan was formed against the projected
+    post-commit state of an in-flight stage (the scheduler is activated at
+    dispatch); ``epoch`` is the mutation epoch it assumed; with ``chain``
+    it dispatches before its predecessor is read."""
     decision: StageDecision
     k_cold: int
     t0: float
     snap: Tuple[int, int, int, int]
     tnow: float
+    speculative: bool = False
+    epoch: int = -1
+    chain: Optional[ChainInfo] = None
 
 
 @dataclass
@@ -172,6 +237,11 @@ class StageFuture:
     moe_caps: Optional[Tuple[int, int, int]] = None
     # the stage's (shed, expired, cancelled, retries) deltas, frozen at commit
     deltas: Tuple[int, int, int, int] = (0, 0, 0, 0)
+    t_dispatch: float = 0.0
+    # the outputs on the host (on the card pinned copies, complete once
+    # ``event`` has passed)
+    host: Dict[str, Any] = field(default_factory=dict)
+    event: Any = None
 
 
 class EngineStalledError(RuntimeError):
@@ -330,8 +400,28 @@ class ServingEngine:
                                for kind in seg.pattern if kind.ffn == MOE)
         self._param_itemsize = DTYPES[cfg.param_dtype].itemsize
         self._tokens = np.zeros((max_slots,), np.int32)   # last token per slot
+        # the request each claimed slot belongs to: a commit applies a row
+        # only to the request that still owns its slot (``_row_live``)
+        self._slot_req: Dict[int, Request] = {}
         self._stage_idx = 0
         self.reports: List[StageReport] = []
+        # the async loop: the mutation epoch (every submit, cancel, shed,
+        # expiry and eviction bumps it; a speculative plan formed under
+        # another epoch is rejected), the stage ``step_async`` leaves in
+        # flight, and the host gap (from a stage's outputs arriving on the
+        # host to the next dispatch, over the stages that waited for one)
+        self._epoch = 0
+        self._inflight: Optional[StageFuture] = None
+        self._t_sync_done: Optional[float] = None
+        self.host_gap_s = 0.0
+        self.gap_stages = 0
+        self.spec_hits = 0           # speculative plans dispatched as formed
+        self.spec_misses = 0         # invalidated, formed again from real state
+        self.spec_miss_reasons: Dict[str, int] = {}
+        self.chained_stages = 0      # dispatched before the previous stage was read
+        # two sets of staging buffers, flipped once a dispatch (``_staging``)
+        self._staging_bufs: List[Dict[str, Any]] = [{}, {}]
+        self._staging_idx = 0
 
     # ------------------------------------------------------------- planning
     def _moe_caps(self, T: int, k_cold: int) -> Tuple[int, int, int]:
@@ -440,6 +530,7 @@ class ServingEngine:
         self.forced_evictions += 1
 
     def _evict(self, victim: Request) -> None:
+        self._slot_req.pop(victim.slot, None)
         if self.preemption == "migrate":
             pre.migrate_out(self.kv, victim)
         else:
@@ -449,6 +540,7 @@ class ServingEngine:
         victim.match_version = -1
         self._match_prefix(victim)
         self.preemptions += 1
+        self._epoch += 1
 
     def _stage_page_need(self) -> int:
         """Fresh pages the next stage's admitted work may need: one per
@@ -506,6 +598,7 @@ class ServingEngine:
         pre.restore_slot(self.kv, slot, req.saved_cache)
         req.saved_cache = None
         req.slot = slot
+        self._slot_req[slot] = req
         self._tokens[slot] = req.output[-1]
         req.state = RequestState.DECODE
 
@@ -566,10 +659,54 @@ class ServingEngine:
             return 0
         return self.planner.k_cold_static(self._expected_counts(n))
 
-
     # --------------------------------------------------------------- stages
-    def _t(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+    def _staging(self, name: str, shape, dtype) -> np.ndarray:
+        """A zeroed host staging buffer from the current set, as an array to
+        fill; ``_upload(name)`` sends it to the device, from pinned memory
+        and without blocking on the card. ``dispatch_stage`` flips the two
+        sets once a dispatch, so the set stage N+1 fills is stage N-1's.
+        Two are enough: stage N-1's uploads precede its outputs' copies and
+        event on the one stream, and that event has been waited for
+        (``_materialize``) before stage N+1 is dispatched, since at most one
+        stage is in flight beside the one being dispatched."""
+        buf = self._host_buf(name, tuple(shape), _TORCH_DTYPES[np.dtype(dtype)]).numpy()
+        buf.fill(0)
+        return buf
+
+    def _host_buf(self, name: str, shape, dtype) -> torch.Tensor:
+        """A host tensor of the current staging set, pinned on the card: a
+        view from the start of a block kept under ``name`` (grown, never
+        shrunk, so steady state allocates nothing)."""
+        bufs = self._staging_bufs[self._staging_idx]
+        n = int(np.prod(shape))
+        flat = bufs[name][0] if name in bufs else None
+        if flat is None or flat.numel() < n or flat.dtype != dtype:
+            flat = torch.empty((max(n, 1),), dtype=dtype,
+                               pin_memory=self.device.type == "cuda")
+        view = flat[:n].view(shape)
+        bufs[name] = (flat, view)
+        return view
+
+    def _upload(self, name: str) -> torch.Tensor:
+        """The current set's staging buffer ``name`` on the device."""
+        buf = self._staging_bufs[self._staging_idx][name][1]
+        if self.device.type != "cuda":
+            return buf.clone()
+        return buf.to(self.device, non_blocking=True)
+
+    def _stage_outputs(self, fut: StageFuture) -> None:
+        """Copy the stage's outputs to the host without blocking: on the card
+        into pinned tensors of the current staging set, behind one event
+        (``_materialize`` waits for it alone); on the CPU they are there."""
+        outs = {k: v for k, v in (("nxt", fut.nxt), ("cn", fut.cn), ("counts", fut.counts),
+                                  ("legacy_nxt", fut.legacy_nxt)) if v is not None}
+        if self.device.type == "cuda":
+            for k, v in outs.items():
+                outs[k] = self._host_buf(f"o_{k}", v.shape, v.dtype)
+                outs[k].copy_(v, non_blocking=True)
+            fut.event = torch.cuda.Event()
+            fut.event.record()
+        fut.host = outs
 
     def _invoke(self, fn):
         """Run a stage's device step ``fn`` through the injector's
@@ -597,15 +734,33 @@ class ServingEngine:
         seen.discard(0)
         return len(seen) * self.kv.page_size * self._kv_bytes_per_token
 
-    def _decode_inputs(self, slots, n_min: int = 0):
+    def _decode_tokens(self, chain: Optional[ChainInfo]):
+        """The decode rows' input tokens on the device, as a call for the
+        step: the staged "d_tokens", or for a chained stage the gather of
+        the previous stage's sampled tokens (its index arrays staged
+        here)."""
+        if chain is None:
+            return lambda: self._upload("d_tokens")
+        mode = chain.mode
+        for name, a in (("c_src_nxt", chain.src_nxt), ("c_src_cn", chain.src_cn),
+                        ("c_fallback", chain.fallback)):
+            self._staging(name, a.shape, np.int32)[:] = a
+        return lambda: _select_tokens(
+            chain.prev_nxt, chain.prev_cn, self._upload("c_src_nxt"),
+            self._upload("c_src_cn") if mode == "full" else None,
+            self._upload("c_fallback") if mode != "pure" else None, mode)
+
+    def _decode_inputs(self, slots, n_min: int = 0, proj: Optional[Dict[int, int]] = None):
         """Grow the decode slots' tables by one position (copying a shared
-        page the write lands in) and stage their bucketed (tokens, lengths,
-        block tables). Returns the staged arrays and each slot's live page
-        count."""
+        page the write lands in) and stage their bucketed tokens, lengths
+        and block tables ("d_tokens", "d_lengths", "d_bt"). A chained stage
+        passes ``proj``, each slot's length once the in-flight stage
+        commits, read in place of ``kv.lens``; its tokens come from the
+        device. Returns the batch bucket and each slot's live page count."""
         page = self.kv.page_size
         live_pages = []
         for s in slots:
-            cur = int(self.kv.lens[s])
+            cur = int(self.kv.lens[s]) if proj is None else proj[s]
             target = min(cur + 1, self.kv.max_len)
             self.kv.ensure_len(s, target)
             if self.prefix_share:
@@ -616,50 +771,60 @@ class ServingEngine:
             live_pages.append(-(-target // page))
         nb = _bucket(max(len(slots), n_min), self.decode_bs_buckets)
         mp = _bucket(max(live_pages + [1]), self.pages_buckets)
-        tokens = np.zeros((nb, 1), np.int32)
-        lengths = np.zeros((nb,), np.int32)      # pad: length 0 -> null page
-        bt = np.zeros((nb, mp), np.int32)
+        tokens = self._staging("d_tokens", (nb, 1), np.int32) if proj is None else None
+        lengths = self._staging("d_lengths", (nb,), np.int32)   # pad: length 0 -> null page
+        bt = self._staging("d_bt", (nb, mp), np.int32)
         for i, s in enumerate(slots):
-            tokens[i, 0] = self._tokens[s]
-            lengths[i] = self.kv.lens[s]
+            if proj is None:
+                tokens[i, 0] = self._tokens[s]
+                lengths[i] = self.kv.lens[s]
+            else:
+                lengths[i] = proj[s]
             bt[i] = self.kv.block_tables[s, :mp]
-        return tokens, lengths, bt, live_pages
+        return nb, live_pages
 
-    def _dense_valid(self, decision: StageDecision) -> np.ndarray:
-        valid = np.zeros((self.kv.max_slots,), bool)
+    def _dense_decode_inputs(self, decision: StageDecision, chain: Optional[ChainInfo]) -> None:
+        """The dense decode half's staged inputs: the live rows ("d_valid")
+        and every slot's last token ("d_tokens", unless chained)."""
+        valid = self._staging("d_valid", (self.kv.max_slots,), bool)
         for r in decision.decoding:
             valid[r.slot] = True
-        return valid
+        if chain is None:
+            self._staging("d_tokens", (self.kv.max_slots, 1), np.int32)[:, 0] = self._tokens
 
     def _dispatch_decode(self, fut: StageFuture) -> None:
         """A decode-only stage. Paged: the stage's rows, their tables grown.
         Dense: ALL slots (inactive rows' outputs are discarded and masked
         out of MoE routing, their cache rows overwritten on reuse, every
         row's whole cache streamed)."""
-        decision, k_cold = fut.plan.decision, fut.plan.k_cold
+        decision, k_cold, chain = fut.plan.decision, fut.plan.k_cold, fut.plan.chain
         if self.paged:
             slots = [r.slot for r in decision.decoding]
-            tokens, lengths, bt, live_pages = self._decode_inputs(slots)
+            nb, live_pages = self._decode_inputs(
+                slots, proj=chain.proj_lens if chain is not None else None)
             fut.kv_bytes = self._unique_page_bytes(zip(slots, live_pages))
-            fut.moe_caps = caps = self._moe_caps(tokens.shape[0], k_cold)
+            fut.moe_caps = caps = self._moe_caps(nb, k_cold)
+            tokens = self._decode_tokens(chain)
 
             def step():
-                lens_t = self._t(lengths)
+                lens_t = self._upload("d_lengths")
                 logits, _, counts = decode_step(
-                    self.params, self.cfg, self._t(tokens), self.kv.cache,
-                    {"lengths": lens_t, "block_tables": self._t(bt), "valid": lens_t > 0},
+                    self.params, self.cfg, tokens(), self.kv.cache,
+                    {"lengths": lens_t, "block_tables": self._upload("d_bt"),
+                     "valid": lens_t > 0},
                     plan=self._moe_plan(k_cold, caps[0], caps[1]))
                 return sample(logits), counts
         else:
-            valid = self._dense_valid(decision)
-            tokens = self._tokens[:, None].copy()
+            self._dense_decode_inputs(decision, chain)
             fut.kv_bytes = self._dense_kv_bytes_per_stage
             fut.moe_caps = caps = self._moe_caps(self.kv.max_slots, k_cold)
+            tokens = self._decode_tokens(chain)
 
             def step():
                 logits, _, counts = decode_step(
-                    self.params, self.cfg, self._t(tokens), self.kv.cache,
-                    {"valid": self._t(valid)}, plan=self._moe_plan(k_cold, caps[0], caps[1]))
+                    self.params, self.cfg, tokens(), self.kv.cache,
+                    {"valid": self._upload("d_valid")},
+                    plan=self._moe_plan(k_cold, caps[0], caps[1]))
                 return sample(logits), counts
         fut.nxt, fut.counts = self._invoke(step)
 
@@ -671,8 +836,8 @@ class ServingEngine:
         seqs = [c.req.token_stream(c.end) for c in fut.plan.decision.chunks]
         n_b = _bucket(len(seqs), self.seq_buckets)
         l_b = _bucket(max(len(sq) for sq in seqs), self.prefill_len_buckets)
-        tokens = np.zeros((n_b, l_b), np.int32)
-        true_len = np.zeros((n_b,), np.int32)
+        tokens = self._staging("lp_tokens", (n_b, l_b), np.int32)
+        true_len = self._staging("lp_true_len", (n_b,), np.int32)
         for i, sq in enumerate(seqs):
             tokens[i, :len(sq)] = sq
             true_len[i] = len(sq)
@@ -680,18 +845,20 @@ class ServingEngine:
         def step():
             plan = ExecutionPlan(moe_impl="grouped", use_kernels=self.use_kernels)
             cache = init_cache(self.cfg, n_b, self.kv.max_len, device=self.device)
-            logits, cache = prefill(self.params, self.cfg, {"tokens": self._t(tokens)},
-                                    cache, self._t(true_len), plan=plan)
+            logits, cache = prefill(self.params, self.cfg, {"tokens": self._upload("lp_tokens")},
+                                    cache, self._upload("lp_true_len"), plan=plan)
             return sample(logits), cache
         fut.legacy_nxt, fut.legacy_cache = self._invoke(step)
 
-    def _chunk_inputs(self, decision: StageDecision):
+    def _chunk_inputs(self, decision: StageDecision) -> Tuple[int, int]:
         """Claim the first chunks' slots (adopting a pinned shared prefix) and
-        stage the bucketed chunk rows: (tokens, starts, chunk lens)."""
+        stage the bucketed chunk rows ("m_ctokens", "m_starts", "m_clens").
+        Returns the (rows, length) buckets."""
         chunks = decision.chunks
         for c in chunks:                       # the first chunk claims the slot
             if c.req.slot < 0:
                 c.req.slot = self.kv.allocate()
+                self._slot_req[c.req.slot] = c.req
                 if c.req.shared_pages:
                     # the pin moves into the block table; the chunk starts at
                     # the first unshared position
@@ -699,15 +866,15 @@ class ServingEngine:
                     c.req.shared_pages = None
         nc_b = _bucket(len(chunks), self.seq_buckets)
         sc_b = _bucket(max(c.tokens for c in chunks), self.chunk_len_buckets)
-        ctokens = np.zeros((nc_b, sc_b), np.int32)
-        starts = np.zeros((nc_b,), np.int32)
-        clens = np.zeros((nc_b,), np.int32)
+        ctokens = self._staging("m_ctokens", (nc_b, sc_b), np.int32)
+        starts = self._staging("m_starts", (nc_b,), np.int32)
+        clens = self._staging("m_clens", (nc_b,), np.int32)
         for i, c in enumerate(chunks):
             seq = c.req.token_stream(c.end)[c.start:]
             ctokens[i, :len(seq)] = seq
             starts[i] = c.start
             clens[i] = c.tokens
-        return ctokens, starts, clens
+        return nc_b, sc_b
 
     def _dispatch_mixed(self, fut: StageFuture) -> None:
         """A unified mixed stage: the first chunks claim their slots (undone
@@ -715,13 +882,13 @@ class ServingEngine:
         rows and the chunk rows. Dense: the decode half over every slot,
         the chunk rows at their slots, each chunk streaming its slot's
         whole row besides the decode's every row."""
-        decision, k_cold = fut.plan.decision, fut.plan.k_cold
+        decision, k_cold, chain = fut.plan.decision, fut.plan.k_cold, fut.plan.chain
         chunks = decision.chunks
-        ctokens, starts, clens = self._chunk_inputs(decision)
-        nc_b, sc_b = ctokens.shape
+        nc_b, sc_b = self._chunk_inputs(decision)
         if self.paged:
             dslots = [r.slot for r in decision.decoding]
-            dtokens, lengths, bt, live_pages = self._decode_inputs(dslots, n_min=1)
+            nb, live_pages = self._decode_inputs(
+                dslots, n_min=1, proj=chain.proj_lens if chain is not None else None)
             cpages = []
             for c in chunks:
                 self.kv.ensure_len(c.req.slot, c.end)
@@ -731,48 +898,61 @@ class ServingEngine:
                     self.kv.ensure_writable(c.req.slot, c.start, c.end)
                 cpages.append(-(-c.end // self.kv.page_size))
             mpc = _bucket(max(cpages), self.pages_buckets)
-            bt_c = np.zeros((nc_b, mpc), np.int32)
+            bt_c = self._staging("m_bt_c", (nc_b, mpc), np.int32)
             for i, c in enumerate(chunks):
                 bt_c[i] = self.kv.block_tables[c.req.slot, :mpc]
             fut.kv_bytes = self._unique_page_bytes(
                 list(zip(dslots, live_pages))
                 + [(c.req.slot, n) for c, n in zip(chunks, cpages)])
-            fut.moe_caps = caps = self._moe_caps(dtokens.shape[0] + nc_b * sc_b, k_cold)
+            fut.moe_caps = caps = self._moe_caps(nb + nc_b * sc_b, k_cold)
 
             def ctx():
-                lens_t = self._t(lengths)
-                return ({"lengths": lens_t, "block_tables": self._t(bt), "valid": lens_t > 0},
-                        {"starts": self._t(starts), "chunk_lens": self._t(clens),
-                         "block_tables": self._t(bt_c)})
+                lens_t = self._upload("d_lengths")
+                return ({"lengths": lens_t, "block_tables": self._upload("d_bt"),
+                         "valid": lens_t > 0},
+                        {"starts": self._upload("m_starts"),
+                         "chunk_lens": self._upload("m_clens"),
+                         "block_tables": self._upload("m_bt_c")})
         else:
-            cslots = np.zeros((nc_b,), np.int32)
+            cslots = self._staging("m_cslots", (nc_b,), np.int32)
             for i, c in enumerate(chunks):
                 cslots[i] = c.req.slot
-            valid = self._dense_valid(decision)
-            dtokens = self._tokens[:, None].copy()
+            self._dense_decode_inputs(decision, chain)
             fut.kv_bytes = (self._dense_kv_bytes_per_stage
                             + len(chunks) * self.kv.max_len * self._kv_bytes_per_token)
             fut.moe_caps = caps = self._moe_caps(self.kv.max_slots + nc_b * sc_b, k_cold)
 
             def ctx():
-                return ({"valid": self._t(valid)},
-                        {"slots": self._t(cslots), "starts": self._t(starts),
-                         "chunk_lens": self._t(clens)})
+                return ({"valid": self._upload("d_valid")},
+                        {"slots": self._upload("m_cslots"), "starts": self._upload("m_starts"),
+                         "chunk_lens": self._upload("m_clens")})
+        tokens = self._decode_tokens(chain)
 
         def step():
             attn_ctx, chunk_ctx = ctx()
             dl, cl, _, counts = mixed_step(
-                self.params, self.cfg, self._t(dtokens), self._t(ctokens), self.kv.cache,
+                self.params, self.cfg, tokens(), self._upload("m_ctokens"), self.kv.cache,
                 attn_ctx=attn_ctx, chunk_ctx=chunk_ctx,
                 plan=self._moe_plan(k_cold, caps[0], caps[1]))
             return sample(dl), sample(cl), counts
         fut.nxt, fut.cn, fut.counts = self._invoke(step)
+
+    def _row_live(self, r: Request) -> bool:
+        """May an in-flight row's result be applied to ``r``? Not when it
+        ended or was evicted between dispatch and commit (a cancel, an
+        expiry, a preemption in the async loop): its device work is
+        discarded. A freed slot's stray KV write is harmless: the device
+        runs it before any new owner's write, and a position not yet
+        written is never read."""
+        return not r.done and r.slot >= 0 and self._slot_req.get(r.slot) is r
 
     def _commit_decode_rows(self, decoding: List[Request], nxt, tnow: float) -> None:
         """The decode rows' sampled tokens. Paged: row i is decoding[i] and
         the lengths advance; dense: the rows are the slots."""
         adv = []
         for i, r in enumerate(decoding):
+            if not self._row_live(r):
+                continue
             tok = int(nxt[i if self.paged else r.slot])
             self._tokens[r.slot] = tok
             r.record_token(tok, tnow)
@@ -788,12 +968,14 @@ class ServingEngine:
         self._commit_decode_rows(decision.decoding, mat["nxt"], tnow)
         if self.paged:
             for c in decision.chunks:
+                if not self._row_live(c.req):
+                    continue
                 self.kv.lens[c.req.slot] = c.end
                 if self.prefix_share:
                     self.kv.register_prefix(c.req.slot, c.req.token_stream(c.end))
         cn = mat["cn"]
         for i, c in enumerate(decision.chunks):
-            if c.is_last:
+            if c.is_last and self._row_live(c.req):
                 tok = int(cn[i])
                 self._tokens[c.req.slot] = tok
                 c.req.record_token(tok, tnow)
@@ -801,14 +983,21 @@ class ServingEngine:
     def _commit_legacy_prefill(self, fut: StageFuture, mat: Dict[str, Any],
                                tnow: float) -> None:
         """The legacy prefill's prompts claim slots, their local cache rows
-        are scattered in and their first tokens recorded."""
+        are scattered in and their first tokens recorded; a row whose
+        request ended while the stage was in flight is dropped before any
+        slot is claimed."""
         nxt = mat["legacy_nxt"]
         fresh = [c.req for c in fut.plan.decision.chunks]
         local, fut.legacy_cache = fut.legacy_cache, None
-        slots = [self.kv.allocate() for _ in fresh]
-        self.kv.scatter(tree_map(local, lambda a: a[:, :len(fresh)]), slots)
-        for i, (r, s) in enumerate(zip(fresh, slots)):
+        live = [(i, r) for i, r in enumerate(fresh) if not r.done]
+        if not live:
+            return
+        slots = [self.kv.allocate() for _ in live]
+        take = torch.as_tensor([i for i, _ in live], device=self.device)
+        self.kv.scatter(tree_map(local, lambda a: a[:, take]), slots)
+        for (i, r), s in zip(live, slots):
             r.slot = s
+            self._slot_req[s] = r
             tok = int(nxt[i])
             self._tokens[s] = tok
             r.record_token(tok, tnow)
@@ -831,6 +1020,7 @@ class ServingEngine:
                 continue                 # a continuing chunk keeps slot and position
             r = c.req
             if r.slot >= 0:
+                self._slot_req.pop(r.slot, None)
                 self.kv.free(r.slot)
                 r.slot = -1
                 r.shared_pages = None
@@ -864,61 +1054,47 @@ class ServingEngine:
             self.audit_log.extend(f"stage {self._stage_idx}: {e}" for e in errs)
         return len(errs)
 
-    def _page_admission_cap(self) -> int:
-        """Paged admission: walk the queue in admission order, adding each
-        candidate's page demand less the prefix pages it already shares, and
-        admit the prefix that fits. Without preemption the demand is the
-        whole lifetime of admitted and candidate work, so ``ensure_len``
-        never fails; with it, only the next stage's growth and each
-        candidate's first chunk (eviction reclaims the rest)."""
-        page = self.kv.page_size
-        conservative = self.preemption == "none"
-        budget = self.prefill_chunk_tokens or self.kv.max_len
-        need = (self._remaining_demand_pages() if conservative
-                else self._stage_page_need())
-        admit = 0
-        for r in list(self.scheduler.queue)[:self.scheduler.max_prefill_seqs]:
-            shared = len(r.shared_pages or ())
-            if conservative:
-                d = max(self._lifetime_pages(r) - shared, 0)
-            else:
-                total = min(r.l_in + len(r.output), self.kv.max_len)
-                end = min(r.prefill_pos + budget, total)
-                d = max(-(-end // page) - shared, 0)
-            need += d + (1 if shared and self.prefix_share else 0)
-            if self.kv.free_pages < need:
-                break
-            admit += 1
-        return admit
-
-    def _k_cold(self, decision: StageDecision) -> int:
-        """The planner's k_cold from the count EMA, rescaled to this stage's
-        live tokens (one-stage-stale statistics)."""
-        n = decision.mix().num_tokens
-        if not self.use_duplex or n == 0:
-            return 0
-        return self.planner.k_cold_static(self._expected_counts(n))
-
     # ------------------------------------------------- plan / dispatch / commit
-    def plan_stage(self, now: Optional[float] = None) -> Optional[StagePlan]:
-        """Stage maintenance, the paged admission cap and the scheduler's
-        stage; host work only. None when no stage can be formed."""
+    def _finish_plan(self, decision: StageDecision, t0: float,
+                     snap: Tuple[int, int, int, int], tnow: float,
+                     speculative: bool = False) -> StagePlan:
+        """Wrap a decision into a StagePlan with its k_cold. For a
+        speculative plan the count EMA is one stage staler (the in-flight
+        stage's counts fold in at its deferred commit), which moves the
+        MoE's path choice, not the schedule. The reference also runs its
+        Op/B dispatch model here; that waits for the port of the Op/B
+        model."""
+        return StagePlan(decision, self._k_cold(decision), t0, snap, tnow,
+                         speculative=speculative, epoch=self._epoch)
+
+    def plan_stage(self, now: Optional[float] = None, *, maintain: bool = True,
+                   snap: Optional[Tuple[int, int, int, int]] = None) -> Optional[StagePlan]:
+        """Stage maintenance (``maintain=False`` when the caller already ran
+        it this turn: a plan formed again must not draw the fault schedule
+        twice), the paged admission cap and the scheduler's stage, from
+        real state; host work only. None when no stage can be formed."""
         t0 = time.monotonic()
-        snap = (self.shed, self.expired, self.cancelled, self.retries)
-        tnow = self._stage_maintenance(now)
+        if snap is None:
+            snap = (self.shed, self.expired, self.cancelled, self.retries)
+        tnow = self._stage_maintenance(now) if maintain else self._now(now)
         free = self.kv.free_slots
         if self.paged:
             free = min(free, self._page_admission_cap())
         decision = self.scheduler.next_stage(free)
         if decision is None:
             return None
-        return StagePlan(decision, self._k_cold(decision), t0, snap, tnow)
+        return self._finish_plan(decision, t0, snap, tnow)
 
     @torch.no_grad()
     def dispatch_stage(self, plan: StagePlan) -> StageFuture:
-        """Claim slots and pages and run the stage's device step, without
-        waiting for its outputs. An injected fault raises InjectedFault out
-        of here; the caller unwinds with ``_abort_stage``."""
+        """Claim slots and pages, stage the inputs and enqueue the stage's
+        device step and its outputs' copies to the host, without waiting
+        for the device. A speculative plan activates its admissions first.
+        An injected fault raises InjectedFault out of here; the caller
+        unwinds with ``_abort_stage``."""
+        if plan.speculative:
+            self.scheduler.activate(plan.decision)
+        self._staging_idx ^= 1
         fut = StageFuture(plan=plan)
         decision = plan.decision
         if decision.chunks and self._unified:
@@ -930,13 +1106,30 @@ class ServingEngine:
                 self._dispatch_decode(fut)
             if decision.chunks:
                 self._dispatch_legacy_prefill(fut)
+        self._stage_outputs(fut)
+        fut.t_dispatch = time.monotonic()
+        if plan.chain is not None:
+            # enqueued before the previous stage was read: no host gap
+            self.gap_stages += 1
+            self.chained_stages += 1
+            self._t_sync_done = None
+        elif self._t_sync_done is not None:
+            # the host gap: from the previous stage's outputs reaching the
+            # host to this enqueue, a window the device may sit idle
+            self.host_gap_s += max(fut.t_dispatch - self._t_sync_done, 0.0)
+            self.gap_stages += 1
+            self._t_sync_done = None
         return fut
 
     def _materialize(self, fut: StageFuture) -> Dict[str, Any]:
-        """The stage's one device sync: tokens and router counts."""
-        return {k: v.cpu().numpy() for k, v in (
-            ("nxt", fut.nxt), ("cn", fut.cn), ("counts", fut.counts),
-            ("legacy_nxt", fut.legacy_nxt)) if v is not None}
+        """The stage's one wait, for the event behind its outputs' copies
+        (a stage enqueued after it runs on), then its tokens and router
+        counts as arrays. The async loops call it outside the lock."""
+        if fut.event is not None:
+            fut.event.synchronize()
+        mat = {k: v.numpy() for k, v in fut.host.items()}
+        self._t_sync_done = time.monotonic()
+        return mat
 
     def _commit_critical(self, fut: StageFuture, mat: Dict[str, Any]) -> None:
         """The durable commit: sampled tokens, lengths, the prefix index,
@@ -954,10 +1147,13 @@ class ServingEngine:
             if decision.chunks:
                 self._commit_legacy_prefill(fut, mat, tnow)
         for r in decision.restored:
-            self._admit_restored(r)
+            if not r.done and r.saved_cache is not None:
+                self._admit_restored(r)
         for r in [c.req for c in decision.chunks] + decision.decoding + decision.restored:
-            if r.done and r.slot >= 0:
+            # a request retired by an earlier commit no longer owns its slot
+            if r.done and r.slot >= 0 and self._slot_req.get(r.slot) is r:
                 self.kv.free(r.slot)
+                del self._slot_req[r.slot]
         self.scheduler.commit_stage(decision)
         fut.deltas = (self.shed - plan.snap[0], self.expired - plan.snap[1],
                       self.cancelled - plan.snap[2], self.retries - plan.snap[3])
@@ -1051,6 +1247,7 @@ class ServingEngine:
                 self._finish_abnormal(victim, "shed", tnow)
             self._requests[req.rid] = req
             self._match_prefix(req)
+            self._epoch += 1
 
     def cancel(self, rid: int, now: Optional[float] = None) -> bool:
         """Cancel a request wherever it is: dropped from the queue (its
@@ -1071,12 +1268,14 @@ class ServingEngine:
         self.scheduler.remove(req)
         if req.slot >= 0:
             self.kv.free(req.slot)
+            self._slot_req.pop(req.slot, None)
             req.slot = -1
         if req.shared_pages:
             self.kv.unpin(req.shared_pages)
             req.shared_pages = None
         req.saved_cache = None
         req.finish(reason, tnow)
+        self._epoch += 1
         if reason == "expired":
             self.expired += 1
         elif reason == "shed":
@@ -1100,13 +1299,257 @@ class ServingEngine:
                 return self._abort_report(plan)
             return self.commit_stage(fut)
 
+    # ------------------------------------------------------ the async loop
+    # The reference's branches for drafts (verify spans, their rewinds, the
+    # drafter's fresh drafts) wait for the port of speculative decoding.
+    def _plan_speculative(self, cur: StagePlan) -> Optional[StagePlan]:
+        """Plan stage N+1 from the projected post-commit state of the
+        in-flight stage N, touching no scheduler or request state. Chunk
+        positions advance to their span ends, length-limit finishes retire
+        and free their slots, final chunks and restores join the decode
+        set; an EOS finish cannot be foreseen and is taken as going on
+        (``_validate_speculative`` or ``_build_chain`` catch it: a wrong
+        guess costs a plan formed again, never a wrong token)."""
+        d = cur.decision
+        if d.chunks and not self._unified:
+            return None          # the legacy prefill claims its slots at commit
+        t0 = time.monotonic()
+        pos: Dict[int, int] = {}
+        done_rids = set()
+        finished_prefill = set()     # final chunks in flight: promoted at commit
+        promoted: List[Request] = []
+        extra_prefilling: List[Request] = []
+        freed = 0
+        for c in d.chunks:
+            r = c.req
+            if r.done:
+                continue             # ended after dispatch; the commit drops the row
+            if c.is_last:
+                finished_prefill.add(r.rid)
+                # the final chunk samples the first token: a length finish is
+                # certain, an EOS finish is not
+                if r.max_new_tokens <= 1:
+                    done_rids.add(r.rid)
+                    freed += 1
+                else:
+                    promoted.append(r)
+            else:
+                pos[r.rid] = c.end
+                if r not in self.scheduler.prefilling:
+                    extra_prefilling.append(r)     # admitted by the stage in flight
+        for r in d.decoding:
+            if not r.done and len(r.output) + 1 >= r.max_new_tokens:
+                done_rids.add(r.rid)
+                freed += 1
+        restored_live = [r for r in d.restored if not r.done and r.saved_cache is not None]
+        # the decode set in the order the commit builds it: surviving
+        # decoders, then promoted final chunks, then restores
+        running_proj = [r for r in self.scheduler.running
+                        if r.state == RequestState.DECODE and r.rid not in done_rids]
+        running_proj += promoted + restored_live
+        prefilling_proj = ([r for r in self.scheduler.prefilling
+                            if not r.done and r.rid not in finished_prefill]
+                           + extra_prefilling)
+        queue_proj = [r for r in self.scheduler.queue if not r.done]
+        # predicted finishes free their slots at retire, restores claim
+        # theirs at commit (the in-flight first chunks already hold theirs)
+        free = max(self.kv.free_slots + freed - len(restored_live), 0)
+        if self.paged:
+            # the cap from current state; validation checks the real one
+            free = min(free, self._page_admission_cap())
+        decision = self.scheduler.plan_stage(free, prefilling=prefilling_proj,
+                                             running=running_proj, queue=queue_proj, pos=pos)
+        if decision is None:
+            return None
+        snap = (self.shed, self.expired, self.cancelled, self.retries)
+        return self._finish_plan(decision, t0, snap, self._now(None), speculative=True)
+
+    def _build_chain(self, spec: StagePlan, fut: StageFuture) -> Optional[ChainInfo]:
+        """May speculative stage N+1 dispatch before stage N is read? Yes
+        when each decode input token is known to the host or is a row of
+        N's sampled tokens, and when what the dispatch claims (slots for
+        admissions, pages for growth) fits the current pool: N's retires
+        have not landed. Otherwise N+1 waits for N's commit and is
+        validated then (one host gap, no plan formed again)."""
+        d_prev, d = fut.plan.decision, spec.decision
+        if d.restored or d_prev.restored:
+            return None              # a restore writes its saved rows into the cache
+        if fut.nxt is None:
+            return None
+        n_first = sum(1 for c in d.chunks if c.first)
+        if n_first:
+            if n_first > self.kv.free_slots:
+                return None
+            if self.paged and n_first > self._page_admission_cap():
+                return None
+        # paged: N's nxt rows follow its decoding order; dense: its slots
+        if self.paged:
+            idx_nxt = {r.rid: i for i, r in enumerate(d_prev.decoding)}
+        else:
+            idx_nxt = {r.rid: r.slot for r in d_prev.decoding}
+        idx_cn = {c.req.rid: i for i, c in enumerate(d_prev.chunks) if c.is_last}
+        if self.paged:
+            n = _bucket(max(len(d.decoding), 1) if d.chunks else len(d.decoding),
+                        self.decode_bs_buckets)
+        else:
+            n = self.kv.max_slots
+        src_n = np.full(n, -1, np.int32)
+        src_c = np.full(n, -1, np.int32)
+        fb = np.zeros(n, np.int32)
+        proj: Dict[int, int] = {}
+        page_need = 0
+        for i, r in enumerate(d.decoding):
+            if r.done or r.slot < 0 or self._slot_req.get(r.slot) is not r:
+                # the row lost its slot since N was dispatched (an eviction
+                # or expiry in this turn's maintenance): no chaining through
+                # a dead or re-owned slot
+                return None
+            j = i if self.paged else r.slot
+            if r.rid in idx_nxt:
+                src_n[j] = idx_nxt[r.rid]
+                plen = 1                 # N's commit advances the length by one
+            elif r.rid in idx_cn:
+                # a final chunk in N: its length jumps to the span's end and
+                # its first token is N's cn row
+                src_c[j] = idx_cn[r.rid]
+                plen = None
+            else:
+                fb[j] = int(self._tokens[r.slot])
+                plen = 0
+            if self.paged:
+                plen = (d_prev.chunks[idx_cn[r.rid]].end if plen is None
+                        else int(self.kv.lens[r.slot]) + plen)
+                proj[r.slot] = plen
+                page_need += self.kv.page_need(r.slot, min(plen + 1, self.kv.max_len))
+        if self.paged:
+            for c in d.chunks:
+                if c.req.slot >= 0:
+                    page_need += self.kv.page_need(c.req.slot, c.end)
+                else:
+                    # a fresh admission, at most (adopting a prefix needs less)
+                    page_need += -(-c.end // self.kv.page_size)
+            if page_need > self.kv.free_pages:
+                return None
+        return ChainInfo(src_nxt=src_n, src_cn=src_c, fallback=fb, prev_nxt=fut.nxt,
+                         prev_cn=fut.cn, proj_lens=proj)
+
+    def _validate_speculative(self, spec: StagePlan, tnow: float) -> bool:
+        """May a speculative plan that could not chain dispatch against the
+        real post-commit state? Checks safety, not maximality: a plan that
+        admits too little idles capacity for a stage, a stale span or slot
+        would corrupt state. Any epoch bump since the plan rejects it."""
+        if spec.epoch != self._epoch:
+            return self._reject_spec("epoch")
+        spec.tnow = tnow
+        d = spec.decision
+        for c in d.chunks:
+            r = c.req
+            if r.done:
+                return self._reject_spec("chunk-done")
+            if c.first:
+                if r.saved_cache is not None or r not in self.scheduler.queue:
+                    return self._reject_spec("admission-gone")
+                total = len(r.prompt) + len(r.output)
+                if self.scheduler.max_prefill_target is not None:
+                    total = min(total, self.scheduler.max_prefill_target)
+                start = min(r.prefill_pos, total - 1) if total > 0 else 0
+                # a late prefix hit moves the start: form the plan again
+                if start != c.start or c.target != total:
+                    return self._reject_spec("admission-span")
+            elif r not in self.scheduler.prefilling or r.prefill_pos != c.start:
+                return self._reject_spec("chunk-position")
+        for r in d.decoding:
+            if (r.done or r.slot < 0 or r.state != RequestState.DECODE
+                    or self._slot_req.get(r.slot) is not r):
+                return self._reject_spec("decode-row")
+        for r in d.restored:
+            if r.done or r.saved_cache is None or r not in self.scheduler.queue:
+                return self._reject_spec("restore-gone")
+        admissions = sum(1 for c in d.chunks if c.first) + len(d.restored)
+        if admissions:
+            if admissions > self.kv.free_slots:
+                return self._reject_spec("free-slots")
+            if self.paged and admissions > self._page_admission_cap():
+                return self._reject_spec("page-cap")
+        return True
+
+    def _reject_spec(self, reason: str) -> bool:
+        """Count why a speculative plan was rejected
+        (``stats()["spec_miss_reasons"]``) and reject it."""
+        self.spec_miss_reasons[reason] = self.spec_miss_reasons.get(reason, 0) + 1
+        return False
+
+    def _pipeline_turn(self, fut: StageFuture, now: Optional[float] = None,
+                       dispatch: bool = True
+                       ) -> Tuple[Optional[StageFuture], Optional[StageReport], bool]:
+        """One turn of the pipelined loop around the in-flight stage N: the
+        turn's maintenance, N+1 planned from N's projection and, when it
+        chains (``_build_chain``), dispatched before N is read; then N's
+        one wait (outside the lock) and durable commit; a plan that could
+        not chain is validated (or formed again) and dispatched behind the
+        commit; N's accounting runs last. Returns (the stage now in flight,
+        N's report, whether a stage was formed)."""
+        new_fut = None
+        aborted = None
+        spec = None
+        chained = False
+        tnow = 0.0
+        with self._lock:
+            if dispatch:
+                # the sync loop's per-stage draws (spikes, expiry,
+                # preemption, prefix re-match), once a turn before planning
+                tnow = self._stage_maintenance(now)
+                spec = self._plan_speculative(fut.plan)
+                if spec is not None:
+                    spec.tnow = tnow
+                    chain = self._build_chain(spec, fut)
+                    if chain is not None:
+                        spec.chain = chain
+                        try:
+                            new_fut = self.dispatch_stage(spec)
+                            chained = True
+                            self.spec_hits += 1
+                        except InjectedFault:
+                            self._abort_stage(spec.decision)
+                            aborted = spec
+                        spec = None
+        mat = self._materialize(fut)
+        with self._lock:
+            self._commit_critical(fut, mat)
+            formed = chained
+            if dispatch and not chained and aborted is None:
+                snapnow = (self.shed, self.expired, self.cancelled, self.retries)
+                if spec is not None and self._validate_speculative(spec, tnow):
+                    spec.snap = snapnow
+                    self.spec_hits += 1
+                    nxt_plan = spec
+                else:
+                    # the commit contradicted the projection, or nothing was
+                    # projected: form the plan from real state (maintenance
+                    # already ran this turn)
+                    if spec is not None:
+                        self.spec_misses += 1
+                    nxt_plan = self.plan_stage(now, maintain=False, snap=snapnow)
+                if nxt_plan is not None:
+                    formed = True
+                    try:
+                        new_fut = self.dispatch_stage(nxt_plan)
+                    except InjectedFault:
+                        self._abort_stage(nxt_plan.decision)
+                        aborted = nxt_plan
+            report = self._commit_deferred(fut, mat.get("counts"))
+            if aborted is not None:
+                # N's report first, then the aborted N+1's
+                self._abort_report(aborted)
+        return new_fut, report, formed
+
     def _progress(self) -> int:
         """The watchdog's monotone progress: tokens generated plus requests
         terminal (outputs survive recompute preemption)."""
         return (sum(len(r.output) for r in self._requests.values())
                 + sum(1 for r in self._requests.values() if r.done))
 
-    def _stall_msg(self, why: str) -> str:
+    def _stall_msg(self, why: str, inflight: bool = False) -> str:
         stuck = sorted(r.rid for r in (list(self.scheduler.queue)
                                        + self.scheduler.prefilling
                                        + self.scheduler.running) if not r.done)
@@ -1117,6 +1560,8 @@ class ServingEngine:
                f"preemption={self.preemption}")
         if self.paged:
             msg += f", free_pages={self.kv.free_pages}/{self.kv.num_pages - 1}"
+        if inflight:
+            msg += ", one stage in flight (dispatched, uncommitted)"
         return msg
 
     def run(self, requests: List[Request], *, max_stages: int = 10_000,
@@ -1160,6 +1605,85 @@ class ServingEngine:
                         f"no progress across {idle} consecutive stages"))
         return requests
 
+    def run_async(self, requests: List[Request], *, max_stages: int = 10_000,
+                  stall_stages: int = 500, max_wall_s: Optional[float] = None) -> List[Request]:
+        """``run`` through the pipelined loop: while stage N runs on the
+        device, the host plans and dispatches N+1 from N's projection and
+        commits N's accounting behind it. Under greedy sampling a request's
+        tokens are ``run``'s wherever the stage compositions agree; the
+        planner's k_cold reads its count EMA one stage later, which with
+        the duplex MoE may move which experts run a token. The watchdog is
+        ``run``'s, its message noting a stage in flight."""
+        t_start = time.monotonic()
+        for r in requests:
+            try:
+                self.submit(r)
+            except AdmissionRejected:
+                r.finish("rejected", self._now())
+        stages = 0
+        idle = 0
+        last = self._progress()
+        fut: Optional[StageFuture] = None
+        while True:
+            if max_wall_s is not None and time.monotonic() - t_start > max_wall_s:
+                raise EngineStalledError(self._stall_msg(
+                    f"wall budget {max_wall_s}s exhausted", inflight=fut is not None))
+            if fut is None:
+                with self._lock:
+                    if not self.scheduler.has_work:
+                        break
+                    if stages >= max_stages:
+                        raise EngineStalledError(self._stall_msg(
+                            f"max_stages={max_stages} exhausted with work pending"))
+                    plan = self.plan_stage()
+                    if plan is None:
+                        if not self.scheduler.has_work:
+                            break               # drained by the expiry sweep
+                        raise EngineStalledError(self._stall_msg(
+                            "no stage could be formed (capacity livelock — queued work "
+                            "cannot be admitted and nothing is running)"))
+                    try:
+                        fut = self.dispatch_stage(plan)
+                    except InjectedFault:
+                        self._abort_stage(plan.decision)
+                        self._abort_report(plan)
+                    stages += 1
+                continue
+            fut, _, formed = self._pipeline_turn(fut, dispatch=stages < max_stages)
+            stages += int(formed)
+            prog = self._progress()
+            if prog > last:
+                last, idle = prog, 0
+            else:
+                idle += 1
+                if idle >= stall_stages:
+                    raise EngineStalledError(self._stall_msg(
+                        f"no progress across {idle} consecutive stages",
+                        inflight=fut is not None))
+        return requests
+
+    def step_async(self, now: Optional[float] = None) -> Optional[StageReport]:
+        """One pipelined tick for an outside driver: commit the stage the
+        previous tick left in flight, if any, and dispatch the next, leaving
+        it in flight. Returns the committed stage's report (a tick behind
+        ``step``), or None while priming or idle. Dropping ``_inflight``
+        abandons device work without having moved anything durable;
+        ``scheduler.has_work`` stays true while a stage is in flight."""
+        fut, self._inflight = self._inflight, None
+        if fut is not None:
+            self._inflight, report, _ = self._pipeline_turn(fut, now)
+            return report
+        with self._lock:
+            plan = self.plan_stage(now)
+            if plan is None:
+                return None
+            try:
+                self._inflight = self.dispatch_stage(plan)
+            except InjectedFault:
+                self._abort_stage(plan.decision)
+                return self._abort_report(plan)
+        return None
+
     #: cumulative counters stats() also reports as a window's deltas
     STATS_DELTA_KEYS = ("stages", "preemptions", "forced_evictions", "stage_aborts",
                         "retries", "shed", "expired", "cancelled", "rejected",
@@ -1169,10 +1693,10 @@ class ServingEngine:
         """The engine's robustness and capacity totals, plus ``delta``: each
         STATS_DELTA_KEYS counter's change since the last
         ``stats(reset=True)``, which starts a new window (totals are never
-        cleared); ``fault_counts`` with an injector. The reference's keys of
-        speculative decoding and the async loop (``spec_*``,
-        ``chained_stages``, ``host_gap_s``, ``gap_stages``) are left out
-        with the machinery they count."""
+        cleared); ``fault_counts`` with an injector; the async loop's
+        ``spec_hits``, ``spec_misses``, ``spec_miss_reasons``,
+        ``chained_stages``, ``host_gap_s`` and ``gap_stages``. The
+        reference's keys of speculative decoding wait for that item."""
         with self._lock:
             out = {"stages": self._stage_idx,
                    "preemptions": self.preemptions,
@@ -1186,6 +1710,12 @@ class ServingEngine:
                    "audit_violations": self.audit_violations,
                    "peak_active": self.peak_active,
                    "shared_tokens_skipped": self.shared_tokens_skipped,
+                   "spec_hits": self.spec_hits,
+                   "spec_misses": self.spec_misses,
+                   "spec_miss_reasons": dict(self.spec_miss_reasons),
+                   "chained_stages": self.chained_stages,
+                   "host_gap_s": self.host_gap_s,
+                   "gap_stages": self.gap_stages,
                    "aging_promotions": self.scheduler.aging_promotions,
                    "kv": self.kv.stats()}
             out["delta"] = {k: out[k] - self._stats_base.get(k, 0)

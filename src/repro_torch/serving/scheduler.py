@@ -1,7 +1,7 @@
 """Stage-level continuous-batching scheduler (port of the stage-forming core
 of ``repro/serving/scheduler.py``).
 
-``next_stage`` forms the next stage as one unified token stream: every
+``plan_stage`` forms the next stage as one unified token stream: every
 decoding request contributes one token, and prefill work comes as chunk
 spans — in-flight chunked prefills continue first (FIFO), then queued
 prompts are admitted into free slots, within ``prefill_chunk_tokens`` per
@@ -26,14 +26,21 @@ past its deadline (and rejects when the queue is full of live work).
 queued request's effective priority rises by one band per K stages formed
 while it waits, so a starved low band eventually admits. The scheduler
 only reorganises its own structures; the engine releases the slots, pages
-and pins of the requests these paths return. Drafts and the async
-plan/activate split are not ported yet.
+and pins of the requests these paths return.
+
+Stage formation is split for the async loop: ``plan_stage`` is pure (it
+reads state, mutates nothing, and takes projected ``prefilling`` /
+``running`` / ``queue`` / ``pos`` overrides, so the engine can plan stage
+N+1 against the predicted post-commit state of the in-flight stage N), and
+``activate`` makes a plan real (purges terminal queued requests, pops the
+admissions, freezes their prefill targets, ages the queue). ``next_stage``
+composes the two. Drafts wait for speculative decoding.
 """
 from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, List, Optional
+from typing import Deque, Dict, List, Optional
 
 from repro_torch.core.opb import StageMix
 from repro_torch.serving.request import Request, RequestState
@@ -121,6 +128,7 @@ class ContinuousBatchingScheduler:
         self.prefill_chunk_tokens = prefill_chunk_tokens
         self.max_prefill_tokens = max_prefill_tokens
         self._submit_seq = 0
+        self.stage_counts = {"mixed": 0, "decode_only": 0}
 
     def effective_priority(self, req: Request) -> int:
         """Admission priority after aging: the band plus one promotion per
@@ -216,23 +224,33 @@ class ContinuousBatchingScheduler:
     def has_work(self) -> bool:
         return bool(self.queue) or bool(self.running) or bool(self.prefilling)
 
-    def next_stage(self, free_slots: int) -> Optional[StageDecision]:
-        """Form the next stage and admit its new requests."""
+    def plan_stage(self, free_slots: int, *, prefilling: Optional[List[Request]] = None,
+                   running: Optional[List[Request]] = None, queue=None,
+                   pos: Optional[Dict[int, int]] = None) -> Optional[StageDecision]:
+        """Form the next stage without mutating any scheduler or request
+        state. The overrides replace the live ``prefilling`` list, decode
+        set (taken verbatim: its members may still read PREFILL until the
+        in-flight commit lands), queue and prefill positions (rid -> pos).
+        A plan takes effect only through ``activate``."""
+        prefill_src = self.prefilling if prefilling is None else prefilling
+        queue_src = self.queue if queue is None else queue
+        pos = pos or {}
         chunks: List[ChunkSpan] = []
         restored: List[Request] = []
         chunked = self.prefill_chunk_tokens is not None
         budget = self.prefill_chunk_tokens if chunked else self.max_prefill_tokens
         used = 0
-        for r in self.prefilling:          # in-flight prefills continue first
+        for r in prefill_src:              # in-flight prefills continue first
             if len(chunks) >= self.max_prefill_seqs or used >= budget:
                 break
-            n = min(r.prefill_total - r.prefill_pos, budget - used)
+            p = pos.get(r.rid, r.prefill_pos)
+            n = min(r.prefill_total - p, budget - used)
             if n <= 0:
                 continue
-            chunks.append(ChunkSpan(r, r.prefill_pos, r.prefill_pos + n))
+            chunks.append(ChunkSpan(r, p, p + n))
             used += n
         free = free_slots
-        for r in self.queue:               # the head blocks everything behind it
+        for r in queue_src:                # the head blocks everything behind it
             if free <= 0:
                 break
             if r.done:                     # cancelled or expired while queued
@@ -246,7 +264,8 @@ class ContinuousBatchingScheduler:
             total = len(r.prompt) + len(r.output)
             if self.max_prefill_target is not None:
                 total = min(total, self.max_prefill_target)
-            start = min(r.prefill_pos, total - 1) if total > 0 else 0
+            p = pos.get(r.rid, r.prefill_pos)
+            start = min(p, total - 1) if total > 0 else 0
             if chunked:
                 if used >= budget:
                     break
@@ -259,18 +278,40 @@ class ContinuousBatchingScheduler:
             chunks.append(span)
             used += span.tokens
             free -= 1
-        decoding = [r for r in self.running if r.state == RequestState.DECODE]
-        if any(r.done for r in self.queue):   # purge terminal queued requests
-            self.queue = deque(r for r in self.queue if not r.done)
+        if running is None:
+            decoding = [r for r in self.running if r.state == RequestState.DECODE]
+        else:
+            decoding = list(running)
         if not chunks and not decoding and not restored:
             return None
-        for c in chunks:                   # admission
-            if c.first:
-                self.queue.remove(c.req)
-                c.req.prefill_target = c.target
-                c.req.state = RequestState.PREFILL
-        for r in restored:
-            self.queue.remove(r)
+        return StageDecision(chunks, decoding, restored)
+
+    def _purge_done(self) -> None:
+        if any(r.done for r in self.queue):
+            self.queue = deque(r for r in self.queue if not r.done)
+
+    def activate(self, decision: StageDecision) -> None:
+        """Make a planned stage real: purge terminal queued requests, pop
+        the admissions off the queue, freeze their prefill targets, move
+        them to PREFILL and age the passed-over queue. Once per dispatched
+        plan; a discarded plan is never activated."""
+        self._purge_done()
+        for c in decision.chunks:
+            if not c.first:
+                continue
+            r = c.req
+            try:
+                self.queue.remove(r)
+            except ValueError:
+                pass
+            if c.target is not None:
+                r.prefill_target = c.target
+            r.state = RequestState.PREFILL
+        for r in decision.restored:
+            try:
+                self.queue.remove(r)
+            except ValueError:
+                pass
         if self.aging_rounds is not None and self.queue:
             # the passed-over queue ages; a promotion re-sorts it by
             # effective priority, FIFO (submit order) within a band
@@ -283,7 +324,18 @@ class ContinuousBatchingScheduler:
             if promoted:
                 self.queue = deque(sorted(
                     self.queue, key=lambda r: (-self.effective_priority(r), r.queue_seq)))
-        return StageDecision(chunks, decoding, restored)
+        self.stage_counts["mixed" if decision.chunks else "decode_only"] += 1
+
+    def next_stage(self, free_slots: int) -> Optional[StageDecision]:
+        """Plan the next stage from live state and activate it; an empty
+        plan still purges terminal queued requests, so ``has_work`` cannot
+        stick on a dead queue."""
+        decision = self.plan_stage(free_slots)
+        if decision is None:
+            self._purge_done()
+            return None
+        self.activate(decision)
+        return decision
 
     def commit_stage(self, decision: StageDecision) -> None:
         """After the engine ran the stage: advance chunk positions, promote

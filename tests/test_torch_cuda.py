@@ -733,3 +733,114 @@ def test_cuda_dense_chunk_step_writes_without_a_host_sync(card):
     for name in ("pos", "len"):
         assert torch.equal(gpu_cache[name].cpu(), cpu_cache[name])
     assert int(gpu_cache["pos"][0, 15]) == 18
+
+
+def _tiny_engine(card, **kw):
+    from repro_torch.configs import resolve_config
+    from repro_torch.models.params import init_model
+    from repro_torch.serving.engine import ServingEngine
+    cfg = resolve_config("tiny-moe")
+    params = init_model(cfg, seed=0, device=str(card))
+    kw = {"max_slots": 4, "max_len": 64, "kv_page_size": 8, "prefill_chunk_tokens": 8,
+          "use_duplex": False, **kw}
+    return cfg, ServingEngine(cfg, params, device=str(card), **kw)
+
+
+def _tiny_requests(vocab):
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(7)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, int(rng.integers(4, 20))).tolist(),
+                    max_new_tokens=5) for i in range(6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_cuda_async_dispatch_runs_without_a_host_sync(card, layout):
+    """Every ``dispatch_stage`` of ``run_async`` (chained and not, mixed
+    and decode-only) under torch's sync debug mode "error": staging,
+    uploads, the step, the gather of chained tokens and the outputs'
+    copies enqueue without waiting for the device. The async tokens are the
+    sync loop's on the card."""
+    out = {}
+    for loop in ("run", "run_async"):
+        cfg, eng = _tiny_engine(card, kv_layout=layout)
+        dispatch = eng.dispatch_stage
+
+        def strict(plan):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return dispatch(plan)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        eng.dispatch_stage = strict
+        reqs = _tiny_requests(cfg.vocab_size)
+        getattr(eng, loop)(reqs)
+        out[loop] = [r.output for r in reqs]
+        assert all(r.completed for r in reqs)
+    assert out["run_async"] == out["run"]
+    assert eng.stats()["chained_stages"] > 0
+    assert any(r.is_mixed for r in eng.reports) and not all(r.is_mixed for r in eng.reports)
+
+
+@pytest.mark.cuda
+def test_cuda_materialize_waits_for_its_stage_alone(card):
+    """``_materialize(N)`` returns while a 0.1 s sleep enqueued after stage
+    N still runs: it waits for N's own event, not the stream. Its outputs
+    are N's tokens."""
+    cfg, eng = _tiny_engine(card)
+    for r in _tiny_requests(cfg.vocab_size):
+        eng.submit(r)
+    for _ in range(3):
+        eng.step()
+    plan = eng.plan_stage()
+    fut = eng.dispatch_stage(plan)
+    torch.cuda._sleep(int(2e8))
+    mat = eng._materialize(fut)
+    assert not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert np.array_equal(mat["nxt"], fut.nxt.cpu().numpy())
+    eng._commit_critical(fut, mat)
+    eng._commit_deferred(fut, mat.get("counts"))
+
+
+@pytest.mark.cuda
+def test_cuda_materialize_wait_releases_the_gil(card):
+    """While ``_materialize`` waits on the card, another thread runs: the
+    event's wait releases the GIL (the threaded submit/cancel path of the
+    async loop depends on it)."""
+    import threading
+    from repro_torch.serving.engine import StageFuture
+    _, eng = _tiny_engine(card)
+    torch.cuda.synchronize()
+    ticks, stop = [0], threading.Event()
+
+    def count():
+        while not stop.is_set():
+            ticks[0] += 1
+    torch.cuda._sleep(int(4e8))
+    fut = StageFuture(plan=None, event=torch.cuda.Event())
+    fut.event.record()
+    t = threading.Thread(target=count)
+    t.start()
+    n0 = ticks[0]
+    eng._materialize(fut)
+    waited = ticks[0] - n0
+    stop.set()
+    t.join()
+    assert waited > 10_000, waited
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["pure", "nxt_only", "full"])
+def test_cuda_select_tokens_matches_the_cpu(card, mode):
+    from repro_torch.serving.engine import _select_tokens
+    rng = np.random.default_rng(3)
+    n = 16
+    args = [rng.integers(0, 1000, 8), rng.integers(0, 1000, 4),
+            rng.integers(0 if mode == "pure" else -1, 8, n),
+            np.where(rng.random(n) < 0.3, rng.integers(0, 4, n), -1) if mode == "full"
+            else np.full(n, -1), rng.integers(0, 1000, n)]
+    cpu = [torch.from_numpy(a.astype(np.int32)) for a in args]
+    want = _select_tokens(*cpu, mode)
+    got = _select_tokens(*(t.to(card) for t in cpu), mode)
+    assert torch.equal(got.cpu(), want)
