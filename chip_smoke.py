@@ -15,7 +15,9 @@ Phases, each printing a line:
   3. each hand-written kernel against its plain PyTorch version on the card
      at OLMoE-1B-7B shapes (plus a GQA shape for the attention kernels,
      path a's decode lengths for the paged decode, and one of path a's
-     chunk stages for the chunked prefill, whose bf16 cases must run its
+     chunk stages and a stage of path i's verify spans (16 rows of 8, spans
+     of 2-5 positions at path a's lengths) for the chunked prefill, whose
+     bf16 cases must run its
      tensor-core route, as the hot GEMMs' and the cold GEMVs' must; the
      int8 paged decode and chunk also at path b's decode lengths and chunk
      stage, the decode on its split route held against that route's plain
@@ -109,8 +111,28 @@ Phases, each printing a line:
           and deferred commit, and how many requests emit path a's tokens
           (each other one with its first departing position and the top-2
           logit gap there); then a short profile in each loop (its launch
-          counts stay out of the ``kernels`` line). Then, with the OLMoE
-          model freed,
+          counts stay out of the ``kernels`` line);
+       i. speculative decoding: path a's engine with ``spec_k=4``,
+          ``spec_ngram=3`` and the per-stage audit on 16 requests (path a's
+          first 8 prompts and 8 that repeat a seeded 8-token pattern to
+          128-512 tokens, 32 new tokens each), three runs: spec_k 0 through
+          ``run``, spec_k 4 through ``run`` and through ``run_async``, every
+          ``dispatch_stage`` under sync debug "error"; each checks 16/16
+          completed with 32 tokens, a drained pool with an empty audit, its
+          ``on_token`` stream equal to its outputs and kernels 1-4 on their
+          tensor-core routes, the spec runs drafts proposed, the async run
+          plans missed for drafts or rewinds; each prints its stages with and
+          without a verify span, drafts proposed and accepted, rewinds,
+          acceptance, wall, tokens/s, TBT, TTFT, the mean chunk rows and slab
+          tokens a stage and its host split, the spec runs how many requests
+          emit run 1's tokens, each other one with its first departing
+          position and the top-2 logit gap there, which must be at most
+          ``SPEC_GAP_BAND``; then one stage of run 2 with verify spans (and a
+          prefill chunk) through the kernels against the plain path on the
+          kernel path's expert choices, the logits of every live verify
+          position included, the float32 LM head's time over a spec stage's
+          slab, and a short profile (its launch counts stay out of the
+          ``kernels`` line). Then, with the OLMoE model freed,
        c. Jamba-v0.1 (Mamba-2 + GQA attention + MoE) at full width, depth
           cut to 16 of its 32 layers (two of four periods; the whole model,
           ~103 GB in bf16, does not fit one 80 GB card), the same 16
@@ -149,6 +171,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -265,6 +288,9 @@ PATH_A_LENS = tuple(round(144 + i * 400 / 15) for i in range(16))
 PATH_C_LENS = tuple(round(128 + i * 416 / 15) for i in range(16))
 # path f's: path a's lengths over its 8 dense slots
 PATH_F_LENS = tuple(round(144 + i * 400 / 7) for i in range(8))
+# path i's verify spans: 2-5 positions (the last token and 1-4 drafts) at
+# path a's decode lengths, in rows of 8 (the bucket of a stage of spans alone)
+PATH_I_SPANS = tuple(2 + i % 4 for i in range(16))
 
 
 def check_decode(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0, int8=False,
@@ -340,15 +366,15 @@ def check_decode(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0, int8=Fals
 
 
 def check_chunk(torch, gen, dtype, *, KV, qpk, int8=False, starts=(0, 64, 448, 0),
-                clens=(64, 64, 30, 0)):
-    """Chunked prefill; by default four sequences with a short chunk and a
-    padded row (totals == 0). The float kernel's bf16 case must run the
+                clens=(64, 64, 30, 0), Sc=64):
+    """Chunked prefill; by default four sequences of ``Sc`` 64 with a short
+    chunk and a padded row (totals == 0). The float kernel's bf16 case must run the
     tensor-core route (``chunk_attn_sm90.cu``), float32 the scalar one; the
     int8 kernel must run its tensor-core route (``chunk_int8_sm90.cu``) in
     both."""
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attn as da
-    hd, page, maxp, Sc = 128, 16, 64, 64
+    hd, page, maxp = 128, 16, 64
     totals = [s + c for s, c in zip(starts, clens)]
     B = len(starts)
     P = 1 + B * maxp
@@ -679,14 +705,17 @@ KERNELS = [
       ("path a B=16 lengths 144-544", check_decode,
        dict(KV=16, qpk=1, lens=PATH_A_LENS, seed=1))]),
     # bf16 runs chunk_attn_sm90.cu, float32 decode_attn.cu; the third case is
-    # one of path a's stages: one 64-token chunk after a 448-token prefix
+    # one of path a's stages: one 64-token chunk after a 448-token prefix; the
+    # fourth a stage of path i's verify spans
     ("chunked_prefill_attention",
      "src/repro/kernels/decode_attn.py:503",
      "src/repro_torch/kernels/csrc/chunk_attn_sm90.cu",
      [("olmoe qpk=1 Sc=64", check_chunk, dict(KV=16, qpk=1)),
       ("gqa qpk=4 Sc=64", check_chunk, dict(KV=4, qpk=4)),
       ("path a B=1 start=448 Sc=64", check_chunk,
-       dict(KV=16, qpk=1, starts=(448,), clens=(64,)))]),
+       dict(KV=16, qpk=1, starts=(448,), clens=(64,))),
+      ("path i verify spans B=16 Sc=8 spans 2-5 starts 144-544", check_chunk,
+       dict(KV=16, qpk=1, starts=PATH_A_LENS, clens=PATH_I_SPANS, Sc=8))]),
     # bf16 runs moe_gemm_sm90.cu, float32 moe_gemm.cu
     ("ragged_moe_gemm",
      "src/repro/kernels/moe_gemm.py:141",
@@ -909,6 +938,7 @@ def serve_phase(torch):
     dense_phase(torch, cfg, params)
     overload_phase(torch, cfg, params, e_tokens)
     async_phase(torch, cfg, params, a_tokens)
+    spec_phase(torch, cfg, params)
     return launches
 
 
@@ -1399,6 +1429,18 @@ def async_run(torch, cfg, params, loop):
     wall = time.perf_counter() - t0
     counts = dict(build.launch_counts)
     label = f"{ASYNC_LABEL}, {loop}"
+    check_path_a_launches(label, counts)
+    if not all(r.completed and len(r.output) == 32 for r in reqs) or not drained(eng):
+        raise AssertionError(f"[{label}] not every request completed with 32 tokens, or the "
+                             f"pool did not drain cleanly")
+    want = H_EXPECT if loop == "async" else dict(H_EXPECT, chained_stages=0, spec_hits=0)
+    check_overload_gates(label, async_counters(eng), want)
+    return reqs, eng, wall, split.seconds
+
+
+def check_path_a_launches(label, counts):
+    """A run on path a's engine launched kernels 1-4, every chunk call on
+    the tensor-core route, every hot GEMM and cold GEMV on theirs."""
     log(f"serve [{label}]: kernel launches "
         f"{json.dumps({k: counts[k] for k in PATHS[0][2]})}")
     missing = [k for k in PATHS[0][2] if counts[k] == 0]
@@ -1407,12 +1449,6 @@ def async_run(torch, cfg, params, loop):
     if counts["chunked_prefill_attention_sm90"] != counts["chunked_prefill_attention"]:
         raise AssertionError(f"[{label}] chunked prefill left the tensor-core route")
     check_expert_routes(label, counts)
-    if not all(r.completed and len(r.output) == 32 for r in reqs) or not drained(eng):
-        raise AssertionError(f"[{label}] not every request completed with 32 tokens, or the "
-                             f"pool did not drain cleanly")
-    want = H_EXPECT if loop == "async" else dict(H_EXPECT, chained_stages=0, spec_hits=0)
-    check_overload_gates(label, async_counters(eng), want)
-    return reqs, eng, wall, split.seconds
 
 
 def top2_gap(torch, cfg, params, tokens):
@@ -1481,6 +1517,264 @@ def async_phase(torch, cfg, params, a_tokens):
     for loop in ("sync", "async"):
         profile_stages(torch, cfg, params, f"{ASYNC_LABEL}, {loop}", ASYNC_KW,
                        loop="run_async" if loop == "async" else "run")
+
+
+# path i: speculative decoding on path a's engine. rids 0-7 are path a's
+# first 8 prompts; rids 8-15 repeat a seeded 8-token pattern to a seeded
+# 128-512 tokens, traffic whose output repeats its context (code edits,
+# templated or summarising prompts)
+SPEC_LABEL = "speculative decoding: path a's engine"
+SPEC_KW = dict(ASYNC_KW, spec_k=4, spec_ngram=3, audit_stages=True)
+SPEC_RUNS = ((0, "sync"), (4, "sync"), (4, "async"))   # (spec_k, loop); run 1 the baseline
+# the top-2 logit gap (from a one-sequence prefill) up to which a departure
+# from run 1's tokens counts as a bf16 near-tie; one above it fails the run
+# (PERF.md, path i's predictions)
+SPEC_GAP_BAND = 1.0
+
+
+def spec_requests(cfg):
+    """Path i's 16 requests, 32 new tokens each."""
+    import numpy as np
+    from repro_torch.serving.request import Request
+    reqs = path_a_requests(cfg)[:8]
+    rng = np.random.default_rng(26)
+    for rid in range(8, 16):
+        pattern = rng.integers(0, cfg.vocab_size, 8).tolist()
+        n = int(rng.integers(128, 513))
+        reqs.append(Request(rid=rid, prompt=(pattern * (n // 8 + 1))[:n], max_new_tokens=32))
+    return reqs
+
+
+def spec_gates(eng, reqs, loop, streamed):
+    """Path i's gates on one run's host state (the launches aside): every
+    request completed with exactly 32 tokens, the pool drained with an
+    empty audit after every stage, the ``on_token`` stream equal to the
+    outputs, and with speculation drafts proposed and, in the async loop,
+    plans missed for a verify span or fresh drafts. Returns the failures."""
+    st = eng.stats()
+    fails = []
+    if not all(r.completed and len(r.output) == 32 for r in reqs):
+        fails.append("not every request completed with exactly 32 tokens")
+    if not drained(eng) or st["audit_violations"]:
+        fails.append(f"the pool did not drain cleanly (audit {eng.audit_log[:3]})")
+    if streamed != {r.rid: r.output for r in reqs}:
+        fails.append("the on_token stream differs from the outputs")
+    if eng.spec_k and st["spec_proposed"] == 0:
+        fails.append("no draft was proposed")
+    misses = st["spec_miss_reasons"]
+    if eng.spec_k and loop == "async" and misses.get("draft", 0) + misses.get("rewind", 0) == 0:
+        fails.append(f"no plan missed for drafts or rewinds ({misses})")
+    return fails
+
+
+def spec_run(torch, cfg, params, spec_k, loop, capture=None):
+    """One of path i's runs: its engine with ``spec_k`` through ``run``
+    ("sync") or ``run_async`` ("async"), every launch count set to 0 just
+    before and read just after, every ``dispatch_stage`` under torch's sync
+    debug mode "error" (``HostSplit``), the ``on_token`` stream and each
+    stage's chunk buckets recorded; with ``capture`` (a dict) the first
+    stage with a verify span and a prefill chunk, else the first with a
+    verify span, is kept for ``check_spec_against_plain``. Raises if a gate
+    fails; returns (requests, engine, wall seconds, host split, [(chunk
+    rows, chunk length) a stage])."""
+    from repro_torch.kernels import build
+    from repro_torch.serving import engine as engine_mod
+    reqs = spec_requests(cfg)
+    streamed = {}
+    eng = engine_mod.ServingEngine(
+        cfg, params, device="cuda", **dict(SPEC_KW, spec_k=spec_k),
+        on_token=lambda rid, tok: streamed.setdefault(rid, []).append(tok))
+    split = HostSplit(torch, eng)
+    buckets = []
+    chunk_inputs = eng._chunk_inputs
+    eng._chunk_inputs = lambda d: buckets.append(chunk_inputs(d)) or buckets[-1]
+    label = f"{SPEC_LABEL}, spec_k={spec_k} {loop}"
+    build.reset_launch_counts()
+    with spec_capture(torch, eng, engine_mod, capture):
+        t0 = time.perf_counter()
+        for r in reqs:
+            r.arrival_time = time.monotonic()
+        (eng.run_async if loop == "async" else eng.run)(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = dict(build.launch_counts)
+    check_path_a_launches(label, counts)
+    fails = spec_gates(eng, reqs, loop, streamed)
+    if fails:
+        raise AssertionError(f"[{label}] {'; '.join(fails)}")
+    return reqs, eng, wall, split.seconds, buckets
+
+
+@contextlib.contextmanager
+def spec_capture(torch, eng, engine_mod, capture):
+    """With ``capture`` a dict, the engine's mixed steps pass through a
+    recorder that keeps a copy of a spec stage's inputs, its pool and plan,
+    with the rows that are verify spans: the first, replaced by any later
+    one that has a prefill chunk where the kept one has none, or as many
+    prefill chunks and more verify spans."""
+    if capture is None:
+        yield
+        return
+    from repro_torch.models.params import tree_map
+    step, dispatch = engine_mod.mixed_step, eng._dispatch_mixed
+    current = {}
+
+    def dispatch_mixed(fut):
+        current["decision"] = fut.plan.decision
+        return dispatch(fut)
+
+    def recording(params, cfg, dec, ctok, cache, *, attn_ctx, chunk_ctx, plan,
+                  spec_tokens=False):
+        chunks = current["decision"].chunks
+        prefill = any(c.draft is None for c in chunks)
+        verify = [i for i, c in enumerate(chunks) if c.draft is not None]
+        if spec_tokens and (prefill, len(verify)) > (capture.get("prefill", False),
+                                                     len(capture.get("verify", ()))):
+            clone = lambda d: {k: v.clone() for k, v in d.items()}
+            capture.clear()
+            capture.update(dec=dec.clone(), ctok=ctok.clone(),
+                           cache=tree_map(cache, lambda t: t.clone()),
+                           attn_ctx=clone(attn_ctx), chunk_ctx=clone(chunk_ctx), plan=plan,
+                           verify=verify, prefill=prefill)
+        return step(params, cfg, dec, ctok, cache, attn_ctx=attn_ctx, chunk_ctx=chunk_ctx,
+                    plan=plan, spec_tokens=spec_tokens)
+
+    engine_mod.mixed_step, eng._dispatch_mixed = recording, dispatch_mixed
+    try:
+        yield
+    finally:
+        engine_mod.mixed_step = step
+        del eng._dispatch_mixed
+
+
+def spec_phase(torch, cfg, params):
+    """Path i: path a's engine with speculation (``SPEC_KW``) on
+    ``spec_requests``, three runs in one call (``SPEC_RUNS``): spec_k 0
+    through ``run``, then spec_k 4 through ``run`` and ``run_async``. Each
+    gated by ``spec_run``; each prints its stages (with and without a verify
+    span), drafts proposed and accepted, rewinds, acceptance, wall, tokens/s,
+    median TBT and TTFT, the mean chunk rows and slab tokens a stage and
+    its host split, and the spec runs how many requests emit run 1's tokens,
+    each other one with its first departing position and the top-2 logit
+    gap there (at most ``SPEC_GAP_BAND``). Then one verify stage of run 2
+    against the plain path, the float32 LM head's time over a spec stage's
+    slab, and a short profiled run."""
+    import numpy as np
+    base, capture = None, {}
+    for spec_k, loop in SPEC_RUNS:
+        reqs, eng, wall, split, buckets = spec_run(
+            torch, cfg, params, spec_k, loop, capture if (spec_k, loop) == (4, "sync") else None)
+        st = eng.stats()
+        n = len(eng.reports)
+        gen = sum(len(r.output) for r in reqs)
+        tbt = [t for r in reqs for t in r.tbts()]
+        verify = sum(r.spec_proposed > 0 for r in eng.reports)
+        line = (f"serve [{SPEC_LABEL}, spec_k={spec_k} {loop}]: 16/16 completed in "
+                f"{wall:.3f}s; generated tokens/s={gen / wall:.1f}; median TBT="
+                f"{np.median(tbt) * 1e3:.1f}ms (0 where a stage commits several tokens of a "
+                f"request: they share its clock), mean {np.mean(tbt) * 1e3:.1f}ms, median TTFT="
+                f"{np.median([r.t2ft() for r in reqs]) * 1e3:.0f}ms; stages={n} ({verify} with "
+                f"a verify span, {n - verify} without; {sum(r.is_mixed for r in eng.reports)} "
+                f"mixed); proposed {st['spec_proposed']}, accepted {st['spec_accepted']}, "
+                f"rewinds {st['spec_rewinds']}, acceptance {st['spec_acceptance']:.3f}; mean "
+                f"chunk rows a stage {np.mean([r.num_prefill for r in eng.reports]):.2f}, slab "
+                f"tokens a stage {sum(b * s for b, s in buckets) / n:.1f}; spec misses "
+                f"{json.dumps(st['spec_miss_reasons'])}, chained {st['chained_stages']}; host "
+                f"ms a stage: " + ", ".join(f"{k} {v / n * 1e3:.2f}" for k, v in split.items()))
+        if base is None:
+            base = {r.rid: list(r.output) for r in reqs}
+            log(line)
+            del eng
+            continue
+        same = [r.rid for r in reqs if r.output == base[r.rid]]
+        depart, wide = {}, []
+        for r in reqs:
+            if r.rid in same:
+                continue
+            i = next(i for i, (x, y) in enumerate(zip(r.output, base[r.rid])) if x != y)
+            gap = top2_gap(torch, cfg, params, r.prompt + r.output[:i])
+            depart[r.rid] = f"{i} (gap {gap:.4f}; {base[r.rid][i]} / {r.output[i]})"
+            if gap > SPEC_GAP_BAND:
+                wide.append(r.rid)
+        log(line + f"; {len(same)}/16 requests emit run 1's tokens"
+            + (f", the others depart at {depart} (rid: position (the top-2 logit gap there "
+               f"from a one-sequence prefill; run 1's token / this run's))" if depart else ""))
+        if wide:
+            raise AssertionError(f"[{SPEC_LABEL}] requests {wide} depart from run 1's tokens "
+                                 f"at a top-2 gap above {SPEC_GAP_BAND}")
+        del eng
+    check_spec_against_plain(torch, cfg, params, capture)
+    del capture
+    spec_head_time(torch, cfg, params)
+    profile_stages(torch, cfg, params, SPEC_LABEL, SPEC_KW,
+                   reqs=[dataclasses.replace(r, max_new_tokens=8)
+                         for r in spec_requests(cfg)[6:10]])
+
+
+def check_spec_against_plain(torch, cfg, params, cap):
+    """The stage ``spec_run`` kept (a verify span, and a prefill chunk if
+    one came) through the kernels and through the plain path, each on its
+    own copy of the pool, the plain path on the kernel path's expert
+    choices (``recorded_routes``): the logits of the decode rows, of each
+    chunk row's last position and of every live verify position (the whole
+    slab's LM head, recorded) to ``compare_logits``, whose argmax rule
+    holds ``chunk_argmax`` there."""
+    import repro_torch.models.model as model_mod
+    from repro_torch.models.params import tree_map
+    if not cap:
+        raise AssertionError(f"[{SPEC_LABEL}] no stage carried a verify span")
+    head = model_mod._lm_head
+    out, routes = {}, None
+    for use_kernels in (True, False):
+        plan = cap["plan"] if use_kernels else dataclasses.replace(
+            cap["plan"], moe_ragged=False, use_kernels=False)
+        slabs = []
+        model_mod._lm_head = lambda p, c, x: slabs.append(head(p, c, x)) or slabs[-1]
+        try:
+            cache = tree_map(cap["cache"], lambda t: t.clone())
+            with torch.no_grad(), recorded_routes(torch, routes) as calls:
+                dl, cl, _, _, am = model_mod.mixed_step(
+                    params, cfg, cap["dec"], cap["ctok"], cache, attn_ctx=cap["attn_ctx"],
+                    chunk_ctx=cap["chunk_ctx"], plan=plan, spec_tokens=True)
+        finally:
+            model_mod._lm_head = head
+        del cache
+        routes = routes or calls
+        clens = cap["chunk_ctx"]["chunk_lens"].tolist()
+        rows = [slabs[2][i, :clens[i]] for i in cap["verify"]]
+        if not torch.equal(torch.cat([am[i, :clens[i]] for i in cap["verify"]]),
+                           torch.cat(rows).argmax(-1).to(am.dtype)):
+            raise AssertionError(f"[{SPEC_LABEL}] chunk_argmax is not the slab's argmax")
+        live_d = cap["attn_ctx"]["valid"]
+        live_c = cap["chunk_ctx"]["chunk_lens"] > 0
+        out[use_kernels] = torch.cat([dl[live_d, 0], cl[live_c, 0]] + rows).float()
+    n_pos = sum(cap["chunk_ctx"]["chunk_lens"][i].item() for i in cap["verify"])
+    compare_logits(torch, SPEC_LABEL, f"one stage of {len(cap['verify'])} verify spans "
+                   f"({n_pos} positions) {'and a prefill chunk ' if cap['prefill'] else ''}"
+                   f"with {int(cap['attn_ctx']['valid'].sum())} decode rows, the kernel "
+                   f"path's expert choice", out[True], out[False])
+
+
+def spec_head_time(torch, cfg, params):
+    """The float32 LM head a spec stage runs over its whole chunk slab (20
+    rows of 64: 4 prefill chunks and 16 verify spans), against the head a
+    stage without verify spans runs (each chunk row's last position and
+    16 decode rows), timed by events; its bound by float32 operations."""
+    from repro_torch.models.model import _lm_head
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    p32 = dict(params, lm_head_f32=head["table"].float())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    for what, shape in (("spec stage slab 20 x 64", (20, 64, cfg.d_model)),
+                        ("plain stage, 4 chunk rows + 16 decode rows", (20, 1, cfg.d_model))):
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        ms = time_ms(lambda: _lm_head(p32, cfg, x))
+        flops = 2 * shape[0] * shape[1] * cfg.d_model * cfg.vocab_size
+        bms, by = bound_ms(cfg.vocab_size * cfg.d_model * 4 + x.numel() * 4
+                           + shape[0] * shape[1] * cfg.vocab_size * 4, flops, "float32")
+        log(f"serve [{SPEC_LABEL}]: float32 LM head over the {what}: {ms:.3f} ms "
+            f"(bound {bms:.3f} ms by {by}, {flops / ms / 1e9:.1f} TFLOP/s)")
+    del p32
 
 
 def check_expert_routes(label, counts):
@@ -1716,20 +2010,23 @@ def check_decode_against_plain(torch, cfg, params, label):
                        f"the kernel path's expert choice)", a, b)
 
 
-def profile_stages(torch, cfg, params, label, engine_kw, top: int = 12, loop: str = "run"):
-    """A short profiled run (4 requests, 8 new tokens each, through the
-    engine's ``loop``) in torch.profiler, device activity only (each kernel
-    counted once, no host-op events): device time by kernel and the
-    device's busy share of the run's host wall time (tracing overhead can
-    only inflate the wall time, so the busy share is a lower bound)."""
+def profile_stages(torch, cfg, params, label, engine_kw, top: int = 12, loop: str = "run",
+                   reqs=None):
+    """A short profiled run (by default 4 requests, 8 new tokens each,
+    through the engine's ``loop``) in torch.profiler, device activity only
+    (each kernel counted once, no host-op events): device time by kernel
+    and the device's busy share of the run's host wall time (tracing
+    overhead can only inflate the wall time, so the busy share is a lower
+    bound)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.request import Request
-    rng = np.random.default_rng(1)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                               int(rng.integers(128, 257))).tolist(),
-                    max_new_tokens=8) for i in range(4)]
+    if reqs is None:
+        rng = np.random.default_rng(1)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                   int(rng.integers(128, 257))).tolist(),
+                        max_new_tokens=8) for i in range(4)]
     eng = ServingEngine(cfg, params, device="cuda", **engine_kw)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -167,7 +167,8 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, attn_ctx, *,
 
 
 def mixed_step(params, cfg: ModelConfig, dec_tokens, chunk_tokens, cache, *,
-               attn_ctx, chunk_ctx, plan: ExecutionPlan = DEFAULT_PLAN):
+               attn_ctx, chunk_ctx, plan: ExecutionPlan = DEFAULT_PLAN,
+               spec_tokens: bool = False):
     """One unified mixed stage: decode rows (Bd,1) and prefill-chunk rows
     (Bc,Sc) through the stack as one token stream. Paged: ``attn_ctx`` as in
     ``decode_step`` and ``chunk_ctx`` = {"starts", "chunk_lens",
@@ -175,7 +176,13 @@ def mixed_step(params, cfg: ModelConfig, dec_tokens, chunk_tokens, cache, *,
     = {"valid"}) and ``chunk_ctx`` = {"starts", "chunk_lens", "slots"}, the
     chunk rows' cache rows; where they write is worked out here once for
     every layer. Returns (dec_logits (Bd,1,V), chunk_logits (Bc,1,V) at each
-    chunk's last live position, cache, moe counts (E,) float32 or None)."""
+    chunk's last live position, cache, moe counts (E,) float32 or None).
+
+    ``spec_tokens`` (a stage carrying speculative verify spans) adds a fifth
+    output, ``chunk_argmax`` (Bc, Sc) int32: the argmax of the float32 LM
+    head at every chunk position, the verifier's prediction for the next
+    position. ``torch.argmax`` takes the first maximum, as the sampler does,
+    so acceptance breaks ties as unspeculated decode would."""
     if "slots" in chunk_ctx:
         kv = next(blk for seg, seg_cache in zip(cfg.segments, cache)
                   for kind, blk in zip(seg.pattern, seg_cache["blocks"])
@@ -196,4 +203,7 @@ def mixed_step(params, cfg: ModelConfig, dec_tokens, chunk_tokens, cache, *,
     last = torch.clamp(chunk_ctx["chunk_lens"].long() - 1, min=0)
     xc_last = xc[torch.arange(Bc, device=xc.device), last][:, None, :]
     chunk_logits = _lm_head(params, cfg, xc_last)
+    if spec_tokens:
+        chunk_argmax = torch.argmax(_lm_head(params, cfg, xc), dim=-1).to(torch.int32)
+        return dec_logits, chunk_logits, cache, counts, chunk_argmax
     return dec_logits, chunk_logits, cache, counts

@@ -1,7 +1,7 @@
 """Continuous-batching serving engine with the duplex MoE (port of
-``repro/serving/engine.py`` without speculative decoding), on the paged or
-the dense KV layout, with prefix sharing, preemption, overload handling and
-the async loop.
+``repro/serving/engine.py``), on the paged or the dense KV layout, with
+prefix sharing, preemption, overload handling, the async loop and
+speculative decoding.
 
 Each stage is one token stream: the scheduler picks decode rows and prefill
 spans; the engine stages the inputs into bucketed shapes (powers of two,
@@ -15,7 +15,14 @@ the live counts and the cold / hot paths run the GEMV / ragged GEMM kernels
 Full self-attention stacks run chunked (or, with
 ``prefill_chunk_tokens=None``, whole-prompt) spans and decode rows through
 ``mixed_step`` together, or ``decode_step`` when there is no span, on
-either layout (``kv_layout`` None takes "paged"):
+either layout (``kv_layout`` None takes "paged"). With ``spec_k`` an n-gram
+drafter proposes up to ``spec_k`` tokens for each decode row it can match;
+a drafted row rides the mixed stage as a verify span (its last token and
+the draft, a chunk row), the step returns the argmax at every chunk
+position, and the commit keeps the longest agreeing prefix plus the
+verifier's own next token, then rewinds the rejected tail's KV (paged:
+block-table surgery; dense: the device-side lengths, from staged indices).
+The layouts:
 
 * paged: block tables grow on the host; the decode rows are the stage's
   rows. With ``kv_quant`` the page pools hold int8 K/V with float32 scales
@@ -69,7 +76,13 @@ post-commit state and, when N+1's decode tokens are rows of N's sampled
 tokens, enqueues it before N is read, its tokens gathered on the device
 (``_select_tokens``); N's accounting runs after N+1's dispatch. A commit
 that contradicts the projection, or any submit, cancel, eviction or expiry
-(the mutation epoch), sends the plan back to be formed from real state.
+(the mutation epoch), sends the plan back to be formed from real state. A
+stage carrying verify spans is never projected past (its acceptance is
+unknown until read: "rewind"), with the drafter on a projected stage with
+decode rows is formed after the commit instead (its drafts must read the
+committed tokens: "draft"), and no chain crosses a verify span. An
+``on_token(rid, token)`` callback sees every committed token, fired from
+the deferred commit, off the critical section.
 
 The device boundary: inputs are staged in two alternating sets of host
 buffers (pinned on the card, uploaded without blocking), and each stage's
@@ -85,7 +98,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,10 +111,11 @@ from repro_torch.core.partition import DuplexPlanner, build_luts
 from repro_torch.models.model import decode_step, init_cache, mixed_step, prefill
 from repro_torch.models.params import DTYPES, tree_map
 from repro_torch.serving import preemption as pre
+from repro_torch.serving.drafter import NgramDrafter
 from repro_torch.serving.faults import FaultInjector, InjectedFault, InjectedStepError
 from repro_torch.serving.kvmanager import KVManager, kv_token_bytes
 from repro_torch.serving.request import Request, RequestState
-from repro_torch.serving.sampling import sample
+from repro_torch.serving.sampling import SamplingParams, sample
 from repro_torch.serving.scheduler import (AdmissionRejected,
                                            ContinuousBatchingScheduler,
                                            StageDecision)
@@ -178,6 +192,11 @@ class StageReport:
     cancelled: int = 0
     retries: int = 0
     audit_violations: int = 0
+    # speculative decoding: draft tokens the stage's verify spans carried and
+    # those the verifier agreed with (the verifier's own token each row
+    # commits on top is not counted)
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
 
 @dataclass
@@ -230,6 +249,7 @@ class StageFuture:
     plan: StagePlan
     nxt: Any = None               # decode next tokens (device)
     cn: Any = None                # chunk next tokens (device)
+    cn_all: Any = None            # argmax at every chunk position (verify spans)
     counts: Any = None            # summed per-expert router counts (device)
     legacy_nxt: Any = None        # legacy prefill next tokens (device)
     legacy_cache: Any = None      # legacy prefill's local cache, scattered at commit
@@ -242,6 +262,12 @@ class StageFuture:
     # ``event`` has passed)
     host: Dict[str, Any] = field(default_factory=dict)
     event: Any = None
+    # the stage's draft and accept counts, frozen at commit for its report
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    # (rid, token) committed this stage in commit order, for ``on_token``
+    # (filled only when a callback is set)
+    emitted: List[Tuple[int, int]] = field(default_factory=list)
 
 
 class EngineStalledError(RuntimeError):
@@ -262,8 +288,12 @@ class ServingEngine:
                  prefix_share: bool = False, queue_cap: Optional[int] = None,
                  overload_policy: str = "reject", aging_rounds: Optional[int] = None,
                  injector: Optional[FaultInjector] = None,
-                 audit_stages: Optional[bool] = None, device="cuda"):
-        """Greedy sampling only. ``kv_layout`` None takes "paged" for a full
+                 audit_stages: Optional[bool] = None,
+                 sampling: SamplingParams = SamplingParams(), spec_k: int = 0,
+                 spec_ngram: int = 3,
+                 on_token: Optional[Callable[[int, int], None]] = None, device="cuda"):
+        """Greedy sampling only (``sampling`` at temperature > 0 raises at
+        the first sample). ``kv_layout`` None takes "paged" for a full
         self-attention stack and "dense" for the others. Paged: the page
         pool holds ``kv_num_pages`` pages (default every slot at max_len,
         plus the null page); ``kv_quant`` keeps the pages in int8 with
@@ -282,7 +312,10 @@ class ServingEngine:
         a queued request one band per that many stages. ``injector`` (a
         ``FaultInjector``) injects faults into the KV manager and the stage
         loop; ``audit_stages`` audits the KV manager after every stage, by
-        default exactly when an injector is given."""
+        default exactly when an injector is given. ``spec_k`` > 0 turns on
+        speculative decoding with an n-gram drafter over ``spec_ngram``-token
+        tails (greedy sampling and a full self-attention stack only);
+        ``on_token(rid, token)`` is called for every committed token."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServingEngine(device='cuda') but no CUDA device "
@@ -308,6 +341,15 @@ class ServingEngine:
             raise NotImplementedError(
                 "chunked prefill needs a full self-attention decoder stack "
                 "(mamba/windowed/cross mixers still prefill monolithically)")
+        if spec_k > 0 and sampling.temperature > 0.0:
+            raise ValueError(
+                "speculative decoding requires greedy sampling (temperature == 0): "
+                "acceptance compares the verifier's argmax against the draft; sampled "
+                "decoding would need rejection sampling to keep the output distribution")
+        if spec_k > 0 and not self._unified:
+            raise NotImplementedError(
+                "speculative decoding rides the unified mixed-stage chunk path "
+                "(full self-attention decoder stacks only)")
         if kv_layout is None:
             kv_layout = "paged" if self._unified else "dense"
         if not self._unified and kv_layout == "paged":
@@ -362,8 +404,12 @@ class ServingEngine:
         self.use_kernels = use_kernels
         self.moe_ragged = bool(moe_ragged and use_kernels and self.use_duplex)
         self.moe_c_block = moe_c_block
-        self.seq_buckets = tuple(sorted({1, 2, MAX_PREFILL_SEQS}
-                                        | set(_pow2_buckets(MAX_PREFILL_SEQS))))
+        # chunk-row buckets: with speculation every decode row may also carry
+        # a verify span (the reference's buckets, which decide the MoE
+        # capacities and so the per-stage k_cold)
+        row_cap = MAX_PREFILL_SEQS + (max_slots if spec_k > 0 else 0)
+        self.seq_buckets = tuple(sorted({1, 2, MAX_PREFILL_SEQS, row_cap}
+                                        | set(_pow2_buckets(row_cap))))
         self.chunk_len_buckets = _pow2_buckets(
             min(prefill_chunk_tokens, max_len) if prefill_chunk_tokens else max_len)
         # legacy prefill lengths: max_len is always a bucket, so no prompt
@@ -422,6 +468,13 @@ class ServingEngine:
         # two sets of staging buffers, flipped once a dispatch (``_staging``)
         self._staging_bufs: List[Dict[str, Any]] = [{}, {}]
         self._staging_idx = 0
+        self.sampling = sampling
+        self.spec_k = int(spec_k)
+        self.drafter = NgramDrafter(k=self.spec_k, ngram=spec_ngram) if self.spec_k > 0 else None
+        self.spec_proposed = 0       # draft tokens sent to verification
+        self.spec_accepted = 0       # draft tokens the verifier agreed with
+        self.spec_rewinds = 0        # verify rows whose KV was rolled back
+        self.on_token = on_token
 
     # ------------------------------------------------------------- planning
     def _moe_caps(self, T: int, k_cold: int) -> Tuple[int, int, int]:
@@ -698,8 +751,9 @@ class ServingEngine:
         """Copy the stage's outputs to the host without blocking: on the card
         into pinned tensors of the current staging set, behind one event
         (``_materialize`` waits for it alone); on the CPU they are there."""
-        outs = {k: v for k, v in (("nxt", fut.nxt), ("cn", fut.cn), ("counts", fut.counts),
-                                  ("legacy_nxt", fut.legacy_nxt)) if v is not None}
+        outs = {k: v for k, v in (("nxt", fut.nxt), ("cn", fut.cn), ("cn_all", fut.cn_all),
+                                  ("counts", fut.counts), ("legacy_nxt", fut.legacy_nxt))
+                if v is not None}
         if self.device.type == "cuda":
             for k, v in outs.items():
                 outs[k] = self._host_buf(f"o_{k}", v.shape, v.dtype)
@@ -813,7 +867,7 @@ class ServingEngine:
                     {"lengths": lens_t, "block_tables": self._upload("d_bt"),
                      "valid": lens_t > 0},
                     plan=self._moe_plan(k_cold, caps[0], caps[1]))
-                return sample(logits), counts
+                return sample(logits, self.sampling), counts
         else:
             self._dense_decode_inputs(decision, chain)
             fut.kv_bytes = self._dense_kv_bytes_per_stage
@@ -825,7 +879,7 @@ class ServingEngine:
                     self.params, self.cfg, tokens(), self.kv.cache,
                     {"valid": self._upload("d_valid")},
                     plan=self._moe_plan(k_cold, caps[0], caps[1]))
-                return sample(logits), counts
+                return sample(logits, self.sampling), counts
         fut.nxt, fut.counts = self._invoke(step)
 
     def _dispatch_legacy_prefill(self, fut: StageFuture) -> None:
@@ -847,13 +901,15 @@ class ServingEngine:
             cache = init_cache(self.cfg, n_b, self.kv.max_len, device=self.device)
             logits, cache = prefill(self.params, self.cfg, {"tokens": self._upload("lp_tokens")},
                                     cache, self._upload("lp_true_len"), plan=plan)
-            return sample(logits), cache
+            return sample(logits, self.sampling), cache
         fut.legacy_nxt, fut.legacy_cache = self._invoke(step)
 
     def _chunk_inputs(self, decision: StageDecision) -> Tuple[int, int]:
         """Claim the first chunks' slots (adopting a pinned shared prefix) and
-        stage the bucketed chunk rows ("m_ctokens", "m_starts", "m_clens").
-        Returns the (rows, length) buckets."""
+        stage the bucketed chunk rows ("m_ctokens", "m_starts", "m_clens"); a
+        verify span's row is its last sampled, not yet written token and then
+        its draft, written at [start, end) as a chunk's would be. Returns the
+        (rows, length) buckets."""
         chunks = decision.chunks
         for c in chunks:                       # the first chunk claims the slot
             if c.req.slot < 0:
@@ -870,7 +926,10 @@ class ServingEngine:
         starts = self._staging("m_starts", (nc_b,), np.int32)
         clens = self._staging("m_clens", (nc_b,), np.int32)
         for i, c in enumerate(chunks):
-            seq = c.req.token_stream(c.end)[c.start:]
+            if c.draft is not None:
+                seq = c.req.token_stream(c.start + 1)[c.start:] + list(c.draft)
+            else:
+                seq = c.req.token_stream(c.end)[c.start:]
             ctokens[i, :len(seq)] = seq
             starts[i] = c.start
             clens[i] = c.tokens
@@ -879,9 +938,10 @@ class ServingEngine:
     def _dispatch_mixed(self, fut: StageFuture) -> None:
         """A unified mixed stage: the first chunks claim their slots (undone
         by ``_abort_stage``), the tables grow, and one step runs the decode
-        rows and the chunk rows. Dense: the decode half over every slot,
-        the chunk rows at their slots, each chunk streaming its slot's
-        whole row besides the decode's every row."""
+        rows and the chunk rows (with verify spans, also the argmax at every
+        chunk position). Dense: the decode half over every slot, the chunk
+        rows at their slots, each chunk streaming its slot's whole row
+        besides the decode's every row."""
         decision, k_cold, chain = fut.plan.decision, fut.plan.k_cold, fut.plan.chain
         chunks = decision.chunks
         nc_b, sc_b = self._chunk_inputs(decision)
@@ -927,15 +987,17 @@ class ServingEngine:
                         {"slots": self._upload("m_cslots"), "starts": self._upload("m_starts"),
                          "chunk_lens": self._upload("m_clens")})
         tokens = self._decode_tokens(chain)
+        spec = any(c.draft is not None for c in chunks)
 
         def step():
             attn_ctx, chunk_ctx = ctx()
-            dl, cl, _, counts = mixed_step(
+            out = mixed_step(
                 self.params, self.cfg, tokens(), self._upload("m_ctokens"), self.kv.cache,
                 attn_ctx=attn_ctx, chunk_ctx=chunk_ctx,
-                plan=self._moe_plan(k_cold, caps[0], caps[1]))
-            return sample(dl), sample(cl), counts
-        fut.nxt, fut.cn, fut.counts = self._invoke(step)
+                plan=self._moe_plan(k_cold, caps[0], caps[1]), spec_tokens=spec)
+            return (sample(out[0], self.sampling), sample(out[1], self.sampling), out[3],
+                    out[4] if spec else None)
+        fut.nxt, fut.cn, fut.counts, fut.cn_all = self._invoke(step)
 
     def _row_live(self, r: Request) -> bool:
         """May an in-flight row's result be applied to ``r``? Not when it
@@ -946,16 +1008,22 @@ class ServingEngine:
         written is never read."""
         return not r.done and r.slot >= 0 and self._slot_req.get(r.slot) is r
 
-    def _commit_decode_rows(self, decoding: List[Request], nxt, tnow: float) -> None:
+    def _record(self, fut: StageFuture, r: Request, tok: int, tnow: float) -> None:
+        """Commit one token to ``r`` (and to the stage's ``on_token`` list)."""
+        r.record_token(tok, tnow)
+        if self.on_token is not None:
+            fut.emitted.append((r.rid, tok))
+
+    def _commit_decode_rows(self, fut: StageFuture, nxt, tnow: float) -> None:
         """The decode rows' sampled tokens. Paged: row i is decoding[i] and
         the lengths advance; dense: the rows are the slots."""
         adv = []
-        for i, r in enumerate(decoding):
+        for i, r in enumerate(fut.plan.decision.decoding):
             if not self._row_live(r):
                 continue
             tok = int(nxt[i if self.paged else r.slot])
             self._tokens[r.slot] = tok
-            r.record_token(tok, tnow)
+            self._record(fut, r, tok, tnow)
             adv.append(r.slot)
         if adv and self.paged:
             self.kv.lens[np.asarray(adv)] += 1
@@ -963,12 +1031,13 @@ class ServingEngine:
     def _commit_mixed(self, fut: StageFuture, mat: Dict[str, Any], tnow: float) -> None:
         """Decode rows as a decode stage's; paged chunks set their lengths
         to their ends and (with sharing) index their full pages; each final
-        chunk's sampled token is its request's first."""
+        chunk's sampled token is its request's first; then the verify
+        spans."""
         decision = fut.plan.decision
-        self._commit_decode_rows(decision.decoding, mat["nxt"], tnow)
+        self._commit_decode_rows(fut, mat["nxt"], tnow)
         if self.paged:
             for c in decision.chunks:
-                if not self._row_live(c.req):
+                if c.draft is not None or not self._row_live(c.req):
                     continue
                 self.kv.lens[c.req.slot] = c.end
                 if self.prefix_share:
@@ -978,7 +1047,65 @@ class ServingEngine:
             if c.is_last and self._row_live(c.req):
                 tok = int(cn[i])
                 self._tokens[c.req.slot] = tok
-                c.req.record_token(tok, tnow)
+                self._record(fut, c.req, tok, tnow)
+        if "cn_all" in mat:
+            self._commit_spec(fut, mat["cn_all"], tnow)
+
+    def _commit_spec(self, fut: StageFuture, cn_all, tnow: float) -> None:
+        """The stage's verify spans. Position j of a span's argmax row is the
+        greedy token after stream position start + j, what unspeculated
+        decode would sample there; the span commits its longest agreeing
+        draft prefix and the verifier's token at the first disagreement,
+        stopping at EOS or the length cap (the trailing accepts are
+        dropped). Its length is set to the span's end and rolled back to
+        the committed tokens: paged by ``rewind`` (a finished request
+        retires with its pages), dense by one ``rewind_dense`` a stage from
+        staged indices, which no host sync waits for."""
+        rw_slots: List[int] = []
+        rw_lens: List[int] = []
+        for i, c in enumerate(fut.plan.decision.chunks):
+            r = c.req
+            if c.draft is None or not self._row_live(r):
+                continue
+            row, draft = cn_all[i], c.draft
+            a = 0
+            while a < len(draft) and int(row[a]) == draft[a]:
+                a += 1
+            self.spec_proposed += len(draft)
+            self.spec_accepted += a
+            fut.spec_proposed += len(draft)
+            fut.spec_accepted += a
+            cand = list(draft[:a]) + [int(row[a])]
+            m = 0
+            for tok in cand:
+                self._record(fut, r, tok, tnow)
+                m += 1
+                if r.done:
+                    break
+            # the last committed token stays unwritten, as after plain decode
+            new_len = c.start + m
+            if self.paged:
+                self.kv.lens[r.slot] = c.end
+                if r.done:
+                    continue
+                if new_len < c.end:
+                    self.kv.rewind(r.slot, new_len)
+                    self.spec_rewinds += 1
+            else:
+                if r.done:
+                    continue
+                if new_len < c.end:
+                    rw_slots.append(r.slot)
+                    rw_lens.append(new_len)
+                    self.spec_rewinds += 1
+            self._tokens[r.slot] = cand[m - 1]
+        if rw_slots:
+            # staged in the committed stage's set (no stage chains on a verify
+            # span): the last upload from these buffers came before this
+            # stage's dispatch, whose event has passed
+            self._staging("rw_slots", (len(rw_slots),), np.int32)[:] = rw_slots
+            self._staging("rw_lens", (len(rw_lens),), np.int32)[:] = rw_lens
+            self.kv.rewind_dense(self._upload("rw_slots"), self._upload("rw_lens"))
 
     def _commit_legacy_prefill(self, fut: StageFuture, mat: Dict[str, Any],
                                tnow: float) -> None:
@@ -1000,7 +1127,7 @@ class ServingEngine:
             self._slot_req[s] = r
             tok = int(nxt[i])
             self._tokens[s] = tok
-            r.record_token(tok, tnow)
+            self._record(fut, r, tok, tnow)
 
     def _abort_stage(self, decision: StageDecision) -> None:
         """Unwind a stage an injected fault interrupted. Lengths, tokens and
@@ -1067,12 +1194,47 @@ class ServingEngine:
         return StagePlan(decision, self._k_cold(decision), t0, snap, tnow,
                          speculative=speculative, epoch=self._epoch)
 
+    def _build_drafts(self) -> Optional[Dict[int, Tuple[int, List[int]]]]:
+        """The drafter's proposals for the next stage: for each decoding
+        row, up to ``spec_k`` tokens from its own stream, capped so that a
+        verify span commits no more than ``max_new_tokens`` and fits
+        ``max_len``; paged, also by the page slack left after the admitted
+        work's next-stage growth (a draft never pushes ``ensure_len`` into
+        a pool preemption thinks is fine), trimming a draft until its pages
+        fit. Returns {rid: (start, draft)}, or None when nothing drafts."""
+        drafts: Dict[int, Tuple[int, List[int]]] = {}
+        slack = self.kv.free_pages - self._stage_page_need() if self.paged else 0
+        for r in self.scheduler.running:
+            if r.done or r.slot < 0 or r.state != RequestState.DECODE:
+                continue
+            start = int(self.kv.lens[r.slot]) if self.paged else r.l_in + len(r.output) - 1
+            k = min(self.drafter.k, r.max_new_tokens - len(r.output) - 1,
+                    self.kv.max_len - start - 1)
+            if k < 1:
+                continue
+            toks = self.drafter.draft(r.token_stream())[:k]
+            if not toks:
+                continue
+            if self.paged:
+                base = self.kv.page_need(r.slot, start + 1)
+                while toks:
+                    extra = self.kv.page_need(r.slot, start + len(toks) + 1) - base
+                    if extra <= slack:
+                        slack -= extra
+                        break
+                    toks = toks[:-1]
+                if not toks:
+                    continue
+            drafts[r.rid] = (start, toks)
+        return drafts or None
+
     def plan_stage(self, now: Optional[float] = None, *, maintain: bool = True,
                    snap: Optional[Tuple[int, int, int, int]] = None) -> Optional[StagePlan]:
         """Stage maintenance (``maintain=False`` when the caller already ran
         it this turn: a plan formed again must not draw the fault schedule
-        twice), the paged admission cap and the scheduler's stage, from
-        real state; host work only. None when no stage can be formed."""
+        twice), the paged admission cap, the drafts and the scheduler's
+        stage, from real state; host work only. None when no stage can be
+        formed."""
         t0 = time.monotonic()
         if snap is None:
             snap = (self.shed, self.expired, self.cancelled, self.retries)
@@ -1080,7 +1242,8 @@ class ServingEngine:
         free = self.kv.free_slots
         if self.paged:
             free = min(free, self._page_admission_cap())
-        decision = self.scheduler.next_stage(free)
+        drafts = self._build_drafts() if self.drafter is not None else None
+        decision = self.scheduler.next_stage(free, drafts=drafts)
         if decision is None:
             return None
         return self._finish_plan(decision, t0, snap, tnow)
@@ -1143,7 +1306,7 @@ class ServingEngine:
             self._commit_mixed(fut, mat, tnow)
         else:
             if decision.decoding:
-                self._commit_decode_rows(decision.decoding, mat["nxt"], tnow)
+                self._commit_decode_rows(fut, mat["nxt"], tnow)
             if decision.chunks:
                 self._commit_legacy_prefill(fut, mat, tnow)
         for r in decision.restored:
@@ -1159,10 +1322,15 @@ class ServingEngine:
                       self.cancelled - plan.snap[2], self.retries - plan.snap[3])
 
     def _commit_deferred(self, fut: StageFuture, counts) -> StageReport:
-        """The accounting: the router-count EMA, the modelled MoE traffic,
-        the StageReport and the post-stage audit."""
+        """The ``on_token`` callbacks, then the accounting: the router-count
+        EMA, the modelled MoE traffic, the StageReport and the post-stage
+        audit."""
         plan = fut.plan
         decision, k_cold = plan.decision, plan.k_cold
+        if self.on_token is not None and fut.emitted:
+            for rid, tok in fut.emitted:
+                self.on_token(rid, tok)
+            fut.emitted = []
         counts_layer = self._update_counts(counts)
         chunk_tokens = sum(c.tokens for c in decision.chunks)
         live = len(decision.decoding) + chunk_tokens
@@ -1191,7 +1359,8 @@ class ServingEngine:
             moe_flops_live=int(moe_live), moe_flops_padded=int(moe_padded),
             chunk_tokens=int(chunk_tokens), stage_tokens=int(live),
             shared_kv_pages=self.kv.shared_pages, shed=shed, expired=expired,
-            cancelled=cancelled, retries=retries, audit_violations=self._run_audit())
+            cancelled=cancelled, retries=retries, spec_proposed=fut.spec_proposed,
+            spec_accepted=fut.spec_accepted, audit_violations=self._run_audit())
         self.reports.append(report)
         self.peak_active = max(self.peak_active, len(decision.decoding)
                                + len(decision.chunks) + len(decision.restored))
@@ -1300,8 +1469,6 @@ class ServingEngine:
             return self.commit_stage(fut)
 
     # ------------------------------------------------------ the async loop
-    # The reference's branches for drafts (verify spans, their rewinds, the
-    # drafter's fresh drafts) wait for the port of speculative decoding.
     def _plan_speculative(self, cur: StagePlan) -> Optional[StagePlan]:
         """Plan stage N+1 from the projected post-commit state of the
         in-flight stage N, touching no scheduler or request state. Chunk
@@ -1309,10 +1476,19 @@ class ServingEngine:
         and free their slots, final chunks and restores join the decode
         set; an EOS finish cannot be foreseen and is taken as going on
         (``_validate_speculative`` or ``_build_chain`` catch it: a wrong
-        guess costs a plan formed again, never a wrong token)."""
+        guess costs a plan formed again, never a wrong token). Speculative
+        decoding makes two cases misses: a stage in flight with verify spans
+        (how much it accepts and rewinds is known only once read:
+        "rewind"), and, with the drafter on, a projected stage with decode
+        rows (their drafts must match committed tokens: "draft"); both are
+        formed after the commit."""
         d = cur.decision
         if d.chunks and not self._unified:
             return None          # the legacy prefill claims its slots at commit
+        if any(c.draft is not None for c in d.chunks):
+            self.spec_misses += 1
+            self._reject_spec("rewind")
+            return None
         t0 = time.monotonic()
         pos: Dict[int, int] = {}
         done_rids = set()
@@ -1347,6 +1523,10 @@ class ServingEngine:
         running_proj = [r for r in self.scheduler.running
                         if r.state == RequestState.DECODE and r.rid not in done_rids]
         running_proj += promoted + restored_live
+        if self.drafter is not None and running_proj:
+            self.spec_misses += 1
+            self._reject_spec("draft")
+            return None
         prefilling_proj = ([r for r in self.scheduler.prefilling
                             if not r.done and r.rid not in finished_prefill]
                            + extra_prefilling)
@@ -1374,6 +1554,8 @@ class ServingEngine:
         d_prev, d = fut.plan.decision, spec.decision
         if d.restored or d_prev.restored:
             return None              # a restore writes its saved rows into the cache
+        if any(c.draft is not None for c in d_prev.chunks + d.chunks):
+            return None              # acceptance and rewinds are decided at commit
         if fut.nxt is None:
             return None
         n_first = sum(1 for c in d.chunks if c.first)
@@ -1687,7 +1869,8 @@ class ServingEngine:
     #: cumulative counters stats() also reports as a window's deltas
     STATS_DELTA_KEYS = ("stages", "preemptions", "forced_evictions", "stage_aborts",
                         "retries", "shed", "expired", "cancelled", "rejected",
-                        "audit_violations", "shared_tokens_skipped")
+                        "audit_violations", "shared_tokens_skipped", "spec_proposed",
+                        "spec_accepted")
 
     def stats(self, reset: bool = False) -> dict:
         """The engine's robustness and capacity totals, plus ``delta``: each
@@ -1695,8 +1878,9 @@ class ServingEngine:
         ``stats(reset=True)``, which starts a new window (totals are never
         cleared); ``fault_counts`` with an injector; the async loop's
         ``spec_hits``, ``spec_misses``, ``spec_miss_reasons``,
-        ``chained_stages``, ``host_gap_s`` and ``gap_stages``. The
-        reference's keys of speculative decoding wait for that item."""
+        ``chained_stages``, ``host_gap_s`` and ``gap_stages`` (speculative
+        planning); speculative decoding's ``spec_proposed``,
+        ``spec_accepted``, ``spec_rewinds`` and ``spec_acceptance``."""
         with self._lock:
             out = {"stages": self._stage_idx,
                    "preemptions": self.preemptions,
@@ -1713,6 +1897,10 @@ class ServingEngine:
                    "spec_hits": self.spec_hits,
                    "spec_misses": self.spec_misses,
                    "spec_miss_reasons": dict(self.spec_miss_reasons),
+                   "spec_proposed": self.spec_proposed,
+                   "spec_accepted": self.spec_accepted,
+                   "spec_rewinds": self.spec_rewinds,
+                   "spec_acceptance": self.spec_accepted / max(self.spec_proposed, 1),
                    "chained_stages": self.chained_stages,
                    "host_gap_s": self.host_gap_s,
                    "gap_stages": self.gap_stages,

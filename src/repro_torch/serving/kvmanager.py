@@ -28,7 +28,9 @@ it. The keys are ``hash`` of tuples of Python ints, the same in every
 process, so both packages walk the same chain. ``audit`` lists every broken
 invariant. With a ``FaultInjector``, ``_alloc_page`` may raise
 ``InjectedPageFault`` (drawn first, so a faulted allocation changes
-nothing).
+nothing). Speculative decoding rolls a slot back after a verify span's
+rejected tail: ``rewind`` on the paged layout, ``rewind_dense`` on the
+dense one.
 """
 from __future__ import annotations
 
@@ -250,6 +252,49 @@ class KVManager:
             else:
                 self._deindex(pid)
         return copied
+
+    def rewind(self, slot: int, new_len: int) -> int:
+        """Roll ``slot``'s length back to ``new_len`` after a verify span's
+        rejected tail (speculative decoding), by page-table surgery: pages
+        wholly past the new length leave the block table and are decref'd
+        (a shared page survives under its other owners and stays indexed).
+        The kept boundary page, when partial and private, leaves the index,
+        since decode will overwrite its tail; a shared one is copied on the
+        next write by ``ensure_writable``. Returns the entries released."""
+        assert self.paged and slot in self._active, slot
+        cur = int(self.lens[slot])
+        assert 0 <= new_len <= cur, (slot, new_len, cur)
+        pages = self._slot_pages[slot]
+        keep = _cdiv(new_len, self.page_size) if new_len else 0
+        released = 0
+        while len(pages) > keep:
+            pid = pages.pop()
+            self.block_tables[slot, len(pages)] = 0
+            self._decref(pid)
+            released += 1
+        if keep and new_len < keep * self.page_size:
+            pid = pages[keep - 1]
+            if self._page_refs.get(pid, 0) == 1:
+                self._deindex(pid)
+        self.lens[slot] = new_len
+        return released
+
+    def rewind_dense(self, slots, new_lens) -> None:
+        """The dense layout's rewind: set the slots' device-side lengths
+        (every attention block's "len" leaf) to ``new_lens``, in place.
+        ``slots`` and ``new_lens`` are sequences, or index tensors already
+        on the cache's device (the engine stages them, so nothing waits for
+        the card). K/V past the new length is masked by position and
+        overwritten as decode goes on."""
+        assert not self.paged
+        lens = [b["len"] for seg in self.cache for b in seg["blocks"] if "len" in b]
+        if not lens:
+            return
+        dev = lens[0].device
+        sl = torch.as_tensor(slots, dtype=torch.long, device=dev)
+        nl = torch.as_tensor(new_lens, device=dev)
+        for leaf in lens:
+            leaf.index_copy_(1, sl, nl.to(leaf.dtype)[None].expand(leaf.shape[0], -1))
 
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy one pool page on the device, in place, in every leaf (K/V and

@@ -34,13 +34,15 @@ reads state, mutates nothing, and takes projected ``prefilling`` /
 N+1 against the predicted post-commit state of the in-flight stage N), and
 ``activate`` makes a plan real (purges terminal queued requests, pops the
 admissions, freezes their prefill targets, ages the queue). ``next_stage``
-composes the two. Drafts wait for speculative decoding.
+composes the two. With speculative decoding the engine passes ``drafts``:
+each drafted decode row leaves the decode set and rides as a verify span
+after the prefill chunks, outside their row and token budgets.
 """
 from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Tuple
 
 from repro_torch.core.opb import StageMix
 from repro_torch.serving.request import Request, RequestState
@@ -66,19 +68,32 @@ class AdmissionRejected(RuntimeError):
 class ChunkSpan:
     """One stage's slice [start, end) of one request's prefill. ``first``
     marks the admission chunk (it claims a KV slot); ``target`` is the
-    prefill target frozen into the request at admission."""
+    prefill target frozen into the request at admission.
+
+    With ``draft`` set the span is a speculative verify span of a decoding
+    request: positions [start, end) take its last sampled token and then the
+    draft (``end - start == len(draft) + 1``), and the engine's commit keeps
+    the longest prefix the verifier agrees with. A verify span claims no
+    slot, samples no first token and is skipped by ``commit_stage``."""
     req: Request
     start: int
     end: int
     first: bool = False
     target: Optional[int] = None
+    draft: Optional[List[int]] = None
 
     @property
     def tokens(self) -> int:
         return self.end - self.start
 
     @property
+    def is_first(self) -> bool:
+        return self.draft is None and (self.first or self.start == 0)
+
+    @property
     def is_last(self) -> bool:
+        if self.draft is not None:
+            return False
         total = self.target if self.target is not None else self.req.prefill_total
         return self.end >= total
 
@@ -97,7 +112,8 @@ class StageDecision:
     def mix(self) -> StageMix:
         return StageMix(
             decode_ctx=tuple(r.l_in + len(r.output) for r in self.decoding),
-            chunk_spans=tuple((c.start, c.end) for c in self.chunks))
+            chunk_spans=tuple((c.start, c.end) for c in self.chunks if c.draft is None),
+            spec_spans=tuple((c.start, c.end) for c in self.chunks if c.draft is not None))
 
 
 class ContinuousBatchingScheduler:
@@ -226,12 +242,17 @@ class ContinuousBatchingScheduler:
 
     def plan_stage(self, free_slots: int, *, prefilling: Optional[List[Request]] = None,
                    running: Optional[List[Request]] = None, queue=None,
-                   pos: Optional[Dict[int, int]] = None) -> Optional[StageDecision]:
+                   pos: Optional[Dict[int, int]] = None,
+                   drafts: Optional[Dict[int, Tuple[int, List[int]]]] = None
+                   ) -> Optional[StageDecision]:
         """Form the next stage without mutating any scheduler or request
         state. The overrides replace the live ``prefilling`` list, decode
         set (taken verbatim: its members may still read PREFILL until the
         in-flight commit lands), queue and prefill positions (rid -> pos).
-        A plan takes effect only through ``activate``."""
+        ``drafts`` maps rid -> (start, proposed tokens): each such decode
+        row leaves the decode set and rides as a verify span after the
+        prefill chunks (the engine decides who may draft). A plan takes
+        effect only through ``activate``."""
         prefill_src = self.prefilling if prefilling is None else prefilling
         queue_src = self.queue if queue is None else queue
         pos = pos or {}
@@ -282,6 +303,18 @@ class ContinuousBatchingScheduler:
             decoding = [r for r in self.running if r.state == RequestState.DECODE]
         else:
             decoding = list(running)
+        if drafts:
+            # verify spans after the prefill chunks, outside their budgets:
+            # decode work in a chunk span's shape
+            undrafted = []
+            for r in decoding:
+                d = drafts.get(r.rid)
+                if d is None:
+                    undrafted.append(r)
+                    continue
+                start, toks = d
+                chunks.append(ChunkSpan(r, start, start + len(toks) + 1, draft=list(toks)))
+            decoding = undrafted
         if not chunks and not decoding and not restored:
             return None
         return StageDecision(chunks, decoding, restored)
@@ -326,11 +359,13 @@ class ContinuousBatchingScheduler:
                     self.queue, key=lambda r: (-self.effective_priority(r), r.queue_seq)))
         self.stage_counts["mixed" if decision.chunks else "decode_only"] += 1
 
-    def next_stage(self, free_slots: int) -> Optional[StageDecision]:
+    def next_stage(self, free_slots: int,
+                   drafts: Optional[Dict[int, Tuple[int, List[int]]]] = None
+                   ) -> Optional[StageDecision]:
         """Plan the next stage from live state and activate it; an empty
         plan still purges terminal queued requests, so ``has_work`` cannot
         stick on a dead queue."""
-        decision = self.plan_stage(free_slots)
+        decision = self.plan_stage(free_slots, drafts=drafts)
         if decision is None:
             self._purge_done()
             return None
@@ -341,6 +376,8 @@ class ContinuousBatchingScheduler:
         """After the engine ran the stage: advance chunk positions, promote
         finished prefills to decode, retire completed requests."""
         for c in decision.chunks:
+            if c.draft is not None:
+                continue                 # a verify span: the engine's commit
             r = c.req
             r.prefill_pos = c.end
             if r.prefill_done:

@@ -17,8 +17,11 @@
   stage, on the port alone, once for each of the six layout x sharing x
   preemption combinations and as a hypothesis property.
 
-``tests/test_chaos.py::test_chaos_spec_spans_parity_and_seed_reproducibility``
-waits for speculative decoding, which the port does not have yet.
+* speculative verify spans under chaos (the reference's
+  ``test_chaos_spec_spans_parity_and_seed_reproducibility``, on the port
+  alone): a span rides its stage's single fault draw, so injected faults
+  change no committed token of the fault-free speculative run and a fixed
+  seed replays fault for fault.
 """
 import heapq
 
@@ -252,3 +255,45 @@ def test_random_ops_deterministic_twin(setup, combo):
 def test_random_ops_property(seed, combo):
     cfg = t_small_test_config("chaos-prop")
     _random_ops(cfg, t_init_model(cfg, seed=0, device="cpu"), seed, combo)
+
+
+# ---- speculative verify spans under chaos ---------------------------------------
+def test_chaos_spec_spans_parity_and_seed_reproducibility(setup):
+    """Repetitive prompts so the drafter proposes; paged, sharing, recompute,
+    chunks of 8, spec_k 4, the reference's ``FaultInjector(1, ...)``: every
+    request completes with the fault-free speculative run's tokens, the
+    audit is empty after every stage and the pool drains, and a second run
+    of the same seed draws the same faults over the same stages."""
+    _, cfg, _, pt = setup
+    prompts = [[3 + i % 2, 4, 5] * 5 for i in range(4)]
+
+    def run(injector):
+        eng = ServingEngine(cfg, pt, max_slots=4, max_len=64, use_duplex=False,
+                            use_kernels=False, kv_layout="paged", kv_page_size=8,
+                            prefix_share=True, preemption="recompute", prefill_chunk_tokens=8,
+                            spec_k=4, injector=injector, audit_stages=True, device="cpu")
+        reqs = [Request(rid=i, prompt=list(p), max_new_tokens=8) for i, p in enumerate(prompts)]
+        eng.run(reqs, max_stages=2000, stall_stages=1000)
+        assert all(r.completed for r in reqs)
+        assert eng.stats()["audit_violations"] == 0, eng.audit_log[:5]
+        assert eng.kv.audit(pins={}) == [] and eng.kv.live_pages == 0
+        return eng, {r.rid: list(r.output) for r in reqs}
+
+    base, expect = run(None)
+    assert base.stats()["spec_accepted"] > 0                 # spans flew
+
+    def inj():
+        return FaultInjector(1, p_page_alloc_fail=0.04, p_forced_evict=0.05,
+                             p_step_error=0.06, p_latency_spike=0.06, max_retries=4)
+
+    ia = inj()
+    ea, outs_a = run(ia)
+    assert outs_a == expect                                  # greedy parity under faults
+    assert ia.total_faults > 0 and ea.stats()["spec_proposed"] > 0
+    ib = inj()
+    eb, outs_b = run(ib)
+    assert outs_b == outs_a and ib.counts == ia.counts
+    assert eb.stats()["stages"] == ea.stats()["stages"]
+    assert [(p.num_decode, p.num_prefill, p.aborted, p.spec_proposed, p.spec_accepted)
+            for p in eb.reports] == [(p.num_decode, p.num_prefill, p.aborted, p.spec_proposed,
+                                      p.spec_accepted) for p in ea.reports]

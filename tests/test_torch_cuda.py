@@ -844,3 +844,50 @@ def test_cuda_select_tokens_matches_the_cpu(card, mode):
     want = _select_tokens(*cpu, mode)
     got = _select_tokens(*(t.to(card) for t in cpu), mode)
     assert torch.equal(got.cpu(), want)
+
+
+def _strict(fn):
+    """``fn`` under torch's sync debug mode "error"."""
+    def strict(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return strict
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_cuda_spec_decoding_runs_without_a_host_sync(card, layout):
+    """Speculative decoding on the card (tiny-dense, float32, a dense FFN so
+    that a stage's composition moves no token): every ``dispatch_stage``
+    and every critical commit (the rewinds; on the dense layout the lengths
+    written from staged indices) under torch's sync debug mode "error", in
+    ``run`` and ``run_async``. The tokens are spec off's, drafts were
+    accepted and rejected tails rewound, the pool drains."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.models.params import init_model
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.request import Request
+    cfg = resolve_config("tiny-dense")
+    params = init_model(cfg, seed=0, device=str(card))
+    rng = np.random.default_rng(7)
+    prompts = [[2 + i, 3, 4] * 4 if i % 2 == 0 else rng.integers(1, cfg.vocab_size, 12).tolist()
+               for i in range(4)]
+    out = {}
+    for spec_k, loop in ((0, "run"), (4, "run"), (4, "run_async")):
+        eng = ServingEngine(cfg, params, device=str(card), max_slots=4, max_len=64,
+                            kv_layout=layout, kv_page_size=8, prefill_chunk_tokens=8,
+                            spec_k=spec_k, audit_stages=True)
+        for name in ("dispatch_stage", "_commit_critical"):
+            setattr(eng, name, _strict(getattr(eng, name)))
+        reqs = [Request(rid=i, prompt=list(p), max_new_tokens=12) for i, p in enumerate(prompts)]
+        getattr(eng, loop)(reqs)
+        assert all(r.completed for r in reqs) and eng.stats()["audit_violations"] == 0
+        assert eng.kv.free_slots == eng.kv.max_slots and eng.kv.live_pages == 0
+        out[spec_k, loop] = [r.output for r in reqs]
+        if spec_k:
+            st = eng.stats()
+            assert 0 < st["spec_accepted"] < st["spec_proposed"] and st["spec_rewinds"] > 0
+    assert out[4, "run"] == out[0, "run"] == out[4, "run_async"]

@@ -24,6 +24,7 @@ for n in ("repro_torch.kernels.quant", "repro_torch.kernels.decode_attn",
           "repro_torch.models.attention", "repro_torch.serving.kvmanager",
           "repro_torch.serving.preemption", "repro_torch.serving.faults",
           "repro_torch.serving.scheduler", "repro_torch.serving.request",
+          "repro_torch.serving.drafter",
           "repro_torch.configs.jamba_v0_1_52b", "repro_torch.kernels.flash_attn",
           "repro_torch.training.optimizer", "repro_torch.training.data",
           "repro_torch.training.train_state", "repro_torch.training.loop",
@@ -64,7 +65,8 @@ for stack, flags in ((cfg, {"kv_page_size": 8, "prefill_chunk_tokens": 16}),
                      (hybrid, {"kv_layout": "dense"}),
                      (cfg, {"kv_page_size": 8, "queue_cap": 2,
                             "overload_policy": "shed-oldest", "aging_rounds": 2,
-                            "injector": FaultInjector(0), "audit_stages": True})):
+                            "injector": FaultInjector(0), "audit_stages": True}),
+                     (cfg, {"kv_page_size": 8, "spec_k": 4, "on_token": print})):
     try:
         ServingEngine(stack, params, max_slots=2, max_len=32, **flags)
     except RuntimeError as e:

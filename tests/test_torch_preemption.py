@@ -209,7 +209,7 @@ def test_oversubscribed_pool_departs_at_a_near_tie(setup, monkeypatch):
     _, cfg_t, _, pt = setup
     seen = []
     sample = tengine.sample
-    monkeypatch.setattr(tengine, "sample", lambda l: seen.append(l) or sample(l))
+    monkeypatch.setattr(tengine, "sample", lambda l, *a: seen.append(l) or sample(l, *a))
     picks = {}
     for pages, policy in ((None, "none"), (9, "recompute")):
         eng = ServingEngine(cfg_t, pt, device="cpu", max_slots=4, max_len=64,
