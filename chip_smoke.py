@@ -132,7 +132,37 @@ Phases, each printing a line:
           kernel path's expert choices, the logits of every live verify
           position included, the float32 LM head's time over a spec stage's
           slab, and a short profile (its launch counts stay out of the
-          ``kernels`` line). Then, with the OLMoE model freed,
+          ``kernels`` line);
+       j. the fleet: one parameter set behind three replicas of path e's
+          engine (8 slots each, a full pool), 24 requests of three tenants
+          (each tenant's own 256-token system prompt, a 64-256-token
+          suffix, 32 new tokens) arriving one a tick on a virtual clock of
+          0.1 s a tick, three runs: j1 the affinity router, j2 round-robin,
+          j3 affinity with pipelined ticks (``step_async``) under a seeded
+          injector forked per replica (g1's rates plus replica kills and
+          spikes, ``min_live=1``) and a kill of replica 1, a join and a
+          drain of replica 2 at set ticks; every ``dispatch_stage`` under
+          sync debug "error". Each checks every request terminal exactly
+          once with 32 tokens, clean audits, clean drains, kernels 1-4 on
+          their routes and its counters equal to the CPU schedule
+          (``J_EXPECT``); j1 must skip more shared prompt positions than
+          j2, j3 must kill and fail over and depart from j1's tokens only
+          at a top-2 gap within ``SPEC_GAP_BAND``; each prints its wall,
+          ticks, tokens/s, TBT, TTFT, the host plan ms a stage (the Op/B
+          plan included), routing and skips by replica and the peak
+          memory. Then, with the OLMoE model freed,
+       k. the serve CLI, ``repro_torch.launch.serve.main`` in-process on
+          OLMoE-1B-7B with its own weights: k1 one engine (16 requests of
+          ~256 tokens, paged, chunks of 64, the kernels), k2 the same
+          through a two-replica fleet with sharing, chaos seed 0, pipelined
+          ticks and ``--profile``; each must exit 0 with 16/16 completed,
+          kernels 1-4 on their routes, its engines' k_cold range and
+          bandwidth-path FLOP fraction printed, k2 a trace file; then k3,
+          path a's engine and requests at temperature 0.8, top-k 50, top-p
+          0.95, seed 0, twice, every dispatch under sync debug "error":
+          16/16 with 32 in-vocabulary tokens, kernels 1-4 on their routes,
+          the two runs' tokens equal, some off path a's greedy tokens.
+          Then
        c. Jamba-v0.1 (Mamba-2 + GQA attention + MoE) at full width, depth
           cut to 16 of its 32 layers (two of four periods; the whole model,
           ~103 GB in bf16, does not fit one 80 GB card), the same 16
@@ -878,8 +908,8 @@ HYBRID_KERNELS = ("decode_attention", "ssd_decode", "ragged_moe_gemm", "ragged_m
 
 def serve_phase(torch):
     """Serve 16 seeded requests on OLMoE-1B-7B down each path; returns
-    {kernel: launches} with each kernel's count from its own path's run.
-    Raises on any failed check."""
+    ({kernel: launches} with each kernel's count from its own path's run,
+    path a's tokens by rid). Raises on any failed check."""
     from repro_torch.configs import resolve_config
     from repro_torch.models.params import init_model, tree_leaves
 
@@ -939,7 +969,8 @@ def serve_phase(torch):
     overload_phase(torch, cfg, params, e_tokens)
     async_phase(torch, cfg, params, a_tokens)
     spec_phase(torch, cfg, params)
-    return launches
+    fleet_phase(torch, cfg, params)
+    return launches, a_tokens
 
 
 # path e: one 256-token system prompt shared by 16 requests, each with a
@@ -1777,6 +1808,357 @@ def spec_head_time(torch, cfg, params):
     del p32
 
 
+# path j: the fleet. Three replicas of path e's engine (8 slots, a full pool)
+# share one parameter set; 24 requests from three tenants (a chat front end
+# with a few products behind a pool of replicas), each tenant its own
+# seeded 256-token system prompt, each request a seeded 64-256-token
+# private suffix and 32 new tokens, arriving one a tick in a seeded tenant
+# order, on a virtual clock of 0.1 s a tick (tests/test_torch_fleet.py runs
+# these functions on the CPU and holds J_EXPECT)
+FLEET_LABEL = "fleet: three tenants over three replicas"
+FLEET_KW = dict(SHARED_KW, max_slots=8, audit_stages=True)
+FLEET_REPLICAS, FLEET_TENANTS, FLEET_REQUESTS = 3, 3, 24
+TICK_S = 0.1
+# seed 3: the first seed whose run, besides the deterministic events, draws an
+# injected replica kill and lets the drained replica retire (seeds 0-2 kill the
+# draining replica or none)
+FLEET_SEED = 3
+FLEET_FAULTS = dict(CHAOS_FAULTS, p_replica_kill=0.005, p_replica_spike=0.03)
+# j3's deterministic events, (tick, event, replica), each before that
+# tick's arrival: replica 1 killed mid-flight, then replica 2 replaced (a
+# fresh replica joins and replica 2 drains)
+FLEET_EVENTS = ((8, "kill", 1), (14, "join", None), (14, "drain", 2))
+# (run, router, async_steps, faults and the deterministic events)
+FLEET_RUNS = (("j1", "affinity", False, False), ("j2", "round-robin", False, False),
+              ("j3", "affinity", True, True))
+# each run's counters as the port's engine forms them on the CPU
+# (``fleet_counters``; ``counters`` the summed STATS_DELTA_KEYS windows, the
+# zero ones left out)
+_J_ZERO = dict.fromkeys(("preemptions", "forced_evictions", "stage_aborts", "retries", "shed",
+                         "expired", "cancelled", "rejected", "audit_violations",
+                         "spec_proposed", "spec_accepted"), 0)
+J_EXPECT = {
+    "j1": dict(ticks=59, routed={0: 8, 1: 8, 2: 8}, skipped={0: 1792, 1: 1792, 2: 1792},
+               kills=0, kills_suppressed=0, failovers=0,
+               counters=dict(_J_ZERO, stages=170, shared_tokens_skipped=5376)),
+    "j2": dict(ticks=68, routed={0: 8, 1: 8, 2: 8}, skipped={0: 1280, 1: 1536, 2: 1280},
+               kills=0, kills_suppressed=0, failovers=0,
+               counters=dict(_J_ZERO, stages=188, shared_tokens_skipped=4096)),
+    "j3": dict(ticks=129, routed={0: 8, 1: 2, 2: 14, 3: 10},
+               skipped={0: 1472, 1: 0, 2: 5056, 3: 2816}, kills=2, kills_suppressed=0,
+               failovers=10,
+               counters=dict(_J_ZERO, stages=229, preemptions=15, forced_evictions=11,
+                             stage_aborts=9, retries=13, shared_tokens_skipped=9344)),
+}
+
+
+def fleet_requests(cfg):
+    """Path j's 24 requests, rid order = arrival order."""
+    import numpy as np
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(27)
+    systems = [rng.integers(0, cfg.vocab_size, SHARED_PROMPT).tolist()
+               for _ in range(FLEET_TENANTS)]
+    tenants = rng.permutation(np.arange(FLEET_REQUESTS) % FLEET_TENANTS)
+    return [Request(rid=i, prompt=systems[t] + rng.integers(
+        0, cfg.vocab_size, int(rng.integers(64, 257))).tolist(), max_new_tokens=32)
+        for i, t in enumerate(tenants)]
+
+
+def fleet_run(cfg, params, run, device="cuda", wrap=None, on_token=None):
+    """One of path j's runs (``run`` a row of FLEET_RUNS): a Fleet of
+    FLEET_REPLICAS engines built on ``device`` (``wrap(engine)`` applied to
+    each), the requests submitted one a tick, every tick ``step(now=tick x
+    TICK_S)`` until the fleet drains; j3 also runs FLEET_EVENTS, each kill
+    and drain checked to land on a live replica holding live requests.
+    Returns (fleet, requests)."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.faults import FaultInjector
+    from repro_torch.serving.fleet import Fleet
+    name, router, async_steps, faults = run
+
+    def factory(i, inj):
+        eng = ServingEngine(cfg, params, device=device, injector=inj, on_token=on_token,
+                            **FLEET_KW)
+        if wrap is not None:
+            wrap(eng)
+        return eng
+
+    fleet = Fleet(factory, FLEET_REPLICAS, router=router, async_steps=async_steps,
+                  injector=FaultInjector(FLEET_SEED, **FLEET_FAULTS) if faults else None,
+                  min_live=1)
+    reqs = fleet_requests(cfg)
+    k = 0
+    while k < len(reqs) or fleet.has_work:
+        if k > 5000:
+            raise AssertionError(f"[{FLEET_LABEL}, {name}] did not drain in 5000 ticks")
+        now = k * TICK_S
+        for tick, event, rid in (FLEET_EVENTS if faults else ()):
+            if tick != k:
+                continue
+            if event == "join":
+                fleet.join()
+                continue
+            rep = fleet._replica(rid)
+            live = [r for r in rep.engine._requests.values() if not r.done]
+            if rep.dead or not live:
+                raise AssertionError(f"[{FLEET_LABEL}, {name}] {event} of replica {rid} at "
+                                     f"tick {k}: dead {rep.dead}, {len(live)} live requests")
+            (fleet.kill(rid, now=now) if event == "kill" else fleet.drain(rid))
+        if k < len(reqs):
+            reqs[k].arrival_time = now
+            fleet.submit(reqs[k], now=now)
+        fleet.step(now=now)
+        k += 1
+    fleet.poll()
+    return fleet, reqs
+
+
+def fleet_counters(fleet):
+    """Path j's gated counters: ticks, requests routed to each replica (its
+    engine's submits, failovers included), prompt positions skipped on
+    each, kills, suppressed kills, failovers and the fleet's counters."""
+    reps = sorted(fleet.replicas + fleet.retired, key=lambda rep: rep.id)
+    return dict(ticks=fleet.ticks,
+                routed={rep.id: len(rep.engine._requests) for rep in reps},
+                skipped={rep.id: rep.engine.shared_tokens_skipped for rep in reps},
+                kills=fleet.kills, kills_suppressed=fleet.kills_suppressed,
+                failovers=fleet.failovers, counters=dict(fleet.counters))
+
+
+def fleet_gates(fleet, reqs):
+    """Path j's gates on one run's host state (the launches and counters
+    aside). Returns the failures."""
+    st = fleet.stats()
+    fails = []
+    if not (st["terminal"] == st["submitted"] == FLEET_REQUESTS
+            and st["duplicate_submits"] == 0 and st["lost"] == 0):
+        fails.append(f"not exactly once: terminal {st['terminal']}, submitted "
+                     f"{st['submitted']}, duplicates {st['duplicate_submits']}, lost {st['lost']}")
+    if not all(r.completed and len(r.output) == 32 for r in reqs):
+        fails.append("not every request completed with 32 tokens")
+    dirty = {i: s["audit_violations"] for i, s in st["per_replica"].items()
+             if s["audit_violations"]}
+    if dirty:
+        fails.append(f"audit violations {dirty}")
+    unclean = [rep.id for rep in fleet.replicas if not rep.dead and not drained(rep.engine)]
+    unclean += [rep.id for rep in fleet.retired if rep.drain_clean is not True]
+    if unclean:
+        fails.append(f"replicas {unclean} did not drain clean")
+    return fails
+
+
+def fleet_phase(torch, cfg, params):
+    """Path j: FLEET_RUNS on one parameter set, each with every launch count
+    set to 0 just before and read just after and every ``dispatch_stage``
+    under sync debug "error" (``HostSplit`` on each replica). Each gated by
+    ``fleet_gates``, kernels 1-4 on their routes and ``J_EXPECT``; j1 must
+    skip more shared prompt positions than j2, j3 must kill and fail over,
+    and each request of j3 that departs from j1's tokens must do so at a
+    top-2 logit gap at most SPEC_GAP_BAND. Prints each run's wall, ticks,
+    tokens/s, median TBT and TTFT (host clock, from ``on_token``), the mean
+    host plan ms a stage (the Op/B plan included), routing and skips by
+    replica, and the peak memory."""
+    import numpy as np
+    from repro_torch.kernels import build
+    base, skipped = None, {}
+    for run in FLEET_RUNS:
+        name = run[0]
+        label = f"{FLEET_LABEL}, {name} ({run[1]}{', async, faults' if run[3] else ''})"
+        splits, times = [], {}
+        gc.collect()                    # the previous run's replicas and pools go
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        fleet, reqs = fleet_run(
+            cfg, params, run, wrap=lambda eng: splits.append((eng, HostSplit(torch, eng))),
+            on_token=lambda rid, tok: times.setdefault(rid, []).append(time.perf_counter()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(build.launch_counts)
+        check_path_a_launches(label, counts)
+        got = fleet_counters(fleet)
+        st = fleet.stats()
+        gen = sum(len(r.output) for r in reqs)
+        tbt = [b - a for ts in times.values() for a, b in zip(ts, ts[1:])]
+        ttft = [ts[0] - t0 for ts in times.values()]
+        stages = sum(len(eng.reports) for eng, _ in splits)
+        plan_ms = sum(s.seconds["plan"] for _, s in splits) / max(stages, 1) * 1e3
+        enq_ms = sum(s.seconds["enqueue"] for _, s in splits) / max(stages, 1) * 1e3
+        bw = [r.bandwidth_flop_fraction for eng, _ in splits for r in eng.reports
+              if not r.is_mixed and not r.aborted]
+        log(f"serve [{label}]: {sum(r.completed for r in reqs)}/{FLEET_REQUESTS} completed "
+            f"in {wall:.3f}s, {got['ticks']} ticks, {stages} stages; generated tokens/s="
+            f"{gen / wall:.1f}; median TBT={np.median(tbt) * 1e3:.1f}ms, median TTFT="
+            f"{np.median(ttft) * 1e3:.0f}ms (host clock); host ms a stage: plan {plan_ms:.2f} "
+            f"(the Op/B plan included), enqueue {enq_ms:.2f}; decode-stage bandwidth-path "
+            f"FLOP fraction {np.mean(bw):.3f}; routed {got['routed']}, skipped "
+            f"{got['skipped']}; kills {got['kills']} (suppressed {got['kills_suppressed']}), "
+            f"failovers {got['failovers']}, health {st['healthy']} healthy / "
+            f"{st['degraded']} degraded / {st['dead']} dead / {st['retired']} retired; "
+            f"counters {json.dumps(got['counters'])}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        fails = fleet_gates(fleet, reqs)
+        if got != J_EXPECT[name]:
+            fails.append(f"counters {got} differ from the CPU schedule's {J_EXPECT[name]}")
+        if fails:
+            raise AssertionError(f"[{label}] {'; '.join(fails)}")
+        skipped[name] = sum(got["skipped"].values())
+        if name == "j1":
+            base = {r.rid: list(r.output) for r in reqs}
+        if name == "j3":
+            if got["kills"] < 1 or got["failovers"] < 1:
+                raise AssertionError(f"[{label}] no kill or no failover")
+            same = [r.rid for r in reqs if r.output == base[r.rid]]
+            depart, wide = {}, []
+            for r in reqs:
+                if r.rid in same:
+                    continue
+                i = next(i for i, (x, y) in enumerate(zip(r.output, base[r.rid])) if x != y)
+                gap = top2_gap(torch, cfg, params, r.prompt + r.output[:i])
+                depart[r.rid] = f"{i} (gap {gap:.4f})"
+                if gap > SPEC_GAP_BAND:
+                    wide.append(r.rid)
+            log(f"serve [{label}]: {len(same)}/{FLEET_REQUESTS} requests emit j1's tokens"
+                + (f", the others depart at {depart} (rid: position (the top-2 logit gap "
+                   f"there from a one-sequence prefill))" if depart else ""))
+            if wide:
+                raise AssertionError(f"[{label}] requests {wide} depart from j1's tokens at "
+                                     f"a top-2 gap above {SPEC_GAP_BAND}")
+        del fleet, splits
+    log(f"serve [{FLEET_LABEL}]: shared prompt positions skipped j1 {skipped['j1']}, j2 "
+        f"{skipped['j2']}, j3 {skipped['j3']}")
+    if not skipped["j1"] > skipped["j2"]:
+        raise AssertionError(f"[{FLEET_LABEL}] affinity skipped no more positions than "
+                             f"round-robin")
+    log(f"card: {gpu_name_and_power()}")
+
+
+# path k: the serve CLI (k1, k2) and sampling at a temperature (k3)
+CLI_LABEL = "serve CLI"
+CLI_ARGS = ("--arch olmoe-1b-7b --requests 16 --l-in 256 --l-out 32 --max-slots 16 "
+            "--max-len 1024 --kv-layout paged --kv-page-size 16 --prefill-chunk 64 "
+            "--kernels").split()
+CLI_FLEET_ARGS = "--replicas 2 --prefix-share --chaos 0 --async".split()
+SAMPLE_LABEL = "sampling: path a's engine at temperature 0.8"
+SAMPLE_PARAMS = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+def cli_phase(torch, a_tokens):
+    """Path k: k1, ``repro_torch.launch.serve.main(CLI_ARGS)`` in-process;
+    k2, the same with CLI_FLEET_ARGS and ``--profile`` into a temporary
+    directory; each with every launch count set to 0 just before and read
+    just after, the engines it builds recorded: exit code 0, 16/16
+    completed, kernels 1-4 on their routes, the k_cold range and the
+    decode-stage bandwidth-path FLOP fraction of its engines printed, and
+    for k2 a trace file. Then k3: path a's engine and requests at
+    SAMPLE_PARAMS with seed 0, twice (``sample_run``)."""
+    import io
+    import tempfile
+    import numpy as np
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    for name, extra in (("k1", []), ("k2", CLI_FLEET_ARGS)):
+        engines = []
+        make = serve.ServingEngine
+
+        def recording(*a, **kw):
+            engines.append(make(*a, **kw))
+            return engines[-1]
+
+        label = f"{CLI_LABEL}, {name}"
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = CLI_ARGS + extra + (["--profile", tmp] if name == "k2" else [])
+            log(f"serve [{label}]: python -m repro_torch.launch.serve {' '.join(argv)}")
+            serve.ServingEngine, out = recording, io.StringIO()
+            build.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(out):
+                    rc = serve.main(argv)
+                torch.cuda.synchronize()
+            finally:
+                serve.ServingEngine = make
+                text = out.getvalue()
+                sys.stdout.write(text)            # the CLI's report lines
+            wall = time.perf_counter() - t0
+            counts = dict(build.launch_counts)
+            traces = [p for p in Path(tmp).rglob("*.json") if p.stat().st_size > 0]
+            trace_mb = sum(p.stat().st_size for p in traces) / 2**20
+        reps = [r for eng in engines for r in eng.reports]
+        kc = [r.k_cold for r in reps]
+        bw = [r.bandwidth_flop_fraction for r in reps if not r.is_mixed and not r.aborted]
+        log(f"serve [{label}]: exit {rc} in {wall:.1f}s (weights made by the CLI included); "
+            f"{len(engines)} engine(s), {len(reps)} stages, k_cold min={min(kc)} max={max(kc)}, "
+            f"decode-stage bandwidth-path FLOP fraction {np.mean(bw):.3f}"
+            + (f"; trace files {len(traces)}, {trace_mb:.1f} MiB" if name == "k2" else ""))
+        check_path_a_launches(label, counts)
+        n = argv[len(argv) - argv[::-1].index("--requests")]    # the last one counts
+        if rc != 0 or f"{n}/{n} completed" not in text:
+            raise AssertionError(f"[{label}] exit {rc}, or not {n}/{n} completed")
+        if name == "k1" and not ("bandwidth-path FLOP fraction" in text and "k_cold" in text):
+            raise AssertionError(f"[{label}] no bandwidth-path FLOP fraction or k_cold line")
+        if name == "k2" and not traces:
+            raise AssertionError(f"[{label}] --profile wrote no trace file")
+        del engines, reps
+    gc.collect()
+    torch.cuda.empty_cache()
+    sample_phase(torch, a_tokens)
+
+
+def sample_phase(torch, a_tokens):
+    """k3: path a's engine and requests through ``run`` at SAMPLE_PARAMS and
+    seed 0, twice, every ``dispatch_stage`` under sync debug "error": each
+    16/16 with 32 in-vocabulary tokens and kernels 1-4 on their routes, the
+    two runs' tokens equal, and at least one request off path a's greedy
+    tokens."""
+    import numpy as np
+    from repro_torch.configs import resolve_config
+    from repro_torch.kernels import build
+    from repro_torch.models.params import init_model
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.sampling import SamplingParams
+    cfg = resolve_config("olmoe-1b-7b")
+    params = init_model(cfg, seed=0, device="cuda")
+    outs = []
+    for i in range(2):
+        label = f"{SAMPLE_LABEL}, run {i + 1}"
+        reqs = path_a_requests(cfg)
+        eng = ServingEngine(cfg, params, device="cuda", sampling=SamplingParams(**SAMPLE_PARAMS),
+                            seed=0, **ASYNC_KW)
+        split = HostSplit(torch, eng)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        for r in reqs:
+            r.arrival_time = time.monotonic()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(build.launch_counts)
+        check_path_a_launches(label, counts)
+        ok = all(r.completed and len(r.output) == 32
+                 and all(0 <= t < cfg.vocab_size for t in r.output) for r in reqs)
+        outs.append({r.rid: list(r.output) for r in reqs})
+        n = len(eng.reports)
+        greedy = sum(outs[-1][rid] == a_tokens[rid] for rid in a_tokens)
+        log(f"serve [{label}]: {sum(r.completed for r in reqs)}/16 completed in {wall:.3f}s, "
+            f"stages={n}; generated tokens/s={sum(len(r.output) for r in reqs) / wall:.1f}; "
+            f"host ms a stage: " + ", ".join(f"{k} {v / n * 1e3:.2f}"
+                                             for k, v in split.seconds.items())
+            + f"; {greedy}/16 requests emit path a's greedy tokens; distinct tokens "
+            f"{len({t for o in outs[-1].values() for t in o})}")
+        if not ok or not drained(eng):
+            raise AssertionError(f"[{label}] not 16/16 with 32 in-vocabulary tokens, or the "
+                                 f"pool did not drain")
+        if greedy == 16:
+            raise AssertionError(f"[{label}] every request emitted the greedy tokens")
+        del eng
+    if outs[0] != outs[1]:
+        raise AssertionError(f"[{SAMPLE_LABEL}] two runs from seed 0 emitted other tokens")
+    del params
+
+
 def check_expert_routes(label, counts):
     """Every hot GEMM and cold GEMV launch of a (bf16) path ran the
     tensor-core kernels of ``moe_gemm_sm90.cu`` and ``moe_gemv_sm90.cu``."""
@@ -2348,9 +2730,13 @@ def main(argv=None) -> int:
 
     rows = kernel_phase(torch)
     if not args.kernels_only:
-        for name, n in serve_phase(torch).items():
+        launches, a_tokens = serve_phase(torch)
+        for name, n in launches.items():
             rows[name]["launches"] = n
         gc.collect()                      # the OLMoE model and its caches go
+        torch.cuda.empty_cache()
+        cli_phase(torch, a_tokens)        # the CLI makes its own OLMoE weights
+        gc.collect()
         torch.cuda.empty_cache()
         for name, n in hybrid_phase(torch).items():
             rows[name]["launches"] = n

@@ -1,10 +1,11 @@
 """Device roofline constants the Duplex planner's latency tables use.
 
-Own copy of the part of ``repro/core/costmodel.py`` the planner needs:
-``DeviceSpec``, ``DuplexSpec`` and ``DUPLEX`` (an H100 xPU path beside the
-paper's Logic-PIM path). These are the paper's modelled devices; they pick
-``k_cold`` exactly as the reference does and say nothing about the port's
-measured speed.
+Own copy of the part of ``repro/core/costmodel.py`` the planner and the
+Op/B dispatch need: ``DeviceSpec`` (with its roofline ``time``),
+``DuplexSpec`` and ``DUPLEX`` (an H100 xPU path beside the paper's
+Logic-PIM path). These are the paper's modelled devices; they pick
+``k_cold`` and the modelled path exactly as the reference does and say
+nothing about the port's measured speed.
 """
 from __future__ import annotations
 
@@ -23,6 +24,12 @@ class DeviceSpec:
     mem_bw: float              # B/s usable by this path
     mem_capacity: float        # bytes
     t_launch: float = 3e-6     # fixed per-op overhead, s
+
+    def time(self, flops: float, bytes_: float) -> float:
+        """Roofline seconds of one operation plus the launch overhead."""
+        if flops <= 0 and bytes_ <= 0:
+            return 0.0
+        return max(flops / self.peak_flops, bytes_ / self.mem_bw) + self.t_launch
 
 
 H100 = DeviceSpec("h100", H100_FLOPS, HBM3_BW, HBM3_CAP)

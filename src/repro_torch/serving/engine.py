@@ -6,11 +6,15 @@ speculative decoding.
 Each stage is one token stream: the scheduler picks decode rows and prefill
 spans; the engine stages the inputs into bucketed shapes (powers of two,
 exactly the reference's buckets — they decide the MoE capacities and so
-which tokens overflow), runs the model, samples greedily, and commits. The
-Duplex planner picks the stage's ``k_cold`` from an EMA of the previous
-stages' actual router counts; on the device the experts are re-ranked by
-the live counts and the cold / hot paths run the GEMV / ragged GEMM kernels
-(or, with ``moe_ragged=False``, the capacity-padded GEMV / GEMM kernels).
+which tokens overflow), runs the model, samples (greedy by default; at a
+temperature, with top-k and top-p, from a generator seeded with ``seed``),
+and commits. The Duplex planner picks the stage's ``k_cold`` from an EMA of
+the previous stages' actual router counts, and the Op/B dispatch model
+(``core/dispatch.py``) routes each layer component of the stage to the
+modelled compute or bandwidth path (``StageReport.bandwidth_flop_fraction``);
+on the device the experts are re-ranked by the live counts and the cold /
+hot paths run the GEMV / ragged GEMM kernels (or, with ``moe_ragged=False``,
+the capacity-padded GEMV / GEMM kernels).
 
 Full self-attention stacks run chunked (or, with
 ``prefill_chunk_tokens=None``, whole-prompt) spans and decode rows through
@@ -95,6 +99,7 @@ tests do); asking for CUDA without a card raises.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from dataclasses import dataclass, field
@@ -105,8 +110,10 @@ import torch
 
 from repro_torch.configs.base import ATTN, MAMBA, MOE, ModelConfig
 from repro_torch.core.costmodel import DUPLEX
+from repro_torch.core.dispatch import plan_stage as core_plan_stage
 from repro_torch.core.duplex_moe import default_capacities, moe_traffic_model
 from repro_torch.core.execution import ExecutionPlan
+from repro_torch.core.opb import StageMix
 from repro_torch.core.partition import DuplexPlanner, build_luts
 from repro_torch.models.model import decode_step, init_cache, mixed_step, prefill
 from repro_torch.models.params import DTYPES, tree_map
@@ -175,6 +182,7 @@ class StageReport:
     num_decode: int
     num_prefill: int             # prefill-chunk rows this stage
     k_cold: int
+    bandwidth_flop_fraction: float   # the Op/B plan's (0.0 for an aborted stage)
     wall_time: float             # host clock, plan to commit
     kv_bytes_streamed: int = 0   # K+V bytes of the stage's live pages
     moe_bytes_streamed: int = 0  # modelled MoE bytes from the actual counts
@@ -226,12 +234,14 @@ class ChainInfo:
 @dataclass
 class StagePlan:
     """A formed stage not yet dispatched: the scheduler's decision, its
-    k_cold, the host clock at plan start, the (shed, expired, cancelled,
-    retries) totals before it and the engine clock its tokens are stamped
-    with. A ``speculative`` plan was formed against the projected
-    post-commit state of an in-flight stage (the scheduler is activated at
-    dispatch); ``epoch`` is the mutation epoch it assumed; with ``chain``
-    it dispatches before its predecessor is read."""
+    k_cold and Op/B dispatch plan (``splan``), the host clock at plan
+    start, the (shed, expired, cancelled, retries) totals before it and the
+    engine clock its tokens are stamped with. A ``speculative`` plan was
+    formed against the projected post-commit state of an in-flight stage
+    (the scheduler is activated at dispatch); ``epoch`` is the mutation
+    epoch it assumed; with ``chain`` it dispatches before its predecessor
+    is read; ``evict_seq`` is the engine's eviction count at its dispatch
+    (``_stale_rows``)."""
     decision: StageDecision
     k_cold: int
     t0: float
@@ -240,6 +250,8 @@ class StagePlan:
     speculative: bool = False
     epoch: int = -1
     chain: Optional[ChainInfo] = None
+    splan: Optional[Any] = None
+    evict_seq: int = 0
 
 
 @dataclass
@@ -291,10 +303,12 @@ class ServingEngine:
                  audit_stages: Optional[bool] = None,
                  sampling: SamplingParams = SamplingParams(), spec_k: int = 0,
                  spec_ngram: int = 3,
-                 on_token: Optional[Callable[[int, int], None]] = None, device="cuda"):
-        """Greedy sampling only (``sampling`` at temperature > 0 raises at
-        the first sample). ``kv_layout`` None takes "paged" for a full
-        self-attention stack and "dense" for the others. Paged: the page
+                 on_token: Optional[Callable[[int, int], None]] = None, device="cuda",
+                 seed: int = 0):
+        """``sampling`` is greedy by default; at a temperature > 0 each stage
+        draws from a ``torch.Generator`` on ``device`` seeded with ``seed``,
+        so a run is reproducible from its seed. ``kv_layout`` None takes
+        "paged" for a full self-attention stack and "dense" for the others. Paged: the page
         pool holds ``kv_num_pages`` pages (default every slot at max_len,
         plus the null page); ``kv_quant`` keeps the pages in int8 with
         float32 per-(token, KV head) scales; ``prefix_share`` shares
@@ -323,6 +337,9 @@ class ServingEngine:
         if preemption not in ("none", "migrate", "recompute"):
             raise ValueError(f"preemption must be 'none', 'migrate' or 'recompute', "
                              f"got {preemption!r}")
+        # the sampling stream (drawn from only at a temperature > 0)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
             raise ValueError(f"params live on {table.device}, engine device is "
@@ -457,6 +474,12 @@ class ServingEngine:
         # flight, and the host gap (from a stage's outputs arriving on the
         # host to the next dispatch, over the stages that waited for one)
         self._epoch = 0
+        # evictions in sequence, and each request's last one: a row of a
+        # stage in flight whose request was evicted after the dispatch is
+        # stale (``_stale_rows``)
+        self._evict_seq = 0
+        self._evicted_at: Dict[int, int] = {}
+        self._stale: frozenset = frozenset()
         self._inflight: Optional[StageFuture] = None
         self._t_sync_done: Optional[float] = None
         self.host_gap_s = 0.0
@@ -583,6 +606,8 @@ class ServingEngine:
         self.forced_evictions += 1
 
     def _evict(self, victim: Request) -> None:
+        self._evicted_at[victim.rid] = self._evict_seq
+        self._evict_seq += 1
         self._slot_req.pop(victim.slot, None)
         if self.preemption == "migrate":
             pre.migrate_out(self.kv, victim)
@@ -704,10 +729,10 @@ class ServingEngine:
             admit += 1
         return admit
 
-    def _k_cold(self, decision: StageDecision) -> int:
+    def _k_cold(self, mix: StageMix) -> int:
         """The planner's k_cold from the count EMA, rescaled to this stage's
         live tokens (one-stage-stale statistics)."""
-        n = decision.mix().num_tokens
+        n = mix.num_tokens
         if not self.use_duplex or n == 0:
             return 0
         return self.planner.k_cold_static(self._expected_counts(n))
@@ -867,7 +892,7 @@ class ServingEngine:
                     {"lengths": lens_t, "block_tables": self._upload("d_bt"),
                      "valid": lens_t > 0},
                     plan=self._moe_plan(k_cold, caps[0], caps[1]))
-                return sample(logits, self.sampling), counts
+                return sample(logits, self.sampling, self._gen), counts
         else:
             self._dense_decode_inputs(decision, chain)
             fut.kv_bytes = self._dense_kv_bytes_per_stage
@@ -879,7 +904,7 @@ class ServingEngine:
                     self.params, self.cfg, tokens(), self.kv.cache,
                     {"valid": self._upload("d_valid")},
                     plan=self._moe_plan(k_cold, caps[0], caps[1]))
-                return sample(logits, self.sampling), counts
+                return sample(logits, self.sampling, self._gen), counts
         fut.nxt, fut.counts = self._invoke(step)
 
     def _dispatch_legacy_prefill(self, fut: StageFuture) -> None:
@@ -901,7 +926,7 @@ class ServingEngine:
             cache = init_cache(self.cfg, n_b, self.kv.max_len, device=self.device)
             logits, cache = prefill(self.params, self.cfg, {"tokens": self._upload("lp_tokens")},
                                     cache, self._upload("lp_true_len"), plan=plan)
-            return sample(logits, self.sampling), cache
+            return sample(logits, self.sampling, self._gen), cache
         fut.legacy_nxt, fut.legacy_cache = self._invoke(step)
 
     def _chunk_inputs(self, decision: StageDecision) -> Tuple[int, int]:
@@ -995,18 +1020,29 @@ class ServingEngine:
                 self.params, self.cfg, tokens(), self._upload("m_ctokens"), self.kv.cache,
                 attn_ctx=attn_ctx, chunk_ctx=chunk_ctx,
                 plan=self._moe_plan(k_cold, caps[0], caps[1]), spec_tokens=spec)
-            return (sample(out[0], self.sampling), sample(out[1], self.sampling), out[3],
+            return (sample(out[0], self.sampling, self._gen),
+                    sample(out[1], self.sampling, self._gen), out[3],
                     out[4] if spec else None)
         fut.nxt, fut.cn, fut.counts, fut.cn_all = self._invoke(step)
 
     def _row_live(self, r: Request) -> bool:
         """May an in-flight row's result be applied to ``r``? Not when it
         ended or was evicted between dispatch and commit (a cancel, an
-        expiry, a preemption in the async loop): its device work is
-        discarded. A freed slot's stray KV write is harmless: the device
-        runs it before any new owner's write, and a position not yet
-        written is never read."""
-        return not r.done and r.slot >= 0 and self._slot_req.get(r.slot) is r
+        expiry, a preemption in the async loop; ``_stale``: evicted, even if
+        since admitted again): its device work is discarded. A freed slot's
+        stray KV write is harmless: the device runs it before any new
+        owner's write, and a position not yet written is never read."""
+        return (not r.done and r.slot >= 0 and self._slot_req.get(r.slot) is r
+                and r.rid not in self._stale)
+
+    def _stale_rows(self, plan: StagePlan) -> frozenset:
+        """The rids of ``plan``'s rows whose requests were evicted after its
+        dispatch (only the async loop evicts with a stage in flight)."""
+        if self._evict_seq == plan.evict_seq:
+            return frozenset()
+        d = plan.decision
+        return frozenset(r.rid for r in [c.req for c in d.chunks] + d.decoding
+                         if self._evicted_at.get(r.rid, -1) >= plan.evict_seq)
 
     def _record(self, fut: StageFuture, r: Request, tok: int, tnow: float) -> None:
         """Commit one token to ``r`` (and to the stage's ``on_token`` list)."""
@@ -1185,14 +1221,16 @@ class ServingEngine:
     def _finish_plan(self, decision: StageDecision, t0: float,
                      snap: Tuple[int, int, int, int], tnow: float,
                      speculative: bool = False) -> StagePlan:
-        """Wrap a decision into a StagePlan with its k_cold. For a
-        speculative plan the count EMA is one stage staler (the in-flight
-        stage's counts fold in at its deferred commit), which moves the
-        MoE's path choice, not the schedule. The reference also runs its
-        Op/B dispatch model here; that waits for the port of the Op/B
-        model."""
-        return StagePlan(decision, self._k_cold(decision), t0, snap, tnow,
-                         speculative=speculative, epoch=self._epoch)
+        """Wrap a decision into a StagePlan with its k_cold (for a
+        speculative plan the count EMA is one stage staler: the in-flight
+        stage's counts fold in at its deferred commit, which moves the MoE's
+        path choice, not the schedule) and its Op/B dispatch plan, host work
+        on every stage with tokens, as in the reference."""
+        mix = decision.mix()
+        splan = (core_plan_stage(self.cfg, mix, kv_quant=self.kv.kv_quant)
+                 if mix.num_tokens else None)
+        return StagePlan(decision, self._k_cold(mix), t0, snap, tnow,
+                         speculative=speculative, epoch=self._epoch, splan=splan)
 
     def _build_drafts(self) -> Optional[Dict[int, Tuple[int, List[int]]]]:
         """The drafter's proposals for the next stage: for each decoding
@@ -1257,6 +1295,7 @@ class ServingEngine:
         unwinds with ``_abort_stage``."""
         if plan.speculative:
             self.scheduler.activate(plan.decision)
+        plan.evict_seq = self._evict_seq
         self._staging_idx ^= 1
         fut = StageFuture(plan=plan)
         decision = plan.decision
@@ -1302,6 +1341,7 @@ class ServingEngine:
         deltas are frozen."""
         plan = fut.plan
         decision, tnow = plan.decision, plan.tnow
+        self._stale = self._stale_rows(plan)
         if decision.chunks and self._unified:
             self._commit_mixed(fut, mat, tnow)
         else:
@@ -1317,6 +1357,14 @@ class ServingEngine:
             if r.done and r.slot >= 0 and self._slot_req.get(r.slot) is r:
                 self.kv.free(r.slot)
                 del self._slot_req[r.slot]
+        if self._stale:
+            # an evicted row's request is queued for its replay: its span
+            # must not move its prefill position or bring it back (the
+            # reference does both, ROADMAP queue 3)
+            decision = dataclasses.replace(
+                decision, chunks=[c for c in decision.chunks if c.req.rid not in self._stale],
+                decoding=[r for r in decision.decoding if r.rid not in self._stale])
+            self._stale = frozenset()
         self.scheduler.commit_stage(decision)
         fut.deltas = (self.shed - plan.snap[0], self.expired - plan.snap[1],
                       self.cancelled - plan.snap[2], self.retries - plan.snap[3])
@@ -1354,7 +1402,9 @@ class ServingEngine:
         report = StageReport(
             stage_index=self._stage_idx, is_mixed=decision.is_mixed,
             num_decode=len(decision.decoding), num_prefill=len(decision.chunks),
-            k_cold=k_cold, wall_time=time.monotonic() - plan.t0,
+            k_cold=k_cold,
+            bandwidth_flop_fraction=plan.splan.bandwidth_fraction() if plan.splan else 0.0,
+            wall_time=time.monotonic() - plan.t0,
             kv_bytes_streamed=int(fut.kv_bytes), moe_bytes_streamed=int(moe_bytes),
             moe_flops_live=int(moe_live), moe_flops_padded=int(moe_padded),
             chunk_tokens=int(chunk_tokens), stage_tokens=int(live),
@@ -1373,7 +1423,8 @@ class ServingEngine:
         report = StageReport(
             stage_index=self._stage_idx, is_mixed=decision.is_mixed,
             num_decode=len(decision.decoding), num_prefill=len(decision.chunks),
-            k_cold=plan.k_cold, wall_time=time.monotonic() - plan.t0, aborted=True,
+            k_cold=plan.k_cold, bandwidth_flop_fraction=0.0,
+            wall_time=time.monotonic() - plan.t0, aborted=True,
             shed=self.shed - plan.snap[0], expired=self.expired - plan.snap[1],
             cancelled=self.cancelled - plan.snap[2],
             retries=self.retries - plan.snap[3], audit_violations=self._run_audit())
@@ -1485,6 +1536,12 @@ class ServingEngine:
         d = cur.decision
         if d.chunks and not self._unified:
             return None          # the legacy prefill claims its slots at commit
+        if self._stale_rows(cur):
+            # this turn's maintenance evicted a row of the stage in flight:
+            # its commit drops the row, which no projection follows
+            self.spec_misses += 1
+            self._reject_spec("evicted")
+            return None
         if any(c.draft is not None for c in d.chunks):
             self.spec_misses += 1
             self._reject_spec("rewind")
@@ -1849,8 +1906,10 @@ class ServingEngine:
         previous tick left in flight, if any, and dispatch the next, leaving
         it in flight. Returns the committed stage's report (a tick behind
         ``step``), or None while priming or idle. Dropping ``_inflight``
-        abandons device work without having moved anything durable;
-        ``scheduler.has_work`` stays true while a stage is in flight."""
+        abandons device work without having moved anything durable. A stage
+        in flight that admitted the last queued requests holds them outside
+        the scheduler's lists until its commit, so an outside driver asks
+        ``scheduler.has_work`` and ``_inflight`` both whether work is left."""
         fut, self._inflight = self._inflight, None
         if fut is not None:
             self._inflight, report, _ = self._pipeline_turn(fut, now)

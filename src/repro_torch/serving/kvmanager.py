@@ -399,6 +399,10 @@ class KVManager:
             g[:, idx] = l.to(g.dtype)
 
     def _total_bytes(self) -> int:
+        """The pool's bytes; 0 once a retired replica released it (``cache``
+        None, which the reference's tree walk reads as an empty tree)."""
+        if self.cache is None:
+            return 0
         return sum(t.numel() * t.element_size() for t in tree_leaves(self.cache))
 
     def bytes_per_slot(self) -> int:

@@ -253,15 +253,18 @@ def _soak_requests(R, vocab):
 def test_fault_injector_through_both_loops_of_both_packages(dense_ffn):
     """Seed 0 of the chaos soak's injector on the soak's engine (paged,
     sharing, recompute over a tight pool; a dense FFN, as the chaos soak,
-    so that the reference compiles few shapes): each loop of the port draws
-    the reference's fault schedule and forms its stages, counters and
-    tokens, and both drain cleanly. (Under this schedule both packages'
-    async loops depart from their sync loops on one request: a request
-    evicted while its stage is in flight keeps that stage's prefill
-    position; see ROADMAP queue 3.)"""
+    so that the reference compiles few shapes). The sync loop of the port
+    draws the reference's fault schedule and forms its stages, counters and
+    tokens. In the async loop the reference departs from its own sync
+    tokens on request 5: a request evicted while its stage is in flight
+    keeps that stage's prefill position (ROADMAP queue 3). The port drops
+    such a stale row at the commit and forms the next stage from real
+    state (a spec miss, "evicted"), so its async loop emits the sync
+    loop's tokens. Both drain cleanly."""
     cfg_t, pt = dense_ffn
     cfg_j = small_test_config("async-test", num_layers=2, d_model=64)
     pj, _ = _params(cfg_j)
+    got, want = {}, {}
     for loop in ("run", "run_async"):
         ref_inj, inj = RefInjector(0, **SOAK_FAULTS), FaultInjector(0, **SOAK_FAULTS)
         ref = RefEngine(cfg_j, pj, injector=ref_inj, use_duplex=False, **SOAK_KW)
@@ -271,12 +274,20 @@ def test_fault_injector_through_both_loops_of_both_packages(dense_ffn):
                             injector=inj, **SOAK_KW)
         reqs = _soak_requests(Request, cfg_t.vocab_size)
         getattr(eng, loop)(reqs, max_stages=2000, stall_stages=1000)
-        got = _summary(eng, reqs)
-        assert got == _summary(ref, ref_reqs), loop
-        assert inj.counts == ref_inj.counts and inj.total_faults > 0
-        assert got["counters"]["stage_aborts"] > 0 and got["counters"]["preemptions"] > 0
+        got[loop], want[loop] = _summary(eng, reqs), _summary(ref, ref_reqs)
+        assert inj.total_faults > 0
+        assert got[loop]["counters"]["stage_aborts"] > 0
+        assert got[loop]["counters"]["preemptions"] > 0
         assert all(r.completed for r in reqs)
         assert _drained(eng) and eng.stats()["audit_violations"] == 0
+        if loop == "run":
+            assert got[loop] == want[loop]
+            assert inj.counts == ref_inj.counts
+    departs = [i for i, (a, b) in enumerate(zip(want["run"]["tokens"],
+                                                 want["run_async"]["tokens"])) if a != b]
+    assert departs == [5]                                     # the reference's fault
+    assert got["run_async"]["tokens"] == got["run"]["tokens"] == want["run"]["tokens"]
+    assert got["run_async"]["counters"]["spec_miss_reasons"].get("evicted", 0) > 0
 
 
 # ---- the device gather and the pure planner -------------------------------------------

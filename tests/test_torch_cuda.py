@@ -891,3 +891,86 @@ def test_cuda_spec_decoding_runs_without_a_host_sync(card, layout):
             st = eng.stats()
             assert 0 < st["spec_accepted"] < st["spec_proposed"] and st["spec_rewinds"] > 0
     assert out[4, "run"] == out[0, "run"] == out[4, "run_async"]
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_kill_with_a_stage_in_flight(card):
+    """Two tiny-dense replicas with ``async_steps`` on the card, every
+    ``dispatch_stage`` under torch's sync debug mode "error": replica 0 is
+    killed while a stage of its is in flight; its requests fail over to
+    replica 1, every request ends exactly once with all its tokens, equal
+    to a fault-free fleet's (a dense FFN: a stage's composition moves no
+    token), and the survivor drains clean."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.models.params import init_model
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.fleet import Fleet
+    cfg = resolve_config("tiny-dense")
+    params = init_model(cfg, seed=0, device=str(card))
+
+    def factory(i, inj):
+        eng = ServingEngine(cfg, params, device=str(card), max_slots=4, max_len=64,
+                            kv_page_size=8, prefill_chunk_tokens=8, prefix_share=True, preemption="recompute", audit_stages=True)
+        eng.dispatch_stage = _strict(eng.dispatch_stage)
+        return eng
+
+    out = {}
+    for kill in (False, True):
+        fleet = Fleet(factory, 2, router="round-robin", async_steps=True)
+        reqs = _tiny_requests(cfg.vocab_size)
+        for r in reqs:
+            fleet.submit(r, now=0.0)
+        if kill:
+            for _ in range(4):
+                fleet.step(now=0.0)
+            assert fleet.replicas[0].engine._inflight is not None
+            fleet.kill(0, now=0.0)
+            assert fleet.failovers > 0
+        for _ in range(500):
+            if not fleet.has_work:
+                break
+            fleet.step(now=0.0)
+        st = fleet.stats()
+        assert st["terminal"] == st["submitted"] == len(reqs) and st["duplicate_submits"] == 0
+        assert all(r.completed and len(r.output) == 5 for r in reqs)
+        survivor = fleet.replicas[-1].engine
+        assert survivor.kv.live_pages == 0 and survivor.kv.audit(pins={}) == []
+        assert st["per_replica"][1]["audit_violations"] == 0
+        out[kill] = [r.output for r in reqs]
+    assert out[True] == out[False]
+
+
+@pytest.mark.cuda
+def test_cuda_sampling_runs_without_a_host_sync(card):
+    """``sample`` at a temperature with top-k and top-p on the card under
+    sync debug "error": its draw is reproducible from the generator's seed,
+    every token is in the vocabulary and among the top-k; and a sampled
+    engine's stages dispatch without a host sync and repeat from its
+    seed."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.models.params import init_model
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.sampling import SamplingParams, sample
+    params_s = SamplingParams(temperature=0.8, top_k=5, top_p=0.95)
+    logits = torch.randn(64, 1, 1000, device=card)
+    draws = []
+    for _ in range(2):
+        gen = torch.Generator(device=card).manual_seed(0)
+        draws.append(_strict(lambda x: sample(x, params_s, gen))(logits))
+    assert torch.equal(draws[0], draws[1]) and draws[0].dtype == torch.int32
+    top5 = logits[:, 0].topk(5).indices
+    assert bool((top5 == draws[0][:, None].long()).any(-1).all())
+    cfg = resolve_config("tiny-moe")
+    params = init_model(cfg, seed=0, device=str(card))
+    out = []
+    for _ in range(2):
+        eng = ServingEngine(cfg, params, device=str(card), max_slots=4, max_len=64,
+                            kv_page_size=8, prefill_chunk_tokens=8, seed=0,
+                            sampling=SamplingParams(temperature=0.8, top_k=50, top_p=0.95))
+        eng.dispatch_stage = _strict(eng.dispatch_stage)
+        reqs = _tiny_requests(cfg.vocab_size)
+        eng.run(reqs)
+        assert all(r.completed and all(0 <= t < cfg.vocab_size for t in r.output)
+                   for r in reqs)
+        out.append([r.output for r in reqs])
+    assert out[0] == out[1]

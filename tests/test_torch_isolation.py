@@ -24,7 +24,9 @@ for n in ("repro_torch.kernels.quant", "repro_torch.kernels.decode_attn",
           "repro_torch.models.attention", "repro_torch.serving.kvmanager",
           "repro_torch.serving.preemption", "repro_torch.serving.faults",
           "repro_torch.serving.scheduler", "repro_torch.serving.request",
-          "repro_torch.serving.drafter",
+          "repro_torch.serving.drafter", "repro_torch.serving.router",
+          "repro_torch.serving.fleet", "repro_torch.core.opb", "repro_torch.core.dispatch",
+          "repro_torch.launch.serve",
           "repro_torch.configs.jamba_v0_1_52b", "repro_torch.kernels.flash_attn",
           "repro_torch.training.optimizer", "repro_torch.training.data",
           "repro_torch.training.train_state", "repro_torch.training.loop",
@@ -40,13 +42,18 @@ from repro_torch.models.params import init_model
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.launch.train import main as train_main
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.serving.fleet import Fleet
 cfg = resolve_config("tiny-moe")
-try:
-    train_main(["--arch", "tiny-moe", "--steps", "1"])
-except RuntimeError:
-    pass
-else:
-    raise AssertionError("the trainer ran without a card")
+for main, argv in ((train_main, ["--arch", "tiny-moe", "--steps", "1"]),
+                   (serve_main, ["--arch", "tiny-moe", "--requests", "1"]),
+                   (serve_main, ["--requests", "1", "--replicas", "2"])):
+    try:
+        main(argv)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError(f"{argv} ran without a card")
 try:
     init_model(cfg)
 except RuntimeError:
@@ -66,13 +73,20 @@ for stack, flags in ((cfg, {"kv_page_size": 8, "prefill_chunk_tokens": 16}),
                      (cfg, {"kv_page_size": 8, "queue_cap": 2,
                             "overload_policy": "shed-oldest", "aging_rounds": 2,
                             "injector": FaultInjector(0), "audit_stages": True}),
-                     (cfg, {"kv_page_size": 8, "spec_k": 4, "on_token": print})):
+                     (cfg, {"kv_page_size": 8, "spec_k": 4, "on_token": print}),
+                     (cfg, {"kv_page_size": 8, "seed": 3})):
     try:
         ServingEngine(stack, params, max_slots=2, max_len=32, **flags)
     except RuntimeError as e:
         assert "cuda" in str(e).lower()
     else:
         raise AssertionError("ServingEngine ran without a card")
+try:
+    Fleet(lambda i, inj: ServingEngine(cfg, params, max_slots=2, max_len=32), 2)
+except RuntimeError as e:
+    assert "cuda" in str(e).lower()
+else:
+    raise AssertionError("a Fleet of card engines was built without a card")
 print("OK", len(names))
 """
 
