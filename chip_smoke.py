@@ -100,8 +100,8 @@ Phases, each printing a line:
           prints how many requests emitted path e's tokens, g2 every request
           terminal as length, shed, expired or cancelled;
        h. the async loop: path a's engine and requests through ``run`` and
-          ``run_async``, three pairs in the order sync async, async sync,
-          sync async, every ``dispatch_stage`` under torch's sync debug
+          ``run_async``, two pairs in the order sync async, async sync
+          (three before), every ``dispatch_stage`` under torch's sync debug
           mode "error"; each run checks 16/16 completed with 32 tokens, a
           drained pool with an empty audit, kernels 1-4 on their
           tensor-core routes and the schedule counters (stages, chained
@@ -191,6 +191,22 @@ Phases, each printing a line:
           the two runs' losses must be equal at every step. Then one
           step's loss and layer 0's attention gradients through the
           kernels against the plain path, and a profile of one step.
+       d2. checkpoints: OLMoE-1B-7B at full width and 2 layers, 6 steps of
+          4 x 2048 with async keep-2 checkpoints every 2 steps, three
+          runs: R1 uninterrupted; R2 sends itself SIGTERM during step 3,
+          checkpoints there and stops; R3 starts from other weights,
+          restores step 3 and runs to step 6. R2's losses then R3's must
+          equal R1's bit for bit, R3's final state R1's, the checkpoints
+          kept honour keep, and one leaf restores on the CPU with equal
+          bits; it logs the free disk (and raises under (keep + 1)
+          checkpoints), the bytes written, a sync save's seconds, an async
+          save's snapshot and whole save, the restore and the steps with
+          and without a write in flight, and removes its directory;
+       d3. remat: path d's configuration for 3 steps under
+          ``remat="dots"`` and ``"full"``; each run's losses must equal
+          path d's first three bit for bit, the flash forward run twice a
+          layer a step and the backward once; it logs the median step, the
+          peak memory and the launches a step beside path d's.
 
 Prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as the
 last line. Any failure raises, and the exit code is non-zero. Without a CUDA
@@ -1205,7 +1221,7 @@ G2_EXPECT = dict(stages=100, shed=16, expired=2, cancelled=2, rejected=0,
 
 ASYNC_LABEL = "async loop: path a's engine"
 ASYNC_KW = dict(ENGINE_KW, **PATHS[0][1])
-H_PAIRS = 3                    # sync/async pairs, in the order S A, A S, S A
+H_PAIRS = 2                    # sync/async pairs, in the order S A, A S
 # the async runs' schedule as the port's engine forms it on the CPU
 # (tests/test_torch_async.py): every stage after the first planned from the
 # projection and chained; the sync runs form the same stages, none chained
@@ -1499,7 +1515,7 @@ def top2_gap(torch, cfg, params, tokens):
 
 def async_phase(torch, cfg, params, a_tokens):
     """Path h: path a's engine and requests through the sync loop and the
-    async loop, three pairs in the order S A, A S, S A within this call (a
+    async loop, two pairs in the order S A, A S within this call (a
     run's place in a call moves host clocks by seconds). Each run: wall and
     generated tokens/s over its wall (under async the stage walls overlap),
     median TBT and TTFT, the schedule counters (gated to ``H_EXPECT``), the
@@ -2460,16 +2476,13 @@ def train_phase(torch):
     twice from the same seed, each run with the launch counts set to 0 just
     before it and read just after; the two runs' losses must be equal at
     every step (the MoE input gradient is summed in a fixed order). Returns
-    {kernel: launches} of the first run; raises if a check fails."""
-    import dataclasses
-    from repro_torch.configs import RunConfig, resolve_config
-    from repro_torch.configs.base import Segment
+    the first run's {"launches" {kernel: launches}, "losses", "median" step
+    time, "peak" memory}; raises if a check fails."""
+    from repro_torch.configs import RunConfig
     from repro_torch.launch.train import make_step
     from repro_torch.training.data import DataConfig, SyntheticLMData
     from repro_torch.training.optimizer import OptConfig
-    full = resolve_config("olmoe-1b-7b")
-    cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS, segments=(
-        Segment(full.segments[0].pattern, TRAIN_LAYERS),)).validate()
+    full, cfg = olmoe_cut(TRAIN_LAYERS)
     opt = OptConfig(learning_rate=1e-3, total_steps=TRAIN_STEPS,
                     warmup_steps=max(TRAIN_STEPS // 10, 1))
     data = SyntheticLMData(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
@@ -2494,7 +2507,8 @@ def train_phase(torch):
     profile_train_step(torch, step_fn, state, batch)
     log(f"train [{TRAIN_LABEL}]: peak memory since the second run's weights were made "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    return {k: runs[0]["launches"][k] for k in TRAIN_KERNELS}
+    return dict(launches={k: runs[0]["launches"][k] for k in TRAIN_KERNELS},
+                **{k: runs[0][k] for k in ("losses", "median", "peak")})
 
 
 def train_run(torch, cfg, full, opt, step_fn, batch_fn, run):
@@ -2560,7 +2574,7 @@ def train_run(torch, cfg, full, opt, step_fn, batch_fn, run):
         raise AssertionError(f"[{label}] non-finite loss or grad norm")
     if torch.equal(before, watch.detach()):
         raise AssertionError(f"[{label}] the parameters did not move")
-    return dict(state=state, launches=launches, losses=losses, median=med)
+    return dict(state=state, launches=launches, losses=losses, median=med, peak=peak)
 
 
 def check_train_against_plain(torch, cfg, params, batch):
@@ -2601,6 +2615,279 @@ def profile_train_step(torch, step_fn, state, batch, top: int = 12):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     log_profile(prof, TRAIN_LABEL, "one training step", wall, top, also=("flash", "index"))
+
+
+# path d2: checkpoints and resume. OLMoE-1B-7B at full width cut to the
+# fewest layers that keep its structure (every layer is the same attention +
+# 64-expert MoE block, so 2): the embedding and LM head (2 x 103M) and two
+# layers (2 x 419.6M) make 1.045B parameters, 10 bytes each in a checkpoint
+# (bf16 parameters, float32 mu and nu; the gradients are not state)
+RESUME_LABEL = "olmoe resume"
+RESUME_LAYERS = 2
+RESUME_STEPS = 6
+RESUME_EVERY = 2
+RESUME_KEEP = 2
+RESUME_SIGNAL_STEP = 3         # R2 sends itself SIGTERM during its third step
+RESUME_OTHER_SEED = 1          # R3's weights before the restore
+# path d3: remat on path d's configuration
+REMAT_LABEL = "olmoe remat"
+REMAT_STEPS = 3
+
+
+def olmoe_cut(layers):
+    from repro_torch.configs import resolve_config
+    from repro_torch.configs.base import Segment
+    full = resolve_config("olmoe-1b-7b")
+    return full, dataclasses.replace(full, num_layers=layers, segments=(
+        Segment(full.segments[0].pattern, layers),)).validate()
+
+
+def states_equal(torch, a, b) -> bool:
+    """Two trees of tensors and ints hold the same values, bit for bit."""
+    from repro_torch.models.params import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y for x, y in zip(la, lb))
+
+
+def writer_busy() -> bool:
+    """Whether an ``AsyncCheckpointer`` write is in flight."""
+    import threading
+    from repro_torch.training.checkpoint import AsyncCheckpointer
+    return any(t.name == AsyncCheckpointer.THREAD_NAME and t.is_alive()
+               for t in threading.enumerate())
+
+
+def resume_phase(torch):
+    """Path d2: three runs of ``train_loop`` with async keep-2 checkpoints
+    every 2 steps on OLMoE-1B-7B at full width and RESUME_LAYERS layers,
+    seq 2048 x batch 4, 6 steps, ``SyntheticLMData`` seed 0. R1 runs
+    uninterrupted from seed-0 weights; R2, from the same weights, sends
+    itself SIGTERM (from the main thread) during step 3, so it checkpoints
+    at step 3 and stops; R3 starts from seed-1 weights, restores step 3 and
+    runs to step 6. Gates: R2's losses then R3's equal R1's bit for bit,
+    R3's final parameters and optimizer state ``torch.equal`` to R1's,
+    ``list_checkpoints`` honours keep, one leaf of the card's checkpoint
+    restores on the CPU with equal bits, and R3's restore (into its state's
+    tensors) raises the allocator's peak by under a twentieth of the state,
+    i.e. makes no second copy of it. Logs the free disk
+    (raises under (keep + 1) checkpoints' bytes), the bytes written, the
+    seconds of a sync save, of an async save's snapshot and of its write,
+    of a restore, and the median step with an async write in flight
+    against without one. The checkpoint directory goes at the end, and
+    when the path fails. Returns {kernel: launches a run} of R1."""
+    import shutil
+    import signal
+    import tempfile
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import make_step
+    from repro_torch.models.params import DTYPES, init_model, model_specs, tree_leaves
+    from repro_torch.training.checkpoint import (list_checkpoints, restore_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.data import DataConfig, SyntheticLMData
+    from repro_torch.training.loop import LoopConfig, train_loop
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_state import make_train_state
+    full, cfg = olmoe_cut(RESUME_LAYERS)
+    opt = OptConfig(learning_rate=1e-3, total_steps=RESUME_STEPS,
+                    warmup_steps=max(RESUME_STEPS // 10, 1))
+    data = SyntheticLMData(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    batch_fn = lambda step: {"tokens": torch.from_numpy(data.batch_at(step)["tokens"]).cuda()}
+    step_fn = make_step(cfg, opt, RunConfig(remat_policy="none"))
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        def run(label, seed, ckpt_dir, signal_at=None):
+            state = make_train_state(init_model(cfg, seed=seed, device="cuda"), opt)
+            torch.cuda.synchronize()
+            steps, last = [], {}
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+
+            def step(state, batch):
+                n = state["step"] + 1
+                if not steps:               # the restore's (if any) and a batch's peak
+                    last["lead_rise"] = torch.cuda.max_memory_allocated() - base
+                if n == signal_at:
+                    handler = signal.getsignal(signal.SIGTERM)
+                    if not getattr(handler, "__qualname__", "").startswith("train_loop"):
+                        raise AssertionError(f"[{label}] the loop's SIGTERM handler is not "
+                                             f"installed: {handler!r}")
+                    os.kill(os.getpid(), signal.SIGTERM)
+                busy = writer_busy()
+                t = time.perf_counter()
+                state, m = step_fn(state, batch)
+                torch.cuda.synchronize()
+                steps.append((n, time.perf_counter() - t, busy, t, time.perf_counter()))
+                last["state"] = state
+                return state, m
+
+            build.reset_launch_counts()
+            t = time.perf_counter()
+            loop = train_loop(state, step, batch_fn, LoopConfig(
+                total_steps=RESUME_STEPS, ckpt_dir=ckpt_dir, ckpt_every=RESUME_EVERY,
+                keep=RESUME_KEEP, async_ckpt=True, log_every=1), log=log)
+            wall = time.perf_counter() - t
+            # the loop's start to its first step: the restore (if any) and a
+            # batch; its last step's end to its return: the wait for the
+            # write still in flight, then the last boundary's snapshot and
+            # write, which the loop waits for
+            last["lead_s"], last["tail_s"] = steps[0][3] - t, t + wall - steps[-1][4]
+            launches = {k: build.launch_counts[k] for k in TRAIN_KERNELS}
+            log(f"train [{label}]: steps {[s[0] for s in steps]} in {wall:.2f} s with its "
+                f"saves; losses {loop.losses}; step times (s) "
+                f"{[round(s[1], 4) for s in steps]}, a write in flight at "
+                f"{[s[0] for s in steps if s[2]]}; interrupted={loop.interrupted}; "
+                f"checkpoints {list_checkpoints(ckpt_dir)}; launches {launches}")
+            if not all(math.isfinite(x) for x in loop.losses):
+                raise AssertionError(f"[{label}] non-finite loss")
+            if launches != {k: RESUME_LAYERS * len(steps) for k in TRAIN_KERNELS}:
+                raise AssertionError(f"[{label}] launches {launches}")
+            return loop, last, steps, launches
+
+        specs = tree_leaves(model_specs(cfg))
+        n_params = sum(math.prod(s.shape) for s in specs)
+        state_bytes = sum(math.prod(s.shape) * (DTYPES[s.dtype].itemsize + 8) for s in specs)
+        free = shutil.disk_usage(root).free
+        need = (RESUME_KEEP + 1) * state_bytes
+        log(f"train [{RESUME_LABEL}]: {cfg.name} cut to {cfg.num_layers} of {full.num_layers} "
+            f"layers, {n_params / 1e9:.3f}B parameters, {state_bytes / 1e9:.2f} GB of "
+            f"checkpointed state (bf16 parameters, float32 mu and nu); free disk at the "
+            f"checkpoint directory {free / 1e9:.1f} GB, needs (keep + 1) x state = "
+            f"{need / 1e9:.1f} GB")
+        if free < need:
+            raise AssertionError(f"[{RESUME_LABEL}] {free / 1e9:.1f} GB free, the path "
+                                 f"needs {need / 1e9:.1f} GB")
+        d1, d2 = os.path.join(root, "r1"), os.path.join(root, "r2")
+        r1, last1, steps1, launches = run(f"{RESUME_LABEL} R1", 0, d1)
+        final1 = last1["state"]
+        kept = list_checkpoints(d1)
+        written = os.path.getsize(os.path.join(d1, f"step_{kept[-1]:08d}", "state.npz"))
+        # one sync save of R1's final state (step 7)
+        t = time.perf_counter()
+        save_checkpoint(d1, RESUME_STEPS + 1, final1, keep=RESUME_KEEP)
+        sync_s = time.perf_counter() - t
+        # R1's async saves: the caller's snapshot is the gap after step 2 less
+        # the gap after step 1 (a batch alone); the loop's tail holds the
+        # rest of step 4's write and all of step 6's save
+        gap = lambda n: steps1[n][3] - steps1[n - 1][4]
+        snap_s = gap(RESUME_EVERY) - gap(RESUME_EVERY - 1)
+        log(f"train [{RESUME_LABEL}]: a checkpoint is {written} bytes; sync save "
+            f"{sync_s:.2f} s ({written / sync_s / 1e9:.2f} GB/s); async save: the "
+            f"caller's snapshot {snap_s:.2f} s; the loop's tail after step "
+            f"{RESUME_STEPS} (the rest of the write before, then this save) "
+            f"{last1['tail_s']:.2f} s")
+        if list_checkpoints(d1) != [RESUME_STEPS, RESUME_STEPS + 1]:
+            raise AssertionError(f"[{RESUME_LABEL}] checkpoints {list_checkpoints(d1)}")
+        shutil.rmtree(d1)
+        r2, _, steps2, _ = run(f"{RESUME_LABEL} R2", 0, d2, signal_at=RESUME_SIGNAL_STEP)
+        if not r2.interrupted or list_checkpoints(d2) != [RESUME_EVERY, RESUME_SIGNAL_STEP]:
+            raise AssertionError(f"[{RESUME_LABEL} R2] interrupted={r2.interrupted}, "
+                                 f"checkpoints {list_checkpoints(d2)}")
+        r3, last3, steps3, _ = run(f"{RESUME_LABEL} R3", RESUME_OTHER_SEED, d2)
+        final3 = last3["state"]
+        equal_params = states_equal(torch, final3["params"], final1["params"])
+        equal_opt = states_equal(torch, final3["opt"], final1["opt"])
+        kept = list_checkpoints(d2)
+        leaf = final3["params"]["embed"]["table"]
+        cpu, _ = restore_checkpoint(d2, {"params": {"embed": {"table": torch.empty(
+            leaf.shape, dtype=leaf.dtype, device="meta")}}}, device="cpu")
+        cpu = cpu["params"]["embed"]["table"]
+        cpu_equal = cpu.device.type == "cpu" and torch.equal(cpu, leaf.detach().cpu())
+        rise = last3["lead_rise"]
+        log(f"train [{RESUME_LABEL}]: R3's restore (into its state's tensors) and first "
+            f"batch raised the allocator's peak by {rise / 2**20:.1f} MiB over the "
+            f"{state_bytes / 1e9:.2f} GB of state it restored")
+        if rise > state_bytes / 20:
+            raise AssertionError(f"[{RESUME_LABEL}] the restore raised the peak by {rise} "
+                                 f"bytes: a second copy of the state")
+        busy = [s[1] for s in steps1[1:] + steps2[1:] + steps3[1:] if s[2]]
+        idle = [s[1] for s in steps1[1:] + steps2[1:] + steps3[1:] if not s[2]]
+        med = lambda xs: sorted(xs)[len(xs) // 2] if xs else float("nan")
+        log(f"train [{RESUME_LABEL}]: R2 + R3 losses equal R1's at every step: "
+            f"{r2.losses + r3.losses == r1.losses}; R3's final parameters equal R1's: "
+            f"{equal_params}, optimizer state: {equal_opt}; checkpoints kept {kept} "
+            f"(keep {RESUME_KEEP}); the embedding of the newest restored on the CPU "
+            f"equal to the card's: {cpu_equal}; R3's restore of step {RESUME_SIGNAL_STEP} "
+            f"onto the card (and one batch) {last3['lead_s']:.2f} s, a warm read (the file "
+            f"was just written); median step (each run's first left out) "
+            f"with a write in flight {med(busy):.4f} s over {len(busy)}, without "
+            f"{med(idle):.4f} s over {len(idle)}")
+        if r2.losses + r3.losses != r1.losses or not (equal_params and equal_opt):
+            raise AssertionError(f"[{RESUME_LABEL}] the resumed run departs from R1: "
+                                 f"{r2.losses} + {r3.losses} vs {r1.losses}")
+        if kept != [RESUME_STEPS - RESUME_EVERY, RESUME_STEPS] or not cpu_equal:
+            raise AssertionError(f"[{RESUME_LABEL}] checkpoints {kept}, CPU leaf equal "
+                                 f"{cpu_equal}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def remat_phase(torch, path_d):
+    """Path d3: path d's configuration and data (TRAIN_LAYERS layers, 4 x
+    2048, seed 0, path d's optimizer) for REMAT_STEPS steps under
+    ``remat="dots"`` and ``remat="full"``, each from fresh seed-0 weights,
+    the previous run's state freed first. Gates: each run's losses equal
+    path d's first REMAT_STEPS losses bit for bit (remat changes no
+    arithmetic: the CPU tests show "dots" and "full" equal to "none" in
+    loss and every gradient), and each flash kernel's launches: the
+    forward twice a layer a step (the recompute runs it again in the
+    backward), the backward once. Logs, beside path d's ("none"), the
+    median step, the peak memory and the launches a step."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import make_step
+    from repro_torch.models.params import init_model
+    from repro_torch.training.data import DataConfig, SyntheticLMData
+    from repro_torch.training.loop import LoopConfig, train_loop
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_state import make_train_state
+    full, cfg = olmoe_cut(TRAIN_LAYERS)
+    opt = OptConfig(learning_rate=1e-3, total_steps=TRAIN_STEPS,
+                    warmup_steps=max(TRAIN_STEPS // 10, 1))
+    data = SyntheticLMData(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    batch_fn = lambda step: {"tokens": torch.from_numpy(data.batch_at(step)["tokens"]).cuda()}
+    rows = {"none": dict(median=path_d["median"], peak=path_d["peak"],
+                         fwd=path_d["launches"]["flash_attention"] / TRAIN_STEPS,
+                         bwd=path_d["launches"]["flash_attention_bwd"] / TRAIN_STEPS)}
+    for remat in ("dots", "full"):
+        label = f"{REMAT_LABEL} {remat}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = make_train_state(init_model(cfg, seed=0, device="cuda"), opt)
+        step_fn = make_step(cfg, opt, RunConfig(remat_policy=remat))
+        times = []
+
+        def step(state, batch):
+            t = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            return state, m
+
+        build.reset_launch_counts()
+        loop = train_loop(state, step, batch_fn, LoopConfig(total_steps=REMAT_STEPS,
+                                                            log_every=1), log=log)
+        torch.cuda.synchronize()
+        fwd, bwd = (build.launch_counts[k] for k in TRAIN_KERNELS)
+        rows[remat] = dict(median=sorted(times)[len(times) // 2],
+                           peak=torch.cuda.max_memory_allocated(), fwd=fwd / REMAT_STEPS,
+                           bwd=bwd / REMAT_STEPS)
+        want = path_d["losses"][:REMAT_STEPS]
+        log(f"train [{label}]: losses {loop.losses} (path d's {want}); step times (s) "
+            f"{[round(x, 4) for x in times]}")
+        if loop.losses != want:
+            raise AssertionError(f"[{label}] losses {loop.losses} differ from path d's {want}")
+        if (fwd, bwd) != (2 * TRAIN_LAYERS * REMAT_STEPS, TRAIN_LAYERS * REMAT_STEPS):
+            raise AssertionError(f"[{label}] flash launches (forward, backward) {fwd, bwd}")
+        del state, loop
+    for remat, r in rows.items():
+        log(f"train [{REMAT_LABEL}]: remat={remat}: median step {r['median']:.4f} s, "
+            f"{TRAIN_BATCH * TRAIN_SEQ / r['median']:.0f} tokens/s, peak memory "
+            f"{r['peak'] / 2**30:.2f} GiB, flash forward {r['fwd']:g} and backward "
+            f"{r['bwd']:g} launches a step")
 
 
 def check_against_plain(torch, cfg, params, label, flags):
@@ -2742,8 +3029,15 @@ def main(argv=None) -> int:
             rows[name]["launches"] = n
         gc.collect()                      # the Jamba model and its caches go
         torch.cuda.empty_cache()
-        for name, n in train_phase(torch).items():
+        path_d = train_phase(torch)
+        for name, n in path_d["launches"].items():
             rows[name]["launches"] = n
+        gc.collect()                      # path d's state goes
+        torch.cuda.empty_cache()
+        resume_phase(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        remat_phase(torch, path_d)
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -131,9 +131,12 @@ class ModelConfig:
 @dataclass(frozen=True)
 class RunConfig:
     """The training run's knobs the port takes from the reference's
-    ``RunConfig``: activation rematerialisation per super-block, "none" or
-    "full" ("dots" is not ported)."""
+    ``RunConfig``: activation rematerialisation per super-block ("full",
+    "dots" or "none"), the flash core's tiles and its bf16 score chain."""
     remat_policy: str = "full"
+    attn_q_block: int = 512
+    attn_kv_block: int = 512
+    attn_score_bf16: bool = False
 
 
 def reduced_config(cfg: ModelConfig, *, layers: int = 2, d_model: int = 128,

@@ -109,7 +109,7 @@ def _unblock_kv(x, S):
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           softcap: float = 0.0, q_block: int = 512, kv_block: int = 512,
-                          f32_out: bool = False):
+                          f32_out: bool = False, score_bf16: bool = False):
     """q (B, S, H, hd); k, v (B, S, KV, hd) -> (out (B, S, H, hd) in q's
     dtype, lse (B, H, S) float32), and with ``f32_out`` also the float32
     output ``acc / max(l, 1e-37)`` before the cast (the reference's
@@ -117,10 +117,15 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     triangular / banded block schedule, the forward of the reference's
     ``_flash_core``: float32 scores and accumulators, p rounded to v's dtype
     before PV, p not gated by the mask (a row masked out of a whole block
-    is reset by the next block's max)."""
+    is reset by the next block's max). ``score_bf16`` is the reference's
+    bf16 score chain: the products rounded to bf16, then scale, softcap,
+    mask and p = exp(s - m) in bf16, with m, l and the accumulators in
+    float32 (the kernels have no such chain)."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     scale = 1.0 / math.sqrt(hd)
+    st = torch.bfloat16 if score_bf16 else torch.float32
+    scale_st = torch.tensor(scale, dtype=st, device=q.device)
     q_block, kv_block, nq, nkv, pairs = _schedule(S, q_block, kv_block, causal, window)
     qb, kb, vb = _q_blocks(q, KV, q_block), _kv_blocks(k, kv_block), _kv_blocks(v, kv_block)
     acc = torch.zeros(qb.shape, dtype=torch.float32, device=q.device)
@@ -128,16 +133,17 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     l = torch.zeros(qb.shape[:5], dtype=torch.float32, device=q.device)
     for qi, ki in pairs:
         qt, kt, vt = qb[:, :, :, qi], kb[:, :, ki], vb[:, :, ki]
-        s = torch.einsum("bgpqh,bgkh->bgpqk", qt.float(), kt.float()) * scale
+        s = torch.einsum("bgpqh,bgkh->bgpqk", qt.float(), kt.float())
+        s = s.to(st) * scale_st if score_bf16 else s * scale
         if softcap > 0.0:
             s = softcap * torch.tanh(s / softcap)
         mask = _pair_mask(qi, ki, q_block, kv_block, S, causal, window, q.device)
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
         m_old, l_old = m[:, :, :, qi], l[:, :, :, qi]
-        m_new = torch.maximum(m_old, s.amax(dim=-1))
+        m_new = torch.maximum(m_old, s.amax(dim=-1).float())
         alpha = torch.exp(m_old - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l[:, :, :, qi] = l_old * alpha + p.sum(dim=-1)
+        p = torch.exp(s - m_new[..., None].to(st))
+        l[:, :, :, qi] = l_old * alpha + p.float().sum(dim=-1)
         acc[:, :, :, qi] = acc[:, :, :, qi] * alpha[..., None] + torch.einsum(
             "bgpqk,bgkh->bgpqh", p.to(vt.dtype).float(), vt.float())
         m[:, :, :, qi] = m_new

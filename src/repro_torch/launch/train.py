@@ -4,12 +4,15 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b --reduced --steps 20
 
 Port of ``repro/launch/train.py``: the same flags, plus ``--device`` (the
-card by default; ``cpu`` runs the kernels' plain versions). ``--ckpt-dir``
-raises ``NotImplementedError`` (checkpoints are not ported yet).
+card by default; ``cpu`` runs the kernels' plain versions). With
+``--ckpt-dir`` the run checkpoints every ``--ckpt-every`` steps and at its
+last step, and resumes from the newest checkpoint there.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -28,12 +31,19 @@ TRAIN_PLAN = ExecutionPlan(moe_impl="grouped", use_kernels=True)
 
 
 def make_step(cfg: ModelConfig, opt: OptConfig, run: RunConfig,
-              plan: ExecutionPlan = TRAIN_PLAN):
+              plan: Optional[ExecutionPlan] = None):
     """``step(state, batch) -> (state, metrics)``: the loss and its
     gradients by autograd, then AdamW, in place on the state's tensors.
-    The plan runs the grouped MoE and, with ``use_kernels``, the flash
-    kernels (their plain versions for CPU tensors). metrics: "loss" (a
-    device scalar), "grad_norm" (a device scalar) and "lr" (a float)."""
+    The plan (default ``TRAIN_PLAN`` with the attention tiles and score
+    precision of ``run``, as the reference's
+    ``launch/steps.py::make_train_step`` takes them) runs the grouped MoE
+    and, with ``use_kernels``, the flash kernels (their plain versions for
+    CPU tensors). metrics: "loss" (a device scalar), "grad_norm" (a device
+    scalar) and "lr" (a float)."""
+    if plan is None:
+        plan = dataclasses.replace(TRAIN_PLAN, attn_q_block=run.attn_q_block,
+                                   attn_kv_block=run.attn_kv_block,
+                                   attn_score_bf16=run.attn_score_bf16)
 
     def step(state, batch):
         params = state["params"]

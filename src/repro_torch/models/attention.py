@@ -3,12 +3,15 @@ dense KV layout (decode rows, prefill cache writes) and the attention over
 whole sequences (training, and whole-prompt prefill).
 
 Port of ``repro/models/attention.py`` without ring (sliding-window) caches,
-cross-attention, int8 dense caches and segment ids. Over whole sequences
+cross-attention and int8 dense caches. Over whole sequences
 (``attention_forward``) the port runs ``full_attention`` (plain PyTorch,
 differentiated by autograd) or, past ``q_block`` positions,
 ``blockwise_attention``: the reference's flash core with its hand-written
 backward, as a ``torch.autograd.Function`` whose forward and backward are
-the flash kernels (``kernels/flash_attn.py``) or their plain versions. Dense
+the flash kernels (``kernels/flash_attn.py``) or their plain versions.
+Packed sequences (``segment_ids``: a token attends only keys of its own
+segment) take the reference's segmented blockwise route instead, plain
+torch ops under autograd, as the reference runs them through XLA. Dense
 caches ({"k", "v"} (B, Smax, KV, hd), "pos" (B, Smax), "len" (B,)) are
 updated in place like the page pools; a dense chunk step writes whole slot
 rows at targets that are distinct by construction (``dense_chunk_writes``),
@@ -41,7 +44,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attn import (flash_attention_bwd_plain,
+from repro_torch.kernels.flash_attn import (_block_pairs, _kv_blocks, _pair_mask, _q_blocks,
+                                            _unblock_q, flash_attention_bwd_plain,
                                             flash_attention_plain)
 from repro_torch.kernels.quant import int8_quantize
 from repro_torch.models.layers import apply_rope, rmsnorm
@@ -316,15 +320,16 @@ class AttnCall:
     window: int = 0          # > 0 for sliding-window layers
     q_block: int = 512
     kv_block: int = 512
+    score_bf16: bool = False   # the flash core's bf16 score chain
 
 
-def _flash_forward(q, k, v, kw, use_kernels, f32_out):
+def _flash_forward(q, k, v, kw, use_kernels, f32_out, score_bf16=False):
     """The flash forward through ``kernels/ops.py`` (``use_kernels``) or the
-    plain version directly."""
+    plain version directly (the only one with the bf16 score chain)."""
     if use_kernels:
         from repro_torch.kernels.ops import flash_attention
         return flash_attention(q, k, v, f32_out=f32_out, **kw)
-    return flash_attention_plain(q, k, v, f32_out=f32_out, **kw)
+    return flash_attention_plain(q, k, v, f32_out=f32_out, score_bf16=score_bf16, **kw)
 
 
 class _FlashCore(torch.autograd.Function):
@@ -334,13 +339,16 @@ class _FlashCore(torch.autograd.Function):
     them and takes D from that float32 output. With ``use_kernels`` both
     run through ``kernels/ops.py`` (the CUDA kernels for CUDA tensors,
     their plain versions for CPU tensors); without, through the plain
-    versions directly."""
+    versions directly. ``score_bf16`` reaches the forward's score chain;
+    the backward recomputes float32 scores whatever it says, as the
+    reference's ``_flash_core_bwd`` does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, q_block, kv_block, use_kernels):
+    def forward(ctx, q, k, v, causal, window, softcap, q_block, kv_block, use_kernels,
+                score_bf16):
         kw = dict(causal=causal, window=window, softcap=softcap, q_block=q_block,
                   kv_block=kv_block)
-        out, lse, out32 = _flash_forward(q, k, v, kw, use_kernels, f32_out=True)
+        out, lse, out32 = _flash_forward(q, k, v, kw, use_kernels, True, score_bf16)
         ctx.save_for_backward(q, k, v, out32, lse)
         ctx.kw, ctx.use_kernels = kw, use_kernels
         return out
@@ -353,32 +361,93 @@ class _FlashCore(torch.autograd.Function):
             dq, dk, dv = flash_attention_bwd(q, k, v, out32, lse, dout, **ctx.kw)
         else:
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, out32, lse, dout, **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
                         softcap: float = 0.0, q_block: int = 512,
-                        kv_block: int = 512, use_kernels: bool = False):
+                        kv_block: int = 512, use_kernels: bool = False,
+                        score_bf16: bool = False, segment_ids=None):
     """q (B,S,H,hd); k, v (B,S,KV,hd) -> (B,S,H,hd) in q's dtype, through
     the flash core (``_FlashCore``): its forward is the reference's
     ``_flash_core`` forward (``kernels/flash_attn.py::flash_attention_plain``
     or, with ``use_kernels``, the flash kernel), and autograd takes its
     hand-written backward. Where no backward can run (grad mode off, or no
     input that requires grad, as in serving prefill) the forward runs
-    alone and writes no float32 output."""
+    alone and writes no float32 output. ``score_bf16`` runs the plain
+    forward's bf16 score chain, which the reference runs as XLA ops; the
+    flash kernels (9, 9b) have no such chain, so on CUDA tensors
+    ``use_kernels`` with ``score_bf16`` raises ValueError, and on CPU
+    tensors the chain runs plain either way. With ``segment_ids``
+    (B,S) the reference's segmented route runs instead
+    (``_segmented_attention``), with no kernel and no custom backward."""
+    if segment_ids is not None:
+        return _segmented_attention(q, k, v, segment_ids, causal=causal, window=window,
+                                    softcap=softcap, q_block=q_block, kv_block=kv_block)
+    if use_kernels and score_bf16:
+        if q.is_cuda:
+            raise ValueError("attn_score_bf16 with use_kernels: the flash kernels "
+                             "(flash_fwd_sm90.cu, flash_bwd_sm90.cu) have no bf16 score "
+                             "chain; run with use_kernels=False or attn_score_bf16=False")
+        use_kernels = False
     if not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                          or v.requires_grad)):
         kw = dict(causal=causal, window=window, softcap=softcap, q_block=q_block,
                   kv_block=kv_block)
-        return _flash_forward(q, k, v, kw, use_kernels, f32_out=False)[0]
+        return _flash_forward(q, k, v, kw, use_kernels, False, score_bf16)[0]
     return _FlashCore.apply(q, k, v, causal, window, softcap, q_block, kv_block,
-                            use_kernels)
+                            use_kernels, score_bf16)
+
+
+def _segmented_attention(q, k, v, segment_ids, *, causal, window, softcap, q_block,
+                         kv_block):
+    """The reference's ``blockwise_attention`` with ``segment_ids``: online
+    softmax over the static block schedule, blocks of min(block, S), q
+    padded with segment -1 and k/v with -2 (so padding matches nothing),
+    each pair masked by position and by equal segments; float32 scores and
+    accumulators, p rounded to v's dtype before PV. Autograd
+    differentiates it (every pair's probabilities are saved)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    q_block, kv_block = min(q_block, S), min(kv_block, S)
+    nq, nkv = -(-S // q_block), -(-S // kv_block)
+    scale = 1.0 / math.sqrt(hd)
+    qb, kb, vb = _q_blocks(q, KV, q_block), _kv_blocks(k, kv_block), _kv_blocks(v, kv_block)
+    seg = segment_ids.long()
+    seg_q = torch.nn.functional.pad(seg, (0, nq * q_block - S), value=-1).reshape(B, nq, q_block)
+    seg_kv = torch.nn.functional.pad(seg, (0, nkv * kv_block - S), value=-2).reshape(
+        B, nkv, kv_block)
+    window_blocks = (window + q_block - 1) // kv_block + 1 if window > 0 else 0
+    acc = [torch.zeros(qb.shape[:3] + qb.shape[4:], dtype=torch.float32, device=q.device)
+           for _ in range(nq)]
+    m = [torch.full(qb.shape[:3] + qb.shape[4:5], NEG_INF, dtype=torch.float32,
+                    device=q.device) for _ in range(nq)]
+    l = [torch.zeros_like(mi) for mi in m]
+    for qi, ki in _block_pairs(nq, nkv, causal=causal, window_blocks=window_blocks):
+        qt, kt, vt = qb[:, :, :, qi], kb[:, :, ki], vb[:, :, ki]
+        s = torch.einsum("bgpqh,bgkh->bgpqk", qt.float(), kt.float()) * scale
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        mask = _pair_mask(qi, ki, q_block, kv_block, S, causal, window, q.device)
+        same = seg_q[:, qi, :, None] == seg_kv[:, ki, None, :]       # (B, qb, kb)
+        s = torch.where(mask & same[:, None, None], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m[qi], s.amax(dim=-1))
+        alpha = torch.exp(m[qi] - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l[qi] = l[qi] * alpha + p.sum(dim=-1)
+        acc[qi] = acc[qi] * alpha[..., None] + torch.einsum(
+            "bgpqk,bgkh->bgpqh", p.to(vt.dtype).float(), vt.float())
+        m[qi] = m_new
+    out = torch.stack(acc, dim=3) / torch.clamp(torch.stack(l, dim=3)[..., None], min=1e-37)
+    return _unblock_q(out, S).to(q.dtype)
 
 
 def full_attention(q, k, v, *, causal: bool, window: int = 0,
-                   softcap: float = 0.0):
+                   softcap: float = 0.0, segment_ids=None, kv_segment_ids=None):
     """Unblocked prefill attention (materializes the scores). q (B,S,H,hd);
-    k, v (B,Skv,KV,hd) -> (B,S,H,hd) in v's dtype."""
+    k, v (B,Skv,KV,hd) -> (B,S,H,hd) in v's dtype. ``segment_ids`` (B,S)
+    keeps each query to the keys of its own segment, the keys' segments
+    being ``kv_segment_ids`` (B,Skv) (default ``segment_ids``)."""
     B, S, H, hd = q.shape
     KV, Skv = k.shape[2], k.shape[1]
     qg = q.reshape(B, S, KV, H // KV, hd)
@@ -392,6 +461,10 @@ def full_attention(q, k, v, *, causal: bool, window: int = 0,
         mask &= qpos[:, None] >= kpos[None, :]
     if window > 0:
         mask &= kpos[None, :] > qpos[:, None] - window
+    mask = mask[None, None, None]
+    if segment_ids is not None:
+        ks = kv_segment_ids if kv_segment_ids is not None else segment_ids
+        mask = mask & (segment_ids[:, :, None] == ks[:, None, :])[:, None, None]
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgpqk,bkgh->bqgph", p.to(v.dtype), v)
@@ -399,22 +472,24 @@ def full_attention(q, k, v, *, causal: bool, window: int = 0,
 
 
 def attention_forward(params, cfg: ModelConfig, x, positions, call: AttnCall,
-                      return_kv: bool = False, use_kernels: bool = False):
+                      return_kv: bool = False, use_kernels: bool = False,
+                      segment_ids=None):
     """Train/prefill attention over whole sequences. x (B,S,D); positions
-    (B,S). The flash core for S > ``call.q_block`` (with ``use_kernels``
-    through the flash kernels), else the unblocked path, which autograd
-    differentiates. Returns y (B,S,D), and (k, v) (B,S,KV,hd) with
-    ``return_kv``."""
+    (B,S); ``segment_ids`` (B,S) for packed sequences. The flash core for S
+    > ``call.q_block`` (with ``use_kernels`` through the flash kernels),
+    else the unblocked path, which autograd differentiates. Returns y
+    (B,S,D), and (k, v) (B,S,KV,hd) with ``return_kv``."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, positions)
     if S > call.q_block:
         out = blockwise_attention(q, k, v, causal=call.causal, window=call.window,
                                   softcap=cfg.attn_logit_softcap,
                                   q_block=call.q_block, kv_block=call.kv_block,
-                                  use_kernels=use_kernels)
+                                  use_kernels=use_kernels, score_bf16=call.score_bf16,
+                                  segment_ids=segment_ids)
     else:
         out = full_attention(q, k, v, causal=call.causal, window=call.window,
-                             softcap=cfg.attn_logit_softcap)
+                             softcap=cfg.attn_logit_softcap, segment_ids=segment_ids)
     y = torch.matmul(out.reshape(B, S, -1), params["wo"]["kernel"])
     if return_kv:
         return y, (k, v)

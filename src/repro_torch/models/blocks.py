@@ -16,7 +16,7 @@ per layer).
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MOE, NONE, LayerKind,
                                       ModelConfig)
@@ -83,13 +83,15 @@ def block_init_cache(cfg: ModelConfig, kind: LayerKind, batch: int = 0,
 
 def _attn_call(plan: ExecutionPlan) -> AttnCall:
     """The attention call of a (full self-attention) block: causal, with the
-    plan's flash-core tiles."""
-    return AttnCall(causal=True, q_block=plan.attn_q_block, kv_block=plan.attn_kv_block)
+    plan's flash-core tiles and score precision."""
+    return AttnCall(causal=True, q_block=plan.attn_q_block, kv_block=plan.attn_kv_block,
+                    score_bf16=plan.attn_score_bf16)
 
 
 def block_forward(params, cfg: ModelConfig, kind: LayerKind, x, positions,
-                  plan: ExecutionPlan):
-    """Training forward of one block over whole sequences. x (B,S,d).
+                  plan: ExecutionPlan, segment_ids=None):
+    """Training forward of one block over whole sequences. x (B,S,d);
+    ``segment_ids`` (B,S) for packed sequences (attention mixers only).
     Returns (x, aux) with aux the MoE layer's load-balance loss (a float32
     zero for other FFNs)."""
     _check_kind(kind)
@@ -99,7 +101,7 @@ def block_forward(params, cfg: ModelConfig, kind: LayerKind, x, positions,
         mixer_out = mamba_forward(params["mixer"], cfg, h)
     else:
         mixer_out = attention_forward(params["mixer"], cfg, h, positions, _attn_call(plan),
-                                      use_kernels=plan.use_kernels)
+                                      use_kernels=plan.use_kernels, segment_ids=segment_ids)
     if cfg.parallel_block and kind.ffn != NONE:
         ffn_out, aux = _ffn(params, cfg, kind, h, plan)
         return x + mixer_out + ffn_out, zero if aux is None else aux
@@ -122,22 +124,36 @@ def _unbind_layers(tree, n: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
+# remat="dots": the outputs of matrix products with no batch dimension are
+# saved, everything else is recomputed in the backward: the reference's
+# jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims. A 2-D weight
+# times activations is aten.mm (torch.matmul folds the leading dimensions);
+# the experts' batched products (bmm) and the attention are recomputed, the
+# flash kernels too: they run outside the dispatcher, so nothing caches them
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(list(DOTS_SAVED))
+
+
 def segment_forward(params, cfg: ModelConfig, seg, x, positions, plan: ExecutionPlan,
-                    *, remat: str = "full"):
+                    *, remat: str = "full", segment_ids=None):
     """Training forward over the segment's stacked super-blocks, a loop where
     the reference scans. ``remat="full"`` recomputes each super-block in the
     backward (``torch.utils.checkpoint``, non-reentrant), keeping only its
-    input; "none" keeps every activation. Returns (x, aux summed over the
-    segment's layers)."""
-    if remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat={remat!r}: the port rematerialises 'none' or 'full'; 'dots' comes "
-            f"later (ROADMAP queue 1)")
+    input; "dots" keeps the outputs of its products with no batch dimension
+    and recomputes the rest (``DOTS_SAVED``); "none" keeps every
+    activation. ``segment_ids`` (B,S) reach every attention layer. Returns
+    (x, aux summed over the segment's layers)."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat={remat!r}: expected 'none', 'full' or 'dots'")
 
     def super_block(x, blk):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(seg.pattern):
-            x, a = block_forward(blk["blocks"][i], cfg, kind, x, positions, plan)
+            x, a = block_forward(blk["blocks"][i], cfg, kind, x, positions, plan,
+                                 segment_ids=segment_ids)
             aux = aux + a
         return x, aux
 
@@ -145,6 +161,9 @@ def segment_forward(params, cfg: ModelConfig, seg, x, positions, plan: Execution
     for blk in _unbind_layers(params, seg.repeats):
         if remat == "full":
             x, aux = checkpoint(super_block, x, blk, use_reentrant=False)
+        elif remat == "dots":
+            x, aux = checkpoint(super_block, x, blk, use_reentrant=False,
+                                context_fn=_dots_context)
         else:
             x, aux = super_block(x, blk)
         auxs.append(aux)

@@ -53,20 +53,23 @@ def _embed_inputs(params, cfg: ModelConfig, batch):
     return x, positions
 
 
-def _stack(params, cfg: ModelConfig, x, positions, plan, remat):
+def _stack(params, cfg: ModelConfig, x, positions, plan, remat, segment_ids=None):
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg, seg_params in zip(cfg.segments, params["segments"]):
-        x, aux = segment_forward(seg_params, cfg, seg, x, positions, plan, remat=remat)
+        x, aux = segment_forward(seg_params, cfg, seg, x, positions, plan, remat=remat,
+                                 segment_ids=segment_ids)
         aux_total = aux_total + aux
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux_total
 
 
 def forward(params, cfg: ModelConfig, batch, *, plan: ExecutionPlan = DEFAULT_PLAN,
-            remat: str = "none"):
+            remat: str = "none", segment_ids=None):
     """Full-sequence float32 logits (B, S, V) and the summed MoE aux loss.
-    batch {"tokens" (B, S)[, "positions"]}."""
+    batch {"tokens" (B, S)[, "positions"]}; ``segment_ids`` (B, S) packs
+    several documents into a row: each attention layer keeps a token to
+    its own document's keys."""
     x, positions = _embed_inputs(params, cfg, batch)
-    x, aux_total = _stack(params, cfg, x, positions, plan, remat)
+    x, aux_total = _stack(params, cfg, x, positions, plan, remat, segment_ids)
     return _lm_head(params, cfg, x), aux_total
 
 

@@ -201,12 +201,15 @@ def trainable(tree):
 def _to_array(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes                       # numpy's bfloat16, as JAX uses
-        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        # numpy knows "bfloat16" once JAX's ml_dtypes has registered it; the
+        # port does not import it: its dependencies are torch and numpy
+        return t.view(torch.int16).numpy().view(np.dtype("bfloat16"))
     return t.numpy()
 
 
 def to_numpy_tree(tree):
     """The inverse of :func:`from_numpy_tree`: a tree of tensors as numpy
-    arrays on the host, bfloat16 as ``ml_dtypes.bfloat16``."""
+    arrays on the host, bfloat16 as the ``bfloat16`` dtype that JAX
+    registers with numpy (``ml_dtypes``); without it a bf16 leaf raises
+    ``TypeError``."""
     return tree_map(tree, _to_array)

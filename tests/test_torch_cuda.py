@@ -8,6 +8,7 @@ so it runs on a machine that has only the port's dependencies:
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.kernels import build, decode_attn, flash_attn, moe_gemm, moe_gemv, ssd_decode
 from repro_torch.kernels.quant import int8_quantize
@@ -550,6 +551,54 @@ def test_cuda_bf16_flash_backward_rejects_what_it_does_not_take(card):
 
 
 @pytest.mark.cuda
+def test_cuda_score_bf16_with_the_kernels_raises(card):
+    """The flash kernels have no bf16 score chain: the flash core with
+    ``use_kernels`` and ``score_bf16`` on CUDA tensors raises ValueError
+    (it does not give way to the plain chain), and launches nothing;
+    without ``use_kernels`` the plain chain runs on the card."""
+    from repro_torch.models.attention import blockwise_attention
+    x = torch.zeros((1, 128, 2, 64), device=card, dtype=torch.bfloat16, requires_grad=True)
+    kw = dict(causal=True, q_block=64, kv_block=64, score_bf16=True)
+    build.reset_launch_counts()
+    with pytest.raises(ValueError, match="bf16 score chain"):
+        blockwise_attention(x, x, x, use_kernels=True, **kw)
+    assert build.launch_counts["flash_attention"] == 0
+    out = blockwise_attention(x, x, x, use_kernels=False, **kw)
+    assert out.shape == x.shape and out.device.type == "cuda"
+
+
+MIRROR_CASES = [(512, 2, 2, True, 0, 0.0), (512, 1, 4, False, 0, 0.0),
+                (1000, 2, 2, True, 300, 50.0)]
+MIRROR_BAND = 1e-5     # mean |difference| from kernel 9b's dq, dk, dv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,KV,qpk,causal,window,softcap", MIRROR_CASES)
+def test_cuda_bf16_backward_rounding_mirror_is_closer_to_kernel_9b(card, S, KV, qpk, causal,
+                                                                   window, softcap):
+    """The bf16 mirror of kernel 9b's rounding of P and dS
+    (``tests/torch_flash_mirror.py``) against kernel 9b's dq, dk, dv on
+    the card, beside the unrounded plain backward: for each gradient the
+    mean |difference| from the kernel is under MIRROR_BAND for the
+    mirror and over it for the plain version (measured on an H100: the
+    mirror 1.8e-7 to 1.2e-6, the plain version 9.3e-5 to 1.9e-4)."""
+    from torch_flash_mirror import flash_bwd_rounded
+    rng = np.random.default_rng(S + qpk + 7)
+    q, k, v = _fused_qkv(rng, card, 2, S, KV * qpk, KV, 128)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    _, lse, o32 = flash_attn.flash_attention_plain(q, k, v, f32_out=True, **kw)
+    dout = torch.tensor(rng.standard_normal(q.shape).astype(np.float32),
+                        device=card).to(torch.bfloat16)
+    got = flash_attn.flash_attention_bwd_kernel(q, k, v, o32, lse, dout, **kw)
+    mirror = flash_bwd_rounded(q, k, v, o32, lse, dout, **kw)
+    plain = flash_attn.flash_attention_bwd_plain(q, k, v, o32, lse, dout, **kw)
+    for name, g, m, p in zip(("dq", "dk", "dv"), got, mirror, plain):
+        err_m = (m.float() - g.float()).abs().mean().item()
+        err_p = (p.float() - g.float()).abs().mean().item()
+        assert err_m < MIRROR_BAND < err_p, (name, err_m, err_p)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d,f,Cc", [(2048, 1024, 72), (4096, 14336, 24)])
 def test_cuda_moe_gemv_matches_plain(card, d, f, Cc):
     """The bf16 cold GEMVs (``moe_gemv_sm90.cu``: weights by TMA, the live
@@ -974,3 +1023,175 @@ def test_cuda_sampling_runs_without_a_host_sync(card):
                    for r in reqs)
         out.append([r.output for r in reqs])
     assert out[0] == out[1]
+
+
+def _blank(tree):
+    """A tree like ``tree``: zero tensors (same dtype, device and
+    ``requires_grad``) and zero ints, for a restore to write into."""
+    if isinstance(tree, dict):
+        return {k: _blank(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_blank(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return torch.zeros_like(tree).requires_grad_(tree.requires_grad)
+    return 0
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_restores_bf16_on_the_card_and_the_cpu(card, tmp_path):
+    """A train state with bf16 and float32 leaves saved from the card
+    restores on the card and on the CPU with equal bits, and its ints as
+    ints. An ``AsyncCheckpointer.save`` followed at once by an in-place
+    AdamW step still writes the values from before the step."""
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.training.checkpoint import (AsyncCheckpointer, restore_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.optimizer import OptConfig, adamw_update
+    from repro_torch.training.train_state import make_train_state
+    gen = torch.Generator(device=card)
+    gen.manual_seed(0)
+    params = {"w": torch.randn((64, 32), generator=gen, device=card).to(torch.bfloat16),
+              "b": (torch.randn((7,), generator=gen, device=card),)}
+    opt = OptConfig(learning_rate=0.1, warmup_steps=1)
+    state = make_train_state(params, opt)
+    state["step"] = 5
+    bits = lambda t: t.detach().view(torch.int16) if t.dtype == torch.bfloat16 else t.detach()
+    save_checkpoint(str(tmp_path / "sync"), 5, state)
+    for device in (None, "cpu"):
+        back, step = restore_checkpoint(str(tmp_path / "sync"), _blank(state), device=device)
+        assert step == 5 and back["step"] == 5 and back["opt"]["count"] == 0
+        for got, want in zip(tree_leaves(back["params"]), tree_leaves(state["params"])):
+            assert got.device.type == (device or "cuda") and got.dtype == want.dtype
+            assert got.requires_grad and torch.equal(bits(got).cpu(), bits(want).cpu())
+    before = [t.detach().clone() for t in tree_leaves(state["params"])]
+    ck = AsyncCheckpointer(str(tmp_path / "async"), keep=1)
+    ck.save(6, state)
+    adamw_update(state["params"], tree_map(state["params"], torch.ones_like), state["opt"],
+                 opt, step=1)
+    ck.wait()
+    back, _ = restore_checkpoint(str(tmp_path / "async"), _blank(state))
+    for got, old, now in zip(tree_leaves(back["params"]), before,
+                             tree_leaves(state["params"])):
+        assert torch.equal(bits(got), bits(old)) and not torch.equal(bits(old), bits(now))
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_restore_takes_no_second_copy(card, tmp_path):
+    """A restore on the card copies into the state's own tensors: on a
+    768 MiB state (bf16 and float32 leaves of 64 MiB) it raises the
+    allocator's peak by less than one leaf, and the leaves hold the saved
+    bits again after being zeroed."""
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training.checkpoint import restore_checkpoint, save_checkpoint
+    gen = torch.Generator(device=card)
+    gen.manual_seed(2)
+    state = {"params": {f"w{i}": torch.randn((4096, 8192), generator=gen, device=card)
+                        .to(torch.bfloat16).requires_grad_(True) for i in range(4)},
+             "mu": [torch.randn((4096, 4096), generator=gen, device=card) for _ in range(8)],
+             "step": 3}
+    leaves = tree_leaves(state)[:-1]
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    saved = [t.detach().cpu() for t in leaves]
+    save_checkpoint(str(tmp_path / "ck"), 3, state)
+    with torch.no_grad():
+        for t in leaves:
+            t.zero_()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    back, step = restore_checkpoint(str(tmp_path / "ck"), state)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    assert step == 3 and back["step"] == 3 and nbytes == 768 * 2**20
+    assert rise < 64 * 2**20, f"the restore raised the peak by {rise} bytes"
+    for got, want, tmpl in zip(tree_leaves(back)[:-1], saved, leaves):
+        assert got is tmpl and torch.equal(got.detach().cpu(), want)
+
+
+def _narrow_olmoe():
+    """OLMoE's structure at a width the flash kernels take: 2 layers,
+    d_model 256, 2 heads of 128, 8 experts top-2, bf16."""
+    import dataclasses
+    from repro_torch.configs import resolve_config
+    full = resolve_config("olmoe-1b-7b")
+    return dataclasses.replace(full, num_layers=2, d_model=256, num_heads=2, num_kv_heads=2,
+                               head_dim=128, vocab_size=512, segments=(
+                                   dataclasses.replace(full.segments[0], repeats=2),),
+                               moe=dataclasses.replace(full.moe, num_experts=8, top_k=2,
+                                                       d_ff_expert=64)).validate()
+
+
+class _MmCount(TorchDispatchMode):
+    """Counts the 2-D products (aten mm, addmm) dispatched while it is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += func.overloadpacket.__name__ in ("mm", "addmm")
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.cuda
+def test_cuda_remat_dots_equals_none_with_the_kernels(card):
+    """On the card with the flash kernels (seq 256 over 64-row tiles):
+    ``remat="dots"`` and "full" give "none"'s loss and every gradient bit
+    for bit, and launch the flash forward again in each layer's backward
+    (the recompute runs it: nothing caches an extension call). The
+    backward under "dots" runs "none"'s 2-D products (their outputs were
+    kept), under "full" more (it recomputes them)."""
+    from repro_torch.core.execution import ExecutionPlan
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.params import init_model, tree_leaves
+    from repro_torch.training.optimizer import OptConfig
+    from repro_torch.training.train_state import make_train_state
+    cfg = _narrow_olmoe()
+    params = make_train_state(init_model(cfg, seed=0, device=card), OptConfig())["params"]
+    gen = torch.Generator(device=card)
+    gen.manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen, device=card)
+    plan = ExecutionPlan(use_kernels=True, attn_q_block=64, attn_kv_block=64)
+    out = {}
+    for remat in ("none", "dots", "full"):
+        build.reset_launch_counts()
+        loss, _ = tmodel.loss_fn(params, cfg, {"tokens": toks}, plan=plan, remat=remat)
+        with _MmCount() as mm:
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+        torch.cuda.synchronize()
+        out[remat] = (loss.detach(), grads, build.launch_counts["flash_attention"],
+                      build.launch_counts["flash_attention_bwd"], mm.n)
+    for remat in ("dots", "full"):
+        assert torch.equal(out[remat][0], out["none"][0])
+        assert all(torch.equal(a, b) for a, b in zip(out[remat][1], out["none"][1]))
+    assert [out[r][2:4] for r in ("none", "dots", "full")] == [(2, 2), (4, 2), (4, 2)]
+    assert out["dots"][4] == out["none"][4] < out["full"][4]
+
+
+@pytest.mark.cuda
+def test_cuda_segments_all_equal_match_the_flash_kernels(card):
+    """One segment a row (all-equal ids) through the segmented route (plain
+    torch ops on the card, no kernel) against ``segment_ids=None`` through
+    kernels 9 and 9b, bf16 GQA at seq 256 over 64-row blocks: the output
+    and dq, dk, dv each within 2e-2 times max(1, its largest entry)."""
+    from repro_torch.models.attention import blockwise_attention
+    rng = np.random.default_rng(8)
+    t = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32),
+                                device=card).to(torch.bfloat16)
+    q, k, v, dout = t(2, 256, 4, 128), t(2, 256, 2, 128), t(2, 256, 2, 128), t(2, 256, 4, 128)
+    seg = torch.zeros((2, 256), dtype=torch.int32, device=card)
+    kw = dict(causal=True, q_block=64, kv_block=64, use_kernels=True)
+    res = {}
+    for ids in (None, seg):
+        build.reset_launch_counts()
+        xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = blockwise_attention(*xs, segment_ids=ids, **kw)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        launches = (build.launch_counts["flash_attention"],
+                    build.launch_counts["flash_attention_bwd"])
+        res[ids is None] = ([out.detach()] + [x.grad for x in xs], launches)
+    assert res[True][1] == (1, 1) and res[False][1] == (0, 0)
+    for got, want in zip(res[False][0], res[True][0]):
+        band = 2e-2 * max(1.0, want.float().abs().max().item())
+        torch.testing.assert_close(got.float(), want.float(), atol=band, rtol=0)

@@ -14,6 +14,7 @@ PORT = ROOT / "src" / "repro_torch"
 _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None                     # any jax import now fails
+sys.modules["ml_dtypes"] = None               # and any ml_dtypes import
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for n in names:
@@ -30,11 +31,13 @@ for n in ("repro_torch.kernels.quant", "repro_torch.kernels.decode_attn",
           "repro_torch.configs.jamba_v0_1_52b", "repro_torch.kernels.flash_attn",
           "repro_torch.training.optimizer", "repro_torch.training.data",
           "repro_torch.training.train_state", "repro_torch.training.loop",
+          "repro_torch.training.checkpoint", "repro_torch.training.compression",
+          "repro_torch.training.pipeline", "repro_torch.launch.mesh",
           "repro_torch.launch.train"):
     assert n in names, n
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
-assert "jax" not in [m for m in sys.modules if sys.modules[m] is not None]
+assert not [m for m in ("jax", "ml_dtypes") if sys.modules[m] is not None]
 import torch
 assert not torch.cuda.is_available()
 from repro_torch.configs import resolve_config
@@ -106,7 +109,8 @@ def test_port_imports_without_jax_or_repro():
 
 
 def test_sources_name_no_jax_or_repro_import():
-    bad = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro[. ])", re.M)
+    bad = re.compile(r"^\s*(import (jax|ml_dtypes)|from (jax|ml_dtypes)|import repro\b|"
+                     r"from repro[. ])", re.M)
     files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in bad.finditer(f.read_text())]

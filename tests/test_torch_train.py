@@ -26,7 +26,6 @@ from repro_torch.models import model as tmodel
 from repro_torch.models.params import from_numpy_tree, to_numpy_tree, tree_leaves, tree_map
 from repro_torch.training import data as tdata
 from repro_torch.training import optimizer as topt
-from repro_torch.training.loop import LoopConfig, train_loop
 from repro_torch.training.train_state import make_train_state
 
 torch.set_num_threads(1)   # tiny shapes; leave the cores to the other test workers
@@ -214,14 +213,22 @@ def test_cli_trains_tiny_moe_on_the_cpu(capsys):
 
 
 def test_unported_options_raise():
-    """remat="dots" and checkpoints are not ported: they raise rather than
-    run something else."""
+    """What the trainer still refuses rather than run something else: the
+    production meshes on a one-rank group (they need 256 and 512 devices,
+    and no smaller mesh is built) and a remat policy other than "none",
+    "full" or "dots". (remat="dots" and ``ckpt_dir`` run since they were
+    ported; ``tests/test_torch_train_parts.py`` and
+    ``tests/test_torch_checkpoint.py`` hold them to the reference.)"""
+    from repro_torch.launch import mesh as tmesh
+    with tmesh.process_group("cpu"):
+        with pytest.raises(RuntimeError, match="needs 256 devices"):
+            tmesh.make_production_mesh(device="cpu")
+        with pytest.raises(RuntimeError, match="needs 512 devices"):
+            tmesh.make_production_mesh(multi_pod=True, device="cpu")
     pt = make_train_state(_params()[1], topt.OptConfig())["params"]
     batch = {"tokens": torch.tensor(_tokens(16))}
-    with pytest.raises(NotImplementedError):
-        tmodel.loss_fn(pt, CFG_T, batch, remat="dots")
-    with pytest.raises(NotImplementedError):
-        train_loop(None, None, None, LoopConfig(total_steps=1, ckpt_dir="ckpt"))
+    with pytest.raises(ValueError, match="remat"):
+        tmodel.loss_fn(pt, CFG_T, batch, remat="everything")
 
 
 def _hybrid(m):
