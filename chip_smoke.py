@@ -33,7 +33,11 @@ Phases, each printing a line:
      entry); the flash
      forward and backward at path d's shape, Jamba-v0.1's GQA heads, a
      window with a softcap, 96 heads over 8 and a length that is not a
-     tile multiple), in
+     tile multiple; the forward also at gemma3-4b's prefill, head_dim 256
+     and 8 heads over 4 at S 2048, windowed 1024 and causal, in bfloat16
+     only: the float32 route refuses head_dim 256; the dense decode also
+     at path l's global decode, head_dim 256, qpk 2, Smax 4096, 16
+     sequences at its lengths), in
      bfloat16 within its rounding band and again in float32 within 1e-4
      (the backward's dq, dk, dv each within the band times max(1, its
      largest entry)):
@@ -180,6 +184,36 @@ Phases, each printing a line:
           otherwise, with its margin: a near-tie shows as one), prints
           the dense KV and SSM state bytes and the peak memory, and
           profiles a short run. Then, with the Jamba model freed,
+       l. gemma3-4b at full width and depth (34 layers: 29 with a window of
+          1024 positions, 5 global; head_dim 256, 8 heads over 4), random
+          weights from seed 0, 16 requests (prompts of 256-2048 tokens, 64
+          new) on the dense layout with ``max_len`` 4096 (each local
+          layer's row a ring of 1025 slots) and the legacy whole-prompt
+          prefill, kernels on: 16/16 completed, the schedule (stages,
+          decode stages, legacy prefills and those past the 512-position q
+          block) equal to the CPU's (``L_EXPECT``), the dense decode
+          launched 5 times a decode stage and the flash forward 34 times a
+          long prefill, the KV bytes equal to the formula (16 slots x 4096
+          B x (5 x 4096 + 29 x 1025)), and the decode logits of four
+          requests (one at each side of the window) at their last 8
+          positions against ``forward`` over their tokens through the plain
+          versions (``compare_logits``); prints its wall, tokens/s, the
+          median decode stage, TBT and TTFT and peak memory, and profiles
+          a short run;
+       l2. the same with int8 dense caches (``kv_quant``; no decode kernel,
+          as the reference): the same gates (the dense decode never
+          launched), KV bytes 2080/4096 of l's, and one model-level decode
+          step after four prefills into a float32 and an int8 cache (path
+          l's weights in float32, the plain path), their logits within 5%
+          relative (the reference's rule, in its test's arithmetic; the
+          bf16 figures printed beside it); prints its greedy agreement
+          with l;
+       m. qwen3-8b, command-r-35b and mistral-large-123b (paged, chunks of
+          64, kernels 1 and 2) and mamba2-2.7b (dense, kernel 8), each at
+          full width cut to 2 layers: 4 requests of 128-512 tokens and 8
+          new to completion with its kernels launched, then one stage
+          through the kernels against the plain path (a mixed stage with
+          decode rows; for Mamba path c's decode stages). Then
        d. training: OLMoE-1B-7B at full width, depth cut to 8 of its 16
           layers (its training state, 12 bytes a parameter, is 83 GB at
           full depth), 5 steps of ``make_step`` driven by ``train_loop`` on
@@ -334,6 +368,8 @@ PATH_A_LENS = tuple(round(144 + i * 400 / 15) for i in range(16))
 PATH_C_LENS = tuple(round(128 + i * 416 / 15) for i in range(16))
 # path f's: path a's lengths over its 8 dense slots
 PATH_F_LENS = tuple(round(144 + i * 400 / 7) for i in range(8))
+# path l's global decode: its 16 prompts (256-2048) 32 tokens into decode
+PATH_L_LENS = tuple(round(256 + i * 1792 / 15) + 32 for i in range(16))
 # path i's verify spans: 2-5 positions (the last token and 1-4 drafts) at
 # path a's decode lengths, in rows of 8 (the bucket of a stage of spans alone)
 PATH_I_SPANS = tuple(2 + i % 4 for i in range(16))
@@ -480,17 +516,18 @@ def check_chunk(torch, gen, dtype, *, KV, qpk, int8=False, starts=(0, 64, 448, 0
     return out
 
 
-def check_dense(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0, lens=None, seed=None):
+def check_dense(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0, lens=None, seed=None,
+                hd=128, Smax=1024):
     """Decode attention over a dense (B, Smax, KV, hd) cache, read in place:
-    Smax 1024, by default 16 sequences of seeded lengths 0-1024 (one at 0,
-    one at 1024), else one a length of ``lens``. ``seed`` draws the inputs
-    from a generator of their own, so that the cases after this one draw
-    what they drew without it."""
+    by default 16 sequences of seeded lengths 0-Smax (one at 0, one at
+    Smax), else one a length of ``lens``. ``seed`` draws the inputs from a
+    generator of their own, so that the cases after this one draw what they
+    drew without it."""
     from repro_torch.kernels import decode_attn as da
     if seed is not None:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(seed)
-    B, hd, Smax = 16 if lens is None else len(lens), 128, 1024
+    B = 16 if lens is None else len(lens)
     if lens is None:
         lens = torch.randint(0, Smax + 1, (B,), generator=gen, device="cuda").to(torch.int32)
         lens[0], lens[1] = 0, Smax
@@ -578,31 +615,38 @@ def _flash_inputs(torch, gen, dtype, B, S, H, KV, hd=128):
     return r(B, S, H, hd), r(B, S, KV, hd), r(B, S, KV, hd)
 
 
-def _sdpa(torch, q, k, v, causal):
+def _sdpa(torch, q, k, v, causal, window=0):
     """The library yardstick in (B, H, S, hd) views; K/V of a GQA shape go
     in by ``enable_gqa`` where the installed PyTorch has it, else repeated
-    here, outside any timed region. Returns a call."""
+    here, outside any timed region. A window goes in as an explicit boolean
+    mask (causal and banded), made here. Returns a call."""
     F = torch.nn.functional
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    kw = dict(is_causal=causal)
+    if window:
+        pos = torch.arange(q.shape[1], device=q.device)
+        d = pos[:, None] - pos[None, :]
+        kw = dict(attn_mask=(d < window) & ((d >= 0) if causal else True))
     if q.shape[2] == k.shape[2]:
-        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
     try:
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
-        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                      enable_gqa=True)
+        F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw)
     except TypeError:
         rep = q.shape[2] // k.shape[2]
         kt, vt = kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1)
-        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
 
 
-def check_flash(torch, gen, dtype, *, B, S, H, KV, causal=True, window=0, softcap=0.0):
+def check_flash(torch, gen, dtype, *, B, S, H, KV, causal=True, window=0, softcap=0.0,
+                hd=128):
     """The flash forward on the model layout, called as the training path
     calls it (``f32_out=True``: bf16 runs the tensor-core kernel, which also
     writes the float32 output): out, lse and the float32 output against the
-    plain version (the error is the largest of the three)."""
+    plain version (the error is the largest of the three). The library time
+    is SDPA's, causal by ``is_causal``, a window by an explicit mask."""
     from repro_torch.kernels import flash_attn as fa
-    q, k, v = _flash_inputs(torch, gen, dtype, B, S, H, KV)
+    q, k, v = _flash_inputs(torch, gen, dtype, B, S, H, KV, hd)
     kw = dict(causal=causal, window=window, softcap=softcap, f32_out=True)
     got, lse, o32 = fa.flash_attention_kernel(q, k, v, **kw)
     want, lse_p, o32_p = fa.flash_attention_plain(q, k, v, **kw)
@@ -618,8 +662,8 @@ def check_flash(torch, gen, dtype, *, B, S, H, KV, causal=True, window=0, softca
                lib_ms=None,
                nbytes=(q.numel() + k.numel() + v.numel()) * item + out_bytes + lse.numel() * 4,
                flops=4 * hd * B * H * _live_pairs(S, causal, window))
-    if not window and not softcap:
-        out["lib_ms"] = time_ms(_sdpa(torch, q, k, v, causal))
+    if not softcap:
+        out["lib_ms"] = time_ms(_sdpa(torch, q, k, v, causal, window))
     return out
 
 
@@ -738,9 +782,10 @@ def check_moe(torch, gen, dtype, *, hot: bool, E: int = 64, d: int = 2048, f: in
 JAMBA_MOE = dict(E=16, d=4096, f=14336)
 
 KERNELS = [
-    # name, TPU kernel it replaces, source, [(case label, check fn, kwargs)];
-    # every case runs in bfloat16 (the main path's dtype; the first case is
-    # the main path's shape) and again in float32
+    # name, TPU kernel it replaces, source, [(case label, check fn, kwargs[,
+    # dtypes])]; every case runs in bfloat16 (the main path's dtype; the
+    # first case is the main path's shape) and again in float32, unless it
+    # names its dtypes
     ("paged_decode_attention",
      "src/repro/kernels/decode_attn.py:280",
      "src/repro_torch/kernels/csrc/decode_sm90.cu",
@@ -820,7 +865,11 @@ KERNELS = [
       # OLMoE-1B-7B's heads, served on the dense layout by path f
       ("olmoe KV=16 qpk=1 Smax=1024", check_dense, dict(KV=16, qpk=1, seed=4)),
       ("path f B=8 KV=16 qpk=1 lengths 144-544", check_dense,
-       dict(KV=16, qpk=1, lens=PATH_F_LENS, seed=5))]),
+       dict(KV=16, qpk=1, lens=PATH_F_LENS, seed=5)),
+      # gemma3-4b's global layers on path l: 16 sequences at its prompt
+      # lengths halfway through their 64 new tokens, head_dim 256, qpk 2
+      ("path l B=16 KV=4 qpk=2 hd=256 Smax=4096 lengths 288-2080", check_dense,
+       dict(KV=4, qpk=2, hd=256, Smax=4096, lens=PATH_L_LENS, seed=6))]),
     ("ssd_decode",
      "src/repro/kernels/ssd_decode.py:46",
      "src/repro_torch/kernels/csrc/ssd_decode.cu",
@@ -839,7 +888,13 @@ KERNELS = [
       ("B=1 S=2048 H=16 KV=16 window=1000 softcap=50", check_flash,
        dict(B=1, S=2048, H=16, KV=16, window=1000, softcap=50.0)),
       ("qpk=12 B=1 S=2048 H=96 KV=8 causal", check_flash, dict(B=1, S=2048, H=96, KV=8)),
-      ("ragged B=2 S=2047 H=16 KV=16 causal", check_flash, dict(B=2, S=2047, H=16, KV=16))]),
+      ("ragged B=2 S=2047 H=16 KV=16 causal", check_flash, dict(B=2, S=2047, H=16, KV=16)),
+      # gemma3-4b's prefill on path l (head_dim 256: bf16 only, the float32
+      # route refuses it): a local layer's window of 1024, a global layer
+      ("gemma3 B=1 S=2048 H=8 KV=4 hd=256 window=1024", check_flash,
+       dict(B=1, S=2048, H=8, KV=4, hd=256, window=1024), ("bfloat16",)),
+      ("gemma3 B=1 S=2048 H=8 KV=4 hd=256 causal", check_flash,
+       dict(B=1, S=2048, H=8, KV=4, hd=256), ("bfloat16",))]),
     ("flash_attention_bwd",
      "src/repro/models/attention.py:349",
      "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
@@ -864,7 +919,9 @@ def kernel_phase(torch):
     failed = []
     for name, replaces, source, cases in KERNELS:
         for dtype in ("bfloat16", "float32"):
-            for i, (label, fn, kw) in enumerate(cases):
+            for i, (label, fn, kw, *dtypes) in enumerate(cases):
+                if dtypes and dtype not in dtypes[0]:
+                    continue
                 r = fn(torch, gen, getattr(torch, dtype), **kw)
                 err, lib_ms = r["err"], r["lib_ms"]
                 bms, by = bound_ms(r["nbytes"], r["flops"], r.get("ops_type", dtype))
@@ -2307,6 +2364,327 @@ def hybrid_phase(torch):
     return {k: counts[k] for k in ("decode_attention", "ssd_decode")}
 
 
+# ---------------------------------------------------------------------------
+# path l: gemma3-4b, rings for its sliding-window layers; l2: int8 dense
+# caches; phase m: the dense decoders and Mamba2-2.7B at full width
+# ---------------------------------------------------------------------------
+
+RING_LABEL = "gemma3-4b dense KV + rings"
+RING_INT8_LABEL = "gemma3-4b int8 dense KV + rings"
+# the layout the reference gives a windowed stack: dense slots, whole-prompt
+# legacy prefill; max_len past the window, so 29 of the 34 layers keep rings
+RING_KW = dict(max_slots=16, max_len=4096, kv_layout="dense", prefill_chunk_tokens=None)
+RING_NEW = 64
+# 256 ... 2048: the 9 prompts over 1024 wrap their rings in prefill, the one
+# of 973 wraps them in decode
+RING_LENS = tuple(round(256 + i * 1792 / 15) for i in range(16))
+# the ring check's requests, one at each side of the window: 256 (no wrap),
+# 973 (wraps in decode), 1092 (wraps in prefill), 2048
+RING_CHECK_RIDS = (0, 6, 7, 15)
+RING_CHECK_LAST = 8                # decode positions a request is checked at
+# path l's schedule, formed by the port's engine on the CPU
+# (tests/test_torch_ring.py); kernel 7 runs once a decode stage in each of
+# the 5 global layers, kernel 9 once a layer in each legacy prefill whose
+# bucket passes the 512-position q block
+L_EXPECT = dict(stages=67, decode_stages=66, prefill_stages=4, long_prefill_stages=4)
+L_GLOBAL_LAYERS = 5
+RING_KERNELS = ("decode_attention", "flash_attention")
+
+
+def ring_requests(cfg):
+    import numpy as np
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                    max_new_tokens=RING_NEW) for i, n in enumerate(RING_LENS)]
+
+
+def ring_engine(cfg, params, device="cuda", **kw):
+    """Path l's engine, recording each legacy prefill's length bucket in
+    ``eng.prefill_buckets`` (the bucket the engine pads that stage's
+    prompts to)."""
+    from repro_torch.serving import engine as engine_mod
+    eng = engine_mod.ServingEngine(cfg, params, device=device, **RING_KW, **kw)
+    eng.prefill_buckets = []
+    dispatch = eng._dispatch_legacy_prefill
+
+    def recording(fut):
+        longest = max(len(c.req.token_stream(c.end)) for c in fut.plan.decision.chunks)
+        eng.prefill_buckets.append(engine_mod._bucket(longest, eng.prefill_len_buckets))
+        return dispatch(fut)
+    eng._dispatch_legacy_prefill = recording
+    return eng
+
+
+def ring_counters(eng):
+    reps = eng.reports
+    return dict(stages=len(reps), decode_stages=sum(r.num_decode > 0 for r in reps),
+                prefill_stages=len(eng.prefill_buckets),
+                long_prefill_stages=sum(b > 512 for b in eng.prefill_buckets))
+
+
+def dense_kv_bytes(eng):
+    """The bytes of the K/V leaves (and their scales) of a dense cache."""
+    return sum(t.numel() * t.element_size() for seg in eng.kv.cache for blk in seg["blocks"]
+               for name, t in blk.items() if name in ("k", "v", "k_scale", "v_scale"))
+
+
+def ring_kv_formula(cfg, per_token):
+    """``per_token`` bytes a (slot, position, layer) over path l's slots: the
+    global layers' max_len rows and the local layers' rings of window + 1."""
+    slots, max_len = RING_KW["max_slots"], RING_KW["max_len"]
+    n_global = sum(k.mixer == "attn" for k in cfg.layer_kinds())
+    n_local = cfg.num_layers - n_global
+    return slots * per_token * (n_global * max_len
+                                + n_local * (min(max_len, cfg.sliding_window) + 1))
+
+
+@contextlib.contextmanager
+def recorded_decode_logits(torch, eng, rids, first):
+    """Inside, each dense decode stage of ``eng`` keeps the float32 logits
+    row of every request of ``rids`` that has committed at least ``first``
+    tokens, keyed (rid, tokens committed): the logits its next token was
+    sampled from."""
+    from repro_torch.serving import engine as engine_mod
+    step, rows = engine_mod.decode_step, {}
+
+    def recording(*a, **kw):
+        logits, cache, counts = step(*a, **kw)
+        for slot, r in eng._slot_req.items():
+            if r.rid in rids and len(r.output) >= first:
+                rows[(r.rid, len(r.output))] = logits[slot, 0].float().clone()
+        return logits, cache, counts
+
+    engine_mod.decode_step = recording
+    try:
+        yield rows
+    finally:
+        engine_mod.decode_step = step
+
+
+def check_ring_against_forward(torch, cfg, params, reqs, rows):
+    """Ring correctness at full width: for each checked request, ``forward``
+    over its prompt and generated tokens through the plain versions (so the
+    oracle does not share kernel 9 with the engine's prefill), its logits
+    at each of the last ``RING_CHECK_LAST`` positions against the engine's
+    decode logits there, held to ``compare_logits``."""
+    from repro_torch.core.execution import ExecutionPlan
+    from repro_torch.models.model import forward
+    a, b = [], []
+    for rid in RING_CHECK_RIDS:
+        r = reqs[rid]
+        seq = list(r.prompt) + list(r.output[:-1])
+        toks = torch.tensor([seq], dtype=torch.int64, device="cuda")
+        with torch.no_grad():
+            logits, _ = forward(params, cfg, {"tokens": toks},
+                                plan=ExecutionPlan(use_kernels=False))
+        for j in range(RING_NEW - RING_CHECK_LAST, RING_NEW):
+            a.append(rows[(rid, j)])
+            b.append(logits[0, len(r.prompt) + j - 1])
+        del logits
+    compare_logits(torch, RING_LABEL, f"decode logits of requests {RING_CHECK_RIDS} (prompts "
+                   f"{[RING_LENS[i] for i in RING_CHECK_RIDS]}) at their last "
+                   f"{RING_CHECK_LAST} positions, against forward through the plain versions",
+                   torch.stack(a), torch.stack(b))
+
+
+def check_int8_dense_decode(torch, cfg, params):
+    """Path l2's model-level rule, the reference's (``test_kv_quant.py``):
+    prefill the checked requests' prompts, then one decode step, once into
+    a dense cache in the model's dtype and once into an int8 one; the decode
+    logits' largest difference over the largest |logit| of the first under
+    0.05. The gate runs it in the reference test's arithmetic: the same
+    weights in float32, both decodes through the plain path, so that only
+    the cache's quantization differs. In bf16 the same rule is printed
+    beside it, against the bf16 decode through the kernels and through the
+    plain path: at gemma3-4b's width the int8 cache alone moves the logits
+    by 3.4-4.7% at any depth (2-34 layers, bf16 or float32), and the bf16
+    kernels' own arithmetic by 0.5-1.9% (NVIDIA H100 80GB HBM3, 700 W)."""
+    from repro_torch.core.execution import ExecutionPlan
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    from repro_torch.models.params import tree_map
+    lens = [RING_LENS[i] for i in RING_CHECK_RIDS]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (len(lens), max(lens)), generator=gen,
+                         device="cuda")
+    true_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params32 = tree_map(params, lambda t: t.float())
+
+    def step(c, p, kv_quant, use_kernels, nxt=None):
+        cache = init_cache(c, len(lens), RING_KW["max_len"], device="cuda", kv_quant=kv_quant)
+        plan = ExecutionPlan(use_kernels=use_kernels)
+        with torch.no_grad():
+            lg, _ = prefill(p, c, {"tokens": toks}, cache, true_len, plan=plan)
+            if nxt is None:
+                nxt = lg[:, -1].argmax(-1)[:, None].to(torch.int32)
+            return decode_step(p, c, nxt, cache, {}, plan=plan)[0].float(), nxt
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+    bf16, nxt = step(cfg, params, False, True)
+    rows = {"bf16, kernels": bf16, "bf16, plain": step(cfg, params, False, False, nxt)[0],
+            "int8": step(cfg, params, True, True, nxt)[0]}
+    f32 = step(cfg32, params32, False, False, nxt)[0]
+    i8_32 = step(cfg32, params32, True, False, nxt)[0]
+    del params32
+    got = rel(i8_32, f32)
+    same = (i8_32.argmax(-1) == f32.argmax(-1)).float().mean().item()
+    log(f"serve [{RING_INT8_LABEL}]: one decode step after prefills of {lens}, int8 dense "
+        f"cache against the model's dtype (max |dlogit| / max |logit|): float32 weights, "
+        f"plain path {got:.4f} (limit 0.05; argmax equal on {same:.2f} of the rows); bf16 "
+        f"(no gate): against the kernels {rel(rows['int8'], rows['bf16, kernels']):.4f}, "
+        f"against the plain path {rel(rows['int8'], rows['bf16, plain']):.4f}, the kernels "
+        f"against the plain path {rel(rows['bf16, kernels'], rows['bf16, plain']):.4f}")
+    if not bool(torch.isfinite(i8_32).all() and torch.isfinite(rows["int8"]).all()) \
+            or got >= 0.05:
+        raise AssertionError(f"[{RING_INT8_LABEL}] int8 dense decode departs from float32")
+
+
+def ring_phase(torch):
+    """Paths l and l2: gemma3-4b at full width and depth, random weights from
+    seed 0, 16 requests (prompts of 256-2048 tokens, 64 new) on the dense
+    layout with rings and the legacy prefill, kernels on; then the same with
+    int8 dense caches. Returns path l's {kernel: launches}."""
+    import numpy as np
+    from repro_torch.configs import resolve_config
+    from repro_torch.kernels import build
+    from repro_torch.models.params import init_model, tree_leaves
+    from repro_torch.serving.kvmanager import kv_token_bytes
+    cfg = resolve_config("gemma3-4b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"serve: {cfg.name} at full width and depth ({cfg.num_layers} layers: "
+        f"{cfg.num_layers - L_GLOBAL_LAYERS} with a {cfg.sliding_window}-position window, "
+        f"{L_GLOBAL_LAYERS} global; head_dim {cfg.resolved_head_dim}, {cfg.num_heads} heads "
+        f"over {cfg.num_kv_heads}), random init (seed 0) {n_params / 1e9:.2f}B params in "
+        f"{time.perf_counter() - t0:.1f}s")
+    tokens = {}
+    launches = None
+    for label, kv_quant in ((RING_LABEL, False), (RING_INT8_LABEL, True)):
+        reqs = ring_requests(cfg)
+        eng = ring_engine(cfg, params, kv_quant=kv_quant)
+        kv_b = dense_kv_bytes(eng)
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        for r in reqs:
+            r.arrival_time = time.monotonic()
+        first = RING_NEW - RING_CHECK_LAST
+        with recorded_decode_logits(torch, eng, RING_CHECK_RIDS, first) as rows:
+            eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(build.launch_counts)
+        got = ring_counters(eng)
+        reps = eng.reports
+        dec_only = [r for r in reps if not r.num_prefill]
+        gen = sum(len(r.output) for r in reqs)
+        done = sum(r.completed and len(r.output) == RING_NEW
+                   and all(0 <= t < cfg.vocab_size for t in r.output) for r in reqs)
+        tbt = [t for r in reqs for t in r.tbts()]
+        log(f"serve [{label}]: {done}/{len(reqs)} completed, "
+            f"{sum(len(r.prompt) for r in reqs)} prompt tokens, {gen} generated, "
+            f"schedule {json.dumps(got)} (CPU: {json.dumps(L_EXPECT)}), prefill buckets "
+            f"{eng.prefill_buckets}, in {wall:.2f}s; generated tokens/s={gen / wall:.1f}; "
+            f"decode-only stage ms median={np.median([r.wall_time for r in dec_only]) * 1e3:.1f}"
+            f"; median TBT={np.median(tbt) * 1e3:.1f}ms, median TTFT="
+            f"{np.median([r.t2ft() for r in reqs]) * 1e3:.0f}ms; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"serve [{label}]: kernel launches on the path: {json.dumps(counts)}")
+        if done != len(reqs):
+            raise AssertionError(f"[{label}]: {done}/{len(reqs)} completed")
+        if got != L_EXPECT:
+            raise AssertionError(f"[{label}] schedule {got} is not the CPU's {L_EXPECT}")
+        want = dict(decode_attention=0 if kv_quant else got["decode_stages"] * L_GLOBAL_LAYERS,
+                    flash_attention=got["long_prefill_stages"] * cfg.num_layers)
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"[{label}] launches {counts} are not {want}")
+        per_tok = kv_token_bytes(cfg, kv_quant=kv_quant)
+        formula = ring_kv_formula(cfg, per_tok)
+        full = RING_KW["max_slots"] * per_tok * cfg.num_layers * RING_KW["max_len"]
+        log(f"serve [{label}]: dense KV {kv_b} B ({kv_b / 2**30:.3f} GiB), streamed a decode "
+            f"stage {eng._dense_kv_bytes_per_stage} B; formula {formula} B = 16 slots x "
+            f"{per_tok} B x ({L_GLOBAL_LAYERS} x {RING_KW['max_len']} + "
+            f"{cfg.num_layers - L_GLOBAL_LAYERS} x {cfg.sliding_window + 1}); full-length "
+            f"caches would be {full / 2**30:.3f} GiB")
+        if kv_b != formula or eng._dense_kv_bytes_per_stage != formula:
+            raise AssertionError(f"[{label}] KV bytes {kv_b} / {eng._dense_kv_bytes_per_stage} "
+                                 f"are not the formula's {formula}")
+        tokens[kv_quant] = {r.rid: list(r.output) for r in reqs}
+        if not kv_quant:
+            launches = {k: counts[k] for k in RING_KERNELS}
+            check_ring_against_forward(torch, cfg, params, reqs, rows)
+            profile_stages(torch, cfg, params, label, RING_KW)
+            l_bytes = kv_b
+        else:
+            log(f"serve [{label}]: KV bytes {kv_b / l_bytes:.6f} of path l's "
+                f"({per_tok} / {kv_token_bytes(cfg)} = {per_tok / kv_token_bytes(cfg):.6f})")
+        del eng, rows
+    agree = sum(tokens[True][i] == tokens[False][i] for i in tokens[False])
+    same = np.mean([a == b for i in tokens[False]
+                    for a, b in zip(tokens[True][i], tokens[False][i])])
+    log(f"serve [{RING_INT8_LABEL}]: greedy tokens equal to path l's on {agree}/16 requests, "
+        f"{same:.3f} of the tokens (no gate)")
+    check_int8_dense_decode(torch, cfg, params)
+    return launches
+
+
+# phase m: (config, engine flags, the kernels its run must launch); depth cut
+# to 2 layers, the fewest that keep each structure
+M_LAYERS = 2
+M_CONFIGS = (
+    ("qwen3-8b", ENGINE_KW, ("paged_decode_attention", "chunked_prefill_attention")),
+    ("command-r-35b", ENGINE_KW, ("paged_decode_attention", "chunked_prefill_attention")),
+    ("mistral-large-123b", ENGINE_KW,
+     ("paged_decode_attention", "chunked_prefill_attention")),
+    ("mamba2-2.7b", dict(max_slots=16, max_len=1024, prefill_chunk_tokens=None),
+     ("ssd_decode",)),
+)
+
+
+def configs_phase(torch):
+    """Phase m: each config of ``M_CONFIGS`` at full width and ``M_LAYERS``
+    layers, random weights from seed 0: one engine run of 4 requests
+    (128-512 tokens, 8 new) with its kernels launched, then one stage
+    through the kernels against the plain path (paged: a mixed stage with
+    decode rows; Mamba: path c's dense decode stages)."""
+    import numpy as np
+    from repro_torch.configs import resolve_config
+    from repro_torch.configs.base import Segment
+    from repro_torch.models.params import init_model, tree_leaves
+    from repro_torch.serving.request import Request
+    for name, kw, kernels in M_CONFIGS:
+        full = resolve_config(name)
+        (seg,) = full.segments
+        cfg = dataclasses.replace(full, num_layers=M_LAYERS,
+                                  segments=(Segment(seg.pattern, M_LAYERS),)).validate()
+        label = f"{name} cut to {M_LAYERS} of {full.num_layers} layers"
+        torch.cuda.reset_peak_memory_stats()
+        params = init_model(cfg, seed=0, device="cuda")
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        log(f"serve: {label}, random init (seed 0) {n_params / 1e9:.2f}B params")
+        rng = np.random.default_rng(1)
+        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                   int(rng.integers(128, 513))).tolist(),
+                        max_new_tokens=8) for i in range(4)]
+        counts, eng = serve_path(torch, cfg, params, label, kw, reqs)
+        del eng
+        missing = [k for k in kernels if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"[{label}] kernels never launched on the path: {missing}")
+        if "ssd_decode" in kernels:
+            check_decode_against_plain(torch, cfg, params, label)
+        else:
+            check_against_plain(torch, cfg, params, label, {})
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 # path c's decode checks: (seed, prompt lengths of the rows; the last row
 # dead). The first is a four-row stage; the others hold eight rows from
 # three seeds.
@@ -3028,6 +3406,12 @@ def main(argv=None) -> int:
         for name, n in hybrid_phase(torch).items():
             rows[name]["launches"] = n
         gc.collect()                      # the Jamba model and its caches go
+        torch.cuda.empty_cache()
+        ring_phase(torch)
+        gc.collect()                      # gemma3-4b and its caches go
+        torch.cuda.empty_cache()
+        configs_phase(torch)
+        gc.collect()
         torch.cuda.empty_cache()
         path_d = train_phase(torch)
         for name, n in path_d["launches"].items():

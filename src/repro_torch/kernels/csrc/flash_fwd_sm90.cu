@@ -29,6 +29,18 @@
 //     c ^ (r % 8), hd 128 split into two 64-column panels. Q and K are
 //     K-major operands of S = Q K^T; V, stored the same way, is the
 //     MN-major ("transposed") B operand of P V.
+//   * hd 256 (gemma3-4b) keeps the block's 128 rows and changes the
+//     plan. At two Q slots and tiles of 128 keys it would need 1024 +
+//     2 * 128 * 256 * 2 + 2 * 2 * 128 * 256 * 2 = 394,240 bytes of shared
+//     memory; a block has 232,448. One Q slot and tiles of KT = 64 keys
+//     take 1024 + 65,536 + 131,072 = 197,632: the next item's Q then waits
+//     for this item's last S product, and the tile loop runs twice as
+//     many steps of half the width. Four 64-column panels a row. A
+//     consumer thread holds o[128] (64 x 256 float32 over a warpgroup)
+//     and s[32] against its 240 registers. wgmma's N stops at 256 and
+//     hopper.cuh's register-A product at 128, so O += P V is two
+//     m64n128k16 products a k16 step, one on each half of V's columns
+//     (panels 0-1 and 2-3), from the same P fragment.
 //   * All loads are TMA: a third warpgroup (the producer; one of its
 //     threads works) issues each item's Q boxes into a free Q slot and
 //     each K/V tile of KT = 128 keys into a free stage of a two-stage ring
@@ -74,7 +86,6 @@ using namespace sm90;
 namespace {
 
 constexpr int BM = 128;        // query rows per block (two warpgroups of 64)
-constexpr int KT = 128;        // keys per tile
 constexpr int STAGES = 2;      // K/V tiles in flight
 constexpr int CONSUMERS = 256; // two warpgroups
 constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
@@ -84,6 +95,16 @@ constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
 // out (B, S, H, hd) bf16, out32 (the same, float32, or null) and lse (B,
 // H, S) float32 contiguous. Warps 0-7 are the two consumer warpgroups,
 // warps 8-11 the producer.
+// The plan for a head_dim: keys per tile (KT), Q slots (QS), and the N of
+// one P V product (ON), NO = HD / ON of them a k16 step.
+template <int HD>
+struct Plan {
+  static constexpr int KT = HD == 256 ? 64 : 128;
+  static constexpr int QS = HD == 256 ? 1 : 2;
+  static constexpr int ON = HD < 128 ? HD : 128;
+  static constexpr int NO = HD / ON;
+};
+
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -92,15 +113,16 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       __nv_bfloat16* __restrict__ out, float* __restrict__ out32,
                       float* __restrict__ lse, int S, int H, int KV, int B, int qpk, int bq,
                       int causal, int window, float softcap, float scale) {
+  constexpr int KT = Plan<HD>::KT, QS = Plan<HD>::QS, ON = Plan<HD>::ON, NO = Plan<HD>::NO;
   constexpr int Q_BYTES = BM * HD * 2, KV_BYTES = KT * HD * 2;
   extern __shared__ uint8_t smem_raw[];
-  // kv full[s], kv empty[s], q full[2], q empty[2]
-  __shared__ __align__(8) uint64_t bars[2 * STAGES + 4];
+  // kv full[s], kv empty[s], q full[QS], q empty[QS]
+  __shared__ __align__(8) uint64_t bars[2 * STAGES + 2 * QS];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s0 = base;                 // Q slot i at q_s0 + i Q_BYTES
-  const uint32_t kv_s = base + 2 * Q_BYTES;   // stage st: K at kv_s + 2 st KV_BYTES, V after
+  const uint32_t kv_s = base + QS * Q_BYTES;  // stage st: K at kv_s + 2 st KV_BYTES, V after
   const uint32_t full0 = smem_addr(bars), empty0 = full0 + 8 * STAGES;
-  const uint32_t qfull0 = empty0 + 8 * STAGES, qempty0 = qfull0 + 16;
+  const uint32_t qfull0 = empty0 + 8 * STAGES, qempty0 = qfull0 + 8 * QS;
 
   const int tid = threadIdx.x;
   const int n_qt = (S + bq - 1) / bq;
@@ -121,7 +143,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(full0 + 8 * st, 1);
       mbar_init(empty0 + 8 * st, CONSUMERS);
     }
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < QS; ++i) {
       mbar_init(qfull0 + 8 * i, 1);
       mbar_init(qempty0 + 8 * i, CONSUMERS);
     }
@@ -138,8 +160,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++n) {
         int q0, nq, g, b, k_lo, k_hi;
         item(w, q0, nq, g, b, k_lo, k_hi);
-        const int slot = n & 1;
-        if (n >= 2) mbar_wait(qempty0 + 8 * slot, ((n >> 1) & 1) ^ 1);
+        const int slot = n % QS;
+        if (n >= QS) mbar_wait(qempty0 + 8 * slot, ((n / QS) & 1) ^ 1);
         mbar_expect_tx(qfull0 + 8 * slot, qpk * bq * HD * 2);
 #pragma unroll
         for (int p = 0; p < HD / 64; ++p)
@@ -168,7 +190,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   // softcap * log2(e) * tanh(s * scale / softcap)
   const float mul = softcap > 0.f ? scale / softcap : scale * LOG2E;
   const float cap = softcap * LOG2E;
-  float o[HD / 2], s[KT / 2];
+  // o[h]: columns h ON .. h ON + ON - 1 of this thread's rows
+  float o[NO][ON / 2], s[KT / 2];
 #pragma unroll
   for (int i = 0; i < KT / 2; ++i) s[i] = 0.f;
 
@@ -187,11 +210,13 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       qpos[i] = r < R ? q0 + r / qpk : -1;
     }
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+    for (int h = 0; h < NO; ++h)
+#pragma unroll
+      for (int i = 0; i < ON / 2; ++i) o[h][i] = 0.f;
     float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
-    const int slot = n & 1;
+    const int slot = n % QS;
     const uint32_t q_s = q_s0 + slot * Q_BYTES;
-    mbar_wait(qfull0 + 8 * slot, (n >> 1) & 1);   // this item's Q has landed
+    mbar_wait(qfull0 + 8 * slot, (n / QS) & 1);   // this item's Q has landed
 
     for (int j = 0; j < n_tiles; ++j, ++it) {
       const int st = it % STAGES;
@@ -249,14 +274,18 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         l_r[i] = l_r[i] * alpha + sum;         // this thread's share of the row
 #pragma unroll
-        for (int nn = 0; nn < HD / 8; ++nn) {
-          o[nn * 4 + i * 2] *= alpha;
-          o[nn * 4 + i * 2 + 1] *= alpha;
-        }
+        for (int h = 0; h < NO; ++h)
+#pragma unroll
+          for (int nn = 0; nn < ON / 8; ++nn) {
+            o[h][nn * 4 + i * 2] *= alpha;
+            o[h][nn * 4 + i * 2 + 1] *= alpha;
+          }
       }
 
-      // O += P V: P (bf16) from registers, V MN-major from shared memory
-      fence_regs(o);
+      // O += P V: P (bf16) from registers, V MN-major from shared memory,
+      // one product for each ON columns of V (ON / 64 panels of KT rows)
+#pragma unroll
+      for (int h = 0; h < NO; ++h) fence_regs(o[h]);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KT / 16; ++kk) {
@@ -264,11 +293,15 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                                pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
                                pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
                                pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
-        wgmma_rs(o, a, desc_sw128(vs + kk * 16 * 128, KT * 128, 1024));
+#pragma unroll
+        for (int h = 0; h < NO; ++h)
+          wgmma_rs(o[h], a, desc_sw128(vs + h * (ON / 64) * KT * 128 + kk * 16 * 128,
+                                       KT * 128, 1024));
       }
       wgmma_commit();
       wgmma_wait0();
-      fence_regs(o);
+#pragma unroll
+      for (int h = 0; h < NO; ++h) fence_regs(o[h]);
       mbar_arrive(empty0 + 8 * st);             // this thread is done with stage st
     }
 
@@ -283,11 +316,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const size_t base_o = (((size_t)b * S + qpos[i]) * H + h) * HD + 2 * (lane & 3);
       const float den = fmaxf(l, 1e-37f);
 #pragma unroll
-      for (int nn = 0; nn < HD / 8; ++nn) {
-        const float x0 = o[nn * 4 + i * 2] / den, x1 = o[nn * 4 + i * 2 + 1] / den;
-        *reinterpret_cast<__nv_bfloat162*>(out + base_o + nn * 8) = __floats2bfloat162_rn(x0, x1);
-        if (out32) *reinterpret_cast<float2*>(out32 + base_o + nn * 8) = make_float2(x0, x1);
-      }
+      for (int h = 0; h < NO; ++h)
+#pragma unroll
+        for (int nn = 0; nn < ON / 8; ++nn) {
+          const float x0 = o[h][nn * 4 + i * 2] / den, x1 = o[h][nn * 4 + i * 2 + 1] / den;
+          const size_t at = base_o + h * ON + nn * 8;
+          *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(x0, x1);
+          if (out32) *reinterpret_cast<float2*>(out32 + at) = make_float2(x0, x1);
+        }
       if ((lane & 3) == 0)
         lse[((size_t)b * H + h) * S + qpos[i]] = l > 0.f ? m_r[i] / LOG2E + logf(l) : 0.f;
     }
@@ -296,7 +332,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 template <int HD>
 constexpr size_t smem_bytes() {
-  return 1024 + 2 * (size_t)BM * HD * 2 + STAGES * 2 * (size_t)KT * HD * 2;
+  return 1024 + Plan<HD>::QS * (size_t)BM * HD * 2 + STAGES * 2 * (size_t)Plan<HD>::KT * HD * 2;
 }
 
 template <int HD>
@@ -306,8 +342,8 @@ int launch(const void* q, const void* k, const void* v, void* out, void* out32, 
   const int qpk = H / KV, bq = BM / qpk;
   CUtensorMap tm_q, tm_k, tm_v;
   if (!gqa_map(&tm_q, q, B, S, KV, qpk, bq, HD, qsb, qss) ||
-      !rows_map(&tm_k, k, B, S, KV, HD, ksb, kss, KT) ||
-      !rows_map(&tm_v, v, B, S, KV, HD, ksb, kss, KT))
+      !rows_map(&tm_k, k, B, S, KV, HD, ksb, kss, Plan<HD>::KT) ||
+      !rows_map(&tm_v, v, B, S, KV, HD, ksb, kss, Plan<HD>::KT))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = port::allow_smem(flash_fwd_sm90_kernel<HD>, smem_bytes<HD>());
   if (err != cudaSuccess) return (int)err;
@@ -330,7 +366,7 @@ extern "C" {
 // dimensions; k, v (B, S, KV, hd) with strides ksb, kss (the same for
 // both); heads hd apart and hd contiguous; every row 16-byte aligned. out
 // (B, S, H, hd) bf16, out32 (B, S, H, hd) float32 or null, lse (B, H, S)
-// float32, all contiguous. hd 64 or 128; H / KV <= 64. Returns a
+// float32, all contiguous. hd 64, 128 or 256; H / KV <= 64. Returns a
 // cudaError_t code (0 = launched; cudaErrorInvalidValue also when
 // cuTensorMapEncodeTiled refuses a tensor map).
 int flash_attention_fwd_sm90(int dtype, const void* q, const void* k, const void* v,
@@ -344,6 +380,9 @@ int flash_attention_fwd_sm90(int dtype, const void* q, const void* k, const void
                       window, softcap, scale, s);
   if (hd == 128)
     return launch<128>(q, k, v, out, out32, lse, B, S, H, KV, qsb, qss, ksb, kss, causal,
+                       window, softcap, scale, s);
+  if (hd == 256)
+    return launch<256>(q, k, v, out, out32, lse, B, S, H, KV, qsb, qss, ksb, kss, causal,
                        window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -228,7 +228,13 @@ def _check_aligned(**tensors):
 BWD_PAD = 64
 
 
-def _check(q, k, v):
+# the head_dims each route takes: the bf16 forward (flash_fwd_sm90.cu) also
+# gemma3-4b's 256; the float32 forward and both backwards 64 and 128
+FWD_SM90_HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128)
+
+
+def _check(q, k, v, head_dims=HEAD_DIMS):
     """Shapes, strides and the card; returns the kernels' integer arguments
     (B, S, H, KV, hd, qsb, qss, ksb, kss)."""
     B, S, H, hd = q.shape
@@ -242,8 +248,9 @@ def _check(q, k, v):
     if H % KV or H // KV > 64:
         raise ValueError(f"the kernels take H a multiple of KV with H / KV <= 64, got "
                          f"{H} over {KV}")
-    if hd not in (64, 128):
-        raise ValueError(f"the kernels take head_dim 64 or 128, got {hd}")
+    if hd not in head_dims:
+        raise ValueError(f"this route takes head_dim {' or '.join(map(str, head_dims))}, "
+                         f"got {hd}")
     if q.stride()[2:] != (hd, 1) or k.stride() != v.stride() or k.stride()[2:] != (hd, 1):
         raise ValueError(f"q, k, v need their (heads, hd) contiguous and k, v equal "
                          f"strides, got {q.stride()}, {k.stride()}, {v.stride()}")
@@ -260,16 +267,17 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
     runs one of two kernels, chosen by dtype (their own tiles;
     ``q_block``/``kv_block`` are the plain version's): bfloat16 the
     tensor-core kernel (``flash_fwd_sm90.cu``: wgmma products, TMA loads,
-    persistent blocks), which writes the float32 output in its epilogue
-    when ``f32_out`` asks; float32 the scalar kernel
-    (``flash_attn.cu``), whose output is already float32 and is returned
-    for both. CPU tensors run the plain version."""
+    persistent blocks; head_dim 64, 128 or 256), which writes the float32
+    output in its epilogue when ``f32_out`` asks; float32 the scalar kernel
+    (``flash_attn.cu``; head_dim 64 or 128), whose output is already
+    float32 and is returned for both. A head_dim the dtype's route does not
+    take raises ValueError. CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, q_block=q_block, kv_block=kv_block,
                                      f32_out=f32_out)
     code = _dtype_code(q)
-    ints = _check(q, k, v)
+    ints = _check(q, k, v, FWD_SM90_HEAD_DIMS if q.dtype == torch.bfloat16 else HEAD_DIMS)
     B, S, H = ints[:3]
     out = torch.empty((B, S, H, q.shape[3]), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -299,13 +307,17 @@ def flash_attention_bwd_kernel(q, k, v, out, lse, dout, *, causal: bool = True,
     CUDA tensors (out contiguous float32, dout contiguous in q's dtype) it
     runs three launches of one of two routes, chosen by dtype: bfloat16 the
     tensor-core kernels (``flash_bwd_sm90.cu``: wgmma products, TMA loads),
-    float32 the scalar ones (``flash_attn.cu``). CPU tensors run the plain
-    version."""
+    float32 the scalar ones (``flash_attn.cu``), both at head_dim 64 or
+    128 (256 raises ValueError). CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
                                          window=window, softcap=softcap, q_block=q_block,
                                          kv_block=kv_block)
     code = _dtype_code(q)
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"the flash backward kernels take head_dim 64 or 128, got "
+                         f"{q.shape[3]}: head_dim 256 (training gemma3-4b with use_kernels) "
+                         f"comes with the flash backward at head_dim 256 (ROADMAP queue 2)")
     ints = _check(q, k, v)
     B, S, H = ints[:3]
     for name, t, dtype in (("out", out, torch.float32), ("dout", dout, q.dtype)):

@@ -124,7 +124,7 @@ def main(argv=None) -> int:
                         "recompute when --oversubscribe is set; migrate is dense-only)")
     p.add_argument("--kv-quant", action="store_true",
                    help="int8 KV cache (+fp32 per-token scales): halves the streamed "
-                        "decode KV bytes; composes with --kv-layout paged")
+                        "decode KV bytes; either --kv-layout")
     p.add_argument("--prefill-chunk", type=int, default=None,
                    help="chunked prefill token budget per stage; default = monolithic "
                         "whole-prompt prefill")

@@ -1,25 +1,29 @@
 """Attention: the paged KV layout (decode rows and prefill-chunk rows), the
-dense KV layout (decode rows, prefill cache writes) and the attention over
-whole sequences (training, and whole-prompt prefill).
+dense KV layout (decode rows, prefill cache writes, chunk rows) and the
+attention over whole sequences (training, and whole-prompt prefill).
 
-Port of ``repro/models/attention.py`` without ring (sliding-window) caches,
-cross-attention and int8 dense caches. Over whole sequences
-(``attention_forward``) the port runs ``full_attention`` (plain PyTorch,
-differentiated by autograd) or, past ``q_block`` positions,
+Port of ``repro/models/attention.py`` without cross-attention. Over whole
+sequences (``attention_forward``) the port runs ``full_attention`` (plain
+PyTorch, differentiated by autograd) or, past ``q_block`` positions,
 ``blockwise_attention``: the reference's flash core with its hand-written
 backward, as a ``torch.autograd.Function`` whose forward and backward are
 the flash kernels (``kernels/flash_attn.py``) or their plain versions.
 Packed sequences (``segment_ids``: a token attends only keys of its own
 segment) take the reference's segmented blockwise route instead, plain
 torch ops under autograd, as the reference runs them through XLA. Dense
-caches ({"k", "v"} (B, Smax, KV, hd), "pos" (B, Smax), "len" (B,)) are
-updated in place like the page pools; a dense chunk step writes whole slot
-rows at targets that are distinct by construction (``dense_chunk_writes``),
-because the reference drops its padded rows' writes out of bounds and CUDA
-orders duplicate writes of one ``index_put_`` arbitrarily. The page pools
-are updated IN PLACE (advanced-index assignment, i.e. ``index_put_``) —
-unlike JAX's functional ``.at[].set()``, which builds a new pool per layer,
-the port never copies a pool. Write rules kept from the reference:
+caches ({"k", "v"} (B, Smax, KV, hd), "pos" (B, Smax), "len" (B,); int8
+caches add float32 "k_scale"/"v_scale" (B, Smax, KV)) are updated in place
+like the page pools; a dense chunk step writes whole slot rows at targets
+that are distinct by construction (``dense_chunk_writes``), because the
+reference drops its padded rows' writes out of bounds and CUDA orders
+duplicate writes of one ``index_put_`` arbitrarily. A sliding-window
+layer's dense cache is a ring of ``window + 1`` slots when max_len exceeds
+the window (``is_ring``): position p lives at slot p % window, and slot
+``window`` is the reference's dump slot, whose "pos" stays the empty
+marker, so it is never read as live. The page pools are updated IN PLACE
+(advanced-index assignment, i.e. ``index_put_``) — unlike JAX's functional
+``.at[].set()``, which builds a new pool per layer, the port never copies a
+pool. Write rules kept from the reference:
 
 * padded decode rows (length 0) and dead chunk positions write into the
   reserved null page 0, which is never read as live;
@@ -27,11 +31,11 @@ the port never copies a pool. Write rules kept from the reference:
   (``bt.shape[1] * page - 1``);
 * a chunk's K/V is written before the chunk attends.
 
-int8 page pools (``k_scale_pages`` present in the layer's cache): K/V are
-quantized per (token, KV head) before the scatter (``quantize_kv``), all
-four pools are updated in place, and attention runs on int8 operands with
-the scales folded in — the int8 kernels, or off the kernel path
-``decode_attention_int8`` / ``chunk_attention_int8`` over the gathered
+int8 caches (``k_scale_pages`` in a page pool, ``k_scale`` in a dense
+cache): K/V are quantized per (token, KV head) before the write
+(``quantize_kv``), every leaf is updated in place, and attention runs on
+int8 operands with the scales folded in — the int8 kernels (page pools),
+or ``decode_attention_int8`` / ``chunk_attention_int8`` over the gathered
 view, which requantize p * v_scale once over the whole row as the
 reference's XLA path does (the kernels do it per page). No float copy of
 the cache is built.
@@ -108,11 +112,12 @@ def _int_dot(a8, b8):
 
 
 def decode_attention_int8(q, k_q, k_scale, v_q, v_scale, cache_len, *,
-                          window: int = 0, softcap: float = 0.0):
+                          window: int = 0, softcap: float = 0.0, kv_positions=None):
     """Plain int8 decode path. q (B,1,H,hd); k_q/v_q (B,Smax,KV,hd) int8;
-    k_scale/v_scale (B,Smax,KV) float32; cache_len (B,). Folded-scale int8
-    QK^T; p * v_scale requantized per row over the whole context.
-    -> (B,1,H,hd) in q's dtype."""
+    k_scale/v_scale (B,Smax,KV) float32; cache_len (B,); ``kv_positions``
+    (B,Smax) as ``decode_attention``'s. Folded-scale int8 QK^T; p * v_scale
+    requantized per row over the whole context. -> (B,1,H,hd) in q's
+    dtype."""
     B, _, H, hd = q.shape
     Smax, KV = k_q.shape[1], k_q.shape[2]
     scale = 1.0 / math.sqrt(hd)
@@ -121,7 +126,8 @@ def decode_attention_int8(q, k_q, k_scale, v_q, v_scale, cache_len, *,
     s = (s * q_sc[..., None] * k_scale.permute(0, 2, 1)[:, :, None, :]) * scale
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
-    pos = torch.arange(Smax, device=q.device)[None]
+    pos = (torch.arange(Smax, device=q.device)[None] if kv_positions is None
+           else kv_positions.long())
     lens = cache_len.long()[:, None]
     valid = pos < lens
     if window > 0:
@@ -500,34 +506,63 @@ def attention_forward(params, cfg: ModelConfig, x, positions, call: AttnCall,
 # Dense KV layout
 # ---------------------------------------------------------------------------
 
-def _dense_only(cache, window: int, what: str) -> None:
-    if window > 0 and cache["k"].shape[1] == window + 1:
-        raise NotImplementedError(
-            f"{what}: ring (sliding-window) caches are not ported yet; they come "
-            f"with the ring caches for sliding-window layers (ROADMAP queue 1, "
-            f"the other architectures)")
+def is_ring(cache, window: int) -> bool:
+    """A windowed layer's dense cache is a ring when it was sized
+    ``window + 1`` (max_len > window); otherwise it appends, and ``window``
+    only masks."""
+    return window > 0 and cache["k"].shape[1] == window + 1
+
+
+def _write_kv(cache, bidx, idx, k, v) -> None:
+    """Write K/V (and, into an int8 cache, their int8 values and float32
+    scales per (token, KV head)) at ``cache[leaf][bidx, idx]``."""
     if "k_scale" in cache:
-        raise NotImplementedError(
-            f"{what}: int8 dense caches are not ported yet; they come with the "
-            f"int8 dense caches (ROADMAP queue 1, the other architectures)")
+        cache["k"][bidx, idx], cache["k_scale"][bidx, idx] = quantize_kv(k)
+        cache["v"][bidx, idx], cache["v_scale"][bidx, idx] = quantize_kv(v)
+    else:
+        cache["k"][bidx, idx] = k.to(cache["k"].dtype)
+        cache["v"][bidx, idx] = v.to(cache["v"].dtype)
 
 
 def write_prefill_cache(cache, k, v, true_len, *, window: int = 0):
-    """Write prefill K/V (B,S,KV,hd) into a dense decode cache in place:
-    token t at slot t ("pos" gets t for t < true_len, the empty marker
-    past it; the padding's K/V is written too and is never read as live),
-    "len" = true_len. Returns the cache."""
-    _dense_only(cache, window, "write_prefill_cache")
+    """Write prefill K/V (B,S,KV,hd) into a dense decode cache in place,
+    "len" = true_len. Returns the cache.
+
+    Full caches: token t at slot t ("pos" gets t for t < true_len, the empty
+    marker past it; the padding's K/V is written too and is never read as
+    live). Rings (``is_ring``): slot r takes the last valid position p <
+    true_len with p % window == r, for the slots some valid position maps to
+    (the others keep what they held), and the dump slot's "pos" is the
+    empty marker. The reference sends every masked position to the dump
+    slot, where one ``index_put_`` with duplicate targets would land an
+    arbitrary value on CUDA; here each slot is written once, from a gather,
+    so the live slots are deterministic and the dump slot's K/V (never read)
+    is left as it was. int8 caches quantize per (token, KV head)."""
     B, S = k.shape[0], k.shape[1]
     size = cache["k"].shape[1]
-    pos = torch.arange(S, device=k.device)[None].expand(B, S)
-    valid = pos < true_len.long()[:, None]
-    idx = torch.clamp(pos, max=size - 1)
-    bidx = torch.arange(B, device=k.device)[:, None]
-    cache["pos"][bidx, idx] = torch.where(valid, pos, torch.full_like(pos, POS_EMPTY)
-                                          ).to(cache["pos"].dtype)
-    cache["k"][bidx, idx] = k.to(cache["k"].dtype)
-    cache["v"][bidx, idx] = v.to(cache["v"].dtype)
+    dev = k.device
+    tl = true_len.long()[:, None]
+    bidx = torch.arange(B, device=dev)[:, None]
+    if is_ring(cache, window):
+        r = torch.arange(window, device=dev)[None]
+        src = tl - 1 - torch.remainder(tl - 1 - r, window)       # (B, window)
+        valid = src >= 0
+        src = torch.clamp(src, min=0)
+        new = {"pos": src, "k": k[bidx, src], "v": v[bidx, src]}
+        if "k_scale" in cache:
+            new["k"], new["k_scale"] = quantize_kv(new["k"])
+            new["v"], new["v_scale"] = quantize_kv(new["v"])
+        for name, vals in new.items():
+            leaf = cache[name][:, :window]
+            keep = valid.reshape(valid.shape + (1,) * (vals.dim() - 2))
+            leaf.copy_(torch.where(keep, vals.to(leaf.dtype), leaf))
+        cache["pos"][:, window] = POS_EMPTY
+    else:
+        pos = torch.arange(S, device=dev)[None].expand(B, S)
+        idx = torch.clamp(pos, max=size - 1)
+        cache["pos"][bidx, idx] = torch.where(pos < tl, pos, torch.full_like(pos, POS_EMPTY)
+                                              ).to(cache["pos"].dtype)
+        _write_kv(cache, bidx, idx, k, v)
     cache["len"].copy_(true_len)
     return cache
 
@@ -536,22 +571,38 @@ def attention_decode_step(params, cfg: ModelConfig, x, cache, *, window: int = 0
                           use_kernels: bool = False):
     """One-token decode against a dense cache (updated in place). x (B,1,D);
     cache {"k", "v"} (B,Smax,KV,hd), "pos" (B,Smax), "len" (B,) — the new
-    token's position. K/V are cast to the cache dtype before the write, which
-    clamps to slot Smax-1 past the end. With ``use_kernels`` the dense decode
-    kernel attends the positions < len + 1; the plain path masks by "pos".
+    token's position (int8 caches add "k_scale"/"v_scale"). The write goes
+    to slot ``len % window`` on a ring, else to ``min(len, Smax - 1)``; K/V
+    are cast to the cache dtype (or quantized) before it. Attention:
+
+    * int8 caches: ``decode_attention_int8`` masked by "pos", with no
+      kernel, as the reference runs them;
+    * rings: the plain ``decode_attention`` masked by "pos" even with
+      ``use_kernels``. That is the reference's own route for a ring (its
+      "ring-buffer caches need position-based masking and stay on the XLA
+      path"): the dense decode kernel takes a slot's index for its
+      position, which a ring breaks. It is not a fallback;
+    * otherwise, with ``use_kernels``, the dense decode kernel over the
+      positions < len + 1 (with the window mask on a local layer that
+      appends), else the plain path masked by "pos".
+
     Returns (y, cache)."""
-    _dense_only(cache, window, "attention_decode_step")
     B = x.shape[0]
     positions = cache["len"].long()                      # (B,)
     q, k, v = _project_qkv(params, cfg, x, positions[:, None])
     Smax = cache["k"].shape[1]
-    write_idx = torch.clamp(positions, max=Smax - 1)
+    ring = is_ring(cache, window)
+    write_idx = positions % window if ring else torch.clamp(positions, max=Smax - 1)
     bidx = torch.arange(B, device=x.device)
     cache["pos"][bidx, write_idx] = positions.to(cache["pos"].dtype)
     new_len = positions + 1
-    cache["k"][bidx, write_idx] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][bidx, write_idx] = v[:, 0].to(cache["v"].dtype)
-    if use_kernels:
+    _write_kv(cache, bidx, write_idx, k[:, 0], v[:, 0])
+    if "k_scale" in cache:
+        out = decode_attention_int8(q, cache["k"], cache["k_scale"], cache["v"],
+                                    cache["v_scale"], new_len, window=window,
+                                    softcap=cfg.attn_logit_softcap,
+                                    kv_positions=cache["pos"])
+    elif use_kernels and not ring:
         from repro_torch.kernels.ops import decode_attention as decode_attn_kernel
         out = decode_attn_kernel(q, cache["k"], cache["v"], new_len, window=window,
                                  softcap=cfg.attn_logit_softcap)
@@ -617,9 +668,9 @@ def attention_chunk_step(params, cfg: ModelConfig, x, cache, chunk_ctx):
     (clamped to Smax - 1) and, for rows with chunk_len > 0, "len" = start +
     chunk_len; padded rows and positions past a row's chunk_len write
     nothing. Then the queries attend over the gathered slot rows through
-    ``chunk_attention`` (the reference runs this in XLA, not in a kernel).
-    Returns (y, cache)."""
-    _dense_only(cache, 0, "attention_chunk_step")
+    ``chunk_attention`` (the reference runs this in XLA, not in a kernel),
+    or on an int8 cache through ``chunk_attention_int8``, whose int8 values
+    and scales go through the same row writes. Returns (y, cache)."""
     Bc, Sc, _ = x.shape
     dev = x.device
     slots = chunk_ctx["slots"].long()
@@ -633,15 +684,25 @@ def attention_chunk_step(params, cfg: ModelConfig, x, cache, chunk_ctx):
         w = dense_chunk_writes(chunk_ctx, nrows, Smax, Sc)
     order, src = w["order"], w["src"]
     r = torch.arange(len(order), device=dev)[:, None]
-    _write_rows(cache["k"], w, k[order][r, src])
-    _write_rows(cache["v"], w, v[order][r, src])
+    k, v = k[order][r, src], v[order][r, src]
+    if "k_scale" in cache:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        _write_rows(cache["k_scale"], w, ks)
+        _write_rows(cache["v_scale"], w, vs)
+    _write_rows(cache["k"], w, k)
+    _write_rows(cache["v"], w, v)
     _write_rows(cache["pos"], w, positions[order][r, src])
     total = starts + clens
     t = w["targets"]
     cache["len"][t] = torch.where(w["live"], total[order], cache["len"][t].long()
                                   ).to(cache["len"].dtype)
-    out = chunk_attention(q, cache["k"][slots], cache["v"][slots], positions,
-                          cache["pos"][slots].long(), total,
-                          softcap=cfg.attn_logit_softcap)
+    kv_pos = cache["pos"][slots].long()
+    if "k_scale" in cache:
+        out = chunk_attention_int8(q, cache["k"][slots], cache["k_scale"][slots],
+                                   cache["v"][slots], cache["v_scale"][slots], positions,
+                                   kv_pos, total, softcap=cfg.attn_logit_softcap)
+    else:
+        out = chunk_attention(q, cache["k"][slots], cache["v"][slots], positions, kv_pos,
+                              total, softcap=cfg.attn_logit_softcap)
     y = torch.matmul(out.reshape(Bc, Sc, -1), params["wo"]["kernel"])
     return y, cache

@@ -2,24 +2,24 @@
 steps and unified mixed stages on the paged and dense KV layouts, and
 whole-prompt prefill.
 
-Port of ``repro/models/blocks.py`` for full self-attention and Mamba-2
-mixers with a dense, MoE or no FFN. A segment's parameters and cache carry
-a stacked ``layers`` axis; where the reference ``jax.lax.scan``s over it,
-the port loops over it in Python and hands each block the layer's slices
-(views, so cache writes land in the stacked leaves). Cache leaves are laid
-out (layers, batch or pages, ...), as the reference's. The training
-forward takes the layers from one ``torch.unbind`` per leaf, so the
-backward builds each stacked gradient with one ``stack`` (indexing
-``leaf[i]`` per layer would make autograd add a full-size zero gradient
-per layer).
+Port of ``repro/models/blocks.py`` for full and sliding-window
+self-attention and Mamba-2 mixers with a dense, MoE or no FFN. A segment's
+parameters and cache carry a stacked ``layers`` axis; where the reference
+``jax.lax.scan``s over it, the port loops over it in Python and hands each
+block the layer's slices (views, so cache writes land in the stacked
+leaves). Cache leaves are laid out (layers, batch or pages, ...), as the
+reference's. The training forward takes the layers from one
+``torch.unbind`` per leaf, so the backward builds each stacked gradient
+with one ``stack`` (indexing ``leaf[i]`` per layer would make autograd add
+a full-size zero gradient per layer).
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MOE, NONE, LayerKind,
-                                      ModelConfig)
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MAMBA, MOE, NONE,
+                                      LayerKind, ModelConfig)
 from repro_torch.core.execution import ExecutionPlan, moe_execute
 from repro_torch.models.attention import (POS_EMPTY, AttnCall, attention_chunk_step,
                                           attention_decode_step, attention_forward,
@@ -32,12 +32,17 @@ from repro_torch.models.ssm import mamba_decode_step, mamba_forward, mamba_init_
 
 
 def _check_kind(kind: LayerKind) -> None:
-    if kind.mixer not in (ATTN, MAMBA) or kind.ffn not in (DENSE, MOE, NONE):
+    if kind.mixer not in (ATTN, ATTN_LOCAL, MAMBA) or kind.ffn not in (DENSE, MOE, NONE):
         raise NotImplementedError(
-            f"the port serves full self-attention and Mamba-2 blocks, got {kind}; "
-            f"windowed (the ring caches), cross-attention (whisper) and "
-            f"bidirectional mixers come with the other architectures (ROADMAP "
-            f"queue 1)")
+            f"the port serves full and sliding-window self-attention and Mamba-2 "
+            f"blocks, got {kind}; cross-attention (whisper) and bidirectional mixers "
+            f"come with the other architectures (ROADMAP queue 1)")
+
+
+def _window(cfg: ModelConfig, kind: LayerKind) -> int:
+    """The attention window of a block: the config's for a sliding-window
+    mixer, 0 (none) otherwise."""
+    return cfg.sliding_window if kind.mixer == ATTN_LOCAL else 0
 
 
 def block_init_cache(cfg: ModelConfig, kind: LayerKind, batch: int = 0,
@@ -46,27 +51,35 @@ def block_init_cache(cfg: ModelConfig, kind: LayerKind, batch: int = 0,
                      num_pages: int = 0) -> dict:
     """The decode cache of ``layers`` stacked copies of this block.
 
-    Dense: an attention block holds "k"/"v" (layers, batch, max_len, KV, hd),
-    "pos" (layers, batch, max_len) int32 (the empty marker until written)
-    and "len" (layers, batch) int32; a Mamba block holds {"mamba": {"conv",
-    "ssm"}} (``ssm.mamba_init_cache``). Paged (``page_size`` > 0, attention
-    blocks only): the page pools (layers, num_pages, KV, page, hd); page 0 is the null page.
-    With ``kv_quant`` the value pools are int8 and float32 per-(token, KV
-    head) scale pools (layers, num_pages, KV, page) ride beside them."""
+    Dense: an attention block holds "k"/"v" (layers, batch, size, KV, hd),
+    "pos" (layers, batch, size) int32 (the empty marker until written) and
+    "len" (layers, batch) int32, where size is max_len, or for a
+    sliding-window block ``min(max_len, window) + 1`` (a ring of window
+    slots and the dump slot when max_len > window); with ``kv_quant`` "k"
+    and "v" are int8 and float32 "k_scale"/"v_scale" (layers, batch, size,
+    KV) ride beside them. A Mamba block holds {"mamba": {"conv", "ssm"}}
+    (``ssm.mamba_init_cache``). Paged (``page_size`` > 0, full
+    self-attention blocks only): the page pools (layers, num_pages, KV,
+    page, hd); page 0 is the null page. With ``kv_quant`` the value pools
+    are int8 and float32 per-(token, KV head) scale pools (layers,
+    num_pages, KV, page) ride beside them."""
     _check_kind(kind)
     if page_size == 0:
         if kind.mixer == MAMBA:
             return {"mamba": mamba_init_cache(cfg, batch, dtype, device, layers)}
+        window = _window(cfg, kind)
+        size = min(max_len, window) + 1 if window > 0 else max_len
+        shape = (layers, batch, size, cfg.num_kv_heads, cfg.resolved_head_dim)
+        kv_dtype = torch.int8 if kv_quant else dtype
+        cache = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+                 "v": torch.zeros(shape, dtype=kv_dtype, device=device),
+                 "pos": torch.full(shape[:3], POS_EMPTY, dtype=torch.int32,
+                                   device=device),
+                 "len": torch.zeros(shape[:2], dtype=torch.int32, device=device)}
         if kv_quant:
-            raise NotImplementedError("int8 dense caches are not ported yet; they "
-                                      "come with the int8 dense caches (ROADMAP "
-                                      "queue 1, the other architectures)")
-        shape = (layers, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device),
-                "pos": torch.full(shape[:3], POS_EMPTY, dtype=torch.int32,
-                                  device=device),
-                "len": torch.zeros(shape[:2], dtype=torch.int32, device=device)}
+            cache["k_scale"] = torch.zeros(shape[:4], dtype=torch.float32, device=device)
+            cache["v_scale"] = torch.zeros(shape[:4], dtype=torch.float32, device=device)
+        return cache
     if kind.mixer != ATTN:
         raise ValueError(f"paged KV cache supports full self-attention decoder "
                          f"layers only, got mixer={kind.mixer}")
@@ -81,11 +94,12 @@ def block_init_cache(cfg: ModelConfig, kind: LayerKind, batch: int = 0,
             "v_scale_pages": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
 
 
-def _attn_call(plan: ExecutionPlan) -> AttnCall:
-    """The attention call of a (full self-attention) block: causal, with the
-    plan's flash-core tiles and score precision."""
-    return AttnCall(causal=True, q_block=plan.attn_q_block, kv_block=plan.attn_kv_block,
-                    score_bf16=plan.attn_score_bf16)
+def _attn_call(cfg: ModelConfig, kind: LayerKind, plan: ExecutionPlan) -> AttnCall:
+    """The attention call of a self-attention block: causal, windowed for a
+    sliding-window mixer, with the plan's flash-core tiles and score
+    precision."""
+    return AttnCall(causal=True, window=_window(cfg, kind), q_block=plan.attn_q_block,
+                    kv_block=plan.attn_kv_block, score_bf16=plan.attn_score_bf16)
 
 
 def block_forward(params, cfg: ModelConfig, kind: LayerKind, x, positions,
@@ -100,7 +114,8 @@ def block_forward(params, cfg: ModelConfig, kind: LayerKind, x, positions,
     if kind.mixer == MAMBA:
         mixer_out = mamba_forward(params["mixer"], cfg, h)
     else:
-        mixer_out = attention_forward(params["mixer"], cfg, h, positions, _attn_call(plan),
+        mixer_out = attention_forward(params["mixer"], cfg, h, positions,
+                                      _attn_call(cfg, kind, plan),
                                       use_kernels=plan.use_kernels, segment_ids=segment_ids)
     if cfg.parallel_block and kind.ffn != NONE:
         ffn_out, aux = _ffn(params, cfg, kind, h, plan)
@@ -199,9 +214,11 @@ def block_decode_step(params, cfg: ModelConfig, kind: LayerKind, x, cache,
                                          use_kernels=plan.use_kernels)
     elif "k_pages" in cache:
         mixer_out, _ = paged_attention_decode_step(params["mixer"], cfg, h, cache,
-                                                   attn_ctx, use_kernels=plan.use_kernels)
+                                                   attn_ctx, window=_window(cfg, kind),
+                                                   use_kernels=plan.use_kernels)
     else:
         mixer_out, _ = attention_decode_step(params["mixer"], cfg, h, cache,
+                                             window=_window(cfg, kind),
                                              use_kernels=plan.use_kernels)
     if cfg.parallel_block and kind.ffn != NONE:
         return x + mixer_out + _ffn(params, cfg, kind, h, plan, valid, counts)[0]
@@ -227,9 +244,9 @@ def block_prefill(params, cfg: ModelConfig, kind: LayerKind, x, positions,
         cache["mamba"]["ssm"].copy_(mcache["ssm"])
     else:
         mixer_out, (k, v) = attention_forward(params["mixer"], cfg, h, positions,
-                                              _attn_call(plan), return_kv=True,
+                                              _attn_call(cfg, kind, plan), return_kv=True,
                                               use_kernels=plan.use_kernels)
-        write_prefill_cache(cache, k, v, true_len)
+        write_prefill_cache(cache, k, v, true_len, window=_window(cfg, kind))
     if cfg.parallel_block and kind.ffn != NONE:
         return x + mixer_out + _ffn(params, cfg, kind, h, plan)[0]
     x = x + mixer_out

@@ -9,8 +9,10 @@ cache is a list (one entry per segment) of ``{"blocks": (block cache, ...)}``
 with stacked leaves: paged (layers, P, KV, page, hd) pools (int8 pools add
 "k_scale_pages"/"v_scale_pages" (layers, P, KV, page)); dense attention
 "k"/"v" (layers, B, Smax, KV, hd), "pos" (layers, B, Smax), "len" (layers,
-B); Mamba {"mamba": {"conv" (layers, B, K-1, conv_dim), "ssm" (layers, B,
-H, N, P)}}. Caches are updated in place; the functions still return them so
+B), Smax being ``min(max_len, window) + 1`` for a sliding-window layer (a
+ring past the window), and with ``kv_quant`` int8 "k"/"v" and float32
+"k_scale"/"v_scale" (layers, B, Smax, KV); Mamba {"mamba": {"conv"
+(layers, B, K-1, conv_dim), "ssm" (layers, B, H, N, P)}}. Caches are updated in place; the functions still return them so
 call sites read like the reference's.
 """
 from __future__ import annotations
@@ -118,7 +120,9 @@ def init_cache(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
                page_size: int = 0, num_pages: int = 0, device="cuda",
                kv_quant: bool = False) -> list:
     """Decode cache. Dense (no ``page_size``): per-slot (batch, max_len)
-    attention leaves and per-slot Mamba state. Paged (``page_size`` > 0):
+    attention leaves (a sliding-window layer's ring sized ``min(max_len,
+    window) + 1``; with ``kv_quant`` int8 values and float32 scales) and
+    per-slot Mamba state. Paged (``page_size`` > 0):
     each attention layer holds a (num_pages, KV, page_size, hd) pool share in
     the model's dtype, or with ``kv_quant`` in int8 plus float32 (num_pages,
     KV, page_size) scale pools; capacity is owned by the KVManager."""

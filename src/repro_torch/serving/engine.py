@@ -36,10 +36,13 @@ The layouts:
   copies it first, and each chunk's full pages are indexed at commit.
 * dense: every slot owns a ``max_len`` row; the decode half runs over all
   ``max_slots`` rows (dead rows masked out of MoE routing), and a chunk row
-  names its slot.
+  names its slot. With ``kv_quant`` the rows hold int8 K/V with float32
+  scales.
 
-Every other stack (Mamba or hybrid) takes the dense layout with
-``prefill_chunk_tokens=None``: the dense decode over all rows first, then
+Every other stack (Mamba, hybrid, or with sliding-window layers, whose
+dense rows are rings of ``min(max_len, window) + 1`` slots) takes the dense
+layout with ``prefill_chunk_tokens=None``: the dense decode over all rows
+first, then
 the legacy monolithic prefill of the admitted prompts, padded to a
 ``prefill_len_buckets`` length, into a fresh local cache under the grouped
 MoE plan; at commit the prompts claim slots and their cache rows are
@@ -108,7 +111,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, MAMBA, MOE, ModelConfig
+from repro_torch.configs.base import ATTN, ATTN_LOCAL, MAMBA, MOE, ModelConfig
 from repro_torch.core.costmodel import DUPLEX
 from repro_torch.core.dispatch import plan_stage as core_plan_stage
 from repro_torch.core.duplex_moe import default_capacities, moe_traffic_model
@@ -350,8 +353,9 @@ class ServingEngine:
         head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
         self.params = dict(params, lm_head_f32=head["table"].float())
         # the unified token stream covers full self-attention stacks; Mamba
-        # needs a state carried across chunks, so those stacks keep the
-        # legacy monolithic prefill (the reference's rule)
+        # needs a state carried across chunks, and a ring would overwrite
+        # prefix slots mid-chunk, so those stacks keep the legacy monolithic
+        # prefill (the reference's rule)
         self._unified = all(kind.mixer == ATTN
                             for seg in cfg.segments for kind in seg.pattern)
         if prefill_chunk_tokens is not None and not self._unified:
@@ -370,8 +374,8 @@ class ServingEngine:
         if kv_layout is None:
             kv_layout = "paged" if self._unified else "dense"
         if not self._unified and kv_layout == "paged":
-            raise ValueError("a Mamba or hybrid stack has no paged KV cache; use "
-                             "kv_layout='dense' (the default for such a stack)")
+            raise ValueError("a Mamba, hybrid or windowed stack has no paged KV cache; "
+                             "use kv_layout='dense' (the default for such a stack)")
         self.injector = injector
         self.audit_stages = (injector is not None if audit_stages is None
                              else bool(audit_stages))
@@ -453,12 +457,18 @@ class ServingEngine:
         # streamed K+V bytes per live token over the attention layers, in the
         # cache's actual storage (int8 values plus their float32 scales when
         # quantized); Mamba layers hold O(1) state and are not counted. The
-        # dense decode streams every slot's whole max_len row.
+        # dense decode streams every slot's whole row: max_len positions of a
+        # full-attention layer, the min(max_len, window) + 1 slots of a
+        # sliding-window one
         n_attn = sum(seg.repeats for seg in cfg.segments
                      for kind in seg.pattern if kind.mixer != MAMBA)
         per_tok = kv_token_bytes(cfg, kv_quant=kv_quant)
         self._kv_bytes_per_token = per_tok * n_attn
-        self._dense_kv_bytes_per_stage = max_slots * per_tok * n_attn * max_len
+        dense_row = sum(seg.repeats * (min(max_len, cfg.sliding_window) + 1
+                                       if kind.mixer == ATTN_LOCAL and cfg.sliding_window > 0
+                                       else max_len)
+                        for seg in cfg.segments for kind in seg.pattern if kind.mixer != MAMBA)
+        self._dense_kv_bytes_per_stage = max_slots * per_tok * dense_row
         self._moe_layers = sum(seg.repeats for seg in cfg.segments
                                for kind in seg.pattern if kind.ffn == MOE)
         self._param_itemsize = DTYPES[cfg.param_dtype].itemsize
@@ -923,7 +933,8 @@ class ServingEngine:
 
         def step():
             plan = ExecutionPlan(moe_impl="grouped", use_kernels=self.use_kernels)
-            cache = init_cache(self.cfg, n_b, self.kv.max_len, device=self.device)
+            cache = init_cache(self.cfg, n_b, self.kv.max_len, device=self.device,
+                               kv_quant=self.kv.kv_quant)
             logits, cache = prefill(self.params, self.cfg, {"tokens": self._upload("lp_tokens")},
                                     cache, self._upload("lp_true_len"), plan=plan)
             return sample(logits, self.sampling, self._gen), cache

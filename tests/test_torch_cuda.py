@@ -1195,3 +1195,128 @@ def test_cuda_segments_all_equal_match_the_flash_kernels(card):
     for got, want in zip(res[False][0], res[True][0]):
         band = 2e-2 * max(1.0, want.float().abs().max().item())
         torch.testing.assert_close(got.float(), want.float(), atol=band, rtol=0)
+
+
+# gemma3-4b's attention: head_dim 256, 8 heads over 4 (qpk 2), a window of
+# 1024 on its local layers; S 1000 and 2047 are not multiples of the hd-256
+# plan's 64-key tiles
+HD256_FWD_CASES = [(2048, 4, 2, True, 0, 0.0), (2048, 4, 2, True, 1024, 0.0),
+                   (1000, 4, 2, True, 300, 50.0), (2047, 2, 2, False, 0, 0.0),
+                   (2047, 1, 12, True, 1024, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,KV,qpk,causal,window,softcap", HD256_FWD_CASES)
+def test_cuda_bf16_flash_forward_matches_plain_at_head_dim_256(card, S, KV, qpk, causal,
+                                                               window, softcap):
+    """The hd-256 plan of ``flash_fwd_sm90.cu`` (one Q slot, 64-key tiles,
+    two PV products a step) against the plain version, as the hd 64 and 128
+    cases: out, its float32 copy and lse within 2e-2, strided q, k, v from
+    one fused projection, the same bits from a second call."""
+    rng = np.random.default_rng(S + qpk + window)
+    q, k, v = _fused_qkv(rng, card, 1, S, KV * qpk, KV, 256)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    n = build.launch_counts["flash_attention"]
+    out, lse, o32 = flash_attn.flash_attention_kernel(q, k, v, f32_out=True, **kw)
+    assert build.launch_counts["flash_attention"] == n + 1
+    out_p, lse_p, o32_p = flash_attn.flash_attention_plain(q, k, v, f32_out=True, **kw)
+    torch.testing.assert_close(out.float(), out_p.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o32, o32_p, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, lse_p, atol=2e-2, rtol=2e-2)
+    assert torch.equal(o32.to(torch.bfloat16), out)
+    again = flash_attn.flash_attention_kernel(q, k, v, f32_out=True, **kw)
+    assert all(torch.equal(a, b) for a, b in zip((out, lse, o32), again))
+
+
+@pytest.mark.cuda
+def test_cuda_head_dim_256_routes_refuse_what_they_do_not_compute(card):
+    """At head_dim 256 the float32 forward and both backwards raise
+    ValueError before any launch (no plain fallback)."""
+    n = dict(build.launch_counts)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.zeros((1, 64, 2, 256), device=card, dtype=dtype)
+        out = torch.zeros(x.shape, device=card)
+        lse = torch.zeros((1, 2, 64), device=card)
+        with pytest.raises(ValueError, match="head_dim 256"):
+            flash_attn.flash_attention_bwd_kernel(x, x, x, out, lse, x)
+    x = torch.zeros((1, 64, 2, 256), device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attn.flash_attention_kernel(x, x, x)
+    assert dict(build.launch_counts) == n
+
+
+@pytest.mark.cuda
+def test_cuda_dense_decode_at_head_dim_256_matches_the_split_plain(card):
+    """The dense decode kernel at gemma3-4b's global layers: head_dim 256,
+    4 KV heads, qpk 2, bf16, Smax 4096, lengths 0 to past Smax (either side
+    of a split boundary and of path l's prompts), with and without a
+    window: within 2e-2 of ``decode_attention_split_plain`` (the kernel's
+    arithmetic) and of ``decode_attention_plain``; exact zeros at length 0;
+    the same bits from a second call."""
+    rng = np.random.default_rng(256)
+    t = lambda a: torch.tensor(a, device=card)
+    KV, qpk, hd, Smax = 4, 2, 256, 4096
+    split = decode_attn.DENSE_TILE * decode_attn.DENSE_TILES_PER_SPLIT
+    lens = t(np.asarray([0, 1, split - 1, split, split + 1, 973, 1092, 2048, Smax, Smax + 3],
+                        np.int32))
+    B = lens.shape[0]
+    k, v = (t(rng.standard_normal((B, Smax, KV, hd)).astype(np.float32)).to(torch.bfloat16)
+            for _ in range(2))
+    q = t(rng.standard_normal((B, KV, qpk, hd)).astype(np.float32)).to(torch.bfloat16)
+    for kw in (dict(), dict(window=1024)):
+        got = decode_attn.decode_attention_kernel(q, k, v, lens, **kw)
+        split_plain = decode_attn.decode_attention_split_plain(
+            q, k, v, lens, tile=decode_attn.DENSE_TILE,
+            tiles_per_split=decode_attn.DENSE_TILES_PER_SPLIT, **kw)
+        for want in (split_plain, decode_attn.decode_attention_plain(q, k, v, lens, **kw)):
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+        assert not got[0].any()
+        assert torch.equal(got, decode_attn.decode_attention_kernel(q, k, v, lens, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_gemma_ring_decode_matches_forward(card):
+    """gemma3-4b at full width cut to 2 layers (one local, one global),
+    bf16, random weights: prompts of 1000 and 990 tokens prefilled through
+    the kernels into a 1100-position cache (the local layer's ring of 1025
+    slots), then 40 greedy decode steps (the ring wraps at 1024) with the
+    kernels; every 8th step's logits against ``forward`` over the grown
+    sequences through the plain versions: within 5% of the logit scale,
+    the argmax equal wherever the top-2 gap is clear of the difference."""
+    import dataclasses
+    from repro_torch.configs import resolve_config
+    from repro_torch.configs.base import Segment
+    from repro_torch.core.execution import ExecutionPlan
+    from repro_torch.models import model as tmodel
+    from repro_torch.models.params import init_model
+    full = resolve_config("gemma3-4b")
+    cfg = dataclasses.replace(full, num_layers=2,
+                              segments=(Segment(full.segments[0].pattern[-2:], 1),)).validate()
+    params = init_model(cfg, seed=0, device=card)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 1000), generator=gen, device=card)
+    true_len = torch.tensor([1000, 990], dtype=torch.int32, device=card)
+    cache = tmodel.init_cache(cfg, 2, 1100, device=card)
+    assert cache[0]["blocks"][0]["k"].shape[2] == cfg.sliding_window + 1
+    kern, plain = ExecutionPlan(use_kernels=True), ExecutionPlan(use_kernels=False)
+    seqs = [toks[0].tolist(), toks[1, :990].tolist()]
+    with torch.no_grad():
+        lg, _ = tmodel.prefill(params, cfg, {"tokens": toks}, cache, true_len, plan=kern)
+        nxt = lg.argmax(-1).to(torch.int32)
+        for step in range(40):
+            for b in range(2):
+                seqs[b].append(int(nxt[b, 0]))
+            lg, _, _ = tmodel.decode_step(params, cfg, nxt, cache, {}, plan=kern)
+            if step % 8 == 7:
+                for b in range(2):
+                    ref, _ = tmodel.forward(params, cfg, {"tokens": torch.tensor(
+                        [seqs[b]], device=card)}, plan=plain)
+                    a, w = lg[b, 0].float(), ref[0, -1].float()
+                    diff, scale = (a - w).abs().max().item(), w.abs().max().item()
+                    assert diff <= 0.05 * scale, (step, b, diff, scale)
+                    top2 = w.topk(2).values
+                    if top2[0] - top2[1] > 2 * diff:
+                        assert a.argmax() == w.argmax()
+            nxt = lg.argmax(-1).to(torch.int32)
+    assert int(cache[0]["blocks"][0]["len"][0, 0]) == 1040

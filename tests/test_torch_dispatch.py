@@ -2,9 +2,10 @@
 
 * ``core/opb.py``'s cost functions and ``core/dispatch.py``'s
   ``plan_stage`` against the reference's, on tiny-moe, tiny-dense, a
-  windowed tiny stack, OLMoE-1B-7B and Jamba-v0.1 (each package's own
+  windowed tiny stack, OLMoE-1B-7B, Jamba-v0.1, gemma3-4b, qwen3-8b,
+  command-r-35b, mistral-large-123b and mamba2-2.7b (each package's own
   config), over decode-only, whole-prompt, chunk-span and verify-span
-  mixes, with ``kv_quant`` off and on and with per-expert ``counts`` given
+  mixes and contexts past gemma3-4b's window, with ``kv_quant`` off and on and with per-expert ``counts`` given
   and not: every component's name, FLOPs, bytes, Op/B and path, the
   bandwidth fraction and ``describe_plan``'s text;
 * one paged, chunked engine run on tiny-moe through both engines (the
@@ -63,7 +64,9 @@ def _configs():
     from repro.launch.train import resolve_config as ref_resolve
     out = [(n, ref_resolve(n, False), resolve_config(n)) for n in ("tiny-moe", "tiny-dense")]
     out.append(("tiny-window", _windowed(ref_base), _windowed(t_base)))
-    out += [(n, get_config(n), resolve_config(n)) for n in ("olmoe-1b-7b", "jamba-v0.1-52b")]
+    out += [(n, get_config(n), resolve_config(n))
+            for n in ("olmoe-1b-7b", "jamba-v0.1-52b", "gemma3-4b", "qwen3-8b", "command-r-35b",
+                      "mistral-large-123b", "mamba2-2.7b")]
     return out
 
 
@@ -80,6 +83,8 @@ def _mixes():
         ("all", dict(decode_ctx=(3,), prefill_len=(12,), chunk_spans=((16, 80),),
                      spec_spans=((90, 94),))),
         ("decode1", dict(decode_ctx=(1,))),
+        # contexts past gemma3-4b's 1024-position window
+        ("long", dict(decode_ctx=(1023, 1025, 2080, 4096), prefill_len=(2048,))),
     ]
 
 

@@ -181,3 +181,47 @@ def test_flash_forward_without_grad_writes_no_float32_output(use_kernels, monkey
     assert asked == [False, False]
     assert plain.grad_fn is None and quiet.grad_fn is None
     assert torch.equal(plain, want) and torch.equal(quiet, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window,softcap", [(True, 0, 0.0), (True, 20, 0.0),
+                                                   (True, 12, 30.0)])
+def test_flash_plain_matches_pallas_at_head_dim_256(causal, window, softcap, dtype):
+    """gemma3-4b's head_dim 256 at its 2 query heads a KV head: the plain
+    forward (what the hd-256 plan of ``flash_fwd_sm90.cu`` is held to on the
+    card) against the Pallas kernel in interpret mode, causal and windowed,
+    S 40 over blocks of 16."""
+    rng = np.random.default_rng(int(window + softcap))
+    S, KV, qpk, hd = 40, 2, 2, 256
+    q = rng.standard_normal((1, S, KV * qpk, hd)).astype(np.float32)
+    k = rng.standard_normal((1, S, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((1, S, KV, hd)).astype(np.float32)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jops.flash_attention(*(jnp.asarray(a).astype(jd) for a in (q, k, v)), q_block=BLK,
+                                kv_block=BLK, interpret=True, **kw)
+    got, _ = flash_attention_plain(*(torch.tensor(a).to(td) for a in (q, k, v)),
+                                   q_block=BLK, kv_block=BLK, **kw)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               **_tol(dtype))
+
+
+def test_flash_routes_take_the_head_dims_they_compute():
+    """The bf16 forward takes head_dim 256; the float32 forward and both
+    backwards refuse it with ValueError (the backward names the work it
+    waits for) before any launch; a tensor on no card is refused, never
+    run through the plain version."""
+    from repro_torch.kernels import build, flash_attn
+    assert 256 in flash_attn.FWD_SM90_HEAD_DIMS and 256 not in flash_attn.HEAD_DIMS
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros((1, 8, 2, 256), dtype=dtype, device="meta")
+        k = torch.zeros((1, 8, 1, 256), dtype=dtype, device="meta")
+        lse = torch.zeros((1, 2, 8), device="meta")
+        with pytest.raises(ValueError, match="head_dim 256"):
+            flash_attn.flash_attention_bwd_kernel(q, k, k, q.float(), lse, q)
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attn.flash_attention_kernel(q, k, k)
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attn._check(q, k, k, flash_attn.HEAD_DIMS)
+    assert build.launch_counts["flash_attention"] == build.launch_counts[
+        "flash_attention_bwd"] == 0

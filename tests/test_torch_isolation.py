@@ -28,7 +28,10 @@ for n in ("repro_torch.kernels.quant", "repro_torch.kernels.decode_attn",
           "repro_torch.serving.drafter", "repro_torch.serving.router",
           "repro_torch.serving.fleet", "repro_torch.core.opb", "repro_torch.core.dispatch",
           "repro_torch.launch.serve",
-          "repro_torch.configs.jamba_v0_1_52b", "repro_torch.kernels.flash_attn",
+          "repro_torch.configs.jamba_v0_1_52b", "repro_torch.configs.gemma3_4b",
+          "repro_torch.configs.qwen3_8b", "repro_torch.configs.command_r_35b",
+          "repro_torch.configs.mistral_large_123b", "repro_torch.configs.mamba2_2p7b",
+          "repro_torch.kernels.flash_attn",
           "repro_torch.training.optimizer", "repro_torch.training.data",
           "repro_torch.training.train_state", "repro_torch.training.loop",
           "repro_torch.training.checkpoint", "repro_torch.training.compression",
@@ -65,6 +68,9 @@ else:
     raise AssertionError("init_model ran without a card")
 params = init_model(cfg, device="cpu")
 hybrid = resolve_config("jamba-v0.1-52b")
+windowed = resolve_config("gemma3-4b", reduced=True)
+for name in ("qwen3-8b", "command-r-35b", "mistral-large-123b", "mamba2-2.7b"):
+    resolve_config(name, reduced=True)
 for stack, flags in ((cfg, {"kv_page_size": 8, "prefill_chunk_tokens": 16}),
                      (cfg, {"kv_page_size": 8, "prefill_chunk_tokens": 16,
                             "kv_quant": True, "moe_ragged": False}),
@@ -73,6 +79,7 @@ for stack, flags in ((cfg, {"kv_page_size": 8, "prefill_chunk_tokens": 16}),
                      (cfg, {"kv_layout": "dense", "prefill_chunk_tokens": 16,
                             "preemption": "migrate"}),
                      (hybrid, {"kv_layout": "dense"}),
+                     (windowed, {"kv_layout": "dense", "kv_quant": True}),
                      (cfg, {"kv_page_size": 8, "queue_cap": 2,
                             "overload_policy": "shed-oldest", "aging_rounds": 2,
                             "injector": FaultInjector(0), "audit_stages": True}),

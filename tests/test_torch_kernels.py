@@ -380,3 +380,33 @@ def test_wrappers_do_not_fall_back_off_cpu():
         with pytest.raises(ValueError, match="CUDA"):
             fn(x, w, w, wo, one)
     assert all(v == 0 for v in build.launch_counts.values())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 40])
+def test_dense_decode_split_plain_matches_pallas_at_head_dim_256(dtype, window):
+    """gemma3-4b's global decode shape for the dense decode kernel: head_dim
+    256 and 2 query heads a KV head. The split arithmetic at the shipped
+    ``DENSE_TILE`` and ``DENSE_TILES_PER_SPLIT`` against the Pallas
+    ``decode_attention_kernel`` in interpret mode: Smax 300, lengths 0, 1, a
+    split boundary and either side, Smax and past it; within 2e-5 in float32
+    and 2e-2 in bf16."""
+    rng = np.random.default_rng(70 + window)
+    KV, qpk, hd, Smax = 2, 2, 256, 300
+    kps = decode_attn.DENSE_TILE * decode_attn.DENSE_TILES_PER_SPLIT
+    lens = np.asarray([0, 1, kps - 1, kps, kps + 1, Smax, Smax + 5], np.int32)
+    B = len(lens)
+    q = rng.standard_normal((B, KV, qpk, hd)).astype(np.float32)
+    k = rng.standard_normal((B, Smax, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, Smax, KV, hd)).astype(np.float32)
+    td, jd = getattr(torch, dtype), getattr(jnp, dtype)
+    got = decode_attn.decode_attention_split_plain(
+        *(torch.tensor(a).to(td) for a in (q, k, v)), torch.tensor(lens),
+        tile=decode_attn.DENSE_TILE, tiles_per_split=decode_attn.DENSE_TILES_PER_SPLIT,
+        window=window)
+    kj, vj = (jnp.asarray(a.transpose(0, 2, 1, 3), jd) for a in (k, v))
+    want = pallas_dense(jnp.asarray(q, jd), kj, vj, jnp.asarray(lens), window=window,
+                        kv_block=100, interpret=True)
+    tol = TOL if dtype == "float32" else dict(atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **tol)
+    assert not got[lens == 0].float().any()

@@ -4,7 +4,8 @@
   ``--device``;
 * ``main`` on the CPU for three rows of the README flag matrix (the
   quickstart, a two-replica fleet under chaos, the async loop with
-  speculative decoding) at a few requests of ~24 tokens and 8 new ones,
+  speculative decoding) and gemma3-4b's reduced stack on int8 dense rows
+  with rings, at a few requests of ~24 tokens and 8 new ones,
   the port's ``init_model`` returning the reference's weights: every
   report line equals the reference CLI's, TBT and wall times aside (both
   CLIs draw their prompts from the same numpy seed);
@@ -38,6 +39,10 @@ ROWS = {
                   "--oversubscribe 0.5",
     "fleet_chaos": "--replicas 2 --chaos 0 --kv-layout paged --prefix-share",
     "async_spec": "--async --spec-k 4 --kv-layout paged --prefill-chunk 16",
+    # gemma3-4b's reduced stack (5 sliding-window layers and a global one)
+    # on int8 dense rows, its local layers' rings of window + 1 slots
+    "windowed_int8": "--arch gemma3-4b --reduced --kv-layout dense --kv-quant --kernels "
+                     "--max-len 1100",
 }
 
 
