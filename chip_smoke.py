@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py            # every phase: OLMoE-1B-7B, Jamba-v0.1, training
+    python3 chip_smoke.py            # every phase: the kernels, the paths, training
     python3 chip_smoke.py --kernels-only
 
 Phases, each printing a line:
@@ -37,7 +37,12 @@ Phases, each printing a line:
      and 8 heads over 4 at S 2048, windowed 1024 and causal, in bfloat16
      only: the float32 route refuses head_dim 256; the dense decode also
      at path l's global decode, head_dim 256, qpk 2, Smax 4096, 16
-     sequences at its lengths), in
+     sequences at its lengths; at head_dim 64, the dense decode at path
+     o's and path p's decodes, the flash forward at whisper-small's
+     non-causal encoder (8 x 1500 frames, 12 heads) and internvl2-1b's
+     causal prefill (8 x 1280, 14 heads over 2) and the backward at the
+     encoder's (4 x 1500); the ragged MoE pair at deepseek-moe-16b's d_ff
+     1408 and path n's capacities), in
      bfloat16 within its rounding band and again in float32 within 1e-4
      (the backward's dq, dk, dv each within the band times max(1, its
      largest entry)):
@@ -214,6 +219,37 @@ Phases, each printing a line:
           new to completion with its kernels launched, then one stage
           through the kernels against the plain path (a mixed stage with
           decode rows; for Mamba path c's decode stages). Then
+       n. deepseek-moe-16b at full width and depth (28 layers: a dense FFN
+          of 10944, then 27 layers of 64 routed experts top-6 of d_ff 1408
+          and 2 shared ones of 2816 in all; 16.38B parameters, 32.76 GB in
+          bf16) on path a's engine and requests: 16/16 completed, kernels
+          1-4 launched, the hot GEMM launched once an MoE layer a stage
+          with a hot expert and the cold GEMV once an MoE layer a stage
+          with a cold one (every MoE layer of every stage on the
+          kernels), one mixed stage through the kernels against the plain
+          path on the kernel path's expert choices, and the same stage
+          with the shared experts zeroed, whose logits must move by more
+          than the kernels' difference; prints the run's numbers, the KV
+          pool and the peak memory, and profiles a short run;
+       o. whisper-small at full width and depth (12 encoder and 12
+          decoder layers, head_dim 64): 8 clips of 1500 seeded frame
+          embeddings and a 4-token prompt, 64 new tokens through
+          ``prefill`` and ``decode_step`` on a dense cache of max_len 448
+          with cross caches of 1500: the flash forward (non-causal) 12
+          times, the dense decode 12 times a step, the logits of 8 decode
+          steps against the plain path on the kernel path's tokens, and
+          prefill's logits against ``forward``'s;
+       o2. one ``loss_fn`` and backward of whisper-small on 4 clips x
+          (1500 frames + 448 tokens): the flash forward and backward 12
+          times each, the loss and encoder layer 0's attention gradients
+          against the plain path in path d's bands;
+       p. internvl2-1b at full width and depth (24 layers, 14 heads over
+          2, head_dim 64): 8 requests of 1024 seeded patch embeddings and
+          70-247 text tokens, 32 new tokens through ``prefill`` (true_len
+          = patches + text) and ``decode_step`` on a dense cache of 1536:
+          the flash forward (causal, qpk 7) 24 times, the dense decode 24
+          times a step, decode logits against the plain path and prefill's
+          against each request's ``forward``. Then
        d. training: OLMoE-1B-7B at full width, depth cut to 8 of its 16
           layers (its training state, 12 bytes a parameter, is 83 GB at
           full depth), 5 steps of ``make_step`` driven by ``train_loop`` on
@@ -242,7 +278,8 @@ Phases, each printing a line:
           layer a step and the backward once; it logs the median step, the
           peak memory and the launches a step beside path d's.
 
-Prints a ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` as the
+Prints each kernel's launches by path, a ``kernels`` JSON line (each
+kernel's launches summed over the paths that read them), then ``{"ok": true, "device": ...}`` as the
 last line. Any failure raises, and the exit code is non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero before
 printing any result.
@@ -250,6 +287,7 @@ printing any result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -667,7 +705,8 @@ def check_flash(torch, gen, dtype, *, B, S, H, KV, causal=True, window=0, softca
     return out
 
 
-def check_flash_bwd(torch, gen, dtype, *, B, S, H, KV, causal=True, window=0, softcap=0.0):
+def check_flash_bwd(torch, gen, dtype, *, B, S, H, KV, causal=True, window=0, softcap=0.0,
+                    hd=128):
     """The flash backward (one wrapper, three launches) from the plain
     forward's out and lse and a seeded dout: each of dq, dk, dv against the
     plain version within the band times max(1, its largest |entry|) (dk and
@@ -678,7 +717,7 @@ def check_flash_bwd(torch, gen, dtype, *, B, S, H, KV, causal=True, window=0, so
     (forward + ``backward()``, which also accumulates into ``.grad``, is
     printed beside it)."""
     from repro_torch.kernels import flash_attn as fa
-    q, k, v = _flash_inputs(torch, gen, dtype, B, S, H, KV)
+    q, k, v = _flash_inputs(torch, gen, dtype, B, S, H, KV, hd)
     kw = dict(causal=causal, window=window, softcap=softcap)
     _, lse, o = fa.flash_attention_plain(q, k, v, f32_out=True, **kw)   # o: float32
     dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
@@ -777,6 +816,15 @@ def check_moe(torch, gen, dtype, *, hot: bool, E: int = 64, d: int = 2048, f: in
                 flops=2 * 3 * d * f * sum(counts_l))
 
 
+# deepseek-moe-16b's routed experts (path n): E 64, d 2048, d_ff 1408
+DEEPSEEK_MOE = dict(E=64, d=2048, f=1408)
+# path o's decode, halfway through whisper's 64 new tokens after its
+# 4-token prompt; path p's, halfway through internvl2's 32 new tokens
+# after 1024 patches and its text (P_TEXT_LENS, path p's text lengths)
+PATH_O_LENS = (4 + 32,) * 8
+P_TEXT_LENS = (155, 162, 209, 247, 70, 91, 222, 247)   # numpy default_rng(1), 64-256
+PATH_P_LENS = tuple(1024 + n + 16 for n in P_TEXT_LENS)
+
 # Jamba-v0.1's MoE widths; on path c a decode stage is 16 bucketed tokens,
 # so the engine's capacities are C_hot 8 and C_cold 8 (16 at k_cold 16)
 JAMBA_MOE = dict(E=16, d=4096, f=14336)
@@ -819,7 +867,11 @@ KERNELS = [
       ("olmoe hot E=32 C=136", check_moe, dict(hot=True, C=136)),
       # path c's decode stages: k_cold 8, and k_cold 0 (every expert hot)
       ("jamba hot E=8 C=8", check_moe, dict(hot=True, n=8, C=8, **JAMBA_MOE)),
-      ("jamba hot E=16 C=8", check_moe, dict(hot=True, n=16, C=8, **JAMBA_MOE))]),
+      ("jamba hot E=16 C=8", check_moe, dict(hot=True, n=16, C=8, **JAMBA_MOE)),
+      # path n's mixed stages (72 bucketed tokens: 8 decode rows and a
+      # 64-token chunk) all ran at k_cold 48: 16 hot experts of capacity 16
+      # at d_ff 1408
+      ("path n hot E=16 C=16 f=1408", check_moe, dict(hot=True, n=16, C=16, **DEEPSEEK_MOE))]),
     # bf16 runs moe_gemv_sm90.cu, float32 moe_gemv.cu
     ("ragged_moe_gemv",
      "src/repro/kernels/moe_gemv.py:114",
@@ -827,7 +879,10 @@ KERNELS = [
      [("olmoe cold Ec=48 Cc=48", check_moe, dict(hot=False)),
       # path c's decode stages: k_cold 8, and k_cold 16 (every expert cold)
       ("jamba cold Ec=8 Cc=8", check_moe, dict(hot=False, n=8, C=8, **JAMBA_MOE)),
-      ("jamba cold Ec=16 Cc=16", check_moe, dict(hot=False, n=16, C=16, **JAMBA_MOE))]),
+      ("jamba cold Ec=16 Cc=16", check_moe, dict(hot=False, n=16, C=16, **JAMBA_MOE)),
+      # the same stages' 48 cold experts of capacity 16
+      ("path n cold Ec=48 Cc=16 f=1408", check_moe,
+       dict(hot=False, n=48, C=16, **DEEPSEEK_MOE))]),
     # the split route of decode_sm90.cu; the third case is path b's decode
     # stage: 16 sequences at path a's lengths
     ("paged_decode_attention_int8",
@@ -869,7 +924,13 @@ KERNELS = [
       # gemma3-4b's global layers on path l: 16 sequences at its prompt
       # lengths halfway through their 64 new tokens, head_dim 256, qpk 2
       ("path l B=16 KV=4 qpk=2 hd=256 Smax=4096 lengths 288-2080", check_dense,
-       dict(KV=4, qpk=2, hd=256, Smax=4096, lens=PATH_L_LENS, seed=6))]),
+       dict(KV=4, qpk=2, hd=256, Smax=4096, lens=PATH_L_LENS, seed=6)),
+      # head_dim 64: whisper-small's decoder self-attention on path o (12
+      # heads over 12, max_len 448) and internvl2-1b's on path p (14 over 2)
+      ("path o B=8 KV=12 qpk=1 hd=64 Smax=448 lengths 36", check_dense,
+       dict(KV=12, qpk=1, hd=64, Smax=448, lens=PATH_O_LENS, seed=7)),
+      ("path p B=8 KV=2 qpk=7 hd=64 Smax=1536 lengths 1110-1287", check_dense,
+       dict(KV=2, qpk=7, hd=64, Smax=1536, lens=PATH_P_LENS, seed=8))]),
     ("ssd_decode",
      "src/repro/kernels/ssd_decode.py:46",
      "src/repro_torch/kernels/csrc/ssd_decode.cu",
@@ -894,7 +955,13 @@ KERNELS = [
       ("gemma3 B=1 S=2048 H=8 KV=4 hd=256 window=1024", check_flash,
        dict(B=1, S=2048, H=8, KV=4, hd=256, window=1024), ("bfloat16",)),
       ("gemma3 B=1 S=2048 H=8 KV=4 hd=256 causal", check_flash,
-       dict(B=1, S=2048, H=8, KV=4, hd=256), ("bfloat16",))]),
+       dict(B=1, S=2048, H=8, KV=4, hd=256), ("bfloat16",)),
+      # head_dim 64: whisper-small's encoder (non-causal, 1500 frames) on
+      # path o and internvl2-1b's prefill (1024 patches + text) on path p
+      ("whisper encoder B=8 S=1500 H=12 KV=12 hd=64 non-causal", check_flash,
+       dict(B=8, S=1500, H=12, KV=12, hd=64, causal=False)),
+      ("internvl2 B=8 S=1280 H=14 KV=2 hd=64 causal", check_flash,
+       dict(B=8, S=1280, H=14, KV=2, hd=64))]),
     ("flash_attention_bwd",
      "src/repro/models/attention.py:349",
      "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
@@ -905,7 +972,10 @@ KERNELS = [
        dict(B=1, S=2048, H=16, KV=16, window=1000, softcap=50.0)),
       ("qpk=12 B=1 S=2048 H=96 KV=8 causal", check_flash_bwd, dict(B=1, S=2048, H=96, KV=8)),
       ("ragged B=2 S=2047 H=16 KV=16 causal", check_flash_bwd,
-       dict(B=2, S=2047, H=16, KV=16))]),
+       dict(B=2, S=2047, H=16, KV=16)),
+      # whisper-small's encoder trained on path o2
+      ("whisper encoder B=4 S=1500 H=12 KV=12 hd=64 non-causal", check_flash_bwd,
+       dict(B=4, S=1500, H=12, KV=12, hd=64, causal=False))]),
 ]
 
 
@@ -2685,6 +2755,303 @@ def configs_phase(torch):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# paths n, o, p: the last three architectures. n: deepseek-moe-16b (shared
+# experts) served by the engine at full width and depth; o: whisper-small
+# (an encoder and cross-attention) and p: internvl2-1b (patch embeddings)
+# through prefill + decode_step at full width and depth
+# ---------------------------------------------------------------------------
+
+N_LABEL = "deepseek-moe-16b paged KV + ragged MoE + shared experts"
+N_KERNELS = ("paged_decode_attention", "chunked_prefill_attention", "ragged_moe_gemm",
+             "ragged_moe_gemv")
+
+
+def deepseek_phase(torch):
+    """Path n: deepseek-moe-16b at full width and depth (28 layers: a dense
+    FFN, then 27 layers of 64 routed experts top-6 and 2 shared ones),
+    random weights from seed 0, path a's engine and requests. Gates: 16/16
+    completed, kernels 1-4 launched, every MoE layer of every stage on the
+    kernels (hot GEMM launches = MoE layers x stages with a hot expert, cold
+    GEMV launches = MoE layers x stages with a cold one, all on the
+    tensor-core routes), one mixed stage through the kernels against the
+    plain path on the kernel path's expert choices, and the shared experts'
+    part of that stage's logits. Returns {kernel: launches}."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.configs.base import MOE
+    from repro_torch.models.params import init_model, tree_leaves
+    from repro_torch.serving.kvmanager import kv_token_bytes
+    cfg = resolve_config("deepseek-moe-16b")
+    log(f"serve: before {cfg.name}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"still allocated")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    log(f"serve: {cfg.name} at full width and depth ({cfg.num_layers} layers), random init "
+        f"(seed 0) {sum(t.numel() for t in leaves) / 1e9:.2f}B params "
+        f"({sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    counts, eng = serve_path(torch, cfg, params, N_LABEL, ENGINE_KW)
+    missing = [k for k in N_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"[{N_LABEL}] kernels never launched on the path: {missing}")
+    check_expert_routes(N_LABEL, counts)
+    n_moe = sum(seg.repeats for seg in cfg.segments for k in seg.pattern if k.ffn == MOE)
+    E = cfg.moe.num_experts
+    want = {"ragged_moe_gemm": n_moe * sum(r.k_cold < E for r in eng.reports),
+            "ragged_moe_gemv": n_moe * sum(r.k_cold > 0 for r in eng.reports)}
+    log(f"serve [{N_LABEL}]: MoE launches {[counts[k] for k in want]}, "
+        f"{n_moe} MoE layers x the stages with a hot / a cold expert {list(want.values())}")
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"[{N_LABEL}] an MoE layer of a stage left the kernels")
+    mixed = collections.Counter(r.k_cold for r in eng.reports if r.is_mixed)
+    log(f"serve [{N_LABEL}]: KV pool {eng.kv._total_bytes() / 2**30:.3f} GiB, "
+        f"{kv_token_bytes(cfg) * cfg.num_layers} B a token over {cfg.num_layers} layers; "
+        f"the mixed stages' commonest k_cold {mixed.most_common(3)}")
+    del eng
+    check_against_plain(torch, cfg, params, N_LABEL, {})
+    profile_stages(torch, cfg, params, N_LABEL, ENGINE_KW)
+    log(f"serve [{N_LABEL}]: peak memory since the weights were made "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return {k: counts[k] for k in N_KERNELS}
+
+
+def greedy_generate(torch, cfg, params, batch, true_len, new, *, plan, max_len, enc_len=0,
+                    forced=None, keep=()):
+    """``prefill`` then ``new - 1`` ``decode_step``s on a fresh dense cache,
+    greedy (argmax), or taking the tokens of ``forced`` (B, new) instead.
+    Returns (tokens (B, new), {i: float32 logits (B, V) of the step that
+    made token i, for i in ``keep``}, prefill seconds, decode seconds)."""
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    B = true_len.shape[0]
+    cache = init_cache(cfg, B, max_len, device="cuda", enc_len=enc_len)
+    kept, toks = {}, []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = prefill(params, cfg, batch, cache, true_len, plan=plan)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(new):
+            if i:
+                logits, _, _ = decode_step(params, cfg, toks[-1], cache, {}, plan=plan)
+            if i in keep:
+                kept[i] = logits[:, 0].float()
+            toks.append(logits[:, 0].argmax(-1, keepdim=True) if forced is None
+                        else forced[:, i:i + 1])
+        torch.cuda.synchronize()
+    return torch.cat(toks, 1), kept, t1 - t0, time.perf_counter() - t1
+
+
+def generate_path(torch, cfg, params, label, batch, true_len, new, *, max_len, enc_len=0,
+                  want=None):
+    """A path of ``greedy_generate`` through the kernels, every launch count
+    set to 0 just before it and read just after (equal to ``want``), then
+    the plain path on the kernel path's tokens: the logits of 8 decode
+    steps held to ``compare_logits``. Returns (tokens, launch counts)."""
+    from repro_torch.core.execution import ExecutionPlan
+    from repro_torch.kernels import build
+    keep = tuple(sorted({1 + (new - 2) * i // 7 for i in range(8)}))
+    build.reset_launch_counts()
+    toks, kept, t_pre, t_dec = greedy_generate(
+        torch, cfg, params, batch, true_len, new, plan=ExecutionPlan(use_kernels=True),
+        max_len=max_len, enc_len=enc_len, keep=keep)
+    counts = dict(build.launch_counts)
+    B = toks.shape[0]
+    log(f"serve [{label}]: {B} requests x {new} new tokens (greedy) in "
+        f"{t_pre + t_dec:.3f}s: prefill (TTFT) {t_pre * 1e3:.1f} ms, a decode step (TBT) "
+        f"{t_dec / (new - 1) * 1e3:.2f} ms, generated tokens/s {B * new / (t_pre + t_dec):.1f}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"serve [{label}]: kernel launches on the path: "
+        f"{json.dumps({k: n for k, n in counts.items() if n})} (want {json.dumps(want)})")
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"[{label}] launches {counts} are not {want}")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"[{label}] tokens out of the vocabulary")
+    _, plain, _, _ = greedy_generate(torch, cfg, params, batch, true_len, new,
+                                     plan=ExecutionPlan(), max_len=max_len, enc_len=enc_len,
+                                     forced=toks, keep=keep)
+    a = torch.cat([kept[i] for i in keep])
+    b = torch.cat([plain[i] for i in keep])
+    compare_logits(torch, label, f"decode steps {list(keep)} ({B} rows each, the kernel "
+                   f"path's tokens)", a, b)
+    return toks, counts
+
+
+O_LABEL = "whisper-small encoder + decoder, dense KV + cross caches"
+O2_LABEL = "whisper-small training step"
+O_CLIPS, O_FRAMES, O_PROMPT, O_NEW, O_MAX_LEN = 8, 1500, 4, 64, 448
+O2_CLIPS = 4
+
+
+def whisper_phase(torch):
+    """Paths o and o2: whisper-small at full width and depth (12 encoder and
+    12 decoder layers), random weights from seed 0, bf16. o: 8 clips of
+    1500 seeded frame embeddings (whisper's n_audio_ctx) and a 4-token
+    decoder prompt, 64 new tokens through ``prefill`` and ``decode_step``
+    on a dense cache of max_len 448 (n_text_ctx) with cross caches of 1500:
+    the flash forward (non-causal) once an encoder layer, the dense decode
+    once a decoder layer a step; decode logits against the plain path, and
+    prefill's logits against ``forward``'s at the last position. o2: one
+    ``loss_fn`` and backward on 4 clips x (1500 frames + 448 tokens)
+    through the flash forward and backward (12 launches each) against the
+    plain path. Returns {kernel: launches} of o and o2 together."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.core.execution import ExecutionPlan
+    from repro_torch.models.model import forward
+    from repro_torch.models.params import init_model, tree_leaves
+    cfg = resolve_config("whisper-small")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, seed=0, device="cuda")
+    log(f"serve: {cfg.name} at full width and depth ({cfg.enc_num_layers} encoder + "
+        f"{cfg.num_layers} decoder layers), random init (seed 0) "
+        f"{sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f}B params")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    frames = torch.randn((O_CLIPS, O_FRAMES, cfg.d_model), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (O_CLIPS, O_PROMPT), generator=gen, device="cuda")
+    batch = {"frames": frames, "dec_tokens": prompt}
+    true_len = torch.full((O_CLIPS,), O_PROMPT, dtype=torch.int32, device="cuda")
+    want = {"flash_attention": cfg.enc_num_layers,
+            "decode_attention": cfg.num_layers * (O_NEW - 1)}
+    toks, counts = generate_path(torch, cfg, params, O_LABEL, batch, true_len, O_NEW,
+                                 max_len=O_MAX_LEN, enc_len=O_FRAMES, want=want)
+    plan = ExecutionPlan(use_kernels=True)
+    _, pre, _, _ = greedy_generate(torch, cfg, params, batch, true_len, 1, plan=plan,
+                                   max_len=O_MAX_LEN, enc_len=O_FRAMES, keep=(0,))
+    with torch.no_grad():
+        fwd, _ = forward(params, cfg, batch, plan=plan)
+    compare_logits(torch, O_LABEL, "prefill against forward at the prompt's last position",
+                   pre[0], fwd[:, -1].float())
+    hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
+    log(f"serve [{O_LABEL}]: cross caches {2 * cfg.num_layers * O_CLIPS * O_FRAMES * kv * hd * 2 / 2**20:.1f} "
+        f"MiB (K+V x {cfg.num_layers} layers x {O_CLIPS} clips x {O_FRAMES} frames x {kv} "
+        f"heads x {hd} x 2 B), self-attention KV "
+        f"{2 * cfg.num_layers * O_CLIPS * O_MAX_LEN * kv * hd * 2 / 2**20:.1f} MiB")
+    del fwd, frames, batch
+    launches = {k: counts[k] for k in want}
+    for k, n in whisper_train_check(torch, cfg, params).items():
+        launches[k] = launches.get(k, 0) + n
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def whisper_train_check(torch, cfg, params):
+    """Path o2: one ``loss_fn`` and backward on O2_CLIPS clips of O_FRAMES
+    frames and O_MAX_LEN decoder tokens through the kernels (the launch
+    counts set to 0 just before and read just after: the flash forward and
+    backward once an encoder layer each; the decoder's 448 positions stay
+    under the 512-row q block, its attention unblocked) and through the
+    plain path: the loss within 1e-2 relative and encoder layer 0's
+    attention gradients within 5e-2 of their largest entry (path d's
+    bands). Returns the kernel run's {kernel: launches}."""
+    from repro_torch.core.execution import ExecutionPlan
+    from repro_torch.kernels import build
+    from repro_torch.models.model import loss_fn
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    batch = {"frames": torch.randn((O2_CLIPS, O_FRAMES, cfg.d_model), generator=gen,
+                                   device="cuda").to(torch.bfloat16),
+             "dec_tokens": torch.randint(0, cfg.vocab_size, (O2_CLIPS, O_MAX_LEN),
+                                         generator=gen, device="cuda")}
+    mixer = params["encoder"]["segments"][0]["blocks"][0]["mixer"]
+    names = ("wq", "wk", "wv", "wo")
+    weights = [mixer[n]["kernel"] for n in names]
+    for w in weights:
+        w.requires_grad_(True)
+    out, want = {}, {"flash_attention": cfg.enc_num_layers,
+                     "flash_attention_bwd": cfg.enc_num_layers}
+    try:
+        for use_kernels in (True, False):
+            build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, _ = loss_fn(params, cfg, batch, plan=ExecutionPlan(use_kernels=use_kernels))
+            grads = torch.autograd.grad(loss, weights)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if use_kernels:
+                counts = dict(build.launch_counts)
+            out[use_kernels] = (loss.item(), [g[0].float() for g in grads], wall)
+            del loss, grads
+    finally:
+        for w in weights:
+            w.requires_grad_(False)
+    (lk, gk, wk), (lp, gp, wp) = out[True], out[False]
+    rel = abs(lk - lp) / abs(lp)
+    errs = [((a - b).abs().max().item(), b.abs().max().item()) for a, b in zip(gk, gp)]
+    log(f"train [{O2_LABEL}]: {O2_CLIPS} clips x ({O_FRAMES} frames + {O_MAX_LEN} tokens), "
+        f"loss + backward {wk * 1e3:.1f} ms through the kernels ({wp * 1e3:.1f} ms plain); "
+        f"launches {json.dumps({k: counts[k] for k in want})} (want {json.dumps(want)}); "
+        f"loss {lk:.5f} vs {lp:.5f} plain (rel {rel:.2e}, tolerance 1e-2); encoder layer 0 "
+        "attention gradients " + ", ".join(f"{n}: max|d|={e:.3e} of max|g|={m:.3e}"
+                                           for n, (e, m) in zip(names, errs))
+        + " (tolerance 5e-2 x max|g|)")
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"[{O2_LABEL}] launches {counts} are not {want}")
+    if not math.isfinite(lk) or rel > 1e-2 or any(e > 5e-2 * m for e, m in errs):
+        raise AssertionError(f"[{O2_LABEL}] kernel path disagrees with the plain path")
+    return {k: counts[k] for k in want}
+
+
+P_LABEL = "internvl2-1b patches + text, dense KV"
+P_REQS, P_PATCHES, P_NEW, P_MAX_LEN = 8, 1024, 32, 1536
+
+
+def vlm_phase(torch):
+    """Path p: internvl2-1b at full width and depth (24 layers, 14 heads
+    over 2, head_dim 64), random weights from seed 0, bf16: 8 requests of
+    1024 seeded patch embeddings and P_TEXT_LENS seeded text tokens, 32 new
+    tokens through ``prefill`` (true_len = 1024 + text) and ``decode_step``
+    on a dense cache of max_len 1536: the flash forward (causal, qpk 7)
+    once a layer in the prefill, the dense decode once a layer a step;
+    decode logits against the plain path, and prefill's logits against
+    each request's own ``forward`` at its last position. Returns {kernel:
+    launches}."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.core.execution import ExecutionPlan
+    from repro_torch.models.model import forward
+    from repro_torch.models.params import init_model, tree_leaves
+    cfg = resolve_config("internvl2-1b")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, seed=0, device="cuda")
+    log(f"serve: {cfg.name} at full width and depth ({cfg.num_layers} layers), random init "
+        f"(seed 0) {sum(t.numel() for t in tree_leaves(params)) / 1e9:.3f}B params")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    patches = torch.randn((P_REQS, P_PATCHES, cfg.d_model), generator=gen,
+                          device="cuda").to(torch.bfloat16)
+    text = torch.randint(0, cfg.vocab_size, (P_REQS, max(P_TEXT_LENS)), generator=gen,
+                         device="cuda")
+    batch = {"tokens": text, "patch_embeds": patches}
+    true_len = torch.tensor([P_PATCHES + n for n in P_TEXT_LENS], dtype=torch.int32,
+                            device="cuda")
+    want = {"flash_attention": cfg.num_layers, "decode_attention": cfg.num_layers * (P_NEW - 1)}
+    toks, counts = generate_path(torch, cfg, params, P_LABEL, batch, true_len, P_NEW,
+                                 max_len=P_MAX_LEN, want=want)
+    plan = ExecutionPlan(use_kernels=True)
+    _, pre, _, _ = greedy_generate(torch, cfg, params, batch, true_len, 1, plan=plan,
+                                   max_len=P_MAX_LEN, keep=(0,))
+    rows = []
+    with torch.no_grad():
+        for b, n in enumerate(P_TEXT_LENS):
+            fwd, _ = forward(params, cfg, {"tokens": text[b:b + 1, :n],
+                                           "patch_embeds": patches[b:b + 1]}, plan=plan)
+            rows.append(fwd[0, -1].float())
+            del fwd
+    compare_logits(torch, P_LABEL, "prefill against each request's forward at its last "
+                   "position", pre[0], torch.stack(rows))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in want}
+
+
 # path c's decode checks: (seed, prompt lengths of the rows; the last row
 # dead). The first is a four-row stage; the others hold eight rows from
 # three seeds.
@@ -2816,22 +3183,29 @@ def profile_stages(torch, cfg, params, label, engine_kw, top: int = 12, loop: st
 def log_profile(prof, label, what, wall, top, also=()):
     """Device time by kernel from a CUDA-only profile, and the device's busy
     share of ``wall`` (host seconds): the ``top`` items, then any other
-    whose name holds one of the words in ``also``."""
-    dev = lambda e: getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0))
-    events = [e for e in prof.key_averages()
-              if dev(e) > 0 and str(getattr(e, "device_type", "CUDA")).endswith("CUDA")]
-    busy_ms = sum(dev(e) for e in events) / 1e3
-    if not events:
+    whose name holds one of the words in ``also``. The device events are
+    summed by name straight from the profiler's raw results: turning a
+    20-stage profile's ~170k events into ``FunctionEvent``s and averaging
+    them (``prof.key_averages()``) took ~15 s on an H100 host, this loop
+    about a second, with the same sums."""
+    totals = {}
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            t = totals.setdefault(e.name(), [0.0, 0])
+            t[0] += e.duration_ns() / 1e3
+            t[1] += 1
+    ranked = sorted(((us, n, name) for name, (us, n) in totals.items() if us > 0),
+                    reverse=True)
+    if not ranked:
         log(f"profile [{label}]: the profiler recorded no device events; no breakdown")
         return
+    busy_ms = sum(us for us, _, _ in ranked) / 1e3
     log(f"profile [{label}]: {what} in {wall * 1e3:.1f} ms host wall, "
         f"device busy {busy_ms:.1f} ms ({100 * busy_ms / (wall * 1e3):.1f}%)")
-    ranked = sorted(events, key=dev, reverse=True)
-    for i, e in enumerate(ranked):
-        if i < top or any(w in e.key for w in also):
-            log(f"profile [{label}]: {dev(e) / 1e3:9.2f} ms {100 * dev(e) / 1e3 / busy_ms:5.1f}% "
-                f"x{e.count:<6d} {e.key[:110]}")
+    for i, (us, n, name) in enumerate(ranked):
+        if i < top or any(w in name for w in also):
+            log(f"profile [{label}]: {us / 1e3:9.2f} ms {100 * us / 1e3 / busy_ms:5.1f}% "
+                f"x{n:<6d} {name[:110]}")
 
 
 # path d: OLMoE-1B-7B trained at full width and 8 of its 16 layers: the
@@ -3274,7 +3648,12 @@ def check_against_plain(torch, cfg, params, label, flags):
     torch path, each on its own fresh cache; the logits are held to
     ``compare_logits`` (its 5% band also covers, with int8 pages, the
     kernels' per-page against the plain path's whole-row requantization of
-    p*v_scale)."""
+    p*v_scale). The plain path takes the kernel path's expert choices
+    (``recorded_routes``: a router near-tie flipped by bf16 noise is no
+    fault; deepseek-moe-16b routes top-6 of 64). A model with shared
+    experts runs the kernel path a
+    third time with them zeroed: their part of the logits must exceed the
+    kernel path's difference from the plain path."""
     from repro_torch.core.execution import ExecutionPlan
     from repro_torch.models.model import init_cache, mixed_step
     gen = torch.Generator(device="cuda")
@@ -3289,27 +3668,47 @@ def check_against_plain(torch, cfg, params, label, flags):
     bt[0, :8] = torch.arange(1, 9)            # the chunk row's pages
     bt_dec = torch.zeros((2, maxp), dtype=torch.int32, device="cuda")
     bt_dec[0, 0] = 9                          # a decode row; row 1 is padding
-    out = {}
+    out, routes = {}, None
     ragged = flags.get("moe_ragged", True)
-    for use_kernels in (True, False):
+    runs = [("kernels", True, params), ("plain", False, params)]
+    if cfg.moe is not None and cfg.moe.num_shared_experts:
+        from repro_torch.models.params import tree_map
+        zeroed = dict(params, segments=tuple(
+            dict(seg, blocks=tuple(dict(blk, ffn=dict(blk["ffn"], shared=tree_map(
+                blk["ffn"]["shared"], torch.zeros_like))) if "shared" in blk["ffn"] else blk
+                for blk in seg["blocks"])) for seg in params["segments"]))
+        runs.append(("kernels, shared experts zeroed", True, zeroed))
+    for name, use_kernels, weights in runs:
         plan = ExecutionPlan(moe_impl="duplex", k_cold=32, c_hot=64, c_cold=16,
                              moe_ragged=ragged and use_kernels, use_kernels=use_kernels)
         cache = init_cache(cfg, page_size=page, num_pages=32, device="cuda",
                            kv_quant=flags.get("kv_quant", False))
-        # write the prefix, then run the chunk with two decode rows
-        mixed_step(params, cfg, dec[:1], prefix, cache,
-                   attn_ctx={"lengths": i32([0]), "block_tables": bt_dec[:1],
-                             "valid": i32([1]) > 0},
-                   chunk_ctx={"starts": i32([0]), "chunk_lens": i32([64]),
-                              "block_tables": bt}, plan=plan)
-        dl, cl, _, _ = mixed_step(
-            params, cfg, dec, chunk, cache,
-            attn_ctx={"lengths": i32([1, 0]), "block_tables": bt_dec,
-                      "valid": i32([1, 0]) > 0},
-            chunk_ctx={"starts": i32([64]), "chunk_lens": i32([64]),
-                       "block_tables": bt}, plan=plan)
-        out[use_kernels] = torch.cat([dl[:1, 0], cl[:, 0]]).float()
-    compare_logits(torch, label, "one mixed stage", out[True], out[False])
+        pins = routes if name == "plain" else None
+        with torch.no_grad(), recorded_routes(torch, pins) as calls:
+            # write the prefix, then run the chunk with two decode rows
+            mixed_step(weights, cfg, dec[:1], prefix, cache,
+                       attn_ctx={"lengths": i32([0]), "block_tables": bt_dec[:1],
+                                 "valid": i32([1]) > 0},
+                       chunk_ctx={"starts": i32([0]), "chunk_lens": i32([64]),
+                                  "block_tables": bt}, plan=plan)
+            dl, cl, _, _ = mixed_step(
+                weights, cfg, dec, chunk, cache,
+                attn_ctx={"lengths": i32([1, 0]), "block_tables": bt_dec,
+                          "valid": i32([1, 0]) > 0},
+                chunk_ctx={"starts": i32([64]), "chunk_lens": i32([64]),
+                           "block_tables": bt}, plan=plan)
+        routes = calls if name == "kernels" else routes
+        out[name] = torch.cat([dl[:1, 0], cl[:, 0]]).float()
+        del cache
+    compare_logits(torch, label, "one mixed stage (the kernel path's expert choices)",
+                   out["kernels"], out["plain"])
+    if "kernels, shared experts zeroed" in out:
+        moved = (out["kernels"] - out["kernels, shared experts zeroed"]).abs().max().item()
+        noise = (out["kernels"] - out["plain"]).abs().max().item()
+        log(f"serve [{label}]: the same stage with the shared experts zeroed moves the logits "
+            f"by {moved:.4f} (max |dlogit|; the kernels against the plain path {noise:.4f})")
+        if not moved > noise:
+            raise AssertionError(f"[{label}] the shared experts do not reach the logits")
 
 
 def compare_logits(torch, label, what, a, b):
@@ -3394,17 +3793,23 @@ def main(argv=None) -> int:
     tensor_core_sass(build)
 
     rows = kernel_phase(torch)
+    by_path = {}
+
+    def count(path, launches):
+        """Each path's launches of each kernel; a kernel's row sums them."""
+        for name, n in launches.items():
+            rows[name]["launches"] = (rows[name]["launches"] or 0) + n
+            by_path.setdefault(name, {})[path] = n
+
     if not args.kernels_only:
         launches, a_tokens = serve_phase(torch)
-        for name, n in launches.items():
-            rows[name]["launches"] = n
+        count("a, b", launches)
         gc.collect()                      # the OLMoE model and its caches go
         torch.cuda.empty_cache()
         cli_phase(torch, a_tokens)        # the CLI makes its own OLMoE weights
         gc.collect()
         torch.cuda.empty_cache()
-        for name, n in hybrid_phase(torch).items():
-            rows[name]["launches"] = n
+        count("c", hybrid_phase(torch))
         gc.collect()                      # the Jamba model and its caches go
         torch.cuda.empty_cache()
         ring_phase(torch)
@@ -3413,15 +3818,21 @@ def main(argv=None) -> int:
         configs_phase(torch)
         gc.collect()
         torch.cuda.empty_cache()
+        count("n", deepseek_phase(torch))
+        gc.collect()                      # deepseek-moe-16b and its pool go
+        torch.cuda.empty_cache()
+        count("o, o2", whisper_phase(torch))
+        count("p", vlm_phase(torch))
         path_d = train_phase(torch)
-        for name, n in path_d["launches"].items():
-            rows[name]["launches"] = n
+        count("d", path_d["launches"])
         gc.collect()                      # path d's state goes
         torch.cuda.empty_cache()
         resume_phase(torch)
         gc.collect()
         torch.cuda.empty_cache()
         remat_phase(torch, path_d)
+        log(f"kernels: launches by path (each counted from 0 over its own run): "
+            f"{json.dumps(by_path)}")
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

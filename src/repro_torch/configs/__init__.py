@@ -9,7 +9,8 @@ from repro_torch.configs.base import (ATTN, MAMBA, MOE, LayerKind, ModelConfig,
 _MODULES = {"olmoe-1b-7b": "olmoe_1b_7b", "jamba-v0.1-52b": "jamba_v0_1_52b",
             "gemma3-4b": "gemma3_4b", "qwen3-8b": "qwen3_8b",
             "command-r-35b": "command_r_35b", "mistral-large-123b": "mistral_large_123b",
-            "mamba2-2.7b": "mamba2_2p7b"}
+            "mamba2-2.7b": "mamba2_2p7b", "deepseek-moe-16b": "deepseek_moe_16b",
+            "whisper-small": "whisper_small", "internvl2-1b": "internvl2_1b"}
 
 
 def resolve_config(name: str, reduced: bool = False) -> ModelConfig:

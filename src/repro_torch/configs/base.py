@@ -1,10 +1,9 @@
-"""Model configuration dataclasses (the subset the port serves).
+"""Model configuration dataclasses.
 
 Own copy of ``repro/configs/base.py``'s ``LayerKind`` / ``Segment`` /
 ``MoEConfig`` / ``SSMConfig`` / ``ModelConfig`` / ``small_test_config`` with
-the same field
-names and defaults, so a configuration reads the same in both packages.
-Layer stacking is described by *segments*: each segment is ``repeats``
+the same field names and defaults, so a configuration reads the same in
+both packages. Layer stacking is described by *segments*: each segment is ``repeats``
 copies of a pattern, and its parameters carry a leading stacked ``layers``
 axis that the port walks with a Python loop.
 """
@@ -101,7 +100,13 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     attn_bias: bool = False
+    # encoder-decoder (whisper): the encoder's stack of segments
     is_encoder_decoder: bool = False
+    enc_segments: Tuple[Segment, ...] = ()
+    enc_num_layers: int = 0
+    # modality frontend stub: precomputed embeddings of this many positions
+    # prepended to the text tokens (vlm)
+    frontend_embeds: int = 0
     dtype: str = "bfloat16"         # activation dtype
     param_dtype: str = "bfloat16"
     source: str = ""
@@ -124,6 +129,11 @@ class ModelConfig:
             assert self.moe is not None
         if any(k.mixer == MAMBA for k in kinds):
             assert self.ssm is not None
+        if self.is_encoder_decoder:
+            n_enc = sum(seg.num_layers for seg in self.enc_segments)
+            assert n_enc == self.enc_num_layers, (
+                f"{self.name}: encoder segments give {n_enc} layers, "
+                f"want {self.enc_num_layers}")
         assert self.num_heads % self.num_kv_heads == 0
         return self
 
@@ -142,7 +152,8 @@ class RunConfig:
 def reduced_config(cfg: ModelConfig, *, layers: int = 2, d_model: int = 128,
                    d_ff: int = 256, vocab: int = 512) -> ModelConfig:
     """Scale an architecture down to CPU size, keeping its structure (the
-    reference's ``launch/train.py::reduced_config``)."""
+    reference's ``launch/train.py::reduced_config``): the encoder's
+    segments and ``d_ff_shared`` stay as they are, as there."""
     scale = d_model / cfg.d_model
     heads = max(2, int(cfg.num_heads * scale))
     kv = max(1, min(cfg.num_kv_heads, heads))

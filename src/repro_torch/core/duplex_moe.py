@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models.ffn import ffn_apply
 from repro_torch.models.moe import (RouterOut, combine_slots, gather_slots,
                                     grouped_expert_ffn, route, shard_dispatch)
 
@@ -95,7 +96,9 @@ def duplex_moe_apply(params, cfg: ModelConfig, x, *, k_cold: int,
     kernels run (cold: GEMV, hot: grouped GEMM): with ``ragged`` the
     count-threaded ones, else the capacity-padded ones over every slot;
     without kernels, the plain grouped FFN over the rank-permuted weights.
-    Tokens over capacity are dropped. Returns (y, router)."""
+    Tokens over capacity are dropped. Shared experts (``params["shared"]``)
+    add their gated FFN over every row after the combine, on every route,
+    as the reference does. Returns (y, router)."""
     m = cfg.moe
     E = m.num_experts
     shape = x.shape
@@ -133,6 +136,8 @@ def duplex_moe_apply(params, cfg: ModelConfig, x, *, k_cold: int,
     y_slots = torch.cat([p.reshape(-1, d).to(x_flat.dtype) for p in parts])
     y_slots = y_slots * disp.slot_gate[:, None].to(y_slots.dtype)
     y = combine_slots(y_slots, disp.slot, T)
+    if m.num_shared_experts:
+        y = y + ffn_apply(params["shared"], x_flat)
     return y.reshape(shape), router
 
 

@@ -2,7 +2,7 @@
 dense KV layout (decode rows, prefill cache writes, chunk rows) and the
 attention over whole sequences (training, and whole-prompt prefill).
 
-Port of ``repro/models/attention.py`` without cross-attention. Over whole
+Port of ``repro/models/attention.py``. Over whole
 sequences (``attention_forward``) the port runs ``full_attention`` (plain
 PyTorch, differentiated by autograd) or, past ``q_block`` positions,
 ``blockwise_attention``: the reference's flash core with its hand-written
@@ -500,6 +500,34 @@ def attention_forward(params, cfg: ModelConfig, x, positions, call: AttnCall,
     if return_kv:
         return y, (k, v)
     return y
+
+
+def cross_attention_forward(params, cfg: ModelConfig, x, kv, segment_ids=None,
+                            kv_segment_ids=None):
+    """Decoder cross-attention: x (B,S,D) against ``kv`` = (k, v) (B,Se,KV,hd)
+    from ``cross_kv``; no rope, no mask but the segments' (the keys'
+    ``kv_segment_ids``, default ``segment_ids``, as in ``full_attention``).
+    The unblocked plain path at any length, as the reference runs it."""
+    B, S, _ = x.shape
+    q = _linear(params["wq"], x).reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+    k, v = kv
+    out = full_attention(q, k, v, causal=False, segment_ids=segment_ids,
+                         kv_segment_ids=kv_segment_ids)
+    return torch.matmul(out.reshape(B, S, -1), params["wo"]["kernel"])
+
+
+def cross_kv(params, cfg: ModelConfig, enc_out):
+    """The encoder output (B,Se,D) projected to cross-attention K/V (B,Se,KV,hd)
+    once a request (k-norm, no rope)."""
+    B, S, _ = enc_out.shape
+    hd = cfg.resolved_head_dim
+    k = _linear(params["wk"], enc_out).reshape(B, S, cfg.num_kv_heads, hd)
+    v = _linear(params["wv"], enc_out).reshape(B, S, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

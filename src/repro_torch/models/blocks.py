@@ -2,8 +2,10 @@
 steps and unified mixed stages on the paged and dense KV layouts, and
 whole-prompt prefill.
 
-Port of ``repro/models/blocks.py`` for full and sliding-window
-self-attention and Mamba-2 mixers with a dense, MoE or no FFN. A segment's
+Port of ``repro/models/blocks.py`` for every block kind: full,
+sliding-window and bidirectional (encoder) self-attention, decoder blocks
+with self- and cross-attention, and Mamba-2 mixers, with a dense, MoE or
+no FFN. A segment's
 parameters and cache carry a stacked ``layers`` axis; where the reference
 ``jax.lax.scan``s over it, the port loops over it in Python and hands each
 block the layer's slices (views, so cache writes land in the stacked
@@ -18,25 +20,18 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-from repro_torch.configs.base import (ATTN, ATTN_LOCAL, DENSE, MAMBA, MOE, NONE,
-                                      LayerKind, ModelConfig)
+from repro_torch.configs.base import (ATTN, ATTN_BIDIR, ATTN_CROSS, ATTN_LOCAL, MAMBA,
+                                      MOE, NONE, LayerKind, ModelConfig)
 from repro_torch.core.execution import ExecutionPlan, moe_execute
 from repro_torch.models.attention import (POS_EMPTY, AttnCall, attention_chunk_step,
                                           attention_decode_step, attention_forward,
-                                          paged_attention_chunk_step,
+                                          cross_attention_forward, cross_kv,
+                                          decode_attention, paged_attention_chunk_step,
                                           paged_attention_decode_step,
                                           write_prefill_cache)
 from repro_torch.models.ffn import ffn_apply
 from repro_torch.models.layers import rmsnorm
 from repro_torch.models.ssm import mamba_decode_step, mamba_forward, mamba_init_cache
-
-
-def _check_kind(kind: LayerKind) -> None:
-    if kind.mixer not in (ATTN, ATTN_LOCAL, MAMBA) or kind.ffn not in (DENSE, MOE, NONE):
-        raise NotImplementedError(
-            f"the port serves full and sliding-window self-attention and Mamba-2 "
-            f"blocks, got {kind}; cross-attention (whisper) and bidirectional mixers "
-            f"come with the other architectures (ROADMAP queue 1)")
 
 
 def _window(cfg: ModelConfig, kind: LayerKind) -> int:
@@ -48,7 +43,7 @@ def _window(cfg: ModelConfig, kind: LayerKind) -> int:
 def block_init_cache(cfg: ModelConfig, kind: LayerKind, batch: int = 0,
                      max_len: int = 0, *, dtype, device, layers: int = 1,
                      kv_quant: bool = False, page_size: int = 0,
-                     num_pages: int = 0) -> dict:
+                     num_pages: int = 0, enc_len: int = 0) -> dict:
     """The decode cache of ``layers`` stacked copies of this block.
 
     Dense: an attention block holds "k"/"v" (layers, batch, size, KV, hd),
@@ -57,13 +52,21 @@ def block_init_cache(cfg: ModelConfig, kind: LayerKind, batch: int = 0,
     sliding-window block ``min(max_len, window) + 1`` (a ring of window
     slots and the dump slot when max_len > window); with ``kv_quant`` "k"
     and "v" are int8 and float32 "k_scale"/"v_scale" (layers, batch, size,
-    KV) ride beside them. A Mamba block holds {"mamba": {"conv", "ssm"}}
+    KV) ride beside them. A cross-attention block adds the encoder's K/V,
+    "cross_k"/"cross_v" (layers, batch, enc_len or max_len, KV, hd) in
+    ``dtype`` whatever ``kv_quant`` says, and "cross_len" (layers, batch)
+    int32; the reference sizes them max_len and its prefill replaces them
+    with the encoder's length, where the port's prefill writes the first
+    positions in place, so ``enc_len`` sizes them for the longest encoder
+    input. An encoder (bidirectional) block has no cache: ValueError.
+    A Mamba block holds {"mamba": {"conv", "ssm"}}
     (``ssm.mamba_init_cache``). Paged (``page_size`` > 0, full
     self-attention blocks only): the page pools (layers, num_pages, KV,
     page, hd); page 0 is the null page. With ``kv_quant`` the value pools
     are int8 and float32 per-(token, KV head) scale pools (layers,
     num_pages, KV, page) ride beside them."""
-    _check_kind(kind)
+    if kind.mixer == ATTN_BIDIR:
+        raise ValueError("an encoder (bidirectional attention) block has no decode cache")
     if page_size == 0:
         if kind.mixer == MAMBA:
             return {"mamba": mamba_init_cache(cfg, batch, dtype, device, layers)}
@@ -79,6 +82,11 @@ def block_init_cache(cfg: ModelConfig, kind: LayerKind, batch: int = 0,
         if kv_quant:
             cache["k_scale"] = torch.zeros(shape[:4], dtype=torch.float32, device=device)
             cache["v_scale"] = torch.zeros(shape[:4], dtype=torch.float32, device=device)
+        if kind.mixer == ATTN_CROSS:
+            cross = (layers, batch, enc_len or max_len) + shape[3:]
+            cache["cross_k"] = torch.zeros(cross, dtype=dtype, device=device)
+            cache["cross_v"] = torch.zeros(cross, dtype=dtype, device=device)
+            cache["cross_len"] = torch.zeros(shape[:2], dtype=torch.int32, device=device)
         return cache
     if kind.mixer != ATTN:
         raise ValueError(f"paged KV cache supports full self-attention decoder "
@@ -95,20 +103,24 @@ def block_init_cache(cfg: ModelConfig, kind: LayerKind, batch: int = 0,
 
 
 def _attn_call(cfg: ModelConfig, kind: LayerKind, plan: ExecutionPlan) -> AttnCall:
-    """The attention call of a self-attention block: causal, windowed for a
-    sliding-window mixer, with the plan's flash-core tiles and score
-    precision."""
-    return AttnCall(causal=True, window=_window(cfg, kind), q_block=plan.attn_q_block,
+    """The attention call of a self-attention block: causal (not for an
+    encoder's bidirectional mixer), windowed for a sliding-window mixer,
+    with the plan's flash-core tiles and score precision."""
+    return AttnCall(causal=kind.mixer != ATTN_BIDIR, window=_window(cfg, kind),
+                    q_block=plan.attn_q_block,
                     kv_block=plan.attn_kv_block, score_bf16=plan.attn_score_bf16)
 
 
 def block_forward(params, cfg: ModelConfig, kind: LayerKind, x, positions,
-                  plan: ExecutionPlan, segment_ids=None):
+                  plan: ExecutionPlan, segment_ids=None, enc_out=None,
+                  enc_segment_ids=None):
     """Training forward of one block over whole sequences. x (B,S,d);
-    ``segment_ids`` (B,S) for packed sequences (attention mixers only).
+    ``segment_ids`` (B,S) for packed sequences (attention mixers only); a
+    cross-attention block attends ``enc_out`` (B,Se,d) after its
+    self-attention, the keys' segments being ``enc_segment_ids`` (default
+    ``segment_ids``, the reference's behaviour, which only fits Se == S).
     Returns (x, aux) with aux the MoE layer's load-balance loss (a float32
     zero for other FFNs)."""
-    _check_kind(kind)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if kind.mixer == MAMBA:
@@ -121,6 +133,12 @@ def block_forward(params, cfg: ModelConfig, kind: LayerKind, x, positions,
         ffn_out, aux = _ffn(params, cfg, kind, h, plan)
         return x + mixer_out + ffn_out, zero if aux is None else aux
     x = x + mixer_out
+    if kind.mixer == ATTN_CROSS:
+        h = rmsnorm(params["norm_cross"], x, cfg.norm_eps)
+        x = x + cross_attention_forward(params["cross"], cfg, h,
+                                        cross_kv(params["cross"], cfg, enc_out),
+                                        segment_ids=segment_ids,
+                                        kv_segment_ids=enc_segment_ids)
     if kind.ffn == NONE:
         return x, zero
     ffn_out, aux = _ffn(params, cfg, kind, rmsnorm(params["norm2"], x, cfg.norm_eps), plan)
@@ -153,34 +171,35 @@ def _dots_context():
 
 
 def segment_forward(params, cfg: ModelConfig, seg, x, positions, plan: ExecutionPlan,
-                    *, remat: str = "full", segment_ids=None):
+                    *, remat: str = "full", segment_ids=None, enc_out=None):
     """Training forward over the segment's stacked super-blocks, a loop where
     the reference scans. ``remat="full"`` recomputes each super-block in the
     backward (``torch.utils.checkpoint``, non-reentrant), keeping only its
     input; "dots" keeps the outputs of its products with no batch dimension
     and recomputes the rest (``DOTS_SAVED``); "none" keeps every
-    activation. ``segment_ids`` (B,S) reach every attention layer. Returns
-    (x, aux summed over the segment's layers)."""
+    activation. ``segment_ids`` (B,S) reach every attention layer, the
+    encoder output ``enc_out`` every cross-attention layer. Returns (x, aux
+    summed over the segment's layers)."""
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"remat={remat!r}: expected 'none', 'full' or 'dots'")
 
-    def super_block(x, blk):
+    def super_block(x, blk, enc_out):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(seg.pattern):
             x, a = block_forward(blk["blocks"][i], cfg, kind, x, positions, plan,
-                                 segment_ids=segment_ids)
+                                 segment_ids=segment_ids, enc_out=enc_out)
             aux = aux + a
         return x, aux
 
     auxs = []
     for blk in _unbind_layers(params, seg.repeats):
         if remat == "full":
-            x, aux = checkpoint(super_block, x, blk, use_reentrant=False)
+            x, aux = checkpoint(super_block, x, blk, enc_out, use_reentrant=False)
         elif remat == "dots":
-            x, aux = checkpoint(super_block, x, blk, use_reentrant=False,
+            x, aux = checkpoint(super_block, x, blk, enc_out, use_reentrant=False,
                                 context_fn=_dots_context)
         else:
-            x, aux = super_block(x, blk)
+            x, aux = super_block(x, blk, enc_out)
         auxs.append(aux)
     return x, torch.stack(auxs).sum()
 
@@ -206,7 +225,6 @@ def block_decode_step(params, cfg: ModelConfig, kind: LayerKind, x, cache,
     """Single-token decode. x (B,1,d). The mixer follows the cache: Mamba
     state, page pools ("k_pages") or a dense cache. Adds the layer's
     per-expert routed counts into ``counts`` ((E,) float32). Returns x."""
-    _check_kind(kind)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     valid = attn_ctx.get("valid") if attn_ctx else None
     if kind.mixer == MAMBA:
@@ -223,6 +241,16 @@ def block_decode_step(params, cfg: ModelConfig, kind: LayerKind, x, cache,
     if cfg.parallel_block and kind.ffn != NONE:
         return x + mixer_out + _ffn(params, cfg, kind, h, plan, valid, counts)[0]
     x = x + mixer_out
+    if kind.mixer == ATTN_CROSS:
+        # the reference's route: the plain decode over the cross cache up
+        # to "cross_len", q projected without the bias (whisper has none)
+        h = rmsnorm(params["norm_cross"], x, cfg.norm_eps)
+        B, hd = x.shape[0], cfg.resolved_head_dim
+        q = torch.matmul(h, params["cross"]["wq"]["kernel"]).reshape(B, 1, cfg.num_heads, hd)
+        if cfg.qk_norm:
+            q = rmsnorm(params["cross"]["q_norm"], q, cfg.norm_eps)
+        out = decode_attention(q, cache["cross_k"], cache["cross_v"], cache["cross_len"])
+        x = x + torch.matmul(out.reshape(B, 1, -1), params["cross"]["wo"]["kernel"])
     if kind.ffn == NONE:
         return x
     h = rmsnorm(params["norm2"], x, cfg.norm_eps)
@@ -230,13 +258,15 @@ def block_decode_step(params, cfg: ModelConfig, kind: LayerKind, x, cache,
 
 
 def block_prefill(params, cfg: ModelConfig, kind: LayerKind, x, positions,
-                  true_len, cache, plan: ExecutionPlan):
+                  true_len, cache, plan: ExecutionPlan, enc_out=None):
     """Whole-prompt prefill that also fills the block's dense decode cache
-    (in place). x (B,S,d); true_len (B,) valid prompt lengths. A Mamba
+    (in place). x (B,S,d); true_len (B,) valid prompt lengths. A
+    cross-attention block attends ``enc_out`` (B,Se,d) and writes its K/V
+    into the first Se positions of "cross_k"/"cross_v", "cross_len" = Se on
+    every row (ValueError if Se exceeds the leaves). A Mamba
     mixer's cache takes the state after the last position of x, padding
     included (``ssm.mamba_forward``); the MoE routes every position,
     padding included, as the reference's prefill does. Returns x."""
-    _check_kind(kind)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     if kind.mixer == MAMBA:
         mixer_out, mcache = mamba_forward(params["mixer"], cfg, h, return_state=True)
@@ -250,6 +280,17 @@ def block_prefill(params, cfg: ModelConfig, kind: LayerKind, x, positions,
     if cfg.parallel_block and kind.ffn != NONE:
         return x + mixer_out + _ffn(params, cfg, kind, h, plan)[0]
     x = x + mixer_out
+    if kind.mixer == ATTN_CROSS:
+        h = rmsnorm(params["norm_cross"], x, cfg.norm_eps)
+        ck, cv = cross_kv(params["cross"], cfg, enc_out)
+        x = x + cross_attention_forward(params["cross"], cfg, h, (ck, cv))
+        Se = ck.shape[1]
+        if Se > cache["cross_k"].shape[1]:
+            raise ValueError(f"the encoder output has {Se} positions, the cross cache "
+                             f"{cache['cross_k'].shape[1]}: size it with init_cache(enc_len=)")
+        cache["cross_k"][:, :Se] = ck.to(cache["cross_k"].dtype)
+        cache["cross_v"][:, :Se] = cv.to(cache["cross_v"].dtype)
+        cache["cross_len"].fill_(Se)
     if kind.ffn == NONE:
         return x
     h = rmsnorm(params["norm2"], x, cfg.norm_eps)
@@ -266,7 +307,6 @@ def block_mixed_step(params, cfg: ModelConfig, kind: LayerKind, xd, xc, cache,
     its length, which its chunk (starting there) then overwrites: the order
     is part of the result. Full self-attention mixers only. Returns (xd,
     xc)."""
-    _check_kind(kind)
     if kind.mixer != ATTN:
         raise ValueError(f"unified mixed stages support full self-attention decoder "
                          f"layers only, got mixer={kind.mixer}")
@@ -307,11 +347,11 @@ def block_mixed_step(params, cfg: ModelConfig, kind: LayerKind, xd, xc, cache,
 
 def segment_init_cache(cfg: ModelConfig, seg, batch: int = 0, max_len: int = 0, *,
                        dtype, device, kv_quant: bool = False, page_size: int = 0,
-                       num_pages: int = 0) -> dict:
+                       num_pages: int = 0, enc_len: int = 0) -> dict:
     return {"blocks": tuple(
         block_init_cache(cfg, kind, batch, max_len, dtype=dtype, device=device,
                          layers=seg.repeats, kv_quant=kv_quant,
-                         page_size=page_size, num_pages=num_pages)
+                         page_size=page_size, num_pages=num_pages, enc_len=enc_len)
         for kind in seg.pattern)}
 
 
@@ -336,9 +376,9 @@ def segment_mixed_step(params, cfg: ModelConfig, seg, xd, xc, cache, attn_ctx,
 
 
 def segment_prefill(params, cfg: ModelConfig, seg, x, positions, true_len, cache,
-                    plan: ExecutionPlan):
+                    plan: ExecutionPlan, enc_out=None):
     for i in range(seg.repeats):
         for j, kind in enumerate(seg.pattern):
             x = block_prefill(_layer(params["blocks"][j], i), cfg, kind, x, positions,
-                              true_len, _layer(cache["blocks"][j], i), plan)
+                              true_len, _layer(cache["blocks"][j], i), plan, enc_out)
     return x

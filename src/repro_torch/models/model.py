@@ -1,19 +1,22 @@
 """Model assembly: embeddings -> segments -> final norm -> LM head.
 
 Port of ``repro/models/model.py``: for training ``forward`` (full-sequence
-logits) and ``loss_fn`` (next-token cross-entropy plus the MoE load-balance
-loss); for serving ``init_cache`` (dense or paged), ``prefill`` (whole
-prompts into a dense cache), ``decode_step`` and ``mixed_step`` (either
-layout). The
-cache is a list (one entry per segment) of ``{"blocks": (block cache, ...)}``
-with stacked leaves: paged (layers, P, KV, page, hd) pools (int8 pools add
+logits; an encoder-decoder runs ``encode`` first, a VLM prepends its patch
+embeddings) and ``loss_fn`` (next-token cross-entropy plus the MoE
+load-balance loss); for serving ``init_cache`` (dense or paged),
+``prefill`` (whole prompts into a dense cache), ``decode_step`` and
+``mixed_step`` (either layout). The cache is a list (one entry per
+segment) of ``{"blocks": (block cache, ...)}`` with stacked leaves: paged
+(layers, P, KV, page, hd) pools (int8 pools add
 "k_scale_pages"/"v_scale_pages" (layers, P, KV, page)); dense attention
 "k"/"v" (layers, B, Smax, KV, hd), "pos" (layers, B, Smax), "len" (layers,
 B), Smax being ``min(max_len, window) + 1`` for a sliding-window layer (a
 ring past the window), and with ``kv_quant`` int8 "k"/"v" and float32
-"k_scale"/"v_scale" (layers, B, Smax, KV); Mamba {"mamba": {"conv"
-(layers, B, K-1, conv_dim), "ssm" (layers, B, H, N, P)}}. Caches are updated in place; the functions still return them so
-call sites read like the reference's.
+"k_scale"/"v_scale" (layers, B, Smax, KV); a cross-attention layer adds
+"cross_k"/"cross_v" (layers, B, enc_len, KV, hd) and "cross_len" (layers,
+B); Mamba {"mamba": {"conv" (layers, B, K-1, conv_dim), "ssm" (layers, B,
+H, N, P)}}. Caches are updated in place; the functions still return them
+so call sites read like the reference's.
 """
 from __future__ import annotations
 
@@ -42,12 +45,13 @@ def _lm_head(params, cfg: ModelConfig, x):
 
 def _embed_inputs(params, cfg: ModelConfig, batch):
     """Token embedding in the activation dtype, and positions (B, S) (the
-    batch's "positions", else 0..S-1). Returns (x, positions)."""
-    if cfg.is_encoder_decoder or (cfg.family == "vlm" and "patch_embeds" in batch):
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and vision-language inputs are not ported; "
-            f"they come with their serving slices (ROADMAP queue 1)")
-    x = embed_lookup(params["embed"], batch["tokens"]).to(DTYPES[cfg.dtype])
+    batch's "positions", else 0..S-1). A VLM's "patch_embeds" (B, P, d),
+    cast to the embedding's dtype, come first, so the stream and its
+    positions run over P + S. Returns (x, positions)."""
+    x = embed_lookup(params["embed"], batch["tokens"])
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    x = x.to(DTYPES[cfg.dtype])
     B, S = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None:
@@ -55,11 +59,39 @@ def _embed_inputs(params, cfg: ModelConfig, batch):
     return x, positions
 
 
-def _stack(params, cfg: ModelConfig, x, positions, plan, remat, segment_ids=None):
+def encode(params, cfg: ModelConfig, batch, *, plan: ExecutionPlan = DEFAULT_PLAN,
+           remat: str = "none"):
+    """The encoder (whisper): frames (B, Se, d) in the activation dtype
+    through the encoder's segments (bidirectional attention, positions
+    0..Se-1) and its final norm -> enc_out (B, Se, d)."""
+    x = batch["frames"].to(DTYPES[cfg.dtype])
+    B, Se = x.shape[0], x.shape[1]
+    positions = torch.arange(Se, device=x.device)[None].expand(B, Se)
+    enc = params["encoder"]
+    for seg, seg_params in zip(cfg.enc_segments, enc["segments"]):
+        x, _ = segment_forward(seg_params, cfg, seg, x, positions, plan, remat=remat)
+    return rmsnorm(enc["final_norm"], x, cfg.norm_eps)
+
+
+def _decoder_inputs(params, cfg: ModelConfig, batch, plan, remat="none"):
+    """(x, positions, enc_out, tokens): an encoder-decoder encodes
+    "frames" and embeds "dec_tokens"; any other model embeds "tokens" (and
+    a VLM's "patch_embeds") with no encoder output."""
+    if cfg.is_encoder_decoder:
+        enc_out = encode(params, cfg, batch, plan=plan, remat=remat)
+        tokens = batch["dec_tokens"]
+        x, positions = _embed_inputs(params, cfg, {"tokens": tokens})
+        return x, positions, enc_out, tokens
+    x, positions = _embed_inputs(params, cfg, batch)
+    return x, positions, None, batch["tokens"]
+
+
+def _stack(params, cfg: ModelConfig, x, positions, plan, remat, segment_ids=None,
+           enc_out=None):
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg, seg_params in zip(cfg.segments, params["segments"]):
         x, aux = segment_forward(seg_params, cfg, seg, x, positions, plan, remat=remat,
-                                 segment_ids=segment_ids)
+                                 segment_ids=segment_ids, enc_out=enc_out)
         aux_total = aux_total + aux
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux_total
 
@@ -67,11 +99,15 @@ def _stack(params, cfg: ModelConfig, x, positions, plan, remat, segment_ids=None
 def forward(params, cfg: ModelConfig, batch, *, plan: ExecutionPlan = DEFAULT_PLAN,
             remat: str = "none", segment_ids=None):
     """Full-sequence float32 logits (B, S, V) and the summed MoE aux loss.
-    batch {"tokens" (B, S)[, "positions"]}; ``segment_ids`` (B, S) packs
-    several documents into a row: each attention layer keeps a token to
-    its own document's keys."""
-    x, positions = _embed_inputs(params, cfg, batch)
-    x, aux_total = _stack(params, cfg, x, positions, plan, remat, segment_ids)
+    batch {"tokens" (B, S)[, "positions"][, "patch_embeds" (B, P, d): a
+    VLM's logits then cover P + S positions]} or, for an encoder-decoder,
+    {"frames" (B, Se, d), "dec_tokens" (B, S)}; ``segment_ids`` (B, S)
+    packs several documents into a row: each attention layer keeps a token
+    to its own document's keys (a cross-attention layer compares them with
+    the keys' own positions too, as the reference does, which only fits Se
+    == S)."""
+    x, positions, enc_out, _ = _decoder_inputs(params, cfg, batch, plan, remat)
+    x, aux_total = _stack(params, cfg, x, positions, plan, remat, segment_ids, enc_out)
     return _lm_head(params, cfg, x), aux_total
 
 
@@ -96,15 +132,20 @@ def _chunked_ce(logits_fn, x, labels, mask, chunk: int = 1024):
 def loss_fn(params, cfg: ModelConfig, batch, *, plan: ExecutionPlan = DEFAULT_PLAN,
             remat: str = "none"):
     """Next-token cross-entropy plus the MoE aux loss. batch {"tokens" (B,
-    S)[, "labels" (B, S)]}; labels default to the tokens shifted by one,
-    and label -100 is ignored. Returns (loss, {"ce", "aux"})."""
-    tokens = batch["tokens"]
-    x, positions = _embed_inputs(params, cfg, batch)
-    x, aux_total = _stack(params, cfg, x, positions, plan, remat)
+    S)[, "labels" (B, S)][, "patch_embeds" (B, P, d)]} or {"frames",
+    "dec_tokens"[, "labels"]} as in ``forward``; labels default to the
+    (decoder) tokens shifted by one, and label -100 is ignored; a VLM's
+    labels are padded in front with P -100s, so only text positions count.
+    Returns (loss, {"ce", "aux"})."""
+    x, positions, enc_out, tokens = _decoder_inputs(params, cfg, batch, plan, remat)
+    x, aux_total = _stack(params, cfg, x, positions, plan, remat, enc_out=enc_out)
     labels = batch.get("labels")
     if labels is None:
         labels = torch.nn.functional.pad(tokens[:, 1:].long(), (0, 1), value=-100)
     labels = labels.long()
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        labels = torch.nn.functional.pad(labels, (batch["patch_embeds"].shape[1], 0),
+                                         value=-100)
     mask = (labels >= 0).float()
     table = (params["embed"]["table"] if cfg.tie_embeddings
              else params["lm_head"]["table"]).float()
@@ -118,33 +159,37 @@ def loss_fn(params, cfg: ModelConfig, batch, *, plan: ExecutionPlan = DEFAULT_PL
 
 def init_cache(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
                page_size: int = 0, num_pages: int = 0, device="cuda",
-               kv_quant: bool = False) -> list:
+               kv_quant: bool = False, enc_len: int = 0) -> list:
     """Decode cache. Dense (no ``page_size``): per-slot (batch, max_len)
     attention leaves (a sliding-window layer's ring sized ``min(max_len,
     window) + 1``; with ``kv_quant`` int8 values and float32 scales) and
     per-slot Mamba state. Paged (``page_size`` > 0):
     each attention layer holds a (num_pages, KV, page_size, hd) pool share in
     the model's dtype, or with ``kv_quant`` in int8 plus float32 (num_pages,
-    KV, page_size) scale pools; capacity is owned by the KVManager."""
+    KV, page_size) scale pools; capacity is owned by the KVManager. A
+    decoder's cross-attention caches hold ``enc_len`` encoder positions
+    (default ``max_len``, the reference's size)."""
     dtype = DTYPES[cfg.dtype]
     return [segment_init_cache(cfg, seg, batch, max_len, dtype=dtype, device=device,
                                kv_quant=kv_quant, page_size=page_size,
-                               num_pages=num_pages)
+                               num_pages=num_pages, enc_len=enc_len)
             for seg in cfg.segments]
 
 
 def prefill(params, cfg: ModelConfig, batch, cache, true_len, *,
             plan: ExecutionPlan = DEFAULT_PLAN):
     """Process whole prompts, fill the dense cache (in place) and return the
-    logits at each sequence's last valid position. batch {"tokens" (B,S)};
-    true_len (B,). Returns (logits (B,1,V), cache)."""
-    tokens = batch["tokens"]
-    x = embed_lookup(params["embed"], tokens).to(DTYPES[cfg.dtype])
-    B, S = tokens.shape
-    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    logits at each sequence's last valid position. batch as in ``forward``
+    ({"tokens" (B,S)[, "patch_embeds"]} or {"frames", "dec_tokens"});
+    true_len (B,) indexes the decoder's stream: a VLM's counts its patches
+    too (the reference's), an encoder-decoder's only the decoder tokens,
+    whose cross caches take the whole encoder output. Returns (logits
+    (B,1,V), cache)."""
+    x, positions, enc_out, _ = _decoder_inputs(params, cfg, batch, plan)
+    B = x.shape[0]
     for seg, seg_params, seg_cache in zip(cfg.segments, params["segments"], cache):
         x = segment_prefill(seg_params, cfg, seg, x, positions, true_len, seg_cache,
-                            plan)
+                            plan, enc_out)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     last = torch.clamp(true_len.long() - 1, min=0)
     x_last = x[torch.arange(B, device=x.device), last][:, None, :]

@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.models.ffn import ffn_apply
 
 
 class RouterOut(NamedTuple):
@@ -152,8 +153,9 @@ def grouped_expert_ffn(params, x_grouped):
 
 def moe_apply(params, cfg: ModelConfig, x, *, capacity: Optional[int] = None,
               token_valid=None):
-    """Grouped (capacity-padded) path for x (T, d) or (B, S, d). Returns
-    (y, router); training takes the load-balance loss from
+    """Grouped (capacity-padded) path for x (T, d) or (B, S, d); shared
+    experts (``params["shared"]``, a gated FFN) add their output over every
+    row after the combine. Returns (y, router); training takes the load-balance loss from
     ``router.aux_loss``."""
     m = cfg.moe
     E, k = m.num_experts, m.top_k
@@ -171,4 +173,7 @@ def moe_apply(params, cfg: ModelConfig, x, *, capacity: Optional[int] = None,
     x_slots = gather_slots(x_flat, disp.src_token, disp.slot)
     y = grouped_expert_ffn(params, x_slots.reshape(E, C, d)).reshape(E * C, d)
     y = y * disp.slot_gate[:, None].to(y.dtype)
-    return combine_slots(y, disp.slot, T).reshape(shape), router
+    y = combine_slots(y, disp.slot, T)
+    if m.num_shared_experts:
+        y = y + ffn_apply(params["shared"], x_flat)
+    return y.reshape(shape), router

@@ -1,9 +1,12 @@
 """Parameters: the seeded initialiser and the bridge from numpy trees.
 
 The tree has the reference's nesting (``repro/models/model.py::model_specs``):
-``embed.table``, ``segments[i].blocks[j].{norm1, mixer, norm2, ffn}``,
-``final_norm.scale`` and ``lm_head.table``; every leaf under a segment has a
-leading stacked ``layers`` axis, so layer i of a segment is ``leaf[i]``.
+``embed.table``, ``segments[i].blocks[j].{norm1, mixer, norm2, ffn}`` (a
+cross-attention block also ``cross`` and ``norm_cross``, an MoE FFN with
+shared experts ``ffn.shared``), ``final_norm.scale``, ``lm_head.table``
+and, for an encoder-decoder, ``encoder.{segments, final_norm}``; every
+leaf under a segment has a leading stacked ``layers`` axis, so layer i of
+a segment is ``leaf[i]``.
 
 * :func:`init_model` draws a fresh tree from its own ``torch.Generator``
   with the reference's init kinds (``normal`` scaled by 1/sqrt(fan-in),
@@ -23,7 +26,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import DENSE, MAMBA, MOE, NONE, ModelConfig
+from repro_torch.configs.base import ATTN_CROSS, DENSE, MAMBA, MOE, NONE, ModelConfig
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -59,11 +62,8 @@ def mamba_specs(cfg: ModelConfig) -> dict:
             "out_proj": Spec((d_in, d), pd)}
 
 
-def _block_specs(cfg: ModelConfig, kind) -> dict:
+def _attention_specs(cfg: ModelConfig) -> dict:
     d, hd, pd = cfg.d_model, cfg.resolved_head_dim, cfg.param_dtype
-    if kind.mixer == MAMBA:
-        return _ffn_specs(cfg, kind, {"norm1": {"scale": Spec((d,), pd, "ones")},
-                                      "mixer": mamba_specs(cfg)})
     mixer = {"wq": _dense(d, cfg.num_heads * hd, pd, cfg.attn_bias),
              "wk": _dense(d, cfg.num_kv_heads * hd, pd, cfg.attn_bias),
              "wv": _dense(d, cfg.num_kv_heads * hd, pd, cfg.attn_bias),
@@ -71,26 +71,43 @@ def _block_specs(cfg: ModelConfig, kind) -> dict:
     if cfg.qk_norm:
         mixer["q_norm"] = {"scale": Spec((hd,), pd, "ones")}
         mixer["k_norm"] = {"scale": Spec((hd,), pd, "ones")}
-    return _ffn_specs(cfg, kind, {"norm1": {"scale": Spec((d,), pd, "ones")},
-                                  "mixer": mixer})
+    return mixer
+
+
+def _block_specs(cfg: ModelConfig, kind) -> dict:
+    """norm1 and the mixer (Mamba-2 or attention); a cross-attention block
+    adds "cross" (an attention's projections) and "norm_cross"
+    (``repro/models/blocks.py::block_specs``); then the FFN."""
+    d, pd = cfg.d_model, cfg.param_dtype
+    specs = {"norm1": {"scale": Spec((d,), pd, "ones")},
+             "mixer": mamba_specs(cfg) if kind.mixer == MAMBA else _attention_specs(cfg)}
+    if kind.mixer == ATTN_CROSS:
+        specs["cross"] = _attention_specs(cfg)
+        specs["norm_cross"] = {"scale": Spec((d,), pd, "ones")}
+    return _ffn_specs(cfg, kind, specs)
+
+
+def _gated_ffn(d: int, f: int, pd: str) -> dict:
+    return {"wi_gate": Spec((d, f), pd), "wi_up": Spec((d, f), pd), "wo": Spec((f, d), pd)}
 
 
 def _ffn_specs(cfg: ModelConfig, kind, specs: Dict[str, Any]) -> dict:
-    """Add norm2 and the FFN (dense or MoE); a block with ffn NONE has
+    """Add norm2 and the FFN (dense, or MoE with its shared experts' gated
+    FFN of ``d_ff_shared`` under "shared"); a block with ffn NONE has
     neither, as in the reference."""
     d, pd = cfg.d_model, cfg.param_dtype
     if kind.ffn != NONE and not cfg.parallel_block:
         specs["norm2"] = {"scale": Spec((d,), pd, "ones")}
     if kind.ffn == DENSE:
-        specs["ffn"] = {"wi_gate": Spec((d, cfg.d_ff), pd),
-                        "wi_up": Spec((d, cfg.d_ff), pd),
-                        "wo": Spec((cfg.d_ff, d), pd)}
+        specs["ffn"] = _gated_ffn(d, cfg.d_ff, pd)
     elif kind.ffn == MOE:
         m = cfg.moe
         specs["ffn"] = {"router": Spec((d, m.num_experts), "float32", "small_normal"),
                         "wo": Spec((m.num_experts, m.d_ff_expert, d), pd),
                         "wi_gate": Spec((m.num_experts, d, m.d_ff_expert), pd),
                         "wi_up": Spec((m.num_experts, d, m.d_ff_expert), pd)}
+        if m.num_shared_experts:
+            specs["ffn"]["shared"] = _gated_ffn(d, m.d_ff_shared, pd)
     return specs
 
 
@@ -102,19 +119,26 @@ def _stack(tree, n: int):
     return {k: _stack(v, n) for k, v in tree.items()}
 
 
+def _segments(cfg: ModelConfig, segments) -> tuple:
+    return tuple(_stack({"blocks": tuple(_block_specs(cfg, k) for k in seg.pattern)},
+                        seg.repeats) for seg in segments)
+
+
 def model_specs(cfg: ModelConfig) -> dict:
-    """The parameter tree as :class:`Spec` leaves (gated SwiGLU FFNs, no
-    shared experts — the architectures the port serves)."""
-    assert cfg.gated_ffn and not (cfg.moe and cfg.moe.num_shared_experts), \
-        "the port serves gated FFNs without shared experts"
+    """The parameter tree as :class:`Spec` leaves (gated SwiGLU FFNs, the
+    architectures the reference configures); an encoder-decoder adds
+    "encoder" {"segments", "final_norm"}."""
+    assert cfg.gated_ffn, "the port serves gated (SwiGLU) FFNs"
     specs: Dict[str, Any] = {
         "embed": {"table": Spec((cfg.vocab_size, cfg.d_model), cfg.param_dtype,
                                 "small_normal")},
-        "segments": tuple(
-            _stack({"blocks": tuple(_block_specs(cfg, k) for k in seg.pattern)},
-                   seg.repeats) for seg in cfg.segments),
+        "segments": _segments(cfg, cfg.segments),
         "final_norm": {"scale": Spec((cfg.d_model,), cfg.param_dtype, "ones")},
     }
+    if cfg.is_encoder_decoder:
+        specs["encoder"] = {
+            "segments": _segments(cfg, cfg.enc_segments),
+            "final_norm": {"scale": Spec((cfg.d_model,), cfg.param_dtype, "ones")}}
     if not cfg.tie_embeddings:
         specs["lm_head"] = {"table": Spec((cfg.vocab_size, cfg.d_model),
                                           cfg.param_dtype, "small_normal")}

@@ -332,7 +332,14 @@ class ServingEngine:
         default exactly when an injector is given. ``spec_k`` > 0 turns on
         speculative decoding with an n-gram drafter over ``spec_ngram``-token
         tails (greedy sampling and a full self-attention stack only);
-        ``on_token(rid, token)`` is called for every committed token."""
+        ``on_token(rid, token)`` is called for every committed token. It
+        serves decoder-only models, as the reference's engine: an
+        encoder-decoder (whisper) raises ValueError and is served through
+        ``models/model.py``'s ``prefill`` and ``decode_step``."""
+        if cfg.is_encoder_decoder:
+            raise ValueError(f"{cfg.name}: the engine serves decoder-only models; an "
+                             f"encoder-decoder serves through model.prefill and "
+                             f"model.decode_step")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ServingEngine(device='cuda') but no CUDA device "

@@ -483,6 +483,61 @@ def test_cuda_bf16_flash_forward_matches_plain(card, S, KV, qpk, causal, window,
     assert all(torch.equal(a, b) for a, b in zip((out, lse, o32), again))
 
 
+# the head_dim-64 models' own shapes, one sequence each: (label, S, H, KV,
+# causal, backward too)
+HD64_FLASH_CASES = [("whisper-small encoder", 1500, 12, 12, False, True),
+                    ("internvl2-1b prefill", 1280, 14, 2, True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("label,S,H,KV,causal,bwd", HD64_FLASH_CASES,
+                         ids=[c[0] for c in HD64_FLASH_CASES])
+def test_cuda_hd64_flash_at_the_models_shapes(card, dtype, tol, label, S, H, KV, causal, bwd):
+    """The flash forward (and for whisper's encoder the backward) at
+    head_dim 64 on whisper-small's non-causal encoder (1500 frames, 12
+    heads over 12) and internvl2-1b's causal prefill (14 heads over 2, qpk
+    7) against the plain versions: out and lse within the band, dq, dk, dv
+    within the band times max(1, the plain gradient's largest entry)."""
+    rng = np.random.default_rng(S + H)
+    t = lambda a: torch.tensor(a, device=card).to(dtype)
+    q = t(rng.standard_normal((1, S, H, 64)).astype(np.float32))
+    k, v = (t(rng.standard_normal((1, S, KV, 64)).astype(np.float32)) for _ in range(2))
+    out, lse, o32 = flash_attn.flash_attention_kernel(q, k, v, causal=causal, f32_out=True)
+    out_p, lse_p, o32_p = flash_attn.flash_attention_plain(q, k, v, causal=causal, f32_out=True)
+    torch.testing.assert_close(out.float(), out_p.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_p, atol=tol, rtol=tol)
+    if not bwd:
+        return
+    dout = t(rng.standard_normal(q.shape).astype(np.float32))
+    got = flash_attn.flash_attention_bwd_kernel(q, k, v, o32_p, lse_p, dout, causal=causal)
+    want = flash_attn.flash_attention_bwd_plain(q, k, v, o32_p, lse_p, dout, causal=causal)
+    for g, w in zip(got, want):
+        band = tol * max(1.0, w.float().abs().max().item())
+        torch.testing.assert_close(g.float(), w.float(), atol=band, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("KV,qpk,Smax", [(12, 1, 448), (2, 7, 1536)],
+                         ids=["whisper-small", "internvl2-1b"])
+def test_cuda_hd64_dense_decode_at_the_models_shapes(card, dtype, tol, KV, qpk, Smax):
+    """The dense decode (``decode_sm90.cu``) at head_dim 64 on whisper-small's
+    decoder (12 heads over 12, max_len 448) and internvl2-1b's (14 over 2,
+    qpk 7, max_len 1536), 8 rows of lengths 0 to Smax, against its plain
+    version; a length-0 row exact zeros."""
+    rng = np.random.default_rng(Smax + qpk)
+    t = lambda a: torch.tensor(a, device=card)
+    lens = t(np.asarray([0, 1, 36, 127, 128, Smax // 2, Smax - 1, Smax], np.int32))
+    k, v = (t(rng.standard_normal((8, Smax, KV, 64)).astype(np.float32)).to(dtype)
+            for _ in range(2))
+    q = t(rng.standard_normal((8, KV, qpk, 64)).astype(np.float32)).to(dtype)
+    got = decode_attn.decode_attention_kernel(q, k, v, lens)
+    want = decode_attn.decode_attention_plain(q, k, v, lens)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert not got[0].any()
+
+
 @pytest.mark.cuda
 def test_cuda_bf16_flash_forward_rejects_what_it_does_not_take(card):
     """A CUDA tensor the bf16 kernel cannot read raises (no plain fallback):
@@ -599,12 +654,12 @@ def test_cuda_bf16_backward_rounding_mirror_is_closer_to_kernel_9b(card, S, KV, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,f,Cc", [(2048, 1024, 72), (4096, 14336, 24)])
+@pytest.mark.parametrize("d,f,Cc", [(2048, 1024, 72), (4096, 14336, 24), (2048, 1408, 40)])
 def test_cuda_moe_gemv_matches_plain(card, d, f, Cc):
     """The bf16 cold GEMVs (``moe_gemv_sm90.cu``: weights by TMA, the live
     rows on the tensor cores), ragged and capacity-padded, against their
     plain versions within 2e-2 at OLMoE's widths (Cc 72: a second pass of
-    64 rows) and Jamba's: counts 0, 1, 15, 16, 17 and Cc, with empty experts
+    64 rows), Jamba's and deepseek-moe-16b's (d_ff 1408): counts 0, 1, 15, 16, 17 and Cc, with empty experts
     between live ones and perm out of order. Each call must take the
     tensor-core route, dead rows come back exact zeros, and a second call
     gives the same bits; float32 at OLMoE's widths takes the scalar route
@@ -641,13 +696,14 @@ def test_cuda_moe_gemv_matches_plain(card, d, f, Cc):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,f,C", [(2048, 1024, 136), (4096, 14336, 72), (192, 320, 72)])
+@pytest.mark.parametrize("d,f,C", [(2048, 1024, 136), (4096, 14336, 72), (192, 320, 72),
+                                   (2048, 1408, 72)])
 def test_cuda_moe_gemm_matches_plain(card, d, f, C):
     """The bf16 hot GEMMs (``moe_gemm_sm90.cu``: each live expert's weights
     by TMA once a pass of up to 128 rows, ``wgmma`` with the rows as N),
     ragged and capacity-padded, against their plain versions within 2e-2 at
     OLMoE's widths (C 136: a second 128-row pass), Jamba's (C 72: one pass
-    of 128) and widths that end inside a block's 128 (d_ff) and 256 (d)
+    of 128), deepseek-moe-16b's (d_ff 1408) and widths that end inside a block's 128 (d_ff) and 256 (d)
     columns: counts 0, 1, 15, 16, 17, 64, 65 and C, with empty experts
     between live ones and perm out of order. Each call must take the
     tensor-core route, dead rows come back exact zeros, and a second call

@@ -31,6 +31,8 @@ for n in ("repro_torch.kernels.quant", "repro_torch.kernels.decode_attn",
           "repro_torch.configs.jamba_v0_1_52b", "repro_torch.configs.gemma3_4b",
           "repro_torch.configs.qwen3_8b", "repro_torch.configs.command_r_35b",
           "repro_torch.configs.mistral_large_123b", "repro_torch.configs.mamba2_2p7b",
+          "repro_torch.configs.deepseek_moe_16b", "repro_torch.configs.whisper_small",
+          "repro_torch.configs.internvl2_1b",
           "repro_torch.kernels.flash_attn",
           "repro_torch.training.optimizer", "repro_torch.training.data",
           "repro_torch.training.train_state", "repro_torch.training.loop",
