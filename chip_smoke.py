@@ -277,6 +277,24 @@ Phases, each printing a line:
           path d's first three bit for bit, the flash forward run twice a
           layer a step and the backward once; it logs the median step, the
           peak memory and the launches a step beside path d's.
+       q. the sharded step builders (``launch/steps.py``) on a one-rank
+          NCCL mesh at OLMoE-1B-7B's full width, no kernel launched (the
+          reference's steps run none): ``make_train_step`` for 3 steps of
+          path d's 4 x 2048 at 8 layers with one and two microbatches, each
+          loss within path d's band (1e-2) of ``make_step``'s under the
+          same plan; ``make_prefill_step`` on 1 x 8192 (the flash core at
+          the grid's prefill tiles of 4096 positions, ``Q_PREFILL_TILE``) and
+          ``make_serve_step`` on 16 rows over a 4096-position cache
+          (``duplex_k_cold``'s plan) at full depth, their next tokens equal
+          to the unsharded ``prefill`` and ``decode_step``'s. Then the dry
+          run of each of the three steps in a fake one-rank group: its
+          predicted per-device peak within 25% of the card's (the
+          arguments plus ``max_memory_allocated`` over the step's start),
+          its FLOPs, bytes and t_ideal beside the step's device time from
+          torch.profiler, its roofline fraction finite and at most 1.05;
+          and ``python -m repro_torch.launch.dryrun`` on one production
+          cell (``Q_CELL``) in a subprocess, which must end ok on 256
+          ranks.
 
 Prints each kernel's launches by path, a ``kernels`` JSON line (each
 kernel's launches summed over the paths that read them), then ``{"ok": true, "device": ...}`` as the
@@ -3642,6 +3660,305 @@ def remat_phase(torch, path_d):
             f"{r['bwd']:g} launches a step")
 
 
+# path q: the sharded step builders (``launch/steps.py``) on a one-rank NCCL
+# mesh at OLMoE-1B-7B's full width, the dry run of the same three steps in a
+# fake one-rank group, and one production cell of the dry run. No step runs
+# a kernel (the reference's steps run ``use_kernels=False``). Shapes not in
+# the cell grid's ``SHAPES``, each listed as reduced on its line:
+Q_LABEL = "steps"
+Q_TRAIN = dict(layers=TRAIN_LAYERS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=3)  # path d's
+Q_PREFILL = (1, 8192)                    # (batch, seq) at full depth
+# the flash core's tiles of the prefill step, its dry run and its unsharded
+# twin: the grid's prefill_32k tiles (at 512 the trace took ~45 s of the smoke)
+Q_PREFILL_TILE = 4096
+Q_DECODE = (16, 4096)                    # rows over a cache of this many positions
+Q_CELL = ("olmoe-1b-7b", "decode_32k")   # the quickest OLMoE cell of the CPU grid
+Q_PEAK_BAND = 0.25                       # predicted vs measured per-device peak
+Q_ROOF_MAX = 1.05                        # a roofline fraction past this is a miscount
+
+
+def q_measure(torch, fn, *args, profiled=False):
+    """``fn(*args)`` once: its outputs, the step's per-device peak (the bytes
+    of its arguments' storages plus what the step allocated over what was
+    allocated when it began: the quantity the dry run predicts) and, with
+    ``profiled``, the device's summed kernel time from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.op_cost import storage_bytes
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) if profiled else \
+            contextlib.nullcontext() as prof:
+        out = fn(*args)
+        torch.cuda.synchronize()
+    peak = storage_bytes(args) + torch.cuda.max_memory_allocated() - before
+    device_ms = 0.0
+    if profiled:
+        device_ms = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                        if str(e.device_type()).endswith("CUDA")) / 1e6
+    return out, peak, device_ms
+
+
+def q_train_run(torch, cfg, opt, batch_fn, step_fn, steps, sharded):
+    """``steps`` steps from fresh seed-0 weights (``make_train_state``); with
+    ``sharded`` the state and batches are DTensors on the one-rank mesh.
+    Returns (losses, the first step's peak, the last step's device ms)."""
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models.params import init_model, tree_leaves
+    from repro_torch.training.train_state import make_train_state
+    state = make_train_state(init_model(cfg, seed=0, device="cuda"), opt)
+    if sharded:
+        state = tsteps.distribute_tree(state, sharded["in_pl"][0], sharded["mesh"])
+        for leaf in tree_leaves(state["params"]):
+            leaf.requires_grad_(True)
+    losses, peak, device_ms = [], 0, 0.0
+    for step in range(steps):
+        batch = batch_fn(step)
+        if sharded:
+            batch = tsteps.distribute_tree(batch, sharded["in_pl"][1], sharded["mesh"])
+        (state, m), p, ms = q_measure(torch, step_fn, state, batch,
+                                      profiled=step == steps - 1)
+        loss = m["loss"]
+        losses.append(float(loss.full_tensor() if hasattr(loss, "full_tensor") else loss))
+        peak, device_ms = (p, device_ms) if step == 0 else (peak, ms)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, peak, device_ms
+
+
+def q_trace(torch, cfg, shape, run, opt=None):
+    """The dry run of one step in a fake one-rank group: the walker's cost,
+    the memory record and the roofline terms at the H100's constants."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.dryrun import fake_group, memory_dict, stand_ins, trace_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.roofline import model_bytes, model_flops, terms_from_cost
+    from repro_torch.launch.steps import make_cell_step
+    with fake_group(1):
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        fn, specs, in_pl, _, meta = make_cell_step(cfg, shape, mesh, run, opt)
+        with FakeTensorMode():
+            args = stand_ins(meta, specs, in_pl, mesh)
+            out, mode, _, secs = trace_step(fn, args, sites=False, flop_counter=False)
+            mem = memory_dict(args, out, mode)
+    terms = terms_from_cost(mode.cost, 1, model_fl=model_flops(cfg, shape),
+                            model_by=model_bytes(cfg, shape))
+    return mode.cost, mem, terms, secs
+
+
+def q_check_trace(torch, card, rec):
+    """The dry run of a step the card ran (``rec``: what, cfg, shape, run,
+    opt, the measured peak and device ms), printed beside the card's run:
+    the predicted peak must be within ``Q_PEAK_BAND`` of the measured one
+    and the roofline fraction finite and at most ``Q_ROOF_MAX``."""
+    cost, mem, terms, secs = q_trace(torch, rec["cfg"], rec["shape"], rec["run"],
+                                     rec.get("opt"))
+    what, measured, device_ms = rec["what"], rec["peak"], rec["device_ms"]
+    pred = mem["peak_size_in_bytes"]
+    rel = abs(pred - measured) / measured
+    frac = terms.roofline_fraction
+    log(f"{Q_LABEL} [{what}] ({card}): dry run (fake one-rank group, traced in {secs:.1f} s "
+        f"on the host): {cost.ops} ops, {cost.flops:.4e} FLOPs, {cost.bytes:.4e} bytes, "
+        f"collectives {cost.collective_bytes:.0f} bytes; predicted peak {pred / 2**30:.3f} GiB "
+        f"(arguments {mem['argument_size_in_bytes'] / 2**30:.3f} + temp "
+        f"{mem['temp_size_in_bytes'] / 2**30:.3f}) against the card's "
+        f"{measured / 2**30:.3f} GiB (arguments + torch.cuda.max_memory_allocated over the "
+        f"step's start; {100 * rel:.1f}%, band {100 * Q_PEAK_BAND:.0f}%); t_ideal "
+        f"{terms.t_ideal * 1e3:.3f} ms at the H100's constants beside the step's device time "
+        f"{device_ms:.3f} ms (torch.profiler); t_bound {terms.t_bound * 1e3:.3f} ms "
+        f"({terms.dominant}), roofline_fraction {frac:.4f}")
+    if rel > Q_PEAK_BAND:
+        raise AssertionError(f"[{Q_LABEL} {what}] predicted peak {pred} vs measured "
+                             f"{measured}: {rel:.3f} > {Q_PEAK_BAND}")
+    if not math.isfinite(frac) or frac > Q_ROOF_MAX:
+        raise AssertionError(f"[{Q_LABEL} {what}] roofline_fraction {frac} (at most "
+                             f"{Q_ROOF_MAX}): the floor's count is wrong")
+
+
+def q_train(torch, mesh, card):
+    """Three ``make_train_step`` steps at n_micro 1 and 2 against three of
+    ``launch/train.py::make_step`` under the same plan, each from seed-0
+    weights: every loss within path d's band (1e-2 relative). Returns the
+    record of the n_micro 1 run for its dry run."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core.execution import ExecutionPlan
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.launch.train import make_step
+    from repro_torch.training.data import DataConfig, SyntheticLMData
+    from repro_torch.training.optimizer import OptConfig
+    _, cfg = olmoe_cut(Q_TRAIN["layers"])
+    B, S, n = Q_TRAIN["batch"], Q_TRAIN["seq"], Q_TRAIN["steps"]
+    shape = ShapeConfig(f"train_{B}x{S}", "train", S, B)
+    opt = OptConfig(learning_rate=1e-3, total_steps=n, warmup_steps=max(n // 10, 1))
+    data = SyntheticLMData(DataConfig(cfg.vocab_size, S, B, seed=0))
+    batch_fn = lambda step: {"tokens": torch.from_numpy(data.batch_at(step)["tokens"]).cuda()}
+    runs = {}
+    for n_micro in (1, 2):
+        run = RunConfig(remat_policy=TRAIN_REMAT, microbatch_size=B // n_micro)
+        fn, _, in_pl, _, got, _ = tsteps.make_train_step(cfg, shape, mesh, run, opt)
+        assert got == n_micro, (got, n_micro)
+        runs[n_micro] = q_train_run(torch, cfg, opt, batch_fn, fn, n,
+                                    {"in_pl": in_pl, "mesh": mesh})
+    plan = ExecutionPlan(moe_impl="grouped", use_kernels=False)
+    step_fn = make_step(cfg, opt, RunConfig(remat_policy=TRAIN_REMAT), plan=plan)
+    plain = q_train_run(torch, cfg, opt, batch_fn, step_fn, n, None)
+    what = (f"train {cfg.name} {cfg.num_layers} of 16 layers, {B} x {S} (reduced: not in "
+            f"SHAPES), remat={TRAIN_REMAT}")
+    for n_micro, (losses, peak, device_ms) in runs.items():
+        diffs = [abs(a - b) / abs(b) for a, b in zip(losses, plain[0])]
+        log(f"{Q_LABEL} [{what}] ({card}): make_train_step n_micro {n_micro} losses {losses} "
+            f"vs make_step {plain[0]}; largest relative difference {max(diffs):.3e} "
+            f"(band 1e-2); first step's peak {peak / 2**30:.3f} GiB, last step's device "
+            f"time {device_ms:.1f} ms")
+        if not all(math.isfinite(x) for x in losses) or max(diffs) > 1e-2:
+            raise AssertionError(f"[{Q_LABEL} train n_micro {n_micro}] losses depart from "
+                                 f"make_step's: {losses} vs {plain[0]}")
+    return dict(what=what + ", n_micro 1", cfg=cfg, shape=shape, opt=opt,
+                run=RunConfig(remat_policy=TRAIN_REMAT, microbatch_size=B),
+                peak=runs[1][1], device_ms=runs[1][2])
+
+
+def q_serve(torch, mesh, card):
+    """The prefill step (1 x 8192, flash tiles of ``Q_PREFILL_TILE``) and the
+    serve step (16 rows over a cache of 4096, ``duplex_k_cold``'s plan) at
+    full depth against the unsharded ``prefill`` / ``decode_step`` on the
+    same weights, inputs and tiles: equal next tokens. Returns the two
+    steps' records for their dry runs."""
+    import numpy as np
+    from repro_torch.configs import resolve_config
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core.execution import ExecutionPlan
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models.model import decode_step, init_cache, prefill
+    from repro_torch.models.params import init_model
+    cfg = resolve_config("olmoe-1b-7b")
+    params = init_model(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(7)
+    run = RunConfig()
+    recs = []
+    # prefill: 1 x 8192 into a fresh cache, at the grid's prefill tiles
+    B, S = Q_PREFILL
+    shape = ShapeConfig(f"prefill_{B}x{S}", "prefill", S, B)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    run_p = RunConfig(attn_q_block=Q_PREFILL_TILE, attn_kv_block=Q_PREFILL_TILE)
+    fn, _, in_pl, _, _ = tsteps.make_prefill_step(cfg, shape, mesh, run_p)
+    p_dt = tsteps.distribute_tree(params, in_pl[0], mesh)
+    true_len = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    batch = tsteps.distribute_tree({"tokens": toks, "true_len": true_len}, in_pl[1], mesh)
+    with torch.no_grad():
+        (tok_s, cache_s), peak, dev_ms = q_measure(torch, fn, p_dt, batch, profiled=True)
+        tok_s = tok_s.full_tensor()
+        del cache_s
+        cache = init_cache(cfg, B, S, device="cuda")
+        logits, cache = prefill(params, cfg, {"tokens": toks}, cache, true_len,
+                                plan=ExecutionPlan(use_kernels=False,
+                                                   attn_q_block=Q_PREFILL_TILE,
+                                                   attn_kv_block=Q_PREFILL_TILE))
+        tok_u = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        del cache, logits
+    what = (f"prefill {cfg.name} full depth, {B} x {S} (reduced: not in SHAPES), flash "
+            f"tiles {Q_PREFILL_TILE}")
+    log(f"{Q_LABEL} [{what}] ({card}): make_prefill_step next tokens {tok_s.tolist()} vs "
+        f"prefill {tok_u.tolist()}; device time {dev_ms:.1f} ms, peak {peak / 2**30:.3f} GiB")
+    if not torch.equal(tok_s, tok_u):
+        raise AssertionError(f"[{Q_LABEL} prefill] next tokens differ")
+    recs.append(dict(what=what, cfg=cfg, shape=shape, run=run_p, peak=peak, device_ms=dev_ms))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # decode: 16 rows over a 4096-position cache filled by an unsharded prefill
+    B, S = Q_DECODE
+    shape = ShapeConfig(f"decode_{B}x{S}", "decode", S, B)
+    lens = rng.integers(S // 4, S - 1, B).astype(np.int32)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    with torch.no_grad():
+        cache = init_cache(cfg, B, S, device="cuda")
+        logits, cache = prefill(params, cfg, {"tokens": toks}, cache,
+                                torch.from_numpy(lens).cuda(),
+                                plan=ExecutionPlan(use_kernels=False))
+        first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        del logits
+    fn, _, in_pl, _, plan, _ = tsteps.make_serve_step(cfg, shape, mesh, run)
+    cache_s = tsteps.distribute_tree([{"blocks": tuple({k: v.clone() for k, v in b.items()}
+                                                       for b in seg["blocks"])}
+                                      for seg in cache], in_pl[2], mesh)
+    batch = tsteps.distribute_tree({"tokens": first}, in_pl[1], mesh)
+    gc.collect()
+    with torch.no_grad():
+        (tok_s, _), peak, dev_ms = q_measure(torch, fn, p_dt, batch, cache_s, profiled=True)
+        tok_s = tok_s.full_tensor()
+        del cache_s
+        plan_u = ExecutionPlan(moe_impl=plan.moe_impl, k_cold=plan.k_cold, use_kernels=False)
+        logits, _, _ = decode_step(params, cfg, first, cache,
+                                   {"valid": torch.ones(B, dtype=torch.bool, device="cuda")},
+                                   plan=plan_u)
+        tok_u = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    what = (f"decode {cfg.name} full depth, {B} rows over {S} positions (reduced: not in "
+            f"SHAPES), {plan.moe_impl} k_cold {plan.k_cold}")
+    log(f"{Q_LABEL} [{what}] ({card}): make_serve_step next tokens {tok_s.tolist()} vs "
+        f"decode_step {tok_u.tolist()}; device time {dev_ms:.1f} ms, peak "
+        f"{peak / 2**30:.3f} GiB")
+    if not torch.equal(tok_s, tok_u):
+        raise AssertionError(f"[{Q_LABEL} decode] next tokens differ")
+    recs.append(dict(what=what, cfg=cfg, shape=shape, run=run, peak=peak, device_ms=dev_ms))
+    del cache, params, p_dt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs
+
+
+def q_cell(card):
+    """``python -m repro_torch.launch.dryrun`` for ``Q_CELL`` in a subprocess:
+    it must end ok on 256 fake ranks."""
+    import shutil
+    import tempfile
+    root = Path(__file__).resolve().parent
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        arch, shape = Q_CELL
+        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                            "--shape", shape, "--mesh", "single", "--out", out],
+                           capture_output=True, text=True, timeout=600, env=env, cwd=root)
+        wall = time.perf_counter() - t0
+        path = Path(out) / f"{arch}__{shape}__single.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        devices = rec.get("mesh_info", {}).get("num_devices")
+        log(f"{Q_LABEL} [dry run {arch} x {shape} x single] ({card}): exit {r.returncode}, "
+            f"status {rec.get('status')}, {devices} devices, trace {rec.get('trace_s', 0):.1f} s, "
+            f"{wall:.1f} s of wall with the interpreter's start; t_bound "
+            f"{rec.get('roofline', {}).get('t_bound')}")
+        if r.returncode != 0 or rec.get("status") != "ok" or devices != 256:
+            raise AssertionError(f"[{Q_LABEL}] the dry run failed: {r.stdout[-2000:]}"
+                                 f"{r.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def steps_phase(torch):
+    """Path q: the train, prefill and serve step builders on a one-rank NCCL
+    mesh, their dry runs in a fake one-rank group, and a production cell.
+    The launch counts are set to 0 just before and read just after: no
+    kernel may launch (the steps run the plain paths, as the reference's)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_mesh, process_group
+    card = gpu_name_and_power()
+    t0 = time.perf_counter()
+    build.reset_launch_counts()
+    with process_group("cuda"):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        recs = [q_train(torch, mesh, card)] + q_serve(torch, mesh, card)
+    launched = {k: n for k, n in build.launch_counts.items() if n}
+    log(f"{Q_LABEL} ({card}): kernel launches on the path: {json.dumps(launched)}")
+    if launched:
+        raise AssertionError(f"[{Q_LABEL}] the steps launched kernels: {launched}")
+    for rec in recs:                      # the dry runs need the real group gone
+        q_check_trace(torch, card, rec)
+    q_cell(card)
+    log(f"{Q_LABEL} ({card}): path q took {time.perf_counter() - t0:.1f} s")
+
+
 def check_against_plain(torch, cfg, params, label, flags):
     """One mixed stage (a 64-token chunk after a written 64-token prefix,
     plus two decode rows) through the path's kernels and through the plain
@@ -3831,6 +4148,9 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         remat_phase(torch, path_d)
+        gc.collect()
+        torch.cuda.empty_cache()
+        steps_phase(torch)
         log(f"kernels: launches by path (each counted from 0 over its own run): "
             f"{json.dumps(by_path)}")
     print(json.dumps({"kernels": list(rows.values())}))

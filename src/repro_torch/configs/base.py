@@ -137,13 +137,126 @@ class ModelConfig:
         assert self.num_heads % self.num_kv_heads == 0
         return self
 
+    # ---- parameter counting (the roofline's MODEL_FLOPS and the dry run) ----
+    def param_count(self) -> int:
+        return _param_count(self)
+
+    def active_param_count(self) -> int:
+        return _param_count(self, active_only=True)
+
+
+def _ffn_params(cfg: ModelConfig, kind: str, active_only: bool) -> int:
+    d = cfg.d_model
+    mats = 3 if cfg.gated_ffn else 2
+    if kind == DENSE:
+        return mats * d * cfg.d_ff
+    if kind == MOE:
+        m = cfg.moe
+        per_expert = mats * d * m.d_ff_expert
+        shared = mats * d * m.d_ff_shared if m.num_shared_experts else 0
+        router = d * m.num_experts
+        n_active = m.top_k if active_only else m.num_experts
+        return per_expert * n_active + shared + router
+    return 0
+
+
+def _mixer_params(cfg: ModelConfig, kind: str) -> int:
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    if kind in (ATTN, ATTN_LOCAL, ATTN_BIDIR):
+        q = d * cfg.num_heads * hd
+        kv = 2 * d * cfg.num_kv_heads * hd
+        o = cfg.num_heads * hd * d
+        return q + kv + o
+    if kind == ATTN_CROSS:  # self + cross attention
+        return 2 * _mixer_params(cfg, ATTN)
+    if kind == MAMBA:
+        s = cfg.ssm
+        d_in = s.d_inner(d)
+        nh = s.nheads(d)
+        in_proj = d * (2 * d_in + 2 * s.ngroups * s.d_state + nh)
+        conv = s.d_conv * (d_in + 2 * s.ngroups * s.d_state)
+        out_proj = d_in * d
+        extras = 3 * nh  # A_log, D, dt_bias
+        return in_proj + conv + out_proj + extras
+    raise ValueError(kind)
+
+
+def _param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """The reference's analytic count (``repro/configs/base.py::_param_count``):
+    embedding, LM head unless tied, per layer its mixer, FFN (top-k experts
+    with ``active_only``) and two norm vectors, the encoder's layers alike,
+    and the final norm. Biases and QK-norm scales are not counted, as
+    there."""
+    total = cfg.vocab_size * cfg.d_model  # embedding
+    if not cfg.tie_embeddings:
+        total += cfg.vocab_size * cfg.d_model
+    for k in cfg.layer_kinds():
+        total += _mixer_params(cfg, k.mixer)
+        total += _ffn_params(cfg, k.ffn, active_only)
+        total += 2 * cfg.d_model  # norms
+    if cfg.is_encoder_decoder:
+        for seg in cfg.enc_segments:
+            for k in seg.pattern:
+                total += (_mixer_params(cfg, k.mixer)
+                          + _ffn_params(cfg, k.ffn, active_only)
+                          + 2 * cfg.d_model) * seg.repeats
+    total += cfg.d_model  # final norm
+    return total
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the cell grid: a train, prefill or decode step of
+    ``global_batch`` sequences of ``seq_len`` positions (a decode step
+    attends a cache of ``seq_len`` positions)."""
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+# the architectures a long_500k cell runs: sub-quadratic (Mamba), hybrid or
+# mostly windowed attention
+LONG_CONTEXT_ARCHS = ("jamba-v0.1-52b", "mamba2-2.7b", "gemma3-4b")
+
+
+def shape_applicable(arch_name: str, shape_name: str) -> bool:
+    if shape_name == "long_500k":
+        return arch_name in LONG_CONTEXT_ARCHS
+    return True
+
 
 @dataclass(frozen=True)
 class RunConfig:
-    """The training run's knobs the port takes from the reference's
-    ``RunConfig``: activation rematerialisation per super-block ("full",
-    "dots" or "none"), the flash core's tiles and its bf16 score chain."""
+    """Training and serving knobs that change what a step computes, with the
+    reference's names and defaults: the microbatch size (0: chosen by
+    ``launch/steps.py::auto_num_micro``), activation rematerialisation per
+    super-block ("full", "dots" or "none"), the MoE layout ("ep", "tp" or
+    "auto"), the optimizer's settings, the cross-pod gradient compression
+    ("none" or "int8_ef"), sequence-sharded activations, the int8 KV
+    cache of decode cells, and the flash core's tiles and bf16 score
+    chain. ``scan_layers`` is kept for the reference's field set: the
+    port walks layers in a Python loop either way."""
+    microbatch_size: int = 0
     remat_policy: str = "full"
+    moe_sharding: str = "auto"
+    optimizer: str = "adamw"
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    adam_dtype: str = "float32"
+    grad_compression: str = "none"
+    seq_shard_activations: bool = False
+    scan_layers: bool = True
+    kv_quant: bool = False
     attn_q_block: int = 512
     attn_kv_block: int = 512
     attn_score_bf16: bool = False

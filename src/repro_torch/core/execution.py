@@ -78,6 +78,6 @@ def moe_execute(params, cfg: ModelConfig, x, plan: ExecutionPlan = DEFAULT_PLAN,
                                 c_hot=plan.c_hot, c_cold=plan.c_cold,
                                 use_kernels=plan.use_kernels,
                                 ragged=plan.moe_ragged,
-                                token_valid=token_valid)
+                                token_valid=token_valid, plan=plan)
     from repro_torch.models.moe import moe_apply
-    return moe_apply(params, cfg, x, token_valid=token_valid)
+    return moe_apply(params, cfg, x, token_valid=token_valid, plan=plan)

@@ -132,6 +132,15 @@ def attention_decode_cost(cfg: ModelConfig, ctx: int, *, window: int = 0,
     return OpCost("attn_decode", flops, 0.0, kv_bytes + act)
 
 
+def _window_pairs(n: int, window: int) -> int:
+    """sum_{i<n} min(i + 1, window) in closed form: the score pairs of n
+    causal queries under a sliding window (the reference sums them one
+    query at a time)."""
+    if n <= window:
+        return n * (n + 1) // 2
+    return window * (window + 1) // 2 + (n - window) * window
+
+
 def attention_prefill_cost(cfg: ModelConfig, s: int, *, window: int = 0,
                            causal: bool = True,
                            kv_quant: bool = False) -> OpCost:
@@ -139,7 +148,7 @@ def attention_prefill_cost(cfg: ModelConfig, s: int, *, window: int = 0,
     hd = cfg.resolved_head_dim
     h = cfg.num_heads
     if window > 0:
-        pairs = sum(min(i + 1, window) for i in range(s))
+        pairs = _window_pairs(s, window)
     elif causal:
         pairs = s * (s + 1) // 2
     else:
@@ -159,7 +168,7 @@ def attention_chunk_cost(cfg: ModelConfig, start: int, end: int, *,
     hd = cfg.resolved_head_dim
     h = cfg.num_heads
     if window > 0:
-        pairs = sum(min(q + 1, window) for q in range(start, end))
+        pairs = _window_pairs(end, window) - _window_pairs(start, window)
         kv_read = min(end, window + (end - start))
     else:
         # sum_{q=start}^{end-1} (q+1) causal pairs

@@ -52,14 +52,20 @@ from repro_torch.kernels.flash_attn import (_block_pairs, _kv_blocks, _pair_mask
                                             _unblock_q, flash_attention_bwd_plain,
                                             flash_attention_plain)
 from repro_torch.kernels.quant import int8_quantize
-from repro_torch.models.layers import apply_rope, rmsnorm
+from repro_torch.models.layers import apply_rope, linear, rmsnorm
+from repro_torch.sharding.rules import (heads_local, local_call, logical_constraint,
+                                        split_last, take_rows, write_rows)
+
+# the reference's constraints on q and on k, v (B, S, heads, hd)
+Q_AXES = ("act_batch", "act_seq", "act_heads", None)
+KV_AXES = ("act_batch", "act_seq", "act_kv_heads", None)
 
 NEG_INF = -1e30
 POS_EMPTY = 2 ** 31 - 1     # "pos" of a dense-cache slot never written
 
 
 def _linear(params, x):
-    y = torch.matmul(x, params["kernel"])
+    y = linear(x, params["kernel"])
     if "bias" in params:
         y = y + params["bias"].to(y.dtype)
     return y
@@ -69,9 +75,9 @@ def _project_qkv(params, cfg: ModelConfig, x, positions):
     """x (B,S,D) -> q (B,S,H,hd), k,v (B,S,KV,hd); qk-norm before rope."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = _linear(params["wq"], x).reshape(B, S, cfg.num_heads, hd)
-    k = _linear(params["wk"], x).reshape(B, S, cfg.num_kv_heads, hd)
-    v = _linear(params["wv"], x).reshape(B, S, cfg.num_kv_heads, hd)
+    q = split_last(_linear(params["wq"], x), (cfg.num_heads, hd), Q_AXES)
+    k = split_last(_linear(params["wk"], x), (cfg.num_kv_heads, hd), KV_AXES)
+    v = split_last(_linear(params["wv"], x), (cfg.num_kv_heads, hd), KV_AXES)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
@@ -174,6 +180,9 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
     valid entries including the current token; ``kv_positions`` (B,Smax)
     the absolute position each slot holds (a dense cache's "pos" leaf),
     default the slot index. -> (B,1,H,hd)."""
+    if hasattr(k_cache, "device_mesh"):
+        return _decode_sharded(q, k_cache, v_cache, cache_len, window=window,
+                               softcap=softcap, kv_positions=kv_positions)
     B, _, H, hd = q.shape
     Smax, KV = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(B, KV, H // KV, hd)
@@ -190,6 +199,69 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgpk,bkgh->bgph", p.to(v_cache.dtype), v_cache)
     return out.reshape(B, 1, H, hd)
+
+
+def _decode_sharded(q, k_cache, v_cache, cache_len, *, window, softcap, kv_positions):
+    """``decode_attention`` on DTensor caches, shard by shard (``local_map``):
+    each shard attends its rows and KV heads; q's heads follow the cache's
+    (gathered where the cache keeps its heads whole). A cache sharded along
+    its sequence (context parallelism) is attended block by block, and the
+    blocks' softmax statistics combined across those mesh dimensions by
+    max- and sum-all-reduces (flash-decoding's merge); otherwise each shard
+    runs the plain path on its local blocks."""
+    from torch.distributed._functional_collectives import all_reduce
+    from torch.distributed.tensor import Replicate
+    mesh = k_cache.device_mesh
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    c_pl = [Replicate() if p.is_partial() else p for p in k_cache.placements]
+    seq_dims = [i for i, p in enumerate(c_pl) if p.is_shard(1)]
+    q_pl = [p if p.is_shard(0) or p.is_shard(2) else Replicate() for p in c_pl]
+    row_pl = [p if p.is_shard(0) else Replicate() for p in c_pl]
+    pos_pl = [p if p.is_shard(0) or p.is_shard(1) else Replicate() for p in c_pl]
+    out_pl = q_pl
+
+    def local(ql, kl, vl, ll, pl):
+        if not seq_dims:
+            return decode_attention(ql, kl, vl, ll, window=window, softcap=softcap,
+                                    kv_positions=pl)
+        Bl, _, Hl, _ = ql.shape
+        Sl, KVl = kl.shape[1], kl.shape[2]
+        qg = ql.reshape(Bl, KVl, Hl // KVl, hd)
+        s = torch.einsum("bgph,bkgh->bgpk", qg.float(), kl.float()) / math.sqrt(hd)
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        if pl is None:
+            coord = mesh.get_coordinate()
+            start, stride = 0, Sl
+            for i in reversed(seq_dims):
+                start += coord[i] * stride
+                stride *= mesh.size(i)
+            pos = torch.arange(start, start + Sl, device=ql.device)[None]
+        else:
+            pos = pl.long()
+        lens = ll.long()[:, None]
+        valid = pos < lens
+        if window > 0:
+            valid = valid & (pos > lens - 1 - window)
+        valid = valid[:, None, None]
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m = s.amax(dim=-1)
+        p = torch.where(valid, torch.exp(s - m[..., None]), torch.zeros_like(s))
+        l = p.sum(dim=-1)
+        acc = torch.einsum("bgpk,bkgh->bgph", p.to(vl.dtype).float(), vl.float())
+        for i in seq_dims:
+            m_all = all_reduce(m, "max", (mesh, i))
+            scale = torch.exp(m - m_all)
+            l = all_reduce(l * scale, "sum", (mesh, i))
+            acc = all_reduce(acc * scale[..., None], "sum", (mesh, i))
+            m = m_all
+        out = acc / torch.clamp(l, min=1e-37)[..., None]
+        return out.reshape(Bl, 1, Hl, hd).to(vl.dtype)
+
+    return local_call(local, mesh, out_pl,
+                      (q_pl, c_pl, c_pl, row_pl, pos_pl if kv_positions is not None else None),
+                      q, k_cache, v_cache, cache_len, kv_positions)
 
 
 def chunk_attention(q, k_ctx, v_ctx, q_positions, kv_positions, kv_len, *,
@@ -487,16 +559,23 @@ def attention_forward(params, cfg: ModelConfig, x, positions, call: AttnCall,
     (B,S,D), and (k, v) (B,S,KV,hd) with ``return_kv``."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, cfg, x, positions)
-    if S > call.q_block:
-        out = blockwise_attention(q, k, v, causal=call.causal, window=call.window,
-                                  softcap=cfg.attn_logit_softcap,
-                                  q_block=call.q_block, kv_block=call.kv_block,
-                                  use_kernels=use_kernels, score_bf16=call.score_bf16,
-                                  segment_ids=segment_ids)
-    else:
-        out = full_attention(q, k, v, causal=call.causal, window=call.window,
-                             softcap=cfg.attn_logit_softcap, segment_ids=segment_ids)
-    y = torch.matmul(out.reshape(B, S, -1), params["wo"]["kernel"])
+    q = logical_constraint(q, Q_AXES)
+    k = logical_constraint(k, KV_AXES)
+    v = logical_constraint(v, KV_AXES)
+
+    def core(q, k, v):
+        if S > call.q_block:
+            return blockwise_attention(q, k, v, causal=call.causal, window=call.window,
+                                       softcap=cfg.attn_logit_softcap,
+                                       q_block=call.q_block, kv_block=call.kv_block,
+                                       use_kernels=use_kernels, score_bf16=call.score_bf16,
+                                       segment_ids=segment_ids)
+        return full_attention(q, k, v, causal=call.causal, window=call.window,
+                              softcap=cfg.attn_logit_softcap, segment_ids=segment_ids)
+
+    out = heads_local(core, q, k, v)
+    y = linear(out.reshape(B, S, -1), params["wo"]["kernel"])
+    y = logical_constraint(y, ("act_batch", "act_seq", "act_embed"))
     if return_kv:
         return y, (k, v)
     return y
@@ -509,13 +588,15 @@ def cross_attention_forward(params, cfg: ModelConfig, x, kv, segment_ids=None,
     ``kv_segment_ids``, default ``segment_ids``, as in ``full_attention``).
     The unblocked plain path at any length, as the reference runs it."""
     B, S, _ = x.shape
-    q = _linear(params["wq"], x).reshape(B, S, cfg.num_heads, cfg.resolved_head_dim)
+    q = split_last(_linear(params["wq"], x), (cfg.num_heads, cfg.resolved_head_dim),
+                   Q_AXES)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
     k, v = kv
-    out = full_attention(q, k, v, causal=False, segment_ids=segment_ids,
-                         kv_segment_ids=kv_segment_ids)
-    return torch.matmul(out.reshape(B, S, -1), params["wo"]["kernel"])
+    out = heads_local(lambda q, k, v: full_attention(
+        q, k, v, causal=False, segment_ids=segment_ids, kv_segment_ids=kv_segment_ids),
+        q, k, v)
+    return linear(out.reshape(B, S, -1), params["wo"]["kernel"])
 
 
 def cross_kv(params, cfg: ModelConfig, enc_out):
@@ -523,8 +604,8 @@ def cross_kv(params, cfg: ModelConfig, enc_out):
     once a request (k-norm, no rope)."""
     B, S, _ = enc_out.shape
     hd = cfg.resolved_head_dim
-    k = _linear(params["wk"], enc_out).reshape(B, S, cfg.num_kv_heads, hd)
-    v = _linear(params["wv"], enc_out).reshape(B, S, cfg.num_kv_heads, hd)
+    k = split_last(_linear(params["wk"], enc_out), (cfg.num_kv_heads, hd), KV_AXES)
+    v = split_last(_linear(params["wv"], enc_out), (cfg.num_kv_heads, hd), KV_AXES)
     if cfg.qk_norm:
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
     return k, v
@@ -541,15 +622,18 @@ def is_ring(cache, window: int) -> bool:
     return window > 0 and cache["k"].shape[1] == window + 1
 
 
-def _write_kv(cache, bidx, idx, k, v) -> None:
+def _write_kv(cache, idx, k, v) -> None:
     """Write K/V (and, into an int8 cache, their int8 values and float32
-    scales per (token, KV head)) at ``cache[leaf][bidx, idx]``."""
+    scales per (token, KV head)) at ``cache[leaf][b, idx[b]]`` of every
+    row b (``sharding/rules.py::write_rows``)."""
     if "k_scale" in cache:
-        cache["k"][bidx, idx], cache["k_scale"][bidx, idx] = quantize_kv(k)
-        cache["v"][bidx, idx], cache["v_scale"][bidx, idx] = quantize_kv(v)
+        for name, x in (("k", k), ("v", v)):
+            q, sc = quantize_kv(x)
+            write_rows(cache[name], idx, q)
+            write_rows(cache[name + "_scale"], idx, sc)
     else:
-        cache["k"][bidx, idx] = k.to(cache["k"].dtype)
-        cache["v"][bidx, idx] = v.to(cache["v"].dtype)
+        write_rows(cache["k"], idx, k.to(cache["k"].dtype))
+        write_rows(cache["v"], idx, v.to(cache["v"].dtype))
 
 
 def write_prefill_cache(cache, k, v, true_len, *, window: int = 0):
@@ -570,13 +654,12 @@ def write_prefill_cache(cache, k, v, true_len, *, window: int = 0):
     size = cache["k"].shape[1]
     dev = k.device
     tl = true_len.long()[:, None]
-    bidx = torch.arange(B, device=dev)[:, None]
     if is_ring(cache, window):
         r = torch.arange(window, device=dev)[None]
         src = tl - 1 - torch.remainder(tl - 1 - r, window)       # (B, window)
         valid = src >= 0
         src = torch.clamp(src, min=0)
-        new = {"pos": src, "k": k[bidx, src], "v": v[bidx, src]}
+        new = {"pos": src, "k": take_rows(k, src), "v": take_rows(v, src)}
         if "k_scale" in cache:
             new["k"], new["k_scale"] = quantize_kv(new["k"])
             new["v"], new["v_scale"] = quantize_kv(new["v"])
@@ -584,13 +667,13 @@ def write_prefill_cache(cache, k, v, true_len, *, window: int = 0):
             leaf = cache[name][:, :window]
             keep = valid.reshape(valid.shape + (1,) * (vals.dim() - 2))
             leaf.copy_(torch.where(keep, vals.to(leaf.dtype), leaf))
-        cache["pos"][:, window] = POS_EMPTY
+        cache["pos"][:, window].fill_(POS_EMPTY)
     else:
         pos = torch.arange(S, device=dev)[None].expand(B, S)
         idx = torch.clamp(pos, max=size - 1)
-        cache["pos"][bidx, idx] = torch.where(pos < tl, pos, torch.full_like(pos, POS_EMPTY)
-                                              ).to(cache["pos"].dtype)
-        _write_kv(cache, bidx, idx, k, v)
+        write_rows(cache["pos"], idx, torch.where(pos < tl, pos, torch.full_like(
+            pos, POS_EMPTY)).to(cache["pos"].dtype))
+        _write_kv(cache, idx, k, v)
     cache["len"].copy_(true_len)
     return cache
 
@@ -621,10 +704,9 @@ def attention_decode_step(params, cfg: ModelConfig, x, cache, *, window: int = 0
     Smax = cache["k"].shape[1]
     ring = is_ring(cache, window)
     write_idx = positions % window if ring else torch.clamp(positions, max=Smax - 1)
-    bidx = torch.arange(B, device=x.device)
-    cache["pos"][bidx, write_idx] = positions.to(cache["pos"].dtype)
+    write_rows(cache["pos"], write_idx, positions.to(cache["pos"].dtype))
     new_len = positions + 1
-    _write_kv(cache, bidx, write_idx, k[:, 0], v[:, 0])
+    _write_kv(cache, write_idx, k[:, 0], v[:, 0])
     if "k_scale" in cache:
         out = decode_attention_int8(q, cache["k"], cache["k_scale"], cache["v"],
                                     cache["v_scale"], new_len, window=window,
@@ -639,7 +721,7 @@ def attention_decode_step(params, cfg: ModelConfig, x, cache, *, window: int = 0
                                softcap=cfg.attn_logit_softcap,
                                kv_positions=cache["pos"])
     cache["len"].copy_(new_len)
-    y = torch.matmul(out.reshape(B, 1, -1), params["wo"]["kernel"])
+    y = linear(out.reshape(B, 1, -1), params["wo"]["kernel"])
     return y, cache
 
 
@@ -732,5 +814,5 @@ def attention_chunk_step(params, cfg: ModelConfig, x, cache, chunk_ctx):
     else:
         out = chunk_attention(q, cache["k"][slots], cache["v"][slots], positions, kv_pos,
                               total, softcap=cfg.attn_logit_softcap)
-    y = torch.matmul(out.reshape(Bc, Sc, -1), params["wo"]["kernel"])
+    y = linear(out.reshape(Bc, Sc, -1), params["wo"]["kernel"])
     return y, cache

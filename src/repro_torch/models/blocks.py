@@ -23,15 +23,16 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from repro_torch.configs.base import (ATTN, ATTN_BIDIR, ATTN_CROSS, ATTN_LOCAL, MAMBA,
                                       MOE, NONE, LayerKind, ModelConfig)
 from repro_torch.core.execution import ExecutionPlan, moe_execute
-from repro_torch.models.attention import (POS_EMPTY, AttnCall, attention_chunk_step,
+from repro_torch.models.attention import (POS_EMPTY, Q_AXES, AttnCall, attention_chunk_step,
                                           attention_decode_step, attention_forward,
                                           cross_attention_forward, cross_kv,
                                           decode_attention, paged_attention_chunk_step,
                                           paged_attention_decode_step,
                                           write_prefill_cache)
 from repro_torch.models.ffn import ffn_apply
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import linear, rmsnorm
 from repro_torch.models.ssm import mamba_decode_step, mamba_forward, mamba_init_cache
+from repro_torch.sharding.rules import split_last
 
 
 def _window(cfg: ModelConfig, kind: LayerKind) -> int:
@@ -216,7 +217,8 @@ def _ffn(params, cfg, kind, h, plan, valid=None, counts=None):
         return ffn_apply(params["ffn"], h), None
     out, router = moe_execute(params["ffn"], cfg, h, plan, token_valid=valid)
     if counts is not None:
-        counts += router.counts.float()
+        c = router.counts.float()
+        counts += c.full_tensor() if hasattr(c, "full_tensor") else c
     return out, router.aux_loss
 
 
@@ -246,11 +248,12 @@ def block_decode_step(params, cfg: ModelConfig, kind: LayerKind, x, cache,
         # to "cross_len", q projected without the bias (whisper has none)
         h = rmsnorm(params["norm_cross"], x, cfg.norm_eps)
         B, hd = x.shape[0], cfg.resolved_head_dim
-        q = torch.matmul(h, params["cross"]["wq"]["kernel"]).reshape(B, 1, cfg.num_heads, hd)
+        q = split_last(linear(h, params["cross"]["wq"]["kernel"]), (cfg.num_heads, hd),
+                       Q_AXES)
         if cfg.qk_norm:
             q = rmsnorm(params["cross"]["q_norm"], q, cfg.norm_eps)
         out = decode_attention(q, cache["cross_k"], cache["cross_v"], cache["cross_len"])
-        x = x + torch.matmul(out.reshape(B, 1, -1), params["cross"]["wo"]["kernel"])
+        x = x + linear(out.reshape(B, 1, -1), params["cross"]["wo"]["kernel"])
     if kind.ffn == NONE:
         return x
     h = rmsnorm(params["norm2"], x, cfg.norm_eps)

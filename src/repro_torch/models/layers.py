@@ -31,5 +31,16 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def linear(x, w):
+    """``torch.matmul(x, w)`` of an activation and a weight; a >= 3-D DTensor
+    activation times a 2-D DTensor weight runs shard by shard
+    (``sharding/rules.py::sharded_linear``)."""
+    if x.dim() >= 3 and w.dim() == 2 and hasattr(x, "device_mesh") \
+            and hasattr(w, "device_mesh"):
+        from repro_torch.sharding.rules import sharded_linear
+        return sharded_linear(x, w)
+    return torch.matmul(x, w)
+
+
 def embed_lookup(params, tokens):
     return params["table"][tokens.long()]

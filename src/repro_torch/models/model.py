@@ -28,8 +28,9 @@ from repro_torch.models.attention import dense_chunk_writes
 from repro_torch.models.blocks import (segment_decode_step, segment_forward,
                                        segment_init_cache, segment_mixed_step,
                                        segment_prefill)
-from repro_torch.models.layers import embed_lookup, rmsnorm
+from repro_torch.models.layers import embed_lookup, linear, rmsnorm
 from repro_torch.models.params import DTYPES
+from repro_torch.sharding.rules import gather_last, logical_constraint, seq_whole
 
 
 def _lm_head(params, cfg: ModelConfig, x):
@@ -40,7 +41,8 @@ def _lm_head(params, cfg: ModelConfig, x):
     if table is None:
         table = (params["embed"]["table"] if cfg.tie_embeddings
                  else params["lm_head"]["table"]).float()
-    return torch.matmul(x.float(), table.t())
+    logits = linear(x.float(), table.t())
+    return logical_constraint(logits, ("act_batch", "act_seq", "act_vocab"))
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch):
@@ -56,6 +58,7 @@ def _embed_inputs(params, cfg: ModelConfig, batch):
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    x = logical_constraint(x, ("act_batch", "act_seq", "act_embed"))
     return x, positions
 
 
@@ -119,10 +122,11 @@ def _chunked_ce(logits_fn, x, labels, mask, chunk: int = 1024):
     number (one product and zeros), without the (B, chunk, V) one-hot."""
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     count = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, labels, mask = seq_whole(x), seq_whole(labels), seq_whole(mask)
     for s0 in range(0, x.shape[1], chunk):
         logits = logits_fn(x[:, s0:s0 + chunk])                   # (B, c, V) float32
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, s0:s0 + chunk, None])[..., 0]
+        gold = gather_last(logits, labels[:, s0:s0 + chunk])
         ms = mask[:, s0:s0 + chunk]
         total = total + ((lse - gold) * ms).sum()
         count = count + ms.sum()
@@ -146,12 +150,16 @@ def loss_fn(params, cfg: ModelConfig, batch, *, plan: ExecutionPlan = DEFAULT_PL
     if cfg.family == "vlm" and "patch_embeds" in batch:
         labels = torch.nn.functional.pad(labels, (batch["patch_embeds"].shape[1], 0),
                                          value=-100)
-    mask = (labels >= 0).float()
+    # a padded DTensor comes back replicated: the labels and their mask are
+    # placed as the tokens, or the loss's backward runs at the global batch
+    labels = logical_constraint(labels, ("act_batch", "act_seq"))
+    mask = logical_constraint((labels >= 0).float(), ("act_batch", "act_seq"))
     table = (params["embed"]["table"] if cfg.tie_embeddings
              else params["lm_head"]["table"]).float()
 
     def logits_fn(xs):
-        return torch.matmul(xs.float(), table.t())
+        logits = linear(xs.float(), table.t())
+        return logical_constraint(logits, ("act_batch", "act_seq", "act_vocab"))
 
     ce = _chunked_ce(logits_fn, x, torch.clamp(labels, min=0), mask)
     return ce + aux_total, {"ce": ce, "aux": aux_total}
@@ -210,6 +218,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, attn_ctx, *,
     of MoE routing). Returns (logits, cache, counts) where counts are the
     per-expert routed-token counts summed over MoE layers ((E,) float32)."""
     x = embed_lookup(params["embed"], tokens).to(DTYPES[cfg.dtype])
+    x = logical_constraint(x, ("act_batch", None, "act_embed"))
     counts = _counts(cfg, x.device)
     for seg, seg_params, seg_cache in zip(cfg.segments, params["segments"], cache):
         x = segment_decode_step(seg_params, cfg, seg, x, seg_cache, attn_ctx,

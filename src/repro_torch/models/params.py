@@ -21,7 +21,7 @@ a segment is ``leaf[i]``.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,12 +35,19 @@ class Spec(NamedTuple):
     shape: Tuple[int, ...]
     dtype: str
     init: str = "normal"       # normal | small_normal | ones | zeros | ssm_a | ssm_dt
+    # one logical axis name (or None) per dim, resolved to mesh dimensions
+    # by ``sharding/rules.py`` (the reference's ``ParamSpec.axes``)
+    axes: Tuple[Optional[str], ...] = ()
 
 
-def _dense(d_in, d_out, pd, bias=False):
-    out = {"kernel": Spec((d_in, d_out), pd)}
+def _norm(dim, pd):
+    return {"scale": Spec((dim,), pd, "ones", (None,))}
+
+
+def _dense(d_in, d_out, pd, axes, bias=False):
+    out = {"kernel": Spec((d_in, d_out), pd, "normal", axes)}
     if bias:
-        out["bias"] = Spec((d_out,), pd, "zeros")
+        out["bias"] = Spec((d_out,), pd, "zeros", (axes[1],))
     return out
 
 
@@ -52,25 +59,27 @@ def mamba_specs(cfg: ModelConfig) -> dict:
     d_in, nheads = s.d_inner(d), s.nheads(d)
     conv_dim = d_in + 2 * s.ngroups * s.d_state
     d_proj = 2 * d_in + 2 * s.ngroups * s.d_state + nheads
-    return {"in_proj": Spec((d, d_proj), pd),
-            "conv_w": Spec((s.d_conv, conv_dim), pd),
-            "conv_b": Spec((conv_dim,), pd, "zeros"),
-            "A_log": Spec((nheads,), "float32", "ssm_a"),
-            "D": Spec((nheads,), "float32", "ones"),
-            "dt_bias": Spec((nheads,), "float32", "ssm_dt"),
-            "norm": {"scale": Spec((d_in,), pd, "ones")},
-            "out_proj": Spec((d_in, d), pd)}
+    return {"in_proj": Spec((d, d_proj), pd, "normal", ("embed", "mlp")),
+            "conv_w": Spec((s.d_conv, conv_dim), pd, "normal", ("conv", "mlp")),
+            "conv_b": Spec((conv_dim,), pd, "zeros", ("mlp",)),
+            "A_log": Spec((nheads,), "float32", "ssm_a", (None,)),
+            "D": Spec((nheads,), "float32", "ones", (None,)),
+            "dt_bias": Spec((nheads,), "float32", "ssm_dt", (None,)),
+            "norm": _norm(d_in, pd),
+            "out_proj": Spec((d_in, d), pd, "normal", ("mlp", "embed"))}
 
 
 def _attention_specs(cfg: ModelConfig) -> dict:
     d, hd, pd = cfg.d_model, cfg.resolved_head_dim, cfg.param_dtype
-    mixer = {"wq": _dense(d, cfg.num_heads * hd, pd, cfg.attn_bias),
-             "wk": _dense(d, cfg.num_kv_heads * hd, pd, cfg.attn_bias),
-             "wv": _dense(d, cfg.num_kv_heads * hd, pd, cfg.attn_bias),
-             "wo": _dense(cfg.num_heads * hd, d, pd)}
+    mixer = {"wq": _dense(d, cfg.num_heads * hd, pd, ("embed", "heads"), cfg.attn_bias),
+             "wk": _dense(d, cfg.num_kv_heads * hd, pd, ("embed", "kv_heads"),
+                          cfg.attn_bias),
+             "wv": _dense(d, cfg.num_kv_heads * hd, pd, ("embed", "kv_heads"),
+                          cfg.attn_bias),
+             "wo": _dense(cfg.num_heads * hd, d, pd, ("heads", "embed"))}
     if cfg.qk_norm:
-        mixer["q_norm"] = {"scale": Spec((hd,), pd, "ones")}
-        mixer["k_norm"] = {"scale": Spec((hd,), pd, "ones")}
+        mixer["q_norm"] = _norm(hd, pd)
+        mixer["k_norm"] = _norm(hd, pd)
     return mixer
 
 
@@ -79,16 +88,18 @@ def _block_specs(cfg: ModelConfig, kind) -> dict:
     adds "cross" (an attention's projections) and "norm_cross"
     (``repro/models/blocks.py::block_specs``); then the FFN."""
     d, pd = cfg.d_model, cfg.param_dtype
-    specs = {"norm1": {"scale": Spec((d,), pd, "ones")},
+    specs = {"norm1": _norm(d, pd),
              "mixer": mamba_specs(cfg) if kind.mixer == MAMBA else _attention_specs(cfg)}
     if kind.mixer == ATTN_CROSS:
         specs["cross"] = _attention_specs(cfg)
-        specs["norm_cross"] = {"scale": Spec((d,), pd, "ones")}
+        specs["norm_cross"] = _norm(d, pd)
     return _ffn_specs(cfg, kind, specs)
 
 
 def _gated_ffn(d: int, f: int, pd: str) -> dict:
-    return {"wi_gate": Spec((d, f), pd), "wi_up": Spec((d, f), pd), "wo": Spec((f, d), pd)}
+    return {"wi_gate": Spec((d, f), pd, "normal", ("embed", "mlp")),
+            "wi_up": Spec((d, f), pd, "normal", ("embed", "mlp")),
+            "wo": Spec((f, d), pd, "normal", ("mlp", "embed"))}
 
 
 def _ffn_specs(cfg: ModelConfig, kind, specs: Dict[str, Any]) -> dict:
@@ -97,23 +108,30 @@ def _ffn_specs(cfg: ModelConfig, kind, specs: Dict[str, Any]) -> dict:
     neither, as in the reference."""
     d, pd = cfg.d_model, cfg.param_dtype
     if kind.ffn != NONE and not cfg.parallel_block:
-        specs["norm2"] = {"scale": Spec((d,), pd, "ones")}
+        specs["norm2"] = _norm(d, pd)
     if kind.ffn == DENSE:
         specs["ffn"] = _gated_ffn(d, cfg.d_ff, pd)
     elif kind.ffn == MOE:
         m = cfg.moe
-        specs["ffn"] = {"router": Spec((d, m.num_experts), "float32", "small_normal"),
-                        "wo": Spec((m.num_experts, m.d_ff_expert, d), pd),
-                        "wi_gate": Spec((m.num_experts, d, m.d_ff_expert), pd),
-                        "wi_up": Spec((m.num_experts, d, m.d_ff_expert), pd)}
+        expert_in = ("experts", "embed", "expert_mlp")
+        specs["ffn"] = {"router": Spec((d, m.num_experts), "float32", "small_normal",
+                                       ("embed", None)),
+                        "wo": Spec((m.num_experts, m.d_ff_expert, d), pd, "normal",
+                                   ("experts", "expert_mlp", "embed")),
+                        "wi_gate": Spec((m.num_experts, d, m.d_ff_expert), pd, "normal",
+                                        expert_in),
+                        "wi_up": Spec((m.num_experts, d, m.d_ff_expert), pd, "normal",
+                                      expert_in)}
         if m.num_shared_experts:
             specs["ffn"]["shared"] = _gated_ffn(d, m.d_ff_shared, pd)
     return specs
 
 
 def _stack(tree, n: int):
+    """Every leaf gets a leading stacked dimension of ``n``, its logical
+    axis "layers" (the reference's ``stack_specs``)."""
     if isinstance(tree, Spec):
-        return Spec((n,) + tree.shape, tree.dtype, tree.init)
+        return Spec((n,) + tree.shape, tree.dtype, tree.init, ("layers",) + tree.axes)
     if isinstance(tree, tuple):
         return tuple(_stack(v, n) for v in tree)
     return {k: _stack(v, n) for k, v in tree.items()}
@@ -131,18 +149,36 @@ def model_specs(cfg: ModelConfig) -> dict:
     assert cfg.gated_ffn, "the port serves gated (SwiGLU) FFNs"
     specs: Dict[str, Any] = {
         "embed": {"table": Spec((cfg.vocab_size, cfg.d_model), cfg.param_dtype,
-                                "small_normal")},
+                                "small_normal", ("vocab", "embed"))},
         "segments": _segments(cfg, cfg.segments),
-        "final_norm": {"scale": Spec((cfg.d_model,), cfg.param_dtype, "ones")},
+        "final_norm": _norm(cfg.d_model, cfg.param_dtype),
     }
     if cfg.is_encoder_decoder:
         specs["encoder"] = {
             "segments": _segments(cfg, cfg.enc_segments),
-            "final_norm": {"scale": Spec((cfg.d_model,), cfg.param_dtype, "ones")}}
+            "final_norm": _norm(cfg.d_model, cfg.param_dtype)}
     if not cfg.tie_embeddings:
         specs["lm_head"] = {"table": Spec((cfg.vocab_size, cfg.d_model),
-                                          cfg.param_dtype, "small_normal")}
+                                          cfg.param_dtype, "small_normal",
+                                          ("vocab", "embed"))}
     return specs
+
+
+def logical_axes(tree):
+    """The tree of each leaf's logical axes (the reference's
+    ``param.logical_axes``)."""
+    return tree_map(tree, lambda s: s.axes)
+
+
+def abstract_params(tree, device="meta"):
+    """Tensors of each leaf's shape and dtype on ``device`` (default
+    ``meta``: nothing is allocated), the reference's ``abstract_params``."""
+    return tree_map(tree, lambda s: torch.empty(s.shape, dtype=DTYPES[s.dtype],
+                                                device=device))
+
+
+def param_bytes(tree) -> int:
+    return sum(math.prod(s.shape) * DTYPES[s.dtype].itemsize for s in tree_leaves(tree))
 
 
 def _materialize(spec: Spec, gen: torch.Generator, device) -> torch.Tensor:

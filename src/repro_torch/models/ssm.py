@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import linear, rmsnorm
+from repro_torch.sharding.rules import logical_constraint
 
 
 def _dims(cfg: ModelConfig):
@@ -103,7 +104,7 @@ def mamba_forward(params, cfg: ModelConfig, x, *, return_state: bool = False):
     taken after the last position of x (padding included)."""
     s, d_in, nheads, conv_dim = _dims(cfg)
     Bt, S, _ = x.shape
-    zxbcdt = torch.matmul(x, params["in_proj"])
+    zxbcdt = linear(x, params["in_proj"])
     z, xBC, dt = _split_proj(cfg, zxbcdt)
     xBC = _causal_conv(params, xBC)
     xBC = F.silu(xBC.float()).to(x.dtype)
@@ -116,11 +117,12 @@ def mamba_forward(params, cfg: ModelConfig, x, *, return_state: bool = False):
     y = y + params["D"][None, None, :, None].to(y.dtype) * xs
     y = y.reshape(Bt, S, d_in)
     y = rmsnorm(params["norm"], y * F.silu(z.float()).to(y.dtype), cfg.norm_eps)
-    out = torch.matmul(y, params["out_proj"])
+    out = linear(y, params["out_proj"])
+    out = logical_constraint(out, ("act_batch", "act_seq", "act_embed"))
     if not return_state:
         return out
     # decode cache: the last (d_conv - 1) pre-conv xBC inputs + final state
-    zx = torch.matmul(x[:, max(0, S - (s.d_conv - 1)):], params["in_proj"])
+    zx = linear(x[:, max(0, S - (s.d_conv - 1)):], params["in_proj"])
     _, tail, _ = _split_proj(cfg, zx)
     if tail.shape[1] < s.d_conv - 1:
         tail = F.pad(tail, (0, 0, s.d_conv - 1 - tail.shape[1], 0))
@@ -143,7 +145,7 @@ def mamba_decode_step(params, cfg: ModelConfig, x, cache, *, use_kernels: bool =
     place. Returns (out (B, 1, d_model), cache)."""
     s, d_in, nheads, conv_dim = _dims(cfg)
     Bt = x.shape[0]
-    zxbcdt = torch.matmul(x, params["in_proj"])[:, 0]            # (B, k)
+    zxbcdt = linear(x, params["in_proj"])[:, 0]            # (B, k)
     z, xBC_new, dt = _split_proj(cfg, zxbcdt)
     w = params["conv_w"]                                         # (K, conv_dim)
     buf = torch.cat([cache["conv"], xBC_new[:, None, :]], dim=1)  # (B, K, conv_dim)
@@ -167,7 +169,7 @@ def mamba_decode_step(params, cfg: ModelConfig, x, cache, *, use_kernels: bool =
         y = y.to(x.dtype) + params["D"][None, :, None].to(x.dtype) * xh
     y = y.reshape(Bt, d_in)
     y = rmsnorm(params["norm"], y * F.silu(z.float()).to(y.dtype), cfg.norm_eps)
-    out = torch.matmul(y, params["out_proj"])[:, None, :]
+    out = linear(y, params["out_proj"])[:, None, :]
     cache["ssm"].copy_(state)          # a no-op when the kernel updated it in place
     cache["conv"].copy_(buf[:, 1:])
     return out, cache

@@ -82,18 +82,23 @@ def decompress_tree(qtree, scales, like):
     return tree_map(like, lambda l: decompress(next(qs), next(ss), l.dtype))
 
 
-def cross_pod_mean_int8(grads, err_state, mesh, axis: str = "pod"):
+def cross_pod_mean_int8(grads, err_state, mesh, axis: str = "pod", scale_groups=()):
     """The mean of ``grads`` over the ranks of ``mesh``'s dimension ``axis``
     with an int8 payload. Each rank quantizes (grad + err) with a scale
     shared through one max-reduce, all-gathers the int8 values, sums them
     in int32 (exact: |q| n << 2^31) and scales the sum. The residual stays
-    local. Returns (mean tree in each gradient's dtype, new error tree)."""
+    local. ``scale_groups``: further process groups the max-reduce spans
+    (the other mesh dimensions a sharded gradient is split over, so the
+    scale is the whole tensor's, as the reference's ``shard_map`` takes
+    it). Returns (mean tree in each gradient's dtype, new error tree)."""
     group = mesh.get_group(axis)
     n = dist.get_world_size(group)
 
     def one(g, e):
         corrected = g.float() + e
         gmax = corrected.abs().amax()
+        for extra in scale_groups:
+            dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=extra)
         dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
         scale = _scale(gmax)
         q = _quantize(corrected, scale)

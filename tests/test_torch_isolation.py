@@ -38,7 +38,10 @@ for n in ("repro_torch.kernels.quant", "repro_torch.kernels.decode_attn",
           "repro_torch.training.train_state", "repro_torch.training.loop",
           "repro_torch.training.checkpoint", "repro_torch.training.compression",
           "repro_torch.training.pipeline", "repro_torch.launch.mesh",
-          "repro_torch.launch.train"):
+          "repro_torch.launch.train", "repro_torch.configs.registry",
+          "repro_torch.sharding.rules", "repro_torch.launch.specs",
+          "repro_torch.launch.steps", "repro_torch.launch.roofline",
+          "repro_torch.launch.op_cost", "repro_torch.launch.dryrun"):
     assert n in names, n
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked

@@ -70,10 +70,38 @@ def test_duplex_dispatch_matches(ffn_params, k_cold):
     d_t = tdm.duplex_dispatch(r_t, CFG_T.moe, T, token_valid=torch.tensor(valid), **kw)
     np.testing.assert_array_equal(d_t.perm.numpy(), np.asarray(d_j.perm))
     np.testing.assert_array_equal(d_t.counts.numpy(), np.asarray(d_j.counts))
-    np.testing.assert_array_equal(d_t.src_token.numpy(), np.asarray(d_j.src_token)[0])
-    np.testing.assert_allclose(d_t.slot_gate.numpy(), np.asarray(d_j.slot_gate)[0],
+    np.testing.assert_array_equal(d_t.src_token.numpy(), np.asarray(d_j.src_token))
+    np.testing.assert_allclose(d_t.slot_gate.numpy(), np.asarray(d_j.slot_gate),
                                atol=ATOL)
     assert (d_t.k_cold, d_t.c_hot, d_t.c_cold) == (d_j.k_cold, d_j.c_hot, d_j.c_cold)
+
+
+@pytest.mark.parametrize("k_cold", [0, E // 2, E])
+def test_duplex_dispatch_over_two_tiles_matches(ffn_params, k_cold):
+    """Two dispatch tiles (the reference's ``n_shards=2``), each filling its
+    own slot buffers from one ranking over every tile, with the default
+    capacities of a tile and, for the slot of each assignment, the
+    inverse of the tile's ``src_token``."""
+    jp, tp = ffn_params
+    x, valid = _tokens(21 + k_cold)
+    T = x.shape[0]
+    k = CFG_T.moe.top_k
+    r_j = jmoe.route(jp, CFG_J.moe, jax.numpy.asarray(x), valid=jax.numpy.asarray(valid))
+    r_t = tmoe.route(tp, CFG_T.moe, torch.tensor(x), valid=torch.tensor(valid))
+    d_j = jdm.duplex_dispatch(r_j, CFG_J.moe, T, k_cold=k_cold, n_shards=2,
+                              token_valid=jax.numpy.asarray(valid))
+    d_t = tdm.duplex_dispatch(r_t, CFG_T.moe, T, k_cold=k_cold, n_shards=2,
+                              token_valid=torch.tensor(valid))
+    assert (d_t.k_cold, d_t.c_hot, d_t.c_cold) == (d_j.k_cold, d_j.c_hot, d_j.c_cold)
+    np.testing.assert_array_equal(d_t.perm.numpy(), np.asarray(d_j.perm))
+    np.testing.assert_array_equal(d_t.src_token.numpy(), np.asarray(d_j.src_token))
+    np.testing.assert_allclose(d_t.slot_gate.numpy(), np.asarray(d_j.slot_gate), atol=ATOL)
+    n_slots = d_t.src_token.shape[1]
+    for tile in range(2):
+        src, slot = d_t.src_token[tile], d_t.slot[tile]
+        kept = slot < n_slots
+        tok = torch.arange(T // 2).repeat_interleave(k)
+        assert torch.equal(src[slot[kept]], tok[kept])
 
 
 @pytest.mark.parametrize("k_cold,use_kernels", [
@@ -155,8 +183,9 @@ def test_gather_backward_is_the_slot_combine(ffn_params, dispatch):
                                    torch.full((E,), C), torch.arange(E) * C, E * C,
                                    valid=torch.tensor(valid).repeat_interleave(k))
     else:
-        disp = tdm.duplex_dispatch(r, CFG_T.moe, T, k_cold=E // 2, c_hot=8, c_cold=4,
-                                   token_valid=torch.tensor(valid))
+        tiles = tdm.duplex_dispatch(r, CFG_T.moe, T, k_cold=E // 2, c_hot=8, c_cold=4,
+                                    token_valid=torch.tensor(valid))
+        disp = tmoe.Dispatch(tiles.src_token[0], tiles.slot_gate[0], tiles.slot[0])
     n_slots = disp.src_token.shape[0]
     assert bool((disp.slot == n_slots).any()) and bool((disp.src_token == T).any())
     rng = np.random.default_rng(14)
