@@ -72,6 +72,21 @@ Phases, each printing a line:
      logits through the kernels agree with the plain (kernel-free) torch
      path, then profiles a short run; b also prints both paths' KV pool
      bytes;
+       r. the paper's analytic simulator (``repro_torch.sim``) on the
+          card's host: path a's engine serves the short profiled run's four
+          requests (128-256 tokens, 8 new) through ``run``, then again stage
+          by stage (``plan_stage``, ``dispatch_stage``, ``commit_stage``)
+          in one CUDA-only profile, its tokens equal to the first run's and
+          kernels 1-4 launched on their routes; each stage's mix through
+          ``stage_exec`` on the modelled H100 (and on the modelled Duplex
+          device: "duplex", "duplex_pe"), each finite and positive; prints
+          the stage counts, the modelled totals, breakdown and median
+          stages, the card's device time (attention kernels, MoE kernels,
+          the rest) and host wall, and measured over modelled; then Fig.
+          11's quick Mixtral grid (requests cut to max(2 x batch, 48)) and
+          Table I's parameter counts, each within 1e-9 of the reference's
+          (``R_EXPECT``), Duplex > 1.3x the GPU at 256 tokens and
+          Duplex+PE+ET at least 0.95x Duplex;
        e. a shared system prompt on an oversubscribed pool: 16 requests of
           one 256-token system prompt and a seeded private suffix of 64-256
           tokens, bf16 pages and the ragged MoE with ``prefix_share`` and
@@ -1070,7 +1085,8 @@ HYBRID_KERNELS = ("decode_attention", "ssd_decode", "ragged_moe_gemm", "ragged_m
 def serve_phase(torch):
     """Serve 16 seeded requests on OLMoE-1B-7B down each path; returns
     ({kernel: launches} with each kernel's count from its own path's run,
-    path a's tokens by rid). Raises on any failed check."""
+    path r's {kernel: launches}, path a's tokens by rid). Raises on any
+    failed check."""
     from repro_torch.configs import resolve_config
     from repro_torch.models.params import init_model, tree_leaves
 
@@ -1125,13 +1141,216 @@ def serve_phase(torch):
     log(f"serve: KV pool bytes [{a}] {na / 2**20:.1f} MiB, [{b}] {nb / 2**20:.1f} MiB, "
         f"ratio {na / nb:.3f} ({want:.3f} expected: 2*KV*hd*2 over 2*KV*(hd + 4) bytes "
         f"per token)")
+    r_launches = sim_phase(torch, cfg, params)
     e_tokens = shared_phase(torch, cfg, params)
     dense_phase(torch, cfg, params)
     overload_phase(torch, cfg, params, e_tokens)
     async_phase(torch, cfg, params, a_tokens)
     spec_phase(torch, cfg, params)
     fleet_phase(torch, cfg, params)
-    return launches, a_tokens
+    return launches, r_launches, a_tokens
+
+
+# path r: the paper's analytic simulator (``repro_torch.sim``) on the
+# card's host. r1 serves the short profiled run's four requests on path
+# a's engine stage by stage and holds the simulator's modelled H100 (a
+# roofline plus a 3 us launch term an operation, with uniform expert counts
+# drawn from ``R_SEED``) against the card's device time on the recorded
+# stage mixes (on an H100, path a's 16 requests took 20.3-20.8 s of wall
+# under the profiler and ~20 s more to collect its events: path r 54-72
+# s); r2 runs
+# Fig. 11's quick Mixtral grid
+# (benchmarks/fig11_throughput.py, its requests cut from the full grid's
+# 4 x batch to max(2 x batch, 48)) and Table I's parameter counts
+R_LABEL = "simulator: the modelled H100 against path a"
+R_POLICIES = ("gpu", "duplex", "duplex_pe")
+R_SEED = 0
+R_FIG11_CASES = ((256, 256, 32), (1024, 1024, 64))     # (l_in, l_out, batch)
+R_FIG11_VARIANTS = (("gpu", "gpu"), ("gpu2x", "gpu"), ("duplex", "duplex"),
+                    ("duplex", "duplex_pe"), ("duplex_et", "duplex_pe_et"))
+R_REL = 1e-9
+# the reference's numbers on the CPU: benchmarks/fig11_throughput.py's
+# run(quick=True) tok_per_s and repro.sim.paper_models' param_count()
+R_EXPECT = {
+    "fig11/256/gpu/gpu": 3556.9654858824947,
+    "fig11/256/gpu2x/gpu": 6756.7771729501765,
+    "fig11/256/duplex/duplex": 8192.713427695478,
+    "fig11/256/duplex/duplex_pe": 8243.140215250878,
+    "fig11/256/duplex_et/duplex_pe_et": 9892.825143923588,
+    "fig11/1024/gpu/gpu": 6061.958660208891,
+    "fig11/1024/gpu2x/gpu": 11239.853821410225,
+    "fig11/1024/duplex/duplex": 9580.84130384357,
+    "fig11/1024/duplex/duplex_pe": 10327.253833128118,
+    "fig11/1024/duplex_et/duplex_pe_et": 11873.108192741862,
+    "params/mixtral": 46702792704.0,
+    "params/glam": 142000525312.0,
+    "params/grok1": 315271944192.0,
+    "params/opt": 65820828672.0,
+    "params/llama3": 68976648192.0,
+}
+# path a's kernels on the card by the words in their names: (kernel,
+# group, words)
+R_KERNELS = (("paged decode", "attention", ("decode_split", "decode_merge")),
+             ("chunked prefill", "attention", ("chunk_attn",)),
+             ("hot GEMM", "moe", ("hot_sm90",)), ("cold GEMV", "moe", ("cold_sm90",)))
+
+
+def drive_stages(eng, reqs):
+    """Serve ``reqs`` stage by stage through the engine's public
+    ``plan_stage`` / ``dispatch_stage`` / ``commit_stage`` (what ``step``
+    does); returns each stage's ``StageMix``."""
+    for r in reqs:
+        eng.submit(r)
+    mixes = []
+    while eng.scheduler.has_work:
+        plan = eng.plan_stage()
+        if plan is None:
+            raise AssertionError(f"[{R_LABEL}] no stage could be formed with work pending")
+        mixes.append(plan.decision.mix())
+        eng.commit_stage(eng.dispatch_stage(plan))
+    return mixes
+
+
+def predict_stages(cfg, mixes):
+    """{policy: [StageExec]}: each mix through the simulator's
+    ``stage_exec`` on one modelled device (an H100 for "gpu", the H100 with
+    its Logic-PIM for the Duplex policies), expert counts drawn from one
+    generator seeded ``R_SEED`` a policy, threaded through the stages."""
+    import numpy as np
+    from repro_torch.sim.layermodel import stage_exec
+    from repro_torch.sim.specs import duplex_system, gpu_system
+    out = {}
+    for policy in R_POLICIES:
+        system = gpu_system(1, 1) if policy == "gpu" else duplex_system(1, 1)
+        rng = np.random.default_rng(R_SEED)
+        out[policy] = [stage_exec(system, cfg, m, policy, rng=rng) for m in mixes]
+    return out
+
+
+def sim_paper_numbers():
+    """Fig. 11's quick grid (tokens/s of each system and policy) and Table
+    I's parameter counts through the port's simulator, keyed as
+    ``R_EXPECT``."""
+    import copy
+    from repro_torch.sim.engine_sim import simulate
+    from repro_torch.sim.paper_models import MIXTRAL, PAPER_MODELS
+    from repro_torch.sim.specs import default_system
+    from repro_torch.sim.workload import gaussian_requests
+    out = {}
+    for l_in, l_out, batch in R_FIG11_CASES:
+        proto = gaussian_requests(max(2 * batch, 48), l_in, min(l_out, 256), seed=11)
+        for kind, policy in R_FIG11_VARIANTS:
+            res = simulate(default_system(MIXTRAL, kind), MIXTRAL, policy, copy.deepcopy(proto),
+                           max_batch=batch)
+            out[f"fig11/{l_in}/{kind}/{policy}"] = res.throughput
+    out.update({f"params/{n}": float(m.param_count()) for n, m in PAPER_MODELS.items()})
+    return out
+
+
+def check_paper_numbers(got):
+    """Each number within ``R_REL`` of the reference's, and the paper's
+    directions at 256 tokens: Duplex over the GPU > 1.3, Duplex+PE+ET at
+    least 0.95 x Duplex (tests/test_benchmarks.py's conditions)."""
+    off = {k: (got.get(k), v) for k, v in R_EXPECT.items()
+           if k not in got or abs(got[k] - v) > R_REL * abs(v)}
+    gpu = got["fig11/256/gpu/gpu"]
+    duplex, et = got["fig11/256/duplex/duplex"] / gpu, got["fig11/256/duplex_et/duplex_pe_et"] / gpu
+    log(f"sim [{R_LABEL}]: Fig. 11 quick grid (Mixtral, tokens/s): "
+        + ", ".join(f"{k[6:]} {v:.4f}" for k, v in got.items() if k.startswith("fig11/"))
+        + f"; at 256 Duplex {duplex:.4f}x the GPU, Duplex+PE+ET {et:.4f}x; Table I parameters: "
+        + ", ".join(f"{k[7:]} {v / 1e9:.3f}B" for k, v in got.items() if k.startswith("params/"))
+        + f"; {len(R_EXPECT) - len(off)}/{len(R_EXPECT)} within {R_REL:g} of the reference's")
+    if off:
+        raise AssertionError(f"[{R_LABEL}] the simulator departs from the reference: {off}")
+    if not (duplex > 1.3 and et >= 0.95 * duplex):
+        raise AssertionError(f"[{R_LABEL}] the paper's directions fail: Duplex {duplex:.4f}x, "
+                             f"Duplex+PE+ET {et:.4f}x the GPU")
+
+
+def sim_phase(torch, cfg, params):
+    """Path r. r1: path a's engine serves ``short_requests`` through
+    ``run``, then again stage by stage in one CUDA-only profile, every
+    launch count set to 0 just before the second and read just after; its
+    tokens must equal the first run's, kernels 1-4 launched on their
+    routes, every stage's prediction finite and positive. Logs the
+    modelled H100's stage times (total, breakdown, medians) beside the
+    card's device time (attention kernels, MoE kernels, the rest, and each
+    of kernels 1-4) and the host wall, their ratios, and the Duplex
+    policies' totals over the GPU's.
+    r2: ``sim_paper_numbers`` gated by ``check_paper_numbers``. Returns
+    {kernel: launches} of r1."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import ServingEngine
+    t_phase = time.perf_counter()
+    kw = {**ENGINE_KW, **PATHS[0][1]}
+    want = short_requests(cfg)
+    ServingEngine(cfg, params, device="cuda", **kw).run(want)
+    reqs = short_requests(cfg)
+    eng = ServingEngine(cfg, params, device="cuda", **kw)
+    build.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for r in reqs:
+            r.arrival_time = time.monotonic()
+        mixes = drive_stages(eng, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = dict(build.launch_counts)
+    t_prof = time.perf_counter() - t0
+    check_path_a_launches(R_LABEL, counts)
+    same = sum(r.output == w.output and len(r.output) == w.max_new_tokens
+               for r, w in zip(reqs, want))
+    if same != len(reqs):
+        raise AssertionError(f"[{R_LABEL}] {same}/{len(reqs)} requests emit run's tokens")
+    del eng
+    # the card: device time by kernel and by group
+    by_kernel = dict.fromkeys([k for k, _, _ in R_KERNELS] + ["other"], 0.0)
+    for name, (us, _) in device_totals(prof).items():
+        kernel = next((k for k, _, words in R_KERNELS if any(w in name for w in words)),
+                      "other")
+        by_kernel[kernel] += us / 1e3
+    dev = {"attention": 0.0, "moe": 0.0, "other": by_kernel["other"]}
+    for kernel, group, _ in R_KERNELS:
+        dev[group] += by_kernel[kernel]
+    busy = sum(dev.values())
+    # the model
+    t1 = time.perf_counter()
+    pred = predict_stages(cfg, mixes)
+    t_pred = time.perf_counter() - t1
+    bad = [(p, i) for p, xs in pred.items() for i, ex in enumerate(xs)
+           if not (math.isfinite(ex.time) and ex.time > 0 and math.isfinite(ex.energy))]
+    if bad:
+        raise AssertionError(f"[{R_LABEL}] predictions not finite and positive: {bad[:8]}")
+    gpu = pred["gpu"]
+    median = lambda xs: float(np.median(xs)) if xs else float("nan")
+    dec = [ex.time * 1e3 for ex, m in zip(gpu, mixes) if not m.is_mixed]
+    mix = [ex.time * 1e3 for ex, m in zip(gpu, mixes) if m.is_mixed]
+    parts = {k: sum(ex.breakdown.get(k, 0.0) for ex in gpu) * 1e3
+             for k in ("fc", "attn", "moe", "lm_head")}
+    total = {p: sum(ex.time for ex in xs) * 1e3 for p, xs in pred.items()}
+    log(f"sim [{R_LABEL}]: {len(mixes)} stages, decode-only {len(dec)}, mixed {len(mix)}; "
+        f"{same}/{len(reqs)} requests emit run's tokens; modelled H100 (\"gpu\", one "
+        f"device) {total['gpu']:.3f} ms in all: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; median stage {median(dec):.4f} ms decode-only, {median(mix):.4f} ms mixed "
+        f"(predicted in {t_pred * 1e3:.0f} ms of host)")
+    log(f"sim [{R_LABEL}]: the card: device busy {busy:.3f} ms (attention kernels "
+        f"{dev['attention']:.3f}, MoE kernels {dev['moe']:.3f}, the rest {dev['other']:.3f}; "
+        + ", ".join(f"{k} {by_kernel[k]:.3f}" for k, _, _ in R_KERNELS)
+        + f") over {wall * 1e3:.1f} ms of host wall ({100 * busy / (wall * 1e3):.1f}% busy; "
+        f"{t_prof:.1f} s with the profile's collection)")
+    log(f"sim [{R_LABEL}]: measured over modelled: device total {busy / total['gpu']:.4f}, "
+        f"attention {dev['attention'] / parts['attn']:.4f}, MoE {dev['moe'] / parts['moe']:.4f}, "
+        f"the rest over fc + lm_head {dev['other'] / (parts['fc'] + parts['lm_head']):.4f}; "
+        f"host wall over modelled {wall * 1e3 / total['gpu']:.4f}; modelled Duplex over the "
+        f"GPU on the port's traffic: duplex {total['duplex'] / total['gpu']:.4f}, duplex_pe "
+        f"{total['duplex_pe'] / total['gpu']:.4f} ({total['duplex']:.3f}, "
+        f"{total['duplex_pe']:.3f} ms)")
+    check_paper_numbers(sim_paper_numbers())
+    log(f"sim [{R_LABEL}]: path r in {time.perf_counter() - t_phase:.1f} s")
+    return {k: counts[k] for k in PATHS[0][2]}
 
 
 # path e: one 256-token system prompt shared by 16 requests, each with a
@@ -3171,6 +3390,17 @@ def check_decode_against_plain(torch, cfg, params, label):
                        f"the kernel path's expert choice)", a, b)
 
 
+def short_requests(cfg):
+    """The four seeded requests of the short profiled runs: prompts of
+    128-256 random tokens, 8 new tokens each."""
+    import numpy as np
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(1)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               int(rng.integers(128, 257))).tolist(),
+                    max_new_tokens=8) for i in range(4)]
+
+
 def profile_stages(torch, cfg, params, label, engine_kw, top: int = 12, loop: str = "run",
                    reqs=None):
     """A short profiled run (by default 4 requests, 8 new tokens each,
@@ -3179,15 +3409,9 @@ def profile_stages(torch, cfg, params, label, engine_kw, top: int = 12, loop: st
     and the device's busy share of the run's host wall time (tracing
     overhead can only inflate the wall time, so the busy share is a lower
     bound)."""
-    import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.request import Request
-    if reqs is None:
-        rng = np.random.default_rng(1)
-        reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                                   int(rng.integers(128, 257))).tolist(),
-                        max_new_tokens=8) for i in range(4)]
+    reqs = short_requests(cfg) if reqs is None else reqs
     eng = ServingEngine(cfg, params, device="cuda", **engine_kw)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3198,6 +3422,18 @@ def profile_stages(torch, cfg, params, label, engine_kw, top: int = 12, loop: st
                 also=("chunk", "decode", "cold"))
 
 
+def device_totals(prof):
+    """{kernel name: [device microseconds, events]} of a CUDA-only profile,
+    summed straight from the profiler's raw results."""
+    totals = {}
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            t = totals.setdefault(e.name(), [0.0, 0])
+            t[0] += e.duration_ns() / 1e3
+            t[1] += 1
+    return totals
+
+
 def log_profile(prof, label, what, wall, top, also=()):
     """Device time by kernel from a CUDA-only profile, and the device's busy
     share of ``wall`` (host seconds): the ``top`` items, then any other
@@ -3206,13 +3442,7 @@ def log_profile(prof, label, what, wall, top, also=()):
     20-stage profile's ~170k events into ``FunctionEvent``s and averaging
     them (``prof.key_averages()``) took ~15 s on an H100 host, this loop
     about a second, with the same sums."""
-    totals = {}
-    for e in prof.profiler.kineto_results.events():
-        if str(e.device_type()).endswith("CUDA"):
-            t = totals.setdefault(e.name(), [0.0, 0])
-            t[0] += e.duration_ns() / 1e3
-            t[1] += 1
-    ranked = sorted(((us, n, name) for name, (us, n) in totals.items() if us > 0),
+    ranked = sorted(((us, n, name) for name, (us, n) in device_totals(prof).items() if us > 0),
                     reverse=True)
     if not ranked:
         log(f"profile [{label}]: the profiler recorded no device events; no breakdown")
@@ -4119,8 +4349,9 @@ def main(argv=None) -> int:
             by_path.setdefault(name, {})[path] = n
 
     if not args.kernels_only:
-        launches, a_tokens = serve_phase(torch)
+        launches, r_launches, a_tokens = serve_phase(torch)
         count("a, b", launches)
+        count("r", r_launches)
         gc.collect()                      # the OLMoE model and its caches go
         torch.cuda.empty_cache()
         cli_phase(torch, a_tokens)        # the CLI makes its own OLMoE weights

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core.execution import DEFAULT_PLAN, ExecutionPlan
+from repro_torch.kernels.moe_gemm import moe_gemm_traffic
 from repro_torch.models.ffn import ffn_apply
 from repro_torch.models.moe import (RouterOut, grouped_expert_ffn, on_tiles, route, tile_combine,
                                     tile_gather, tile_slots, to_tiles)
@@ -199,27 +200,6 @@ def duplex_moe_apply(params, cfg: ModelConfig, x, *, k_cold: int,
     return y.reshape(shape), router
 
 
-def moe_gemm_traffic(counts, *, capacity: int, d_model: int, d_ff: int,
-                     c_block: int, itemsize: int = 2, mats: int = 3) -> dict:
-    """Modelled per-layer HBM bytes + FLOPs of the hot grouped GEMM, padded
-    (every token block) vs ragged (live blocks only)."""
-    counts = np.minimum(np.asarray(counts, dtype=np.int64), capacity)
-    E = len(counts)
-    cb = min(c_block, capacity)
-    nc = -(-capacity // cb)
-    nb_live = -(-counts // cb)
-    w_block = mats * d_model * d_ff * itemsize
-    a_block = 2 * cb * d_model * itemsize
-    flops_block = 2 * mats * cb * d_model * d_ff
-    padded, ragged = E * nc, int(nb_live.sum())
-    return {"padded_weight_bytes": padded * w_block,
-            "ragged_weight_bytes": ragged * w_block,
-            "padded_bytes": padded * (w_block + a_block),
-            "ragged_bytes": ragged * (w_block + a_block),
-            "padded_flops": padded * flops_block,
-            "ragged_flops": ragged * flops_block}
-
-
 def moe_traffic_model(counts, *, k_cold: int, c_hot: int, c_cold: int,
                       d_model: int, d_ff: int, c_block: int = 256,
                       itemsize: int = 2, mats: int = 3) -> dict:
@@ -248,3 +228,17 @@ def moe_traffic_model(counts, *, k_cold: int, c_hot: int, c_cold: int,
         out["padded_flops"] += len(cold) * flops_slab
         out["ragged_flops"] += occupied * flops_slab
     return out
+
+
+def padded_flops_saved(T: int, m: MoEConfig, k_cold: int, d_model: int,
+                       counts=None) -> float:
+    """Analytic padding-FLOP reduction of the duplex capacities (``k_cold``
+    cold slots of C_cold, the rest of C_hot) against the single-capacity
+    grouped path's E slots of T * top_k * capacity_factor / E. ``counts``
+    is taken for the reference's signature; the estimate does not read it."""
+    c_single = _align(int(T * m.top_k * m.capacity_factor / m.num_experts) + 1, 8)
+    c_hot, c_cold = default_capacities(T, m, k_cold)
+    base = m.num_experts * c_single
+    duplex_slots = k_cold * c_cold + (m.num_experts - k_cold) * c_hot
+    per_slot = 6.0 * d_model * m.d_ff_expert
+    return (base - duplex_slots) * per_slot

@@ -1,7 +1,8 @@
 """Expert co-processing partitioner (paper §V-B) and the serving planner.
 
 Own copy of ``repro/core/partition.py``'s ``build_lut(s)``,
-``partition_experts`` and ``DuplexPlanner``: latency lookup tables per
+``partition_experts``, ``optimal_partition_bruteforce`` (its exhaustive
+test oracle) and ``DuplexPlanner``: latency lookup tables per
 expert token count on each path, the greedy makespan split (start with all
 experts on the xPU path, move the fewest-token experts to the PIM path one
 at a time, keep the best makespan), and the static ``k_cold`` snapped to a
@@ -99,6 +100,24 @@ def partition_experts(counts: Sequence[int], lut_xpu: ExpertLUT,
             best = Partition(cold=tuple(int(x) for x in order[:k]),
                              hot=tuple(int(x) for x in order[k:]),
                              t_xpu=t_xpu, t_pim=t_pim)
+    return best
+
+
+def optimal_partition_bruteforce(counts: Sequence[int], lut_xpu: ExpertLUT,
+                                 lut_pim: ExpertLUT) -> float:
+    """Exhaustive best makespan over all 2^E subsets: the partitioner's
+    test oracle, for E <= 16."""
+    counts = np.asarray(counts, dtype=np.int64)
+    E = len(counts)
+    if E > 16:
+        raise ValueError(f"the brute-force oracle takes at most 16 experts, got {E}")
+    tx = lut_xpu(counts)
+    tp = lut_pim(counts)
+    best = float(tx.sum())
+    for mask in range(1, 1 << E):
+        t_pim = sum(float(tp[e]) for e in range(E) if mask >> e & 1)
+        t_xpu = sum(float(tx[e]) for e in range(E) if not mask >> e & 1)
+        best = min(best, max(t_xpu, t_pim))
     return best
 
 

@@ -22,6 +22,7 @@ scalar kernels of ``moe_gemm.cu``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -140,3 +141,27 @@ def moe_gemm_kernel(x, w_gate, w_up, w_out, perm):
         return moe_gemm_plain(x, w_gate, w_up, w_out, perm)
     check_expert_operands(x, w_gate, w_up, w_out, perm)
     return launch("moe_gemm", STAGES, x, w_gate, w_up, w_out, perm)
+
+
+def moe_gemm_traffic(counts, *, capacity: int, d_model: int, d_ff: int,
+                     c_block: int, itemsize: int = 2, mats: int = 3) -> dict:
+    """Modelled per-layer HBM bytes + FLOPs of the hot grouped GEMM, padded
+    (every token block) vs ragged (live blocks only): each executed block
+    streams the expert's ``mats`` weight matrices (d x f) once and moves
+    c_block x d of activations in and out. Host numpy, no launch. Returns
+    ``{padded,ragged}_{bytes,weight_bytes,flops}``."""
+    counts = np.minimum(np.asarray(counts, dtype=np.int64), capacity)
+    E = len(counts)
+    cb = min(c_block, capacity)
+    nc = -(-capacity // cb)
+    nb_live = -(-counts // cb)
+    w_block = mats * d_model * d_ff * itemsize
+    a_block = 2 * cb * d_model * itemsize
+    flops_block = 2 * mats * cb * d_model * d_ff
+    padded, ragged = E * nc, int(nb_live.sum())
+    return {"padded_weight_bytes": padded * w_block,
+            "ragged_weight_bytes": ragged * w_block,
+            "padded_bytes": padded * (w_block + a_block),
+            "ragged_bytes": ragged * (w_block + a_block),
+            "padded_flops": padded * flops_block,
+            "ragged_flops": ragged * flops_block}

@@ -41,7 +41,10 @@ for n in ("repro_torch.kernels.quant", "repro_torch.kernels.decode_attn",
           "repro_torch.launch.train", "repro_torch.configs.registry",
           "repro_torch.sharding.rules", "repro_torch.launch.specs",
           "repro_torch.launch.steps", "repro_torch.launch.roofline",
-          "repro_torch.launch.op_cost", "repro_torch.launch.dryrun"):
+          "repro_torch.launch.op_cost", "repro_torch.launch.dryrun",
+          "repro_torch.sim", "repro_torch.sim.workload", "repro_torch.sim.metrics",
+          "repro_torch.sim.paper_models", "repro_torch.sim.cluster", "repro_torch.sim.specs",
+          "repro_torch.sim.layermodel", "repro_torch.sim.engine_sim"):
     assert n in names, n
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
