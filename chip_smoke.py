@@ -33,9 +33,14 @@ Phases, each printing a line:
      entry); the flash
      forward and backward at path d's shape, Jamba-v0.1's GQA heads, a
      window with a softcap, 96 heads over 8 and a length that is not a
-     tile multiple; the forward also at gemma3-4b's prefill, head_dim 256
-     and 8 heads over 4 at S 2048, windowed 1024 and causal, in bfloat16
-     only: the float32 route refuses head_dim 256; the dense decode also
+     tile multiple; both also at gemma3-4b's head_dim 256 and 8 heads over
+     4 at S 2048, windowed 1024 and causal (the backward also at S 2047
+     under a softcap of 50), in bfloat16 only: the float32 routes refuse
+     head_dim 256; the forward's bf16 score chain (``score_bf16``) at path
+     d's shape in bfloat16 and float32 and at gemma3-4b's causal head_dim
+     256, against the plain chain within 2e-2, and nearer the plain chain
+     at the kernel's own key tiles than the plain version without the
+     chain is, by CHAIN_SEP in mean; the dense decode also
      at path l's global decode, head_dim 256, qpk 2, Smax 4096, 16
      sequences at its lengths; at head_dim 64, the dense decode at path
      o's and path p's decodes, the flash forward at whisper-small's
@@ -276,6 +281,20 @@ Phases, each printing a line:
           the two runs' losses must be equal at every step. Then one
           step's loss and layer 0's attention gradients through the
           kernels against the plain path, and a profile of one step.
+       s. training at head_dim 256: gemma3-4b at full width (d_model 2560,
+          8 heads over 4 of 256, d_ff 10240, vocabulary 262144, window
+          1024, qk-norm, tied embeddings), depth cut to one period of its
+          34 layers (5 local, 1 global), 3 steps of ``make_step`` (the
+          trainer's default plan) driven by ``train_loop`` on
+          ``SyntheticLMData`` batches of 2 x 2048, no remat: finite losses
+          and grad norms, parameters that moved, each flash kernel (its
+          head_dim-256 plan) launched 6 times a step; then one step's loss
+          and the attention gradients of layers 0 (local) and 5 (global)
+          through the kernels against the plain path, without and with
+          ``attn_score_bf16``, and the kernels' response to the flag
+          pointing the plain path's way (cosine over CHAIN_COS); prints
+          the median step, the peak memory and
+          one profiled step's device time by kernel beside the card.
        d2. checkpoints: OLMoE-1B-7B at full width and 2 layers, 6 steps of
           4 x 2048 with async keep-2 checkpoints every 2 steps, three
           runs: R1 uninterrupted; R2 sends itself SIGTERM during step 3,
@@ -709,16 +728,66 @@ def _sdpa(torch, q, k, v, causal, window=0):
         return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
 
 
+# the band of the bf16 score chain's cases, in either dtype: the kernels
+# and the plain chain round the same values to bf16, and a score or p at a
+# rounding boundary (exp against ex2, tanh on another core) moves by a bf16
+# step
+CHAIN_TOL = 2e-2
+# a run with the score chain must lie nearer the plain chain at its own key
+# tiles than the plain version without the chain does, by this factor (the
+# band alone is as wide as the chain's whole effect, so it would pass a
+# kernel that ignores the flag; measured on an H100: 0.000-0.001)
+CHAIN_SEP = 0.05
+# path s: the kernels' response to the flag (the chain's gradients less the
+# chain-free ones) against the plain path's, the least cosine (measured on
+# an H100: 0.476 and 0.601; a kernel that ignores the flag gives 0, since
+# its two runs are the same bits). Looser than CHAIN_SEP: kernel 9b's bf16
+# P and dS, and the local layers' key tiles that start off the 64-key
+# grid, move the gradients about as far as the chain does
+CHAIN_COS = 0.25
+
+
+def key_tile(torch, dtype, hd):
+    """The keys a tile of the flash forward a query row walks in order:
+    KT of ``flash_fwd_sm90.cu`` (128, 64 at hd 256) for bf16, TK of
+    ``flash_attn.cu`` (64) for float32. The score chain rounds p against
+    the running max, so its result depends on where the key tiles start:
+    the plain chain at these blocks runs the kernel's own schedule."""
+    return 64 if dtype == torch.float32 or hd == 256 else 128
+
+
+def chain_gate(kernel, plain_chain, plain_off, names=("out", "lse")):
+    """(ok, detail) of the score chain's separation: the mean |difference|
+    of each tensor (a kernel's float32 output and lse, or a step's
+    gradients) between the kernel run and the plain chain must be under
+    CHAIN_SEP times that between the plain version without the chain and
+    the plain chain. Means, since a bf16 value at a rounding boundary moves
+    by a whole step either way, and so the largest difference is one step
+    in both."""
+    ok, parts = True, []
+    for name, a, b, c in zip(names, kernel, plain_chain, plain_off):
+        err, effect = (a - b).abs().mean().item(), (c - b).abs().mean().item()
+        ok &= err < CHAIN_SEP * effect
+        parts.append(f"{name}: mean|kernel - chain|={err:.3e} mean|no chain - chain|="
+                     f"{effect:.3e} (ratio {err / effect if effect else float('inf'):.3f})")
+    return ok, "; ".join(parts)
+
+
 def check_flash(torch, gen, dtype, *, B, S, H, KV, causal=True, window=0, softcap=0.0,
-                hd=128):
+                hd=128, score_bf16=False):
     """The flash forward on the model layout, called as the training path
     calls it (``f32_out=True``: bf16 runs the tensor-core kernel, which also
     writes the float32 output): out, lse and the float32 output against the
-    plain version (the error is the largest of the three). The library time
-    is SDPA's, causal by ``is_causal``, a window by an explicit mask."""
+    plain version (the error is the largest of the three); with
+    ``score_bf16`` the bf16 score chain on both sides, held to CHAIN_TOL,
+    and the float32 output and lse held by ``chain_gate`` against the plain
+    chain and the plain version without it.
+    The library time is SDPA's, causal by ``is_causal``, a window by an
+    explicit mask."""
     from repro_torch.kernels import flash_attn as fa
     q, k, v = _flash_inputs(torch, gen, dtype, B, S, H, KV, hd)
-    kw = dict(causal=causal, window=window, softcap=softcap, f32_out=True)
+    kw = dict(causal=causal, window=window, softcap=softcap, f32_out=True,
+              score_bf16=score_bf16)
     got, lse, o32 = fa.flash_attention_kernel(q, k, v, **kw)
     want, lse_p, o32_p = fa.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -733,6 +802,17 @@ def check_flash(torch, gen, dtype, *, B, S, H, KV, causal=True, window=0, softca
                lib_ms=None,
                nbytes=(q.numel() + k.numel() + v.numel()) * item + out_bytes + lse.numel() * 4,
                flops=4 * hd * B * H * _live_pairs(S, causal, window))
+    if score_bf16:
+        tile = key_tile(torch, dtype, hd)
+        at_tile = dict(kw, q_block=tile, kv_block=tile)
+        _, lse_t, o32_t = fa.flash_attention_plain(q, k, v, **at_tile)
+        _, lse_0, o32_0 = fa.flash_attention_plain(q, k, v, **dict(at_tile, score_bf16=False))
+        out["tol"] = CHAIN_TOL
+        ok, detail = chain_gate((o32, lse), (o32_t, lse_t), (o32_0, lse_0))
+        far = ((o32 - o32_p).abs().mean().item(), (lse - lse_p).abs().mean().item())
+        out["chain"] = (ok, f"at {tile}-key blocks {detail} (gate ratio < {CHAIN_SEP}); "
+                            f"mean|kernel - chain at 512-key blocks| out {far[0]:.3e} lse "
+                            f"{far[1]:.3e}")
     if not softcap:
         out["lib_ms"] = time_ms(_sdpa(torch, q, k, v, causal, window))
     return out
@@ -989,6 +1069,12 @@ KERNELS = [
        dict(B=1, S=2048, H=8, KV=4, hd=256, window=1024), ("bfloat16",)),
       ("gemma3 B=1 S=2048 H=8 KV=4 hd=256 causal", check_flash,
        dict(B=1, S=2048, H=8, KV=4, hd=256), ("bfloat16",)),
+      # the bf16 score chain (attn_score_bf16) against the plain chain:
+      # path d's shape in bf16 and float32, and path s's global layers
+      ("olmoe B=4 S=2048 H=16 KV=16 causal score_bf16", check_flash,
+       dict(B=4, S=2048, H=16, KV=16, score_bf16=True)),
+      ("gemma3 B=1 S=2048 H=8 KV=4 hd=256 causal score_bf16", check_flash,
+       dict(B=1, S=2048, H=8, KV=4, hd=256, score_bf16=True), ("bfloat16",)),
       # head_dim 64: whisper-small's encoder (non-causal, 1500 frames) on
       # path o and internvl2-1b's prefill (1024 patches + text) on path p
       ("whisper encoder B=8 S=1500 H=12 KV=12 hd=64 non-causal", check_flash,
@@ -1008,7 +1094,16 @@ KERNELS = [
        dict(B=2, S=2047, H=16, KV=16)),
       # whisper-small's encoder trained on path o2
       ("whisper encoder B=4 S=1500 H=12 KV=12 hd=64 non-causal", check_flash_bwd,
-       dict(B=4, S=1500, H=12, KV=12, hd=64, causal=False))]),
+       dict(B=4, S=1500, H=12, KV=12, hd=64, causal=False)),
+      # gemma3-4b trained on path s (head_dim 256: bf16 only, the float32
+      # route refuses it): a global layer, a local layer's window of 1024,
+      # and a ragged last tile under a softcap
+      ("gemma3 B=1 S=2048 H=8 KV=4 hd=256 causal", check_flash_bwd,
+       dict(B=1, S=2048, H=8, KV=4, hd=256), ("bfloat16",)),
+      ("gemma3 B=1 S=2048 H=8 KV=4 hd=256 window=1024", check_flash_bwd,
+       dict(B=1, S=2048, H=8, KV=4, hd=256, window=1024), ("bfloat16",)),
+      ("gemma3 B=1 S=2047 H=8 KV=4 hd=256 causal softcap=50", check_flash_bwd,
+       dict(B=1, S=2047, H=8, KV=4, hd=256, softcap=50.0), ("bfloat16",))]),
 ]
 
 
@@ -1028,8 +1123,10 @@ def kernel_phase(torch):
                 r = fn(torch, gen, getattr(torch, dtype), **kw)
                 err, lib_ms = r["err"], r["lib_ms"]
                 bms, by = bound_ms(r["nbytes"], r["flops"], r.get("ops_type", dtype))
-                tol = TOL[dtype]
+                tol = r.get("tol", TOL[dtype])
                 ok = r.get("rel_err", err) <= tol
+                chain_ok, chain = r.get("chain", (True, ""))
+                ok &= chain_ok
                 lib = f"{lib_ms:.4f}" if lib_ms is not None else "none"
                 fp = f" fp_kernel_ms={r['fp_ms']:.4f}" if "fp_ms" in r else ""
                 fp += r.get("lib_detail", "")
@@ -1040,7 +1137,8 @@ def kernel_phase(torch):
                     f"{'OK' if ok else 'FAIL'}; ms={r['ms']:.4f} graph_ms={r['graph_ms']:.4f} "
                     f"plain_ms={r['plain_ms']:.4f} "
                     f"library_ms={lib} bound_ms={bms:.4f} ({by}) "
-                    f"TFLOP/s={r['flops'] / r['graph_ms'] / 1e9:.1f} (graph){fp}")
+                    f"TFLOP/s={r['flops'] / r['graph_ms'] / 1e9:.1f} (graph){fp}"
+                    + (f"; score chain {chain}" if chain else ""))
                 if not ok:
                     failed.append(f"{name} [{label} {dtype}]")
                 if dtype != "bfloat16":
@@ -3494,7 +3592,8 @@ def train_phase(torch):
             runs[-1].pop("state")
             gc.collect()
             torch.cuda.empty_cache()
-        runs.append(train_run(torch, cfg, full, opt, step_fn, batch_fn, run))
+        runs.append(train_run(torch, cfg, full, opt, step_fn, batch_fn,
+                              f"{TRAIN_LABEL} run {run + 1}"))
     losses = [r["losses"] for r in runs]
     log(f"train [{TRAIN_LABEL}]: losses of the two runs equal at all {TRAIN_STEPS} steps: "
         f"{losses[0] == losses[1]}; median steps {runs[0]['median']:.3f} and "
@@ -3511,16 +3610,19 @@ def train_phase(torch):
                 **{k: runs[0][k] for k in ("losses", "median", "peak")})
 
 
-def train_run(torch, cfg, full, opt, step_fn, batch_fn, run):
-    """One run of path d from fresh seed-0 weights: TRAIN_STEPS steps, each
-    timed to a device sync. Checks the launches, finite losses and grad
-    norms, and that the parameters moved; returns {state, launches, losses,
-    median}."""
+def train_run(torch, cfg, full, opt, step_fn, batch_fn, label, steps=TRAIN_STEPS,
+              tokens=TRAIN_BATCH * TRAIN_SEQ, watch_layer=0, card=""):
+    """One training run from fresh seed-0 weights of ``cfg`` (``full`` cut
+    in depth): ``steps`` steps of ``tokens`` tokens through ``train_loop``,
+    each timed to a device sync, the launch counts set to 0 just before the
+    loop and read just after. Checks that each flash kernel launched once a
+    layer a step (the forward twice under full remat), finite losses and
+    grad norms, and that ``watch_layer``'s wq moved; returns {state,
+    launches, losses, median, peak}. Path d's values are the defaults."""
     from repro_torch.kernels import build
     from repro_torch.models.params import init_model, tree_leaves
     from repro_torch.training.loop import LoopConfig, train_loop
     from repro_torch.training.train_state import make_train_state
-    label = f"{TRAIN_LABEL} run {run + 1}"
     log(f"train [{label}]: before {cfg.name}, {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"still allocated")
     torch.cuda.reset_peak_memory_stats()
@@ -3545,10 +3647,10 @@ def train_run(torch, cfg, full, opt, step_fn, batch_fn, run):
         record.append((time.perf_counter() - t, m["loss"], m["grad_norm"], m["lr"]))
         return state, m
 
-    watch = state["params"]["segments"][0]["blocks"][0]["mixer"]["wq"]["kernel"]
+    watch = state["params"]["segments"][0]["blocks"][watch_layer]["mixer"]["wq"]["kernel"]
     before = watch.detach().clone()
     build.reset_launch_counts()
-    loop = train_loop(state, timed_step, batch_fn, LoopConfig(total_steps=TRAIN_STEPS,
+    loop = train_loop(state, timed_step, batch_fn, LoopConfig(total_steps=steps,
                                                               log_every=1), log=log)
     torch.cuda.synchronize()
     launches = dict(build.launch_counts)
@@ -3557,16 +3659,16 @@ def train_run(torch, cfg, full, opt, step_fn, batch_fn, run):
     losses = [float(r[1]) for r in record]
     norms = [float(r[2]) for r in record]
     med = sorted(times)[len(times) // 2]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    log(f"train [{label}]: {loop.step} steps of {tokens} tokens, remat={TRAIN_REMAT}; "
+    on = f" on {card}" if card else ""
+    log(f"train [{label}]: {loop.step} steps of {tokens} tokens{on}, remat={TRAIN_REMAT}; "
         f"losses {losses}; grad norms {[round(x, 4) for x in norms]}; "
         f"lr {[r[3] for r in record]}; step times (s) {[round(x, 4) for x in times]}, median "
         f"{med:.4f} s, {tokens / med:.0f} tokens/s; stragglers={loop.stragglers}; peak "
         f"memory {peak / 2**30:.2f} GiB")
     log(f"train [{label}]: kernel launches on the path: {json.dumps(launches)}")
     fwd_per_layer = 2 if TRAIN_REMAT == "full" else 1   # the recompute runs the forward again
-    want = {"flash_attention": TRAIN_LAYERS * TRAIN_STEPS * fwd_per_layer,
-            "flash_attention_bwd": TRAIN_LAYERS * TRAIN_STEPS}
+    want = {"flash_attention": cfg.num_layers * steps * fwd_per_layer,
+            "flash_attention_bwd": cfg.num_layers * steps}
     bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
     if bad:
         raise AssertionError(f"[{label}] launches (got, want): {bad}")
@@ -3577,35 +3679,80 @@ def train_run(torch, cfg, full, opt, step_fn, batch_fn, run):
     return dict(state=state, launches=launches, losses=losses, median=med, peak=peak)
 
 
-def check_train_against_plain(torch, cfg, params, batch):
-    """The loss and the gradients of layer 0's attention projections from
-    the same parameters and batch through the kernels and through the plain
-    path (``use_kernels=False``): the loss within 1e-2 relative, each
-    gradient within 5e-2 of its largest entry (bf16 activations, summed
-    in other orders by the two paths' attention)."""
+def check_train_against_plain(torch, cfg, params, batch, label=TRAIN_LABEL, layers=(0,),
+                              chains=(False,)):
+    """The loss and the gradients of the attention projections of
+    ``layers`` (of the first segment's pattern) from the same parameters and
+    batch through the kernels and through the plain path
+    (``use_kernels=False``), for each setting of the bf16 score chain in
+    ``chains``: the loss within 1e-2 relative, each gradient within 5e-2 of
+    its largest entry (bf16 activations, summed in other orders by the two
+    paths' attention). With both settings, the kernels' response to the
+    flag (K1 - K0, each layer's gradients with the chain less those
+    without) must point the way of the plain path's at the kernel's key
+    tiles (T1 - T0; ``key_tile``): cosine over CHAIN_COS. Printed beside
+    it: the loss of each run, each layer's ``chain_gate`` readings against
+    T1 and T0, and those against the plain path at 512-key blocks."""
     from repro_torch.core.execution import ExecutionPlan
     from repro_torch.models.model import loss_fn
-    mixer = params["segments"][0]["blocks"][0]["mixer"]
     names = ("wq", "wk", "wv", "wo")
-    out = {}
-    for use_kernels in (True, False):
-        plan = ExecutionPlan(moe_impl="grouped", use_kernels=use_kernels)
+    leaves = [(i, n) for i in layers for n in names]
+    blocks = params["segments"][0]["blocks"]
+
+    def step(use_kernels, chain, **tiles):
+        plan = ExecutionPlan(moe_impl="grouped", use_kernels=use_kernels,
+                             attn_score_bf16=chain, **tiles)
         loss, _ = loss_fn(params, cfg, batch, plan=plan, remat=TRAIN_REMAT)
-        grads = torch.autograd.grad(loss, [mixer[n]["kernel"] for n in names])
-        out[use_kernels] = (loss.item(), [g[0].float() for g in grads])
-        del loss, grads
-    (lk, gk), (lp, gp) = out[True], out[False]
-    rel = abs(lk - lp) / abs(lp)
-    errs = [((a - b).abs().max().item(), b.abs().max().item()) for a, b in zip(gk, gp)]
-    log(f"train [{TRAIN_LABEL}]: kernels vs plain path on one step: loss {lk:.5f} vs "
-        f"{lp:.5f} (rel {rel:.2e}, tolerance 1e-2); layer 0 attention gradients "
-        + ", ".join(f"{n}: max|d|={e:.3e} of max|g|={m:.3e}" for n, (e, m) in zip(names, errs))
-        + " (tolerance 5e-2 x max|g|)")
-    if not math.isfinite(lk) or rel > 1e-2 or any(e > 5e-2 * m for e, m in errs):
-        raise AssertionError(f"[{TRAIN_LABEL}] kernel path disagrees with the plain path")
+        grads = torch.autograd.grad(loss, [blocks[i]["mixer"][n]["kernel"] for i, n in leaves])
+        return loss.item(), [g[0].float() for g in grads]
+
+    runs = {(k, c): step(k, c) for k in (True, False) for c in chains}
+    bad = []
+    for chain in chains:
+        (lk, gk), (lp, gp) = runs[True, chain], runs[False, chain]
+        rel = abs(lk - lp) / abs(lp)
+        errs = [((a - b).abs().max().item(), b.abs().max().item()) for a, b in zip(gk, gp)]
+        what = ", bf16 score chain" if chain else ""
+        log(f"train [{label}]: kernels vs plain path on one step{what}: loss {lk:.5f} vs "
+            f"{lp:.5f} (rel {rel:.2e}, tolerance 1e-2); attention gradients "
+            + ", ".join(f"layer {i} {n}: max|d|={e:.3e} of max|g|={m:.3e}"
+                        for (i, n), (e, m) in zip(leaves, errs))
+            + " (tolerance 5e-2 x max|g|)")
+        if not math.isfinite(lk) or rel > 1e-2 or any(e > 5e-2 * m for e, m in errs):
+            bad.append(f"kernel path disagrees with the plain path{what}")
+    if set(chains) == {False, True}:
+        tile = key_tile(torch, getattr(torch, cfg.dtype), cfg.resolved_head_dim)
+        for c in (True, False):
+            runs["tile", c] = step(False, c, attn_q_block=tile, attn_kv_block=tile)
+        flat = lambda key: [torch.cat([g.flatten() for (i, _), g in zip(leaves, runs[key][1])
+                                       if i == layer]) for layer in layers]
+        k1, k0, t1, t0, p1, p0 = (flat(key) for key in ((True, True), (True, False),
+                                                       ("tile", True), ("tile", False),
+                                                       (False, True), (False, False)))
+        names = [f"layer {i} gradients" for i in layers]
+        resp, cos = [], []
+        for i, a1, a0, b1, b0, c1, c0 in zip(layers, k1, k0, t1, t0, p1, p0):
+            dk, dt, dp = a1 - a0, b1 - b0, c1 - c0
+            cos.append((dk * dt).sum().item() / max((dk.norm() * dt.norm()).item(), 1e-30))
+            cos_p = (dk * dp).sum().item() / max((dk.norm() * dp.norm()).item(), 1e-30)
+            resp.append(f"layer {i} cosine {cos[-1]:.3f} ({cos_p:.3f} against P1 - P0)")
+        ok = all(c > CHAIN_COS for c in cos)
+        log(f"train [{label}]: bf16 score chain through the kernels (K1; K0 without) against "
+            f"the plain path at {tile}-key blocks (T1, T0) and at 512 (P1, P0): loss "
+            f"{runs[True, True][0]:.5f} vs T1 {runs['tile', True][0]:.5f}, T0 "
+            f"{runs['tile', False][0]:.5f}, P1 {runs[False, True][0]:.5f}, P0 "
+            f"{runs[False, False][0]:.5f}; against T: {chain_gate(k1, t1, t0, names)[1]}; "
+            f"against P: {chain_gate(k1, p1, p0, names)[1]}; response K1 - K0 against "
+            f"T1 - T0: " + ", ".join(resp) + f" (gate cosine > {CHAIN_COS}) "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            bad.append("the kernels do not respond to the score chain as the plain path does")
+    if bad:
+        raise AssertionError(f"[{label}] {'; '.join(bad)}")
 
 
-def profile_train_step(torch, step_fn, state, batch, top: int = 12):
+def profile_train_step(torch, step_fn, state, batch, top: int = 12, label=TRAIN_LABEL,
+                       card=""):
     """One more step under torch.profiler (device activity only)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3614,7 +3761,56 @@ def profile_train_step(torch, step_fn, state, batch, top: int = 12):
         float(m["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    log_profile(prof, TRAIN_LABEL, "one training step", wall, top, also=("flash", "index"))
+    what = "one training step" + (f" on {card}" if card else "")
+    log_profile(prof, label, what, wall, top, also=("flash", "index"))
+
+
+# path s: gemma3-4b trained at full width (d_model 2560, head_dim 256, 8
+# heads over 4, d_ff 10240, a 262144-token vocabulary, window 1024, qk-norm,
+# tied embeddings) and one period of its 34 layers, 5 local and 1 global:
+# the whole model's ~3.9B parameters need ~47 GB of bf16 weights and
+# gradients and float32 AdamW moments before activations, and the smoke's
+# time is nearly spent
+S_LABEL = "gemma3-4b training"
+S_STEPS = 3
+S_BATCH, S_SEQ = 2, 2048               # past the 512-row q block: the flash core runs
+S_CHECK_LAYERS = (0, 5)                # a local layer and the global one
+
+
+def gemma_train_phase(torch, card):
+    """Path s: ``make_step`` (the trainer's default plan: the flash kernels,
+    here their head_dim-256 plans) driven by ``train_run`` on gemma3-4b at
+    full width and one period of its layers, random weights from seed 0,
+    ``SyntheticLMData`` batches (seed 0, S_BATCH x S_SEQ), S_STEPS steps, no
+    remat. Then one step's loss and the attention gradients of layers 0
+    (local) and 5 (global) through the kernels against the plain path,
+    without and with the bf16 score chain, and one profiled step's device
+    time by kernel beside the card. Returns {kernel: launches}."""
+    from repro_torch.configs import RunConfig, resolve_config
+    from repro_torch.configs.base import Segment
+    from repro_torch.launch.train import make_step
+    from repro_torch.training.data import DataConfig, SyntheticLMData
+    from repro_torch.training.optimizer import OptConfig
+    full = resolve_config("gemma3-4b")
+    period = full.segments[0].pattern
+    cfg = dataclasses.replace(full, num_layers=len(period),
+                              segments=(Segment(period, 1),)).validate()
+    opt = OptConfig(learning_rate=1e-3, total_steps=S_STEPS,
+                    warmup_steps=max(S_STEPS // 10, 1))
+    data = SyntheticLMData(DataConfig(cfg.vocab_size, S_SEQ, S_BATCH, seed=0))
+    batch_fn = lambda step: {"tokens": torch.from_numpy(data.batch_at(step)["tokens"]).cuda()}
+    n_local = sum(k.mixer != "attn" for k in cfg.layer_kinds())
+    log(f"train [{S_LABEL}]: {cfg.name} at full width (d_model {cfg.d_model}, head_dim "
+        f"{cfg.resolved_head_dim}, {cfg.num_heads} heads over {cfg.num_kv_heads}, window "
+        f"{cfg.sliding_window}), {n_local} local and {cfg.num_layers - n_local} global layers")
+    step_fn = make_step(cfg, opt, RunConfig(remat_policy=TRAIN_REMAT))
+    run = train_run(torch, cfg, full, opt, step_fn, batch_fn, S_LABEL, steps=S_STEPS,
+                    tokens=S_BATCH * S_SEQ, watch_layer=S_CHECK_LAYERS[-1], card=card)
+    state, batch = run["state"], batch_fn(S_STEPS)
+    check_train_against_plain(torch, cfg, state["params"], batch, S_LABEL, S_CHECK_LAYERS,
+                              chains=(False, True))
+    profile_train_step(torch, step_fn, state, batch, label=S_LABEL, card=card)
+    return {k: run["launches"][k] for k in TRAIN_KERNELS}
 
 
 # path d2: checkpoints and resume. OLMoE-1B-7B at full width cut to the
@@ -4276,6 +4472,40 @@ def compare_logits(torch, label, what, a, b):
         raise AssertionError(f"[{label}] kernel path disagrees with the plain path")
 
 
+def ptxas_entries(text):
+    """{entry function: (registers, spill bytes stored + loaded)} from a
+    ``-Xptxas -v`` report."""
+    entries, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            entries[cur] = [0, 0]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            entries[cur][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entries[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in entries.items()}
+
+
+def log_hd256_ptxas(build) -> None:
+    """The registers and spills of the flash kernels' head_dim-256
+    instantiations (path s's plans), one line each."""
+    for src in ("flash_fwd_sm90.cu", "flash_bwd_sm90.cu"):
+        text = build._lib_path(src).with_suffix(".log").read_text()
+        for name, (regs, spill) in ptxas_entries(text).items():
+            m = re.search(r"(flash_\w+?_kernel)ILi256E(Lb([01])E)?", name)
+            if m:
+                chain = {None: "", "0": " (no score chain)", "1": " (bf16 score chain)"}[m.group(3)]
+                log(f"ptxas {src} hd 256: {m.group(1)}{chain}: {regs} registers, {spill} bytes "
+                    f"of spill stores and loads")
+
+
 def tensor_core_sass(build) -> None:
     """Counts the tensor-core instructions in each built library's SASS
     (``cuobjdump -sass``): warpgroup products (HGMMA; IGMMA on int8) and
@@ -4332,11 +4562,11 @@ def main(argv=None) -> int:
     log(f"build: {len(build.SOURCES)} sources with nvcc in "
         f"{time.perf_counter() - t0:.1f}s")
     for src in build.SOURCES:
-        text = build._lib_path(src).with_suffix(".log").read_text()
-        regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
-        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", text))
-        log(f"ptxas {src}: {len(regs)} kernels, at most {max(regs, default=0)} "
-            f"registers, {spills} bytes of spill stores and loads")
+        entries = ptxas_entries(build._lib_path(src).with_suffix(".log").read_text())
+        log(f"ptxas {src}: {len(entries)} kernels, at most "
+            f"{max((r for r, _ in entries.values()), default=0)} registers, "
+            f"{sum(b for _, b in entries.values())} bytes of spill stores and loads")
+    log_hd256_ptxas(build)
     tensor_core_sass(build)
 
     rows = kernel_phase(torch)
@@ -4374,6 +4604,9 @@ def main(argv=None) -> int:
         path_d = train_phase(torch)
         count("d", path_d["launches"])
         gc.collect()                      # path d's state goes
+        torch.cuda.empty_cache()
+        count("s", gemma_train_phase(torch, card))
+        gc.collect()                      # path s's state goes
         torch.cuda.empty_cache()
         resume_phase(torch)
         gc.collect()

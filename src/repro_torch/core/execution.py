@@ -31,9 +31,9 @@ class ExecutionPlan:
     # for sequences longer than attn_q_block (the kernels tile by themselves)
     attn_q_block: int = 512
     attn_kv_block: int = 512
-    # the flash core's scores in bf16 with float32 softmax statistics, as
-    # torch ops; the flash kernels have no such chain, so with use_kernels
-    # on CUDA tensors the attention raises rather than leave them out
+    # the flash core's scores in bf16 with float32 softmax statistics (the
+    # plain version's torch ops, or the flash forwards' chain with
+    # use_kernels on CUDA tensors)
     attn_score_bf16: bool = False
 
 

@@ -37,9 +37,11 @@
 // accumulator, out = acc / max(l, 1e-37), lse = m + log(l) (0 where
 // l == 0). p is gated by the mask (the reference's is not; its final
 // result is the gated one, since a row's last tile always holds a live
-// key). Backward: D = rowsum(dO * O) from the forward's output, p = exp(s -
-// lse), dV = p^T dO, dP = dO V^T, dS = p (dP - D) (times 1 - t^2 under
-// softcap, zero outside the mask), dQ = dS K * scale, dK = dS^T Q * scale.
+// key). With score_bf16 the forward runs the reference's bf16 score chain
+// (the rounding points of flash_fwd_sm90.cu's CHAIN, with expf). Backward:
+// D = rowsum(dO * O) from the forward's output, p = exp(s - lse), dV = p^T
+// dO, dP = dO V^T, dS = p (dP - D) (times 1 - t^2 under softcap, zero
+// outside the mask), dQ = dS K * scale, dK = dS^T Q * scale.
 // No float atomics: dK/dV blocks own their key rows, dQ blocks their query
 // rows, so the gradients are the same from run to run.
 #include "common.cuh"
@@ -104,6 +106,17 @@ __device__ __forceinline__ bool live(int qpos, int kpos, int causal, int window)
   return (!causal || kpos <= qpos) && (window <= 0 || kpos > qpos - window);
 }
 
+// x rounded to bf16 and back: a rounding point of the bf16 score chain
+__device__ __forceinline__ float bf16r(float x) { return round_to<__nv_bfloat16>(x); }
+
+// The scaled, softcapped score of the bf16 score chain: the product, times
+// bf16(scale), s / softcap, its tanh and softcap times that, each rounded.
+__device__ __forceinline__ float score_chain(float dot, float scale, float softcap) {
+  float s = bf16r(bf16r(dot) * bf16r(scale));
+  if (softcap > 0.f) s = bf16r(softcap * bf16r(tanhf(bf16r(s / softcap))));
+  return s;
+}
+
 // The scaled, softcapped score; t = tanh(s / softcap) for the backward.
 __device__ __forceinline__ float score(float dot, float scale, float softcap, float& t) {
   const float s = dot * scale;
@@ -119,14 +132,14 @@ __device__ __forceinline__ float score(float dot, float scale, float softcap, fl
 // Forward. grid (ceil(S / bq), KV, B); bq = TM / qpk query positions per
 // block, R = bq * qpk <= TM rows. q (B, S, H, hd) with strides (qsb, qss);
 // k, v (B, S, KV, hd) with strides (ksb, kss); out (B, S, H, hd) and lse
-// (B, H, S) float32 contiguous.
+// (B, H, S) float32 contiguous; score_bf16 1: the bf16 score chain.
 // ---------------------------------------------------------------------------
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, float* __restrict__ lse, int S, int H, int qpk, int bq,
-                 int qsb, int qss, int ksb, int kss, int causal, int window, float softcap,
-                 float scale) {
+                 int qsb, int qss, int ksb, int kss, int causal, int window, int score_bf16,
+                 float softcap, float scale) {
   constexpr int LD = HD + 1, LP = TK + 1, NJ = HD / 16;
   extern __shared__ float smem[];
   float* q_s = smem;              // (TM, LD)
@@ -186,7 +199,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         float t;
-        const float x = score(s[i][j], scale, softcap, t);
+        const float x = score_bf16 ? score_chain(s[i][j], scale, softcap)
+                                   : score(s[i][j], scale, softcap, t);
         ok[j] = qpos[i] >= 0 && c < n && live(qpos[i], t0 + c, causal, window);
         s[i][j] = ok[j] ? x : NEG_INF;
         mx = fmaxf(mx, s[i][j]);
@@ -194,10 +208,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       mx = row_max(mx);
       const float m_new = fmaxf(m_r[i], mx);
       const float alpha = expf(m_r[i] - m_new);
+      const float mb = score_bf16 ? bf16r(m_new) : m_new;
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        float p = ok[j] ? expf(score_bf16 ? bf16r(s[i][j] - mb) : s[i][j] - m_new) : 0.f;
+        if (score_bf16) p = bf16r(p);
         sum += p;
         p_s[(ty + 16 * i) * LP + tx + 16 * j] = round_to<T>(p);
       }
@@ -458,7 +474,7 @@ constexpr size_t dq_smem() {
 }
 
 struct Args {
-  int B, S, H, KV, qsb, qss, ksb, kss, causal, window;
+  int B, S, H, KV, qsb, qss, ksb, kss, causal, window, score_bf16;
   float softcap, scale;
 };
 
@@ -471,7 +487,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse
   const dim3 grid((a.S + bq - 1) / bq, a.KV, a.B);
   flash_fwd_kernel<T, HD><<<grid, THREADS, fwd_smem<HD>(), stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse, a.S, a.H, qpk, bq, a.qsb,
-      a.qss, a.ksb, a.kss, a.causal, a.window, a.softcap, a.scale);
+      a.qss, a.ksb, a.kss, a.causal, a.window, a.score_bf16, a.softcap, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -514,12 +530,13 @@ extern "C" {
 // strides qsb, qss of its first two dimensions; k, v (B, S, KV, hd) with
 // strides ksb, kss (the same for both); heads hd apart and hd contiguous.
 // out (B, S, H, hd) and lse (B, H, S) float32 contiguous. hd 64 or 128;
-// H / KV <= 64. Returns a cudaError_t code (0 = launched).
+// H / KV <= 64; score_bf16 1 runs the bf16 score chain. Returns a
+// cudaError_t code (0 = launched).
 int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* out,
                         void* lse, int B, int S, int H, int KV, int hd, int qsb, int qss,
-                        int ksb, int kss, int causal, int window, float softcap, float scale,
-                        void* stream) {
-  const Args a{B, S, H, KV, qsb, qss, ksb, kss, causal, window, softcap, scale};
+                        int ksb, int kss, int causal, int window, int score_bf16,
+                        float softcap, float scale, void* stream) {
+  const Args a{B, S, H, KV, qsb, qss, ksb, kss, causal, window, score_bf16, softcap, scale};
   cudaStream_t s = (cudaStream_t)stream;
   if (H % KV || H / KV > TM) return (int)cudaErrorInvalidValue;
   if (dtype == DTYPE_F32 && hd == 64) return launch_fwd<float, 64>(q, k, v, out, lse, a, s);
@@ -536,7 +553,7 @@ int flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                         void* dq, void* dk, void* dv, int B, int S, int H, int KV, int hd,
                         int qsb, int qss, int ksb, int kss, int causal, int window,
                         float softcap, float scale, void* stream) {
-  const Args a{B, S, H, KV, qsb, qss, ksb, kss, causal, window, softcap, scale};
+  const Args a{B, S, H, KV, qsb, qss, ksb, kss, causal, window, 0, softcap, scale};
   cudaStream_t s = (cudaStream_t)stream;
   if (H % KV) return (int)cudaErrorInvalidValue;
   if (dtype == DTYPE_F32 && hd == 64)

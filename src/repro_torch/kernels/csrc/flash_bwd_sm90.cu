@@ -20,14 +20,13 @@
 //      float32 output, and lse * log2(e), into (B, H, S_pad) rows padded
 //      to 64 positions, so a tile of either is one 16-byte-aligned bulk
 //      copy (S_pad is the wrapper's too: kernels/flash_attn.py).
-//   2. dK/dV: a block owns BN = 128 keys of one (b, KV head), split between
-//      two consumer warpgroups of 64 keys; its K and V stay in shared
-//      memory. A producer warpgroup (setmaxnreg 24 / 240, one thread works)
-//      streams tiles of TQ = 64 query rows of Q and dO by TMA, with their
-//      lse and D by bulk copy, through a two-stage ring of full / empty
-//      mbarriers, for each head of the GQA group in turn (lse and D are
-//      then contiguous in S, and the group's sum stays in the block's
-//      registers). Per tile a warpgroup computes
+//   2. dK/dV: a block owns BN keys of one (b, KV head); its K and V stay
+//      in shared memory. A producer warpgroup (setmaxnreg 24 / 240, one
+//      thread works) streams tiles of TQ = 64 query rows of Q and dO by
+//      TMA, with their lse and D by bulk copy, through a two-stage ring of
+//      full / empty mbarriers, for each head of the GQA group in turn (lse
+//      and D are then contiguous in S, and the group's sum stays in the
+//      block's registers). Per tile a warpgroup computes
 //        S^T  = K Q^T            wgmma, K and Q K-major (64 x 64 x hd)
 //        dP^T = V dO^T           wgmma, V and dO K-major
 //        P^T  = exp(score(S^T) - lse), dS^T = P^T (dP^T - D) (1 - t^2)
@@ -37,11 +36,27 @@
 //   3. dQ: a block owns the forward's work item, 128 rows of (position,
 //      head-in-group) of one KV head, Q and dO resident (TMA boxes over
 //      the (hd, qpk, KV, S, B) view give the rows in the GQA order); the
-//      producer streams K/V tiles of KT = 128 keys; per tile
+//      producer streams K/V tiles of KT keys; per tile
 //        S = Q K^T, dP = dO V^T  wgmma, all K-major
 //        dS = P (dP - D) (1 - t^2)
 //        dQ += dS K              wgmma, dS from registers, K MN-major
 //      The longest causal items run first.
+// The plan by head_dim (Plan below):
+//   * hd 64 and 128: a dK/dV block owns BN = 128 keys, split between the
+//     two consumer warpgroups, 64 each, each holding dK and dV for all hd
+//     columns of its keys; dQ tiles of KT = 128 keys.
+//   * hd 256 (gemma3-4b): that plan would hold dk[128] + dv[128] floats a
+//     thread (above the 255-register limit) in 264,192 bytes of shared
+//     memory, and its dQ dq[128] + s[64] + dp[64] in 394,240 (a block has
+//     232,448). Here a dK/dV block owns BN = 64 keys; both warpgroups
+//     compute that block's S^T and dP^T (the same 64 x 64 tiles: a third
+//     more products than the work needs) and each owns half of hd's
+//     columns of dK and dV, 64 + 64 accumulators a thread, as at hd 128:
+//     1024 + 65,536 + 2 x 66,048 = 198,656 bytes. dQ keeps its 128 rows
+//     and streams tiles of KT = 32 keys (m64n32k16 for S and dP, two
+//     m64n128k16 products a k16 step for dQ, one a half of K's columns):
+//     1024 + 131,072 + 2 x 32,768 = 197,632 bytes, dq[128] + s[16] +
+//     dp[16] a thread.
 // Key and query loops are bounded on the device from the causal and window
 // edges; only the tiles that cross an edge (or S) evaluate the mask.
 //
@@ -64,12 +79,25 @@ namespace {
 
 constexpr int CONSUMERS = 256;            // two warpgroups
 constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
-constexpr int BN = 128;   // keys a dK/dV block owns
 constexpr int TQ = 64;    // query rows a dK/dV tile
 constexpr int BM = 128;   // query rows a dQ block owns
-constexpr int KT = 128;   // keys a dQ tile
 constexpr int STAGES = 2; // tiles in flight
 constexpr int PAD = 64;   // lse and D rows are padded to a multiple of PAD positions
+
+// The plan for a head_dim: keys a dK/dV block owns (BN); whether its two
+// consumer warpgroups split its columns (SPLIT: both take the block's keys)
+// or its keys (64 each, all columns); the dK/dV columns a warpgroup owns
+// (CW); keys a dQ tile (KT); and the N of one dQ product (ON), NO = HD / ON
+// of them a k16 step.
+template <int HD>
+struct Plan {
+  static constexpr bool SPLIT = HD == 256;
+  static constexpr int BN = SPLIT ? 64 : 128;
+  static constexpr int CW = SPLIT ? HD / 2 : HD;
+  static constexpr int KT = HD == 256 ? 32 : 128;
+  static constexpr int ON = HD < 128 ? HD : 128;
+  static constexpr int NO = HD / ON;
+};
 
 // grid ceil(B S H / 8) of 256 threads. o, dout (B, S, H, hd) contiguous
 // (float32, bf16); lse (B, H, S); delta and lse2 (B, H, sp).
@@ -128,6 +156,7 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_k,
                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                            int S, int sp, int H, int KV, int B, int qpk, int causal,
                            int window, float softcap, float scale) {
+  constexpr int BN = Plan<HD>::BN, CW = Plan<HD>::CW;
   constexpr int K_BYTES = BN * HD * 2, T_BYTES = TQ * HD * 2;
   extern __shared__ uint8_t smem_raw[];
   // full[s], empty[s], kv full
@@ -197,15 +226,17 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_k,
   const bool capped = softcap > 0.f;
   const float mul = capped ? scale / softcap : scale * LOG2E;
   const float cap = softcap * LOG2E;
-  const int kw0 = k0 + wg * 64;                  // this warpgroup's first key
+  // this warpgroup's first key (its row in K and V) and first dK/dV column
+  const int wr = Plan<HD>::SPLIT ? 0 : wg * 64, c0 = Plan<HD>::SPLIT ? wg * CW : 0;
+  const int kw0 = k0 + wr;
   // this thread's two key rows (accumulator rows lane / 4 and lane / 4 + 8
   // of its warp's 16)
   int kpos[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) kpos[i] = kw0 + warp * 16 + (lane >> 2) + 8 * i;
-  float dk_acc[HD / 2], dv_acc[HD / 2], s[TQ / 2], dp[TQ / 2];
+  float dk_acc[CW / 2], dv_acc[CW / 2], s[TQ / 2], dp[TQ / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < CW / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < TQ / 2; ++i) s[i] = dp[i] = 0.f;
   mbar_wait(kvfull, 0);
@@ -230,13 +261,13 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_k,
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
           const uint32_t panel = kk >> 2, col = (kk & 3) * 32;
-          wgmma_ss(s, desc_sw128(k_s + panel * BN * 128 + wg * 64 * 128 + col, 16, 1024),
+          wgmma_ss(s, desc_sw128(k_s + panel * BN * 128 + wr * 128 + col, 16, 1024),
                    desc_sw128(qs + panel * TQ * 128 + col, 16, 1024), kk > 0);
         }
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
           const uint32_t panel = kk >> 2, col = (kk & 3) * 32;
-          wgmma_ss(dp, desc_sw128(v_s + panel * BN * 128 + wg * 64 * 128 + col, 16, 1024),
+          wgmma_ss(dp, desc_sw128(v_s + panel * BN * 128 + wr * 128 + col, 16, 1024),
                    desc_sw128(dos + panel * TQ * 128 + col, 16, 1024), kk > 0);
         }
         wgmma_commit();
@@ -276,16 +307,18 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_k,
           }
         }
 
-        // dV += P^T dO and dK += dS^T Q: dO and Q MN-major from shared memory
+        // dV += P^T dO and dK += dS^T Q over this warpgroup's CW columns
+        // (panels c0 / 64 on): dO and Q MN-major from shared memory
+        const uint32_t cols = c0 / 64 * TQ * 128;
         fence_regs(dv_acc);
         fence_regs(dk_acc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < TQ / 16; ++kk)
-          wgmma_rs(dv_acc, pa[kk], desc_sw128(dos + kk * 16 * 128, TQ * 128, 1024));
+          wgmma_rs(dv_acc, pa[kk], desc_sw128(dos + cols + kk * 16 * 128, TQ * 128, 1024));
 #pragma unroll
         for (int kk = 0; kk < TQ / 16; ++kk)
-          wgmma_rs(dk_acc, da[kk], desc_sw128(qs + kk * 16 * 128, TQ * 128, 1024));
+          wgmma_rs(dk_acc, da[kk], desc_sw128(qs + cols + kk * 16 * 128, TQ * 128, 1024));
         wgmma_commit();
         wgmma_wait0();
         fence_regs(dv_acc);
@@ -298,9 +331,9 @@ flash_bwd_dkdv_sm90_kernel(const __grid_constant__ CUtensorMap tm_k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (kpos[i] >= S) continue;
-    const size_t o = (((size_t)b * S + kpos[i]) * KV + g) * HD + 2 * (lane & 3);
+    const size_t o = (((size_t)b * S + kpos[i]) * KV + g) * HD + c0 + 2 * (lane & 3);
 #pragma unroll
-    for (int nn = 0; nn < HD / 8; ++nn) {
+    for (int nn = 0; nn < CW / 8; ++nn) {
       const int e = nn * 4 + i * 2;
       *reinterpret_cast<__nv_bfloat162*>(dk + o + nn * 8) =
           __floats2bfloat162_rn(dk_acc[e] * scale, dk_acc[e + 1] * scale);
@@ -323,6 +356,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const float* __restrict__ lse2, const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dq, int S, int sp, int H, int KV, int B,
                          int qpk, int bq, int causal, int window, float softcap, float scale) {
+  constexpr int KT = Plan<HD>::KT, ON = Plan<HD>::ON, NO = Plan<HD>::NO;
   constexpr int Q_BYTES = BM * HD * 2, KV_BYTES = KT * HD * 2;
   extern __shared__ uint8_t smem_raw[];
   // kv full[s], kv empty[s], q full
@@ -395,9 +429,12 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     l2[i] = qpos[i] >= 0 ? lse2[o] : 0.f;
     dd[i] = qpos[i] >= 0 ? delta[o] : 0.f;
   }
-  float dq_acc[HD / 2], s[KT / 2], dp[KT / 2];
+  // dq_acc[h]: columns h ON .. h ON + ON - 1 of this thread's rows
+  float dq_acc[NO][ON / 2], s[KT / 2], dp[KT / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dq_acc[i] = 0.f;
+  for (int h = 0; h < NO; ++h)
+#pragma unroll
+    for (int i = 0; i < ON / 2; ++i) dq_acc[h][i] = 0.f;
 #pragma unroll
   for (int i = 0; i < KT / 2; ++i) s[i] = dp[i] = 0.f;
   mbar_wait(qfull, 0);
@@ -455,15 +492,21 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
 
-    // dQ += dS K: K MN-major from shared memory
-    fence_regs(dq_acc);
+    // dQ += dS K: K MN-major from shared memory, one product for each ON
+    // columns of K (ON / 64 panels of KT rows)
+#pragma unroll
+    for (int h = 0; h < NO; ++h) fence_regs(dq_acc[h]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KT / 16; ++kk)
-      wgmma_rs(dq_acc, da[kk], desc_sw128(ks + kk * 16 * 128, KT * 128, 1024));
+#pragma unroll
+      for (int h = 0; h < NO; ++h)
+        wgmma_rs(dq_acc[h], da[kk],
+                 desc_sw128(ks + h * (ON / 64) * KT * 128 + kk * 16 * 128, KT * 128, 1024));
     wgmma_commit();
     wgmma_wait0();
-    fence_regs(dq_acc);
+#pragma unroll
+    for (int h = 0; h < NO; ++h) fence_regs(dq_acc[h]);
     mbar_arrive(empty0 + 8 * st);               // this thread is done with stage st
   }
 
@@ -472,21 +515,24 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     if (qpos[i] < 0) continue;
     const size_t o = (((size_t)b * S + qpos[i]) * H + head[i]) * HD + 2 * (lane & 3);
 #pragma unroll
-    for (int nn = 0; nn < HD / 8; ++nn) {
-      const int e = nn * 4 + i * 2;
-      *reinterpret_cast<__nv_bfloat162*>(dq + o + nn * 8) =
-          __floats2bfloat162_rn(dq_acc[e] * scale, dq_acc[e + 1] * scale);
-    }
+    for (int h = 0; h < NO; ++h)
+#pragma unroll
+      for (int nn = 0; nn < ON / 8; ++nn) {
+        const int e = nn * 4 + i * 2;
+        *reinterpret_cast<__nv_bfloat162*>(dq + o + h * ON + nn * 8) =
+            __floats2bfloat162_rn(dq_acc[h][e] * scale, dq_acc[h][e + 1] * scale);
+      }
   }
 }
 
 template <int HD>
 constexpr size_t dkdv_smem() {
-  return 1024 + 2 * (size_t)BN * HD * 2 + STAGES * (2 * (size_t)TQ * HD * 2 + 2 * TQ * 4);
+  return 1024 + 2 * (size_t)Plan<HD>::BN * HD * 2 +
+         STAGES * (2 * (size_t)TQ * HD * 2 + 2 * TQ * 4);
 }
 template <int HD>
 constexpr size_t dq_smem() {
-  return 1024 + 2 * (size_t)BM * HD * 2 + STAGES * 2 * (size_t)KT * HD * 2;
+  return 1024 + 2 * (size_t)BM * HD * 2 + STAGES * 2 * (size_t)Plan<HD>::KT * HD * 2;
 }
 
 template <int HD>
@@ -494,11 +540,15 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
            const void* lse, void* scratch, void* dq, void* dk, void* dv, int B, int S, int H,
            int KV, int qsb, int qss, int ksb, int kss, int causal, int window, float softcap,
            float scale, cudaStream_t stream) {
+  constexpr int BN = Plan<HD>::BN, KT = Plan<HD>::KT;
   const int qpk = H / KV, bq = BM / qpk, sp = (S + PAD - 1) / PAD * PAD;
   const int dsb = S * H * HD, dss = H * HD;   // dout's strides (contiguous)
-  CUtensorMap tm_k, tm_v, tm_q, tm_do, tm_q5, tm_do5;
+  // k, v in BN-row boxes for dK/dV and KT-row boxes for dQ
+  CUtensorMap tm_k, tm_v, tm_kt, tm_vt, tm_q, tm_do, tm_q5, tm_do5;
   if (!rows_map(&tm_k, k, B, S, KV, HD, ksb, kss, BN) ||
       !rows_map(&tm_v, v, B, S, KV, HD, ksb, kss, BN) ||
+      !rows_map(&tm_kt, k, B, S, KV, HD, ksb, kss, KT) ||
+      !rows_map(&tm_vt, v, B, S, KV, HD, ksb, kss, KT) ||
       !rows_map(&tm_q, q, B, S, H, HD, qsb, qss, TQ) ||
       !rows_map(&tm_do, dout, B, S, H, HD, dsb, dss, TQ) ||
       !gqa_map(&tm_q5, q, B, S, KV, qpk, bq, HD, qsb, qss) ||
@@ -526,7 +576,7 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
   err = port::allow_smem(flash_bwd_dq_sm90_kernel<HD>, dq_smem<HD>());
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dq_sm90_kernel<HD><<<(S + bq - 1) / bq * KV * B, THREADS, dq_smem<HD>(), stream>>>(
-      tm_q5, tm_do5, tm_k, tm_v, lse2, delta, (__nv_bfloat16*)dq, S, sp, H, KV, B, qpk, bq,
+      tm_q5, tm_do5, tm_kt, tm_vt, lse2, delta, (__nv_bfloat16*)dq, S, sp, H, KV, B, qpk, bq,
       causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
@@ -542,7 +592,7 @@ extern "C" {
 // (B, S, H, hd) bf16 and dk, dv (B, S, KV, hd) bf16, all contiguous and
 // 16-byte aligned; lse (B, H, S) float32; scratch 2 B H S_pad float32,
 // S_pad = S rounded up to a multiple of 64 (D and lse in log2 units).
-// hd 64 or 128; H / KV <= 64. Three launches: prep, dK/dV, dQ. Returns a
+// hd 64, 128 or 256; H / KV <= 64. Three launches: prep, dK/dV, dQ. Returns a
 // cudaError_t code (0 = launched; cudaErrorInvalidValue also when
 // cuTensorMapEncodeTiled refuses a tensor map).
 int flash_attention_bwd_sm90(int dtype, const void* q, const void* k, const void* v,
@@ -557,6 +607,9 @@ int flash_attention_bwd_sm90(int dtype, const void* q, const void* k, const void
                       kss, causal, window, softcap, scale, s);
   if (hd == 128)
     return launch<128>(q, k, v, out, dout, lse, scratch, dq, dk, dv, B, S, H, KV, qsb, qss,
+                       ksb, kss, causal, window, softcap, scale, s);
+  if (hd == 256)
+    return launch<256>(q, k, v, out, dout, lse, scratch, dq, dk, dv, B, S, H, KV, qsb, qss,
                        ksb, kss, causal, window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -76,6 +76,13 @@
 // result is the gated one, as a row's last tile always holds a live key).
 // m is kept in log2 units (scale * log2(e) folded into one multiply a
 // score) and p = 2^(x - m) comes from one ex2.approx; lse converts back.
+// The bf16 score chain (CHAIN; the reference's score_bf16, its
+// _flash_fwd_blocked with score_t bf16) keeps the scores in natural units
+// and rounds where the reference's bf16 ops round: the raw product; times
+// bf16(scale); under softcap s / softcap, its tanh and softcap times that;
+// m in float32 from those bf16 maxima; s - bf16(m) and p = exp of it (one
+// ex2.approx of the difference times log2(e)); l summed in float32 from the
+// bf16 p, which is also PV's operand; lse = m + log(l).
 // Its times on the card, and the designs tried before this one, are in
 // PERF.md section 6.
 #include "hopper.cuh"
@@ -84,6 +91,9 @@ using port::NEG_INF;
 using namespace sm90;
 
 namespace {
+
+// x rounded to bf16 and back: a rounding point of the bf16 score chain
+__device__ __forceinline__ float bf16r(float x) { return port::round_to<__nv_bfloat16>(x); }
 
 constexpr int BM = 128;        // query rows per block (two warpgroups of 64)
 constexpr int STAGES = 2;      // K/V tiles in flight
@@ -105,7 +115,7 @@ struct Plan {
   static constexpr int NO = HD / ON;
 };
 
-template <int HD>
+template <int HD, bool CHAIN>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -187,9 +197,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   // scores in log2 units: s * scale * log2(e), or under a softcap
-  // softcap * log2(e) * tanh(s * scale / softcap)
+  // softcap * log2(e) * tanh(s * scale / softcap); under CHAIN in natural
+  // units, rounded to bf16 at each step
   const float mul = softcap > 0.f ? scale / softcap : scale * LOG2E;
   const float cap = softcap * LOG2E;
+  const float scale_b = bf16r(scale);
   // o[h]: columns h ON .. h ON + ON - 1 of this thread's rows
   float o[NO][ON / 2], s[KT / 2];
 #pragma unroll
@@ -247,8 +259,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int nn = 0; nn < KT / 8; ++nn) {
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
-            float x = s[nn * 4 + i * 2 + c] * mul;
-            if (softcap > 0.f) x = cap * tanhf(x);
+            float x;
+            if (CHAIN) {
+              x = bf16r(bf16r(s[nn * 4 + i * 2 + c]) * scale_b);
+              if (softcap > 0.f) x = bf16r(softcap * bf16r(tanhf(bf16r(x / softcap))));
+            } else {
+              x = s[nn * 4 + i * 2 + c] * mul;
+              if (softcap > 0.f) x = cap * tanhf(x);
+            }
             if (edge) {
               const int kpos = t0 + nn * 8 + 2 * (lane & 3) + c;
               if (qpos[i] < 0 || kpos >= k_hi || !live(qpos[i], kpos, causal, window))
@@ -260,14 +278,17 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float alpha = ex2(m_r[i] - mx);
+        const float alpha = CHAIN ? ex2((m_r[i] - mx) * LOG2E) : ex2(m_r[i] - mx);
+        const float mb = CHAIN ? bf16r(mx) : mx;
         m_r[i] = mx;
         float sum = 0.f;
 #pragma unroll
         for (int nn = 0; nn < KT / 8; ++nn) {
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
-            const float p = ex2(s[nn * 4 + i * 2 + c] - mx);   // 0 where masked (-inf)
+            // 0 where masked (-inf)
+            const float p = CHAIN ? bf16r(ex2(bf16r(s[nn * 4 + i * 2 + c] - mb) * LOG2E))
+                                  : ex2(s[nn * 4 + i * 2 + c] - mx);
             sum += p;
             s[nn * 4 + i * 2 + c] = p;
           }
@@ -325,7 +346,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           if (out32) *reinterpret_cast<float2*>(out32 + at) = make_float2(x0, x1);
         }
       if ((lane & 3) == 0)
-        lse[((size_t)b * H + h) * S + qpos[i]] = l > 0.f ? m_r[i] / LOG2E + logf(l) : 0.f;
+        lse[((size_t)b * H + h) * S + qpos[i]] =
+            l > 0.f ? (CHAIN ? m_r[i] : m_r[i] / LOG2E) + logf(l) : 0.f;
     }
   }
 }
@@ -335,7 +357,7 @@ constexpr size_t smem_bytes() {
   return 1024 + Plan<HD>::QS * (size_t)BM * HD * 2 + STAGES * 2 * (size_t)Plan<HD>::KT * HD * 2;
 }
 
-template <int HD>
+template <int HD, bool CHAIN>
 int launch(const void* q, const void* k, const void* v, void* out, void* out32, void* lse,
            int B, int S, int H, int KV, int qsb, int qss, int ksb, int kss, int causal,
            int window, float softcap, float scale, cudaStream_t stream) {
@@ -345,17 +367,30 @@ int launch(const void* q, const void* k, const void* v, void* out, void* out32, 
       !rows_map(&tm_k, k, B, S, KV, HD, ksb, kss, Plan<HD>::KT) ||
       !rows_map(&tm_v, v, B, S, KV, HD, ksb, kss, Plan<HD>::KT))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = port::allow_smem(flash_fwd_sm90_kernel<HD>, smem_bytes<HD>());
+  cudaError_t err = port::allow_smem(flash_fwd_sm90_kernel<HD, CHAIN>, smem_bytes<HD>());
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const int n_work = (S + bq - 1) / bq * KV * B;
-  flash_fwd_sm90_kernel<HD><<<min(n_work, sms), THREADS, smem_bytes<HD>(), stream>>>(
+  flash_fwd_sm90_kernel<HD, CHAIN><<<min(n_work, sms), THREADS, smem_bytes<HD>(), stream>>>(
       tm_q, tm_k, tm_v, (__nv_bfloat16*)out, (float*)out32, (float*)lse, S, H, KV, B, qpk, bq,
       causal, window, softcap, scale);
   return (int)cudaGetLastError();
+}
+
+// The chain as a template argument: the kernel without it stays as it was.
+template <int HD>
+int launch_chain(int chain, const void* q, const void* k, const void* v, void* out,
+                 void* out32, void* lse, int B, int S, int H, int KV, int qsb, int qss,
+                 int ksb, int kss, int causal, int window, float softcap, float scale,
+                 cudaStream_t stream) {
+  if (chain)
+    return launch<HD, true>(q, k, v, out, out32, lse, B, S, H, KV, qsb, qss, ksb, kss, causal,
+                            window, softcap, scale, stream);
+  return launch<HD, false>(q, k, v, out, out32, lse, B, S, H, KV, qsb, qss, ksb, kss, causal,
+                           window, softcap, scale, stream);
 }
 
 }  // namespace
@@ -366,24 +401,26 @@ extern "C" {
 // dimensions; k, v (B, S, KV, hd) with strides ksb, kss (the same for
 // both); heads hd apart and hd contiguous; every row 16-byte aligned. out
 // (B, S, H, hd) bf16, out32 (B, S, H, hd) float32 or null, lse (B, H, S)
-// float32, all contiguous. hd 64, 128 or 256; H / KV <= 64. Returns a
-// cudaError_t code (0 = launched; cudaErrorInvalidValue also when
-// cuTensorMapEncodeTiled refuses a tensor map).
+// float32, all contiguous. hd 64, 128 or 256; H / KV <= 64; score_bf16 1
+// runs the bf16 score chain. Returns a cudaError_t code (0 = launched;
+// cudaErrorInvalidValue also when cuTensorMapEncodeTiled refuses a tensor
+// map).
 int flash_attention_fwd_sm90(int dtype, const void* q, const void* k, const void* v,
                              void* out, void* out32, void* lse, int B, int S, int H, int KV,
                              int hd, int qsb, int qss, int ksb, int kss, int causal,
-                             int window, float softcap, float scale, void* stream) {
+                             int window, int score_bf16, float softcap, float scale,
+                             void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype != DTYPE_BF16 || H % KV || H / KV > 64) return (int)cudaErrorInvalidValue;
   if (hd == 64)
-    return launch<64>(q, k, v, out, out32, lse, B, S, H, KV, qsb, qss, ksb, kss, causal,
-                      window, softcap, scale, s);
+    return launch_chain<64>(score_bf16, q, k, v, out, out32, lse, B, S, H, KV, qsb, qss,
+                            ksb, kss, causal, window, softcap, scale, s);
   if (hd == 128)
-    return launch<128>(q, k, v, out, out32, lse, B, S, H, KV, qsb, qss, ksb, kss, causal,
-                       window, softcap, scale, s);
+    return launch_chain<128>(score_bf16, q, k, v, out, out32, lse, B, S, H, KV, qsb, qss,
+                             ksb, kss, causal, window, softcap, scale, s);
   if (hd == 256)
-    return launch<256>(q, k, v, out, out32, lse, B, S, H, KV, qsb, qss, ksb, kss, causal,
-                       window, softcap, scale, s);
+    return launch_chain<256>(score_bf16, q, k, v, out, out32, lse, B, S, H, KV, qsb, qss,
+                             ksb, kss, causal, window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -118,6 +118,20 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// D (64 x 32, float32) (+)= A (64 x 16) B (16 x 32), both in shared memory,
+// both K-major; scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 64, float32) (+)= A (64 x 16) B (16 x 64), both in shared memory
 // (descriptors da, db): K-major, or with TRANS_A 1 A MN-major (its 64 rows
 // contiguous); scale_d 0 overwrites D.
@@ -229,19 +243,54 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled, found through the runtime's entry-point query
-// (no -lcuda).
+// A CUDA function (cu*) found through the runtime's entry-point query (no
+// -lcuda), or null.
+inline void* cu_fn(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+  if (cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &found) != cudaSuccess ||
+      found != cudaDriverEntryPointSuccess)
+    return nullptr;
+  return p;
+}
+
+// Make the current device's primary context current on the calling thread
+// if no context is. cuTensorMapEncodeTiled needs one (it fails with
+// CUDA_ERROR_INVALID_CONTEXT without), and a thread on which no PyTorch
+// call has touched the card yet has none: autograd's device thread, where
+// a backward's first op can be a kernel of this port whose buffers came
+// from the caching allocator. Calls of this library's own (static) runtime
+// do not bind it. The primary context is the one PyTorch and the runtime
+// use; binding it is what the runtime's first call on a thread would do.
+inline bool bind_context() {
+  using GetCurrent = CUresult (*)(CUcontext*);
+  using SetCurrent = CUresult (*)(CUcontext);
+  using DeviceGet = CUresult (*)(CUdevice*, int);
+  using Retain = CUresult (*)(CUcontext*, CUdevice);
+  using Release = CUresult (*)(CUdevice);
+  static const auto get = reinterpret_cast<GetCurrent>(cu_fn("cuCtxGetCurrent"));
+  static const auto set = reinterpret_cast<SetCurrent>(cu_fn("cuCtxSetCurrent"));
+  static const auto device_get = reinterpret_cast<DeviceGet>(cu_fn("cuDeviceGet"));
+  static const auto retain = reinterpret_cast<Retain>(cu_fn("cuDevicePrimaryCtxRetain"));
+  static const auto release = reinterpret_cast<Release>(cu_fn("cuDevicePrimaryCtxRelease"));
+  if (!get || !set || !device_get || !retain || !release) return false;
+  CUcontext ctx = nullptr;
+  if (get(&ctx) == CUDA_SUCCESS && ctx != nullptr) return true;
+  int ordinal = 0;
+  CUdevice dev;
+  if (cudaGetDevice(&ordinal) != cudaSuccess || device_get(&dev, ordinal) != CUDA_SUCCESS ||
+      retain(&ctx, dev) != CUDA_SUCCESS)
+    return false;
+  const bool ok = set(ctx) == CUDA_SUCCESS;
+  release(dev);   // PyTorch holds the primary context; this call needs no reference of its own
+  return ok;
+}
+
+// cuTensorMapEncodeTiled, with a context current on the calling thread, or
+// null.
 inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
+  static const auto fn = reinterpret_cast<EncodeTiled>(cu_fn("cuTensorMapEncodeTiled"));
+  return fn != nullptr && bind_context() ? fn : nullptr;
 }
 
 // Tensor map of a (B, S, N, hd) bf16 array with element strides (sb, ss),

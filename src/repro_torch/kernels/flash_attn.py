@@ -12,14 +12,17 @@ layout: q (B, S, H, hd), k, v (B, S, KV, hd), heads ``g*qpk .. g*qpk + qpk
   backward needs and the Pallas kernel does not emit, and, when asked, the
   float32 output before its cast, from which the backward takes D. Two
   kernels, one a dtype: bfloat16 runs the tensor-core (wgmma) kernel of
-  ``flash_fwd_sm90.cu``, float32 the scalar kernel of ``flash_attn.cu``.
+  ``flash_fwd_sm90.cu``, float32 the scalar kernel of ``flash_attn.cu``;
+  both also run the reference's bf16 score chain (``score_bf16``).
 * ``flash_attention_bwd_kernel`` -> (dq, dk, dv) in the inputs' dtype —
   ``_flash_core_bwd``: the scores recomputed from (q, k, v, lse), three
   launches (D = rowsum(dO * O) from the float32 output, dK/dV, dQ), no
   float atomics. Two routes, one a dtype, as the forward's: bfloat16 runs
   the tensor-core (wgmma) kernels of ``flash_bwd_sm90.cu``, which round P
   and dS to bf16 as the operands of the dV, dK and dQ products, float32
-  the scalar kernels of ``flash_attn.cu``.
+  the scalar kernels of ``flash_attn.cu``. The backward recomputes float32
+  scores whatever the forward's score chain was, as the reference's
+  ``_flash_core_bwd`` does.
 
 The plain versions are the reference's blockwise loops over a static
 (q block, kv block) schedule: ``flash_attention_plain`` is ``_flash_core``'s
@@ -120,7 +123,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     is reset by the next block's max). ``score_bf16`` is the reference's
     bf16 score chain: the products rounded to bf16, then scale, softcap,
     mask and p = exp(s - m) in bf16, with m, l and the accumulators in
-    float32 (the kernels have no such chain)."""
+    float32."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     scale = 1.0 / math.sqrt(hd)
@@ -228,19 +231,20 @@ def _check_aligned(**tensors):
 BWD_PAD = 64
 
 
-# the head_dims each route takes: the bf16 forward (flash_fwd_sm90.cu) also
-# gemma3-4b's 256; the float32 forward and both backwards 64 and 128
+# the head_dims each route takes: the bf16 forward and backward
+# (flash_fwd_sm90.cu, flash_bwd_sm90.cu) also gemma3-4b's 256; the float32
+# forward and backward (flash_attn.cu) 64 and 128
 FWD_SM90_HEAD_DIMS = (64, 128, 256)
+BWD_SM90_HEAD_DIMS = (64, 128, 256)
 HEAD_DIMS = (64, 128)
 
 
 def _check(q, k, v, head_dims=HEAD_DIMS):
     """Shapes, strides and the card; returns the kernels' integer arguments
-    (B, S, H, KV, hd, qsb, qss, ksb, kss)."""
+    (B, S, H, KV, hd, qsb, qss, ksb, kss). The head_dim is checked before
+    the device, so a route's refusal shows on any tensor."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention kernels run on CUDA tensors, got {q.device}")
     for t in (k, v):
         if t.dtype != q.dtype or t.device != q.device or tuple(t.shape) != (B, S, KV, hd):
             raise ValueError(f"k, v must be {q.dtype} (B, S, KV, hd) = {(B, S, KV, hd)} on "
@@ -251,6 +255,8 @@ def _check(q, k, v, head_dims=HEAD_DIMS):
     if hd not in head_dims:
         raise ValueError(f"this route takes head_dim {' or '.join(map(str, head_dims))}, "
                          f"got {hd}")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention kernels run on CUDA tensors, got {q.device}")
     if q.stride()[2:] != (hd, 1) or k.stride() != v.stride() or k.stride()[2:] != (hd, 1):
         raise ValueError(f"q, k, v need their (heads, hd) contiguous and k, v equal "
                          f"strides, got {q.stride()}, {k.stride()}, {v.stride()}")
@@ -262,7 +268,7 @@ def _check(q, k, v, head_dims=HEAD_DIMS):
 
 def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
                            softcap: float = 0.0, q_block: int = 512, kv_block: int = 512,
-                           f32_out: bool = False):
+                           f32_out: bool = False, score_bf16: bool = False):
     """Layout and outputs as ``flash_attention_plain``. For CUDA tensors it
     runs one of two kernels, chosen by dtype (their own tiles;
     ``q_block``/``kv_block`` are the plain version's): bfloat16 the
@@ -270,29 +276,30 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True, window: int = 0,
     persistent blocks; head_dim 64, 128 or 256), which writes the float32
     output in its epilogue when ``f32_out`` asks; float32 the scalar kernel
     (``flash_attn.cu``; head_dim 64 or 128), whose output is already
-    float32 and is returned for both. A head_dim the dtype's route does not
-    take raises ValueError. CPU tensors run the plain version."""
+    float32 and is returned for both. Both run the bf16 score chain when
+    ``score_bf16`` asks. A head_dim the dtype's route does not take raises
+    ValueError. CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, q_block=q_block, kv_block=kv_block,
-                                     f32_out=f32_out)
+                                     f32_out=f32_out, score_bf16=score_bf16)
     code = _dtype_code(q)
     ints = _check(q, k, v, FWD_SM90_HEAD_DIMS if q.dtype == torch.bfloat16 else HEAD_DIMS)
     B, S, H = ints[:3]
     out = torch.empty((B, S, H, q.shape[3]), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    tail = (*ints, int(causal), int(window), float(softcap), 1.0 / math.sqrt(q.shape[3]),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    tail = (*ints, int(causal), int(window), int(score_bf16), float(softcap),
+            1.0 / math.sqrt(q.shape[3]), torch.cuda.current_stream(q.device).cuda_stream)
     if q.dtype == torch.bfloat16:
         _check_aligned(q=q, k=k, v=v)
         out32 = torch.empty(out.shape, dtype=torch.float32, device=q.device) if f32_out else None
-        fn = build.bind("flash_fwd_sm90.cu", "flash_attention_fwd_sm90", 6, 11, 2)
+        fn = build.bind("flash_fwd_sm90.cu", "flash_attention_fwd_sm90", 6, 12, 2)
         err = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if out32 is None else out32.data_ptr(), lse.data_ptr(), *tail)
         build.check(err, "flash_attention_fwd_sm90")
     else:
         out32 = out
-        fn = build.bind("flash_attn.cu", "flash_attention_fwd", 5, 11, 2)
+        fn = build.bind("flash_attn.cu", "flash_attention_fwd", 5, 12, 2)
         err = fn(code, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), *tail)
         build.check(err, "flash_attention_fwd")
@@ -306,19 +313,16 @@ def flash_attention_bwd_kernel(q, k, v, out, lse, dout, *, causal: bool = True,
     """Arguments as ``flash_attention_bwd_plain`` -> (dq, dk, dv). For
     CUDA tensors (out contiguous float32, dout contiguous in q's dtype) it
     runs three launches of one of two routes, chosen by dtype: bfloat16 the
-    tensor-core kernels (``flash_bwd_sm90.cu``: wgmma products, TMA loads),
-    float32 the scalar ones (``flash_attn.cu``), both at head_dim 64 or
-    128 (256 raises ValueError). CPU tensors run the plain version."""
+    tensor-core kernels (``flash_bwd_sm90.cu``: wgmma products, TMA loads;
+    head_dim 64, 128 or 256), float32 the scalar ones (``flash_attn.cu``;
+    head_dim 64 or 128). A head_dim the dtype's route does not take raises
+    ValueError. CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
                                          window=window, softcap=softcap, q_block=q_block,
                                          kv_block=kv_block)
     code = _dtype_code(q)
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"the flash backward kernels take head_dim 64 or 128, got "
-                         f"{q.shape[3]}: head_dim 256 (training gemma3-4b with use_kernels) "
-                         f"comes with the flash backward at head_dim 256 (ROADMAP queue 2)")
-    ints = _check(q, k, v)
+    ints = _check(q, k, v, BWD_SM90_HEAD_DIMS if q.dtype == torch.bfloat16 else HEAD_DIMS)
     B, S, H = ints[:3]
     for name, t, dtype in (("out", out, torch.float32), ("dout", dout, q.dtype)):
         if t.dtype != dtype or t.shape != q.shape or not t.is_contiguous():

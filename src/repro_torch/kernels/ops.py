@@ -24,13 +24,15 @@ def _i32(t):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, q_block: int = 512, kv_block: int = 512,
-                    f32_out: bool = False):
+                    f32_out: bool = False, score_bf16: bool = False):
     """q (B, S, H, hd); k, v (B, S, KV, hd), read in place (no transpose or
     padding: the kernels take the model layout). -> (out (B, S, H, hd),
-    lse (B, H, S) float32), and with ``f32_out`` the float32 output too.
+    lse (B, H, S) float32), and with ``f32_out`` the float32 output too;
+    ``score_bf16`` runs the reference's bf16 score chain.
     ``q_block``/``kv_block`` reach only the plain version (CPU tensors)."""
     return flash_attention_kernel(q, k, v, causal=causal, window=window, softcap=softcap,
-                                  q_block=q_block, kv_block=kv_block, f32_out=f32_out)
+                                  q_block=q_block, kv_block=kv_block, f32_out=f32_out,
+                                  score_bf16=score_bf16)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: int = 0,

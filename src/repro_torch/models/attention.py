@@ -403,10 +403,10 @@ class AttnCall:
 
 def _flash_forward(q, k, v, kw, use_kernels, f32_out, score_bf16=False):
     """The flash forward through ``kernels/ops.py`` (``use_kernels``) or the
-    plain version directly (the only one with the bf16 score chain)."""
+    plain version directly, either with the bf16 score chain."""
     if use_kernels:
         from repro_torch.kernels.ops import flash_attention
-        return flash_attention(q, k, v, f32_out=f32_out, **kw)
+        return flash_attention(q, k, v, f32_out=f32_out, score_bf16=score_bf16, **kw)
     return flash_attention_plain(q, k, v, f32_out=f32_out, score_bf16=score_bf16, **kw)
 
 
@@ -452,22 +452,15 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int = 0,
     or, with ``use_kernels``, the flash kernel), and autograd takes its
     hand-written backward. Where no backward can run (grad mode off, or no
     input that requires grad, as in serving prefill) the forward runs
-    alone and writes no float32 output. ``score_bf16`` runs the plain
-    forward's bf16 score chain, which the reference runs as XLA ops; the
-    flash kernels (9, 9b) have no such chain, so on CUDA tensors
-    ``use_kernels`` with ``score_bf16`` raises ValueError, and on CPU
-    tensors the chain runs plain either way. With ``segment_ids``
+    alone and writes no float32 output. ``score_bf16`` runs the forward's
+    bf16 score chain (the reference's, which it runs as XLA ops): in the
+    plain forward, or with ``use_kernels`` in the flash kernel (its plain
+    version for CPU tensors). With ``segment_ids``
     (B,S) the reference's segmented route runs instead
     (``_segmented_attention``), with no kernel and no custom backward."""
     if segment_ids is not None:
         return _segmented_attention(q, k, v, segment_ids, causal=causal, window=window,
                                     softcap=softcap, q_block=q_block, kv_block=kv_block)
-    if use_kernels and score_bf16:
-        if q.is_cuda:
-            raise ValueError("attn_score_bf16 with use_kernels: the flash kernels "
-                             "(flash_fwd_sm90.cu, flash_bwd_sm90.cu) have no bf16 score "
-                             "chain; run with use_kernels=False or attn_score_bf16=False")
-        use_kernels = False
     if not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                          or v.requires_grad)):
         kw = dict(causal=causal, window=window, softcap=softcap, q_block=q_block,

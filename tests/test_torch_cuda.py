@@ -448,6 +448,13 @@ BF16_FWD_CASES = [(2048, 2, 1, True, 0, 0.0), (2048, 2, 4, False, 0, 0.0),
                   (2047, 2, 4, True, 0, 0.0), (2048, 2, 1, True, 1000, 50.0),
                   (1000, 1, 12, False, 1000, 50.0)]
 
+# gemma3-4b's attention: head_dim 256, 8 heads over 4 (qpk 2), a window of
+# 1024 on its local layers; S 1000 and 2047 are not multiples of the hd-256
+# plan's 64-key tiles
+HD256_FWD_CASES = [(2048, 4, 2, True, 0, 0.0), (2048, 4, 2, True, 1024, 0.0),
+                   (1000, 4, 2, True, 300, 50.0), (2047, 2, 2, False, 0, 0.0),
+                   (2047, 1, 12, True, 1024, 0.0)]
+
 
 def _fused_qkv(rng, card, B, S, H, KV, hd):
     """q, k, v as strided views of one fused (B, S, (H + 2 KV) hd) bf16
@@ -555,23 +562,28 @@ def test_cuda_bf16_flash_forward_rejects_what_it_does_not_take(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("S,KV,qpk,causal,window,softcap", BF16_FWD_CASES)
-def test_cuda_bf16_flash_backward_matches_plain(card, S, KV, qpk, causal, window, softcap,
-                                                hd):
-    """The tensor-core bf16 backward (``flash_bwd_sm90.cu``) against the
-    plain version, from the plain forward's float32 output and lse and a
-    seeded dout, with q, k, v read as strided views of one fused
-    projection: dq, dk and dv each within 2e-2 times max(1, its largest
-    |plain entry|) (dk and dv sum over rows and the group's heads); a
-    second call gives the same bits (no atomics)."""
+@pytest.mark.parametrize("hd,S,KV,qpk,causal,window,softcap",
+                         [(hd, *c) for hd in (64, 128) for c in BF16_FWD_CASES]
+                         + [(256, *c) for c in HD256_FWD_CASES])
+def test_cuda_bf16_flash_backward_matches_plain(card, hd, S, KV, qpk, causal, window,
+                                                softcap):
+    """The tensor-core bf16 backward (``flash_bwd_sm90.cu``; at hd 256
+    64-key dK/dV blocks whose two warpgroups own half of hd's columns each,
+    32-key dQ tiles) against the plain version, from the plain forward's
+    float32 output and lse and a seeded dout, with q, k, v read as strided
+    views of one fused projection: dq, dk and dv each within 2e-2 times
+    max(1, its largest |plain entry|) (dk and dv sum over rows and the
+    group's heads); one launch counted; a second call gives the same bits
+    (no atomics)."""
     rng = np.random.default_rng(S + qpk + hd + 1)
     q, k, v = _fused_qkv(rng, card, 1, S, KV * qpk, KV, hd)
     kw = dict(causal=causal, window=window, softcap=softcap)
     _, lse, o32 = flash_attn.flash_attention_plain(q, k, v, f32_out=True, **kw)
     dout = torch.tensor(rng.standard_normal(q.shape).astype(np.float32),
                         device=card).to(torch.bfloat16)
+    n = build.launch_counts["flash_attention_bwd"]
     got = flash_attn.flash_attention_bwd_kernel(q, k, v, o32, lse, dout, **kw)
+    assert build.launch_counts["flash_attention_bwd"] == n + 1
     want = flash_attn.flash_attention_bwd_plain(q, k, v, o32, lse, dout, **kw)
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape
@@ -606,20 +618,52 @@ def test_cuda_bf16_flash_backward_rejects_what_it_does_not_take(card):
 
 
 @pytest.mark.cuda
-def test_cuda_score_bf16_with_the_kernels_raises(card):
-    """The flash kernels have no bf16 score chain: the flash core with
-    ``use_kernels`` and ``score_bf16`` on CUDA tensors raises ValueError
-    (it does not give way to the plain chain), and launches nothing;
-    without ``use_kernels`` the plain chain runs on the card."""
+@pytest.mark.parametrize("dtype,hd", [(torch.bfloat16, 128), (torch.bfloat16, 256),
+                                      (torch.float32, 128)])
+def test_cuda_score_bf16_chain_through_the_kernels_matches_plain(card, dtype, hd):
+    """The bf16 score chain in the flash forward (kernel 9 for bf16, the
+    scalar forward of ``flash_attn.cu`` for float32) against the plain
+    chain (``flash_attention_plain(score_bf16=True)``): out, lse and the
+    float32 output within 2e-2, causal, windowed with a softcap, at a
+    length that is not a tile multiple; and the chain must show: the mean
+    |difference| of the float32 output and of lse from the plain chain is
+    under a third of the chain-free kernel's. Then the flash core with ``use_kernels`` and
+    ``score_bf16`` on CUDA tensors launches the forward and backward
+    kernels (no ValueError, no plain fallback) and its output and
+    gradients match the plain core's within the band."""
     from repro_torch.models.attention import blockwise_attention
-    x = torch.zeros((1, 128, 2, 64), device=card, dtype=torch.bfloat16, requires_grad=True)
-    kw = dict(causal=True, q_block=64, kv_block=64, score_bf16=True)
-    build.reset_launch_counts()
-    with pytest.raises(ValueError, match="bf16 score chain"):
-        blockwise_attention(x, x, x, use_kernels=True, **kw)
-    assert build.launch_counts["flash_attention"] == 0
-    out = blockwise_attention(x, x, x, use_kernels=False, **kw)
-    assert out.shape == x.shape and out.device.type == "cuda"
+    rng = np.random.default_rng(hd + 17)
+    t = lambda a: torch.tensor(a, device=card).to(dtype)
+    S, H, KV = 1000, 4, 2
+    q = t(rng.standard_normal((1, S, H, hd)).astype(np.float32))
+    k, v = (t(rng.standard_normal((1, S, KV, hd)).astype(np.float32)) for _ in range(2))
+    for kw in (dict(causal=True), dict(causal=True, window=300, softcap=50.0)):
+        n = build.launch_counts["flash_attention"]
+        got = flash_attn.flash_attention_kernel(q, k, v, f32_out=True, score_bf16=True, **kw)
+        assert build.launch_counts["flash_attention"] == n + 1
+        want = flash_attn.flash_attention_plain(q, k, v, f32_out=True, score_bf16=True, **kw)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=2e-2)
+        off = flash_attn.flash_attention_kernel(q, k, v, f32_out=True, **kw)
+        for i in (1, 2):                 # lse, the float32 output
+            err = (got[i] - want[i]).abs().mean().item()
+            effect = (off[i] - want[i]).abs().mean().item()
+            assert err < effect / 3, (i, err, effect)
+    kw = dict(causal=True, q_block=256, kv_block=256, score_bf16=True)
+    dout = t(rng.standard_normal(q.shape).astype(np.float32))
+    res = {}
+    for use_kernels in (True, False):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        build.reset_launch_counts()
+        out = blockwise_attention(*leaves, use_kernels=use_kernels, **kw)
+        out.backward(dout)
+        launched = (build.launch_counts["flash_attention"],
+                    build.launch_counts["flash_attention_bwd"])
+        assert launched == ((1, 1) if use_kernels else (0, 0))
+        res[use_kernels] = [out.detach()] + [x.grad for x in leaves]
+    for g, w in zip(res[True], res[False]):
+        band = 2e-2 * max(1.0, w.float().abs().max().item())
+        torch.testing.assert_close(g.float(), w.float(), atol=band, rtol=0)
 
 
 MIRROR_CASES = [(512, 2, 2, True, 0, 0.0), (512, 1, 4, False, 0, 0.0),
@@ -628,18 +672,21 @@ MIRROR_BAND = 1e-5     # mean |difference| from kernel 9b's dq, dk, dv
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,KV,qpk,causal,window,softcap", MIRROR_CASES)
-def test_cuda_bf16_backward_rounding_mirror_is_closer_to_kernel_9b(card, S, KV, qpk, causal,
-                                                                   window, softcap):
+@pytest.mark.parametrize("hd,B,S,KV,qpk,causal,window,softcap",
+                         [(128, 2, *c) for c in MIRROR_CASES]
+                         + [(256, 1, *c) for c in HD256_FWD_CASES[:3]])
+def test_cuda_bf16_backward_rounding_mirror_is_closer_to_kernel_9b(card, hd, B, S, KV, qpk,
+                                                                   causal, window, softcap):
     """The bf16 mirror of kernel 9b's rounding of P and dS
     (``tests/torch_flash_mirror.py``) against kernel 9b's dq, dk, dv on
-    the card, beside the unrounded plain backward: for each gradient the
-    mean |difference| from the kernel is under MIRROR_BAND for the
-    mirror and over it for the plain version (measured on an H100: the
-    mirror 1.8e-7 to 1.2e-6, the plain version 9.3e-5 to 1.9e-4)."""
+    the card, beside the unrounded plain backward, at hd 128 and at
+    gemma3-4b's hd 256: for each gradient the mean |difference| from the
+    kernel is under MIRROR_BAND for the mirror and over it for the plain
+    version (measured on an H100 at hd 128: the mirror 1.8e-7 to 1.2e-6,
+    the plain version 9.3e-5 to 1.9e-4)."""
     from torch_flash_mirror import flash_bwd_rounded
     rng = np.random.default_rng(S + qpk + 7)
-    q, k, v = _fused_qkv(rng, card, 2, S, KV * qpk, KV, 128)
+    q, k, v = _fused_qkv(rng, card, B, S, KV * qpk, KV, hd)
     kw = dict(causal=causal, window=window, softcap=softcap)
     _, lse, o32 = flash_attn.flash_attention_plain(q, k, v, f32_out=True, **kw)
     dout = torch.tensor(rng.standard_normal(q.shape).astype(np.float32),
@@ -1253,14 +1300,6 @@ def test_cuda_segments_all_equal_match_the_flash_kernels(card):
         torch.testing.assert_close(got.float(), want.float(), atol=band, rtol=0)
 
 
-# gemma3-4b's attention: head_dim 256, 8 heads over 4 (qpk 2), a window of
-# 1024 on its local layers; S 1000 and 2047 are not multiples of the hd-256
-# plan's 64-key tiles
-HD256_FWD_CASES = [(2048, 4, 2, True, 0, 0.0), (2048, 4, 2, True, 1024, 0.0),
-                   (1000, 4, 2, True, 300, 50.0), (2047, 2, 2, False, 0, 0.0),
-                   (2047, 1, 12, True, 1024, 0.0)]
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,KV,qpk,causal,window,softcap", HD256_FWD_CASES)
 def test_cuda_bf16_flash_forward_matches_plain_at_head_dim_256(card, S, KV, qpk, causal,
@@ -1286,16 +1325,13 @@ def test_cuda_bf16_flash_forward_matches_plain_at_head_dim_256(card, S, KV, qpk,
 
 @pytest.mark.cuda
 def test_cuda_head_dim_256_routes_refuse_what_they_do_not_compute(card):
-    """At head_dim 256 the float32 forward and both backwards raise
-    ValueError before any launch (no plain fallback)."""
+    """At head_dim 256 the float32 forward and backward (``flash_attn.cu``)
+    raise ValueError before any launch (no plain fallback)."""
     n = dict(build.launch_counts)
-    for dtype in (torch.bfloat16, torch.float32):
-        x = torch.zeros((1, 64, 2, 256), device=card, dtype=dtype)
-        out = torch.zeros(x.shape, device=card)
-        lse = torch.zeros((1, 2, 64), device=card)
-        with pytest.raises(ValueError, match="head_dim 256"):
-            flash_attn.flash_attention_bwd_kernel(x, x, x, out, lse, x)
     x = torch.zeros((1, 64, 2, 256), device=card)
+    lse = torch.zeros((1, 2, 64), device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attn.flash_attention_bwd_kernel(x, x, x, x, lse, x)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attn.flash_attention_kernel(x, x, x)
     assert dict(build.launch_counts) == n

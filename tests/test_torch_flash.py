@@ -206,22 +206,89 @@ def test_flash_plain_matches_pallas_at_head_dim_256(causal, window, softcap, dty
                                **_tol(dtype))
 
 
+# gemma3-4b's head_dim 256 at its 2 query heads a KV head, S 40 over
+# 16-row blocks: (causal, window, softcap)
+HD256_CASES = [(True, 0, 0.0), (True, 24, 0.0), (True, 24, 50.0)]
+
+
+def _hd256_inputs(window, softcap):
+    rng = np.random.default_rng(100 + window + int(softcap))
+    S, KV, qpk, hd = 40, 2, 2, 256
+    q = rng.standard_normal((1, S, KV * qpk, hd)).astype(np.float32)
+    k = rng.standard_normal((1, S, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((1, S, KV, hd)).astype(np.float32)
+    dout = rng.standard_normal(q.shape).astype(np.float32)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("causal,window,softcap", HD256_CASES)
+def test_flash_core_and_vjp_match_reference_at_head_dim_256(causal, window, softcap,
+                                                            use_kernels):
+    """At head_dim 256 (what kernel 9b's hd-256 plan is held to on the card)
+    the port's flash core forward, lse and (dq, dk, dv) for a seeded dO
+    against ``jax.vjp`` of the reference's ``_flash_core`` (float32, the
+    file's float32 tolerance)."""
+    q, k, v, dout = _hd256_inputs(window, softcap)
+    args = (causal, window, softcap, BLK, BLK, False)
+    out_j, vjp = jax.vjp(lambda a, b, c: jattn._flash_core(a, b, c, *args),
+                         *map(jnp.asarray, (q, k, v)))
+    grads_j = vjp(jnp.asarray(dout))
+    _, res = jattn._flash_core_fwd(*map(jnp.asarray, (q, k, v)), *args)
+    B, S, H = q.shape[:3]
+    lse_j = np.asarray(res[4]).reshape(B, H, -1)[:, :, :S]
+    kw = dict(causal=causal, window=window, softcap=softcap, q_block=BLK, kv_block=BLK)
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out_t = tattn.blockwise_attention(tq, tk, tv, use_kernels=use_kernels, **kw)
+    out_t.backward(torch.tensor(dout))
+    tol = _tol("float32")
+    np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j), **tol)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), grads_j):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    _, lse_t = tops.flash_attention(tq.detach(), tk.detach(), tv.detach(), **kw)
+    np.testing.assert_allclose(lse_t.numpy(), lse_j, **tol)
+
+
+@pytest.mark.parametrize("causal,window,softcap", HD256_CASES)
+def test_bf16_backward_rounding_mirror_matches_reference_at_head_dim_256(causal, window,
+                                                                          softcap):
+    """Kernel 9b's bf16 rounding of P and dS, mirrored on the CPU
+    (``tests/torch_flash_mirror.py``), at head_dim 256 on bf16 inputs from
+    the forward's float32 output and lse, against ``jax.vjp`` of the
+    reference's ``_flash_core`` within the bf16 band (2e-2)."""
+    from torch_flash_mirror import flash_bwd_rounded
+    q, k, v, dout = _hd256_inputs(window, softcap)
+    bf = lambda a: jnp.asarray(a).astype(jnp.bfloat16)
+    args = (causal, window, softcap, BLK, BLK, False)
+    _, vjp = jax.vjp(lambda a, b, c: jattn._flash_core(a, b, c, *args), *map(bf, (q, k, v)))
+    grads_j = [np.asarray(g.astype(jnp.float32)) for g in vjp(bf(dout))]
+    kw = dict(causal=causal, window=window, softcap=softcap, q_block=BLK, kv_block=BLK)
+    tq, tk, tv = (torch.tensor(a).to(torch.bfloat16) for a in (q, k, v))
+    _, lse, out32 = flash_attention_plain(tq, tk, tv, f32_out=True, **kw)
+    got = flash_bwd_rounded(tq, tk, tv, out32, lse, torch.tensor(dout).to(torch.bfloat16), **kw)
+    for g, w in zip(got, grads_j):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), w, **_tol("bfloat16"))
+
+
 def test_flash_routes_take_the_head_dims_they_compute():
-    """The bf16 forward takes head_dim 256; the float32 forward and both
-    backwards refuse it with ValueError (the backward names the work it
-    waits for) before any launch; a tensor on no card is refused, never
-    run through the plain version."""
+    """The bf16 forward and backward take head_dim 256 (on a tensor on no
+    card they get past the head_dim check and refuse the device); the
+    float32 forward and backward refuse it with ValueError before any
+    launch; a tensor on no card is refused, never run through the plain
+    version."""
     from repro_torch.kernels import build, flash_attn
-    assert 256 in flash_attn.FWD_SM90_HEAD_DIMS and 256 not in flash_attn.HEAD_DIMS
-    for dtype in (torch.bfloat16, torch.float32):
+    assert 256 in flash_attn.FWD_SM90_HEAD_DIMS and 256 in flash_attn.BWD_SM90_HEAD_DIMS
+    assert 256 not in flash_attn.HEAD_DIMS
+    for dtype, refusal in ((torch.bfloat16, "CUDA"), (torch.float32, "head_dim 64 or 128")):
         q = torch.zeros((1, 8, 2, 256), dtype=dtype, device="meta")
         k = torch.zeros((1, 8, 1, 256), dtype=dtype, device="meta")
         lse = torch.zeros((1, 2, 8), device="meta")
-        with pytest.raises(ValueError, match="head_dim 256"):
+        with pytest.raises(ValueError, match=refusal):
             flash_attn.flash_attention_bwd_kernel(q, k, k, q.float(), lse, q)
-        with pytest.raises(ValueError, match="CUDA"):
+        with pytest.raises(ValueError, match=refusal):
             flash_attn.flash_attention_kernel(q, k, k)
         with pytest.raises(ValueError, match="CUDA"):
-            flash_attn._check(q, k, k, flash_attn.HEAD_DIMS)
+            flash_attn._check(q[..., :128], k[..., :128], k[..., :128], flash_attn.HEAD_DIMS)
     assert build.launch_counts["flash_attention"] == build.launch_counts[
         "flash_attention_bwd"] == 0

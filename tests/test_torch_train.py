@@ -5,6 +5,8 @@ float32) with the same weights and batches. At seq 48 with 16-row tiles
 the attention runs the flash core (its hand-written backward); at seq 16
 the unblocked path, differentiated by autograd. Also the loss and
 gradients of a tiny hybrid (Mamba-2 + attention + MoE) stack."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -270,3 +272,80 @@ def test_hybrid_loss_and_grads_match_reference():
     assert abs(float(loss_t.detach()) - float(loss_j)) <= 1e-5
     assert abs(float(m_t["aux"].detach()) - float(m_j["aux"])) <= 1e-5
     _assert_tree_close(g_j, to_numpy_tree(tree_map(pt, lambda _: next(grads))), rel=1e-4)
+
+
+def _gemma_cut(m, full):
+    """gemma3-4b cut to two layers at its head_dim 256 (8 heads over 4):
+    one local layer at a window of 32, one global; d_model 512, float32."""
+    pattern = (m.LayerKind(m.ATTN_LOCAL, m.DENSE), m.LayerKind(m.ATTN, m.DENSE))
+    return dataclasses.replace(full, num_layers=2, segments=(m.Segment(pattern, 1),),
+                               d_model=512, d_ff=1024, vocab_size=512, sliding_window=32,
+                               dtype="float32", param_dtype="float32").validate()
+
+
+def test_gemma3_head_dim_256_train_step_matches_reference():
+    """One ``make_step`` step of the trainer's default plan (the flash
+    kernels' wrappers, their plain versions on the CPU) on a two-layer
+    gemma3-4b cut at head_dim 256, S 96 over 32-row blocks so both layers
+    run the flash core (the local one its banded schedule), against the
+    reference's train step on the same numpy weights and batch, from step 1
+    (step 0 has lr 0): the loss within 1e-5, both attention layers'
+    gradients within 1e-4 of each leaf's largest entry, and their updated
+    parameters within 1e-5 wherever the reference's gradient is at least
+    1e-6. (A first AdamW step moves an entry by lr g / (|g| + eps): where
+    |g| is within a few eps of 0, float32 sums in another order move it by
+    up to lr; such entries are held to that bound.)"""
+    from repro.configs.registry import get_config
+    cfg_j, cfg_t = _gemma_cut(jb, get_config("gemma3-4b")), _gemma_cut(tb, resolve_config(
+        "gemma3-4b"))
+    assert cfg_t.resolved_head_dim == 256 and cfg_t.num_heads // cfg_t.num_kv_heads == 2
+    S, B, lr = 96, 2, 1e-3
+    opt_j = jopt.OptConfig(learning_rate=lr, warmup_steps=1, total_steps=3)
+    opt_t = topt.OptConfig(learning_rate=lr, warmup_steps=1, total_steps=3)
+    pj = jmodel.init_model(jax.random.PRNGKey(2), cfg_j)
+    pt = from_numpy_tree(jax.tree_util.tree_map(np.asarray, pj), "cpu")
+    toks = jdata.SyntheticLMData(jdata.DataConfig(cfg_j.vocab_size, S, B, seed=0)).batch_at(1)[
+        "tokens"]
+    plan_j = JPlan(moe_impl="grouped", attn_q_block=32, attn_kv_block=32)
+
+    @jax.jit
+    def ref_step(params, opt_state, tokens):
+        with execution_plan(plan_j):
+            (loss, _), grads = jax.value_and_grad(
+                lambda p: jmodel.loss_fn(p, cfg_j, {"tokens": tokens}, remat="none"),
+                has_aux=True)(params)
+            new_p, _, _ = jopt.adamw_update(params, grads, opt_state, opt_j, step=jnp.int32(1))
+        return new_p, grads, loss
+
+    new_j, grads_j, loss_j = ref_step(pj, jopt.init_opt_state(pj, opt_j), jnp.asarray(toks))
+    state = make_train_state(pt, opt_t)
+    state["step"] = 1
+    run = RunConfig(remat_policy="none", attn_q_block=32, attn_kv_block=32)
+    step = ttrain.make_step(cfg_t, opt_t, run)
+    batch = {"tokens": torch.tensor(toks)}
+    mixers_t = [blk["mixer"] for blk in state["params"]["segments"][0]["blocks"]]
+    watch = [t for m in mixers_t for t in tree_leaves(m)]
+    before = [t.detach().clone() for t in watch]
+    # the gradients the step takes: its plan, on its parameters before it
+    plan = dataclasses.replace(ttrain.TRAIN_PLAN, attn_q_block=32, attn_kv_block=32)
+    loss_t, _ = tmodel.loss_fn(state["params"], cfg_t, batch, plan=plan)
+    grads_t = torch.autograd.grad(loss_t, watch)
+    state, m = step(state, batch)
+    assert float(m["loss"]) == loss_t.item()
+    assert abs(float(m["loss"]) - float(loss_j)) <= 1e-5
+    assert len(mixers_t) == 2
+    grad_of = {id(w): g for w, g in zip(watch, grads_t)}
+    moved = {id(w): not torch.equal(w, b) for w, b in zip(watch, before)}
+    for i, mt in enumerate(mixers_t):
+        mj = new_j["segments"][0]["blocks"][i]["mixer"]
+        gj = grads_j["segments"][0]["blocks"][i]["mixer"]
+        _assert_tree_close(gj, to_numpy_tree(tree_map(mt, lambda t: grad_of[id(t)])),
+                           rel=1e-4)
+        assert all(moved[id(t)] for t in tree_leaves(mt))
+
+        def one(wg, wp, gp):
+            wg, wp = np.asarray(wg), np.asarray(wp)
+            big = np.abs(wg) >= 1e-6
+            np.testing.assert_allclose(gp[big], wp[big], atol=1e-5, rtol=0)
+            np.testing.assert_allclose(gp, wp, atol=lr, rtol=0)
+        jax.tree_util.tree_map(one, gj, mj, to_numpy_tree(mt))

@@ -175,10 +175,11 @@ def test_score_bf16_flash_core_matches_reference(S, KV, qpk, causal, window, sof
                                                  monkeypatch):
     """bf16 inputs, ``score_bf16``: the port's flash core forward and
     (dq, dk, dv) against ``jax.vjp`` of the reference's ``_flash_core``
-    with its bf16 score chain, within 2e-2. The flash kernels have no such
-    chain: on CPU tensors ``use_kernels`` gives the same bits as without
-    and ``kernels/ops.py`` is not called (on CUDA tensors it raises, in
-    ``tests/test_torch_cuda.py``); the flag moves the output."""
+    with its bf16 score chain, within 2e-2. With ``use_kernels`` the chain
+    goes through ``kernels/ops.py`` to the flash kernel's wrapper (its
+    plain version on CPU tensors; kernel 9's chain on the card, in
+    ``tests/test_torch_cuda.py``) and gives the same bits as without; the
+    flag moves the output."""
     q, k, v = _qkv(S, KV, qpk, seed=11)
     dout = np.random.default_rng(12).standard_normal(q.shape).astype(np.float32)
     args = (causal, window, softcap, BLK, BLK, True)
@@ -187,8 +188,13 @@ def test_score_bf16_flash_core_matches_reference(S, KV, qpk, causal, window, sof
     f32 = lambda a: np.asarray(a.astype(jnp.float32))
     kw = dict(causal=causal, window=window, softcap=softcap, q_block=BLK, kv_block=BLK)
     called = []
-    monkeypatch.setattr(tops, "flash_attention", lambda *a, **k: called.append(1))
-    monkeypatch.setattr(tops, "flash_attention_bwd", lambda *a, **k: called.append(1))
+    real = tops.flash_attention
+
+    def spy(*a, **kw_):
+        called.append(kw_.get("score_bf16"))
+        return real(*a, **kw_)
+
+    monkeypatch.setattr(tops, "flash_attention", spy)
     got = {}
     for use_kernels in (False, True):
         tq, tk, tv = (torch.tensor(a).to(torch.bfloat16).requires_grad_(True)
@@ -197,7 +203,7 @@ def test_score_bf16_flash_core_matches_reference(S, KV, qpk, causal, window, sof
                                           score_bf16=True, **kw)
         out_t.backward(torch.tensor(dout).to(torch.bfloat16))
         got[use_kernels] = [out_t.detach(), tq.grad, tk.grad, tv.grad]
-    assert not called
+    assert called == [True]
     assert all(torch.equal(a, b) for a, b in zip(got[False], got[True]))
     np.testing.assert_allclose(got[True][0].float().numpy(), f32(out_j), **BF16)
     for g, w in zip(got[True][1:], grads_j):
