@@ -10,15 +10,20 @@ Phases, each printing a line:
      source's ptxas registers and spills, and the count of tensor-core
      instructions (HGMMA, HMMA, IGMMA, IMMA) in each library's SASS
      (``cuobjdump``; the bf16 flash forward and backward and the bf16 chunk
-     attention must hold HGMMA, the bf16 hot GEMM and cold GEMV HMMA or
-     HGMMA, the int8 chunk attention IMMA or IGMMA);
+     attention must hold HGMMA, the bf16 hot GEMM and cold GEMV and the
+     float32 chunk attention HMMA or HGMMA, the int8 chunk attention IMMA or
+     IGMMA);
   3. each hand-written kernel against its plain PyTorch version on the card
      at OLMoE-1B-7B shapes (plus a GQA shape for the attention kernels,
      path a's decode lengths for the paged decode, and one of path a's
      chunk stages and a stage of path i's verify spans (16 rows of 8, spans
      of 2-5 positions at path a's lengths) for the chunked prefill, whose
-     bf16 cases must run its
-     tensor-core route, as the hot GEMMs' and the cold GEMVs' must; the
+     bf16 cases must run its wgmma route and float32 ones its 3xTF32 route
+     (also at internvl2-1b's heads at head_dim 64 on pages of 8, and on
+     pages of 64; the first case and path a's also time the scalar kernel
+     that ran float32 before, and every float32 case prints the bound of
+     three TF32 products), as the hot GEMMs' and the cold GEMVs' bf16
+     cases must run theirs; the
      int8 paged decode and chunk also at path b's decode lengths and chunk
      stage, the decode on its split route held against that route's plain
      version, the chunk on its int8 tensor-core route; the
@@ -92,6 +97,16 @@ Phases, each printing a line:
           Table I's parameter counts, each within 1e-9 of the reference's
           (``R_EXPECT``), Duplex > 1.3x the GPU at 256 tokens and
           Duplex+PE+ET at least 0.95x Duplex;
+       t. float32: OLMoE-1B-7B at full width and depth with float32
+          weights and activations (27.7 GB), path r's four requests on path
+          a's engine (after path a's bf16 weights are freed): every chunk
+          call on the 3xTF32 route (``chunk_f32_sm90.cu``; none on the
+          scalar kernel), kernel 1 and the float32 hot GEMM and cold GEMV
+          (``moe_gemm.cu``, ``moe_gemv.cu``) launched, their counts
+          printed; the greedy tokens equal to the plain float32 path's on
+          the same engine, its router calls pinned to the kernel run's
+          expert choices; prints the stages, the wall, tokens/s and a short
+          profile's device busy share;
        e. a shared system prompt on an oversubscribed pool: 16 requests of
           one 256-token system prompt and a seeded private suffix of 64-256
           tokens, bf16 pages and the ragged MoE with ``prefix_share`` and
@@ -295,7 +310,7 @@ Phases, each printing a line:
           pointing the plain path's way (cosine over CHAIN_COS); prints
           the median step, the peak memory and
           one profiled step's device time by kernel beside the card.
-       d2. checkpoints: OLMoE-1B-7B at full width and 2 layers, 6 steps of
+       d2. checkpoints: OLMoE-1B-7B at full width and 1 layer, 6 steps of
           4 x 2048 with async keep-2 checkpoints every 2 steps, three
           runs: R1 uninterrupted; R2 sends itself SIGTERM during step 3,
           checkpoints there and stops; R3 starts from other weights,
@@ -330,9 +345,11 @@ Phases, each printing a line:
           cell (``Q_CELL``) in a subprocess, which must end ok on 256
           ranks.
 
-Prints each kernel's launches by path, a ``kernels`` JSON line (each
-kernel's launches summed over the paths that read them), then ``{"ok": true, "device": ...}`` as the
-last line. Any failure raises, and the exit code is non-zero. Without a CUDA
+Prints each kernel's launches by path, each phase's wall seconds (the
+share of the time limit it takes), a ``kernels`` JSON line (each
+kernel's launches summed over the paths that read them; the float32 routes
+with a source of their own, path t's, have rows of their own), then
+``{"ok": true, "device": ...}`` as the last line. Any failure raises, and the exit code is non-zero. Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero before
 printing any result.
 """
@@ -355,6 +372,7 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,   # H100 SXM dense bf16 tensor-core peak
               "float32": 67e12,     # H100 SXM float32 outside the tensor cores
+              "tf32": 495e12,       # H100 SXM dense TF32 tensor-core peak
               "int8": 1979e12}      # H100 SXM dense int8 tensor-core peak
 # Kernel vs plain version. The int8 kernels are held to the same bands: on
 # the card both sides requantize with the same recipe and the card's own
@@ -537,16 +555,33 @@ def check_decode(torch, gen, dtype, *, KV, qpk, window=0, softcap=0.0, int8=Fals
     return out
 
 
+@contextlib.contextmanager
+def scalar_chunk_route():
+    """Inside, every float chunk attention call takes the scalar kernel of
+    ``decode_attn.cu``, the float32 route before ``chunk_f32_sm90.cu``:
+    its figure, timed in the same run as its successor's."""
+    from repro_torch.kernels import decode_attn as da
+    route = da.chunk_route
+    da.chunk_route = lambda *a: "chunked_prefill_attention"
+    try:
+        yield
+    finally:
+        da.chunk_route = route
+
+
 def check_chunk(torch, gen, dtype, *, KV, qpk, int8=False, starts=(0, 64, 448, 0),
-                clens=(64, 64, 30, 0), Sc=64):
+                clens=(64, 64, 30, 0), Sc=64, hd=128, page=16, scalar=False):
     """Chunked prefill; by default four sequences of ``Sc`` 64 with a short
-    chunk and a padded row (totals == 0). The float kernel's bf16 case must run the
-    tensor-core route (``chunk_attn_sm90.cu``), float32 the scalar one; the
-    int8 kernel must run its tensor-core route (``chunk_int8_sm90.cu``) in
-    both."""
+    chunk and a padded row (totals == 0), over a table of 1024 keys. The
+    float kernel's bf16 case must run the wgmma route (``chunk_attn_sm90.cu``),
+    float32 the 3xTF32 one (``chunk_f32_sm90.cu``); the int8 kernel must run
+    its tensor-core route (``chunk_int8_sm90.cu``) in both. Float32 cases
+    also print the 3xTF32 reckoning of the bound (three products at the
+    TF32 tensor cores' 495 TFLOP/s, or the bytes) and, with ``scalar``, the
+    scalar kernel's times on the same inputs."""
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_attn as da
-    hd, page, maxp = 128, 16, 64
+    maxp = 1024 // page
     totals = [s + c for s, c in zip(starts, clens)]
     B = len(starts)
     P = 1 + B * maxp
@@ -561,17 +596,19 @@ def check_chunk(torch, gen, dtype, *, KV, qpk, int8=False, starts=(0, 64, 448, 0
         args = (q, k8, ks, v8, vs, tot, st, bt)
         kernel, plain = (da.chunked_prefill_attention_int8_kernel,
                          da.chunked_prefill_attention_int8_plain)
+        routes = {"chunked_prefill_attention_int8_sm90": 1}
     else:
         args = (q, kp, vp, tot, st, bt)
         kernel, plain = (da.chunked_prefill_attention_kernel,
                          da.chunked_prefill_attention_plain)
-    routes = ("chunked_prefill_attention_sm90", "chunked_prefill_attention_int8_sm90")
-    before = [build.launch_counts[r] for r in routes]
+        routes = {"chunked_prefill_attention_sm90": int(dtype == torch.bfloat16),
+                  "chunked_prefill_attention_f32_sm90": int(dtype == torch.float32)}
+    before = {r: build.launch_counts[r] for r in routes}
     got = kernel(*args, qpk=qpk)
-    sm90 = [build.launch_counts[r] - n for r, n in zip(routes, before)]
-    if sm90 != [int(not int8 and dtype == torch.bfloat16), int(int8)]:
+    took = {r: build.launch_counts[r] - n for r, n in before.items()}
+    if took != routes:
         raise AssertionError(f"chunked prefill {dtype} int8={int8} took the wrong route "
-                             f"(bf16 and int8 tensor-core launches {sm90})")
+                             f"(tensor-core launches {took}, expected {routes})")
     want = plain(*args, qpk=qpk)
     torch.cuda.synchronize()
     out = dict(err=(got.float() - want.float()).abs().max().item(),
@@ -603,6 +640,22 @@ def check_chunk(torch, gen, dtype, *, KV, qpk, int8=False, starts=(0, 64, 448, 0
         for i in range(Sc):
             pairs += min(s + i + 1, t)
     out["flops"] = pairs * KV * qpk * hd * 4
+    if dtype == torch.float32 and not int8:
+        tf32, by = bound_ms(out["nbytes"], 3 * out["flops"], "tf32")
+        out["lib_detail"] = f" 3xTF32 bound_ms={tf32:.4f} ({by})"
+        if scalar:
+            with scalar_chunk_route():
+                n = build.launch_counts["chunked_prefill_attention_f32_sm90"]
+                err = (kernel(*args, qpk=qpk) - want).abs().max().item()
+                out["scalar_ms"] = time_ms(lambda: kernel(*args, qpk=qpk))
+                out["scalar_graph_ms"] = graph_ms(torch, lambda: kernel(*args, qpk=qpk))
+                if build.launch_counts["chunked_prefill_attention_f32_sm90"] != n:
+                    raise AssertionError("the scalar chunk route was not taken")
+            out["lib_detail"] += (f" scalar_kernel_ms={out['scalar_ms']:.4f} scalar_graph_ms="
+                                  f"{out['scalar_graph_ms']:.4f} (max_abs_err {err:.3e}); "
+                                  f"graph_ms below SDPA's {out['graph_ms'] < out['lib_ms']}, "
+                                  f"below the scalar kernel's "
+                                  f"{out['graph_ms'] < out['scalar_graph_ms']}")
     return out
 
 
@@ -944,9 +997,9 @@ JAMBA_MOE = dict(E=16, d=4096, f=14336)
 
 KERNELS = [
     # name, TPU kernel it replaces, source, [(case label, check fn, kwargs[,
-    # dtypes])]; every case runs in bfloat16 (the main path's dtype; the
-    # first case is the main path's shape) and again in float32, unless it
-    # names its dtypes
+    # dtypes])][, (name, source) of the float32 route's own row]; every case
+    # runs in bfloat16 (the main path's dtype; the first case is the main
+    # path's shape) and again in float32, unless it names its dtypes
     ("paged_decode_attention",
      "src/repro/kernels/decode_attn.py:280",
      "src/repro_torch/kernels/csrc/decode_sm90.cu",
@@ -956,19 +1009,26 @@ KERNELS = [
        dict(KV=4, qpk=4, window=200, softcap=30.0)),
       ("path a B=16 lengths 144-544", check_decode,
        dict(KV=16, qpk=1, lens=PATH_A_LENS, seed=1))]),
-    # bf16 runs chunk_attn_sm90.cu, float32 decode_attn.cu; the third case is
-    # one of path a's stages: one 64-token chunk after a 448-token prefix; the
-    # fourth a stage of path i's verify spans
+    # bf16 runs chunk_attn_sm90.cu, float32 chunk_f32_sm90.cu (its own row,
+    # from the float32 runs; the first and third cases also time the scalar
+    # kernel that ran float32 before it); the third case is one of path a's
+    # stages: one 64-token chunk after a 448-token prefix; the fourth a stage
+    # of path i's verify spans; the last two float32 only: internvl2-1b's 14
+    # heads over 2 at head_dim 64 on pages of 8, and pages of 64
     ("chunked_prefill_attention",
      "src/repro/kernels/decode_attn.py:503",
      "src/repro_torch/kernels/csrc/chunk_attn_sm90.cu",
-     [("olmoe qpk=1 Sc=64", check_chunk, dict(KV=16, qpk=1)),
+     [("olmoe qpk=1 Sc=64", check_chunk, dict(KV=16, qpk=1, scalar=True)),
       ("gqa qpk=4 Sc=64", check_chunk, dict(KV=4, qpk=4)),
       ("path a B=1 start=448 Sc=64", check_chunk,
-       dict(KV=16, qpk=1, starts=(448,), clens=(64,))),
+       dict(KV=16, qpk=1, starts=(448,), clens=(64,), scalar=True)),
       ("path i verify spans B=16 Sc=8 spans 2-5 starts 144-544", check_chunk,
-       dict(KV=16, qpk=1, starts=PATH_A_LENS, clens=PATH_I_SPANS, Sc=8))]),
-    # bf16 runs moe_gemm_sm90.cu, float32 moe_gemm.cu
+       dict(KV=16, qpk=1, starts=PATH_A_LENS, clens=PATH_I_SPANS, Sc=8)),
+      ("internvl2 KV=2 qpk=7 hd=64 page=8 Sc=64", check_chunk,
+       dict(KV=2, qpk=7, hd=64, page=8), ("float32",)),
+      ("olmoe qpk=1 Sc=64 page=64", check_chunk, dict(KV=16, qpk=1, page=64), ("float32",))],
+     ("chunked_prefill_attention_f32_sm90", "src/repro_torch/kernels/csrc/chunk_f32_sm90.cu")),
+    # bf16 runs moe_gemm_sm90.cu, float32 moe_gemm.cu (its own row)
     ("ragged_moe_gemm",
      "src/repro/kernels/moe_gemm.py:141",
      "src/repro_torch/kernels/csrc/moe_gemm_sm90.cu",
@@ -984,8 +1044,9 @@ KERNELS = [
       # path n's mixed stages (72 bucketed tokens: 8 decode rows and a
       # 64-token chunk) all ran at k_cold 48: 16 hot experts of capacity 16
       # at d_ff 1408
-      ("path n hot E=16 C=16 f=1408", check_moe, dict(hot=True, n=16, C=16, **DEEPSEEK_MOE))]),
-    # bf16 runs moe_gemv_sm90.cu, float32 moe_gemv.cu
+      ("path n hot E=16 C=16 f=1408", check_moe, dict(hot=True, n=16, C=16, **DEEPSEEK_MOE))],
+     ("ragged_moe_gemm_f32", "src/repro_torch/kernels/csrc/moe_gemm.cu")),
+    # bf16 runs moe_gemv_sm90.cu, float32 moe_gemv.cu (its own row)
     ("ragged_moe_gemv",
      "src/repro/kernels/moe_gemv.py:114",
      "src/repro_torch/kernels/csrc/moe_gemv_sm90.cu",
@@ -995,7 +1056,8 @@ KERNELS = [
       ("jamba cold Ec=16 Cc=16", check_moe, dict(hot=False, n=16, C=16, **JAMBA_MOE)),
       # the same stages' 48 cold experts of capacity 16
       ("path n cold Ec=48 Cc=16 f=1408", check_moe,
-       dict(hot=False, n=48, C=16, **DEEPSEEK_MOE))]),
+       dict(hot=False, n=48, C=16, **DEEPSEEK_MOE))],
+     ("ragged_moe_gemv_f32", "src/repro_torch/kernels/csrc/moe_gemv.cu")),
     # the split route of decode_sm90.cu; the third case is path b's decode
     # stage: 16 sequences at path a's lengths
     ("paged_decode_attention_int8",
@@ -1110,12 +1172,13 @@ KERNELS = [
 def kernel_phase(torch):
     """Returns {name: row of the kernels line}: the times of the main path's
     shape in bfloat16, the largest bfloat16 error, and launches None until
-    the main path has run."""
+    the main path has run; a float32 route with its own source has its own
+    row, from the float32 runs (path t's)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = {}
     failed = []
-    for name, replaces, source, cases in KERNELS:
+    for name, replaces, source, cases, *f32_row in KERNELS:
         for dtype in ("bfloat16", "float32"):
             for i, (label, fn, kw, *dtypes) in enumerate(cases):
                 if dtypes and dtype not in dtypes[0]:
@@ -1141,16 +1204,20 @@ def kernel_phase(torch):
                     + (f"; score chain {chain}" if chain else ""))
                 if not ok:
                     failed.append(f"{name} [{label} {dtype}]")
-                if dtype != "bfloat16":
-                    continue
-                if i == 0:             # the main path's shape is the row
-                    rows[name] = {"name": name, "route": "cuda", "source": source,
-                                  "replaces": replaces, "launches": None,
-                                  "max_abs_err": err, "ms": r["ms"],
-                                  "plain_ms": r["plain_ms"], "bound_ms": bms,
-                                  "bound_by": by, "library_ms": lib_ms}
+                if dtype == "float32" and f32_row:
+                    row_name, row_source = f32_row[0]
+                elif dtype == "bfloat16":
+                    row_name, row_source = name, source
                 else:
-                    rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+                    continue
+                if row_name not in rows:   # the first case: the main path's shape
+                    rows[row_name] = {"name": row_name, "route": "cuda", "source": row_source,
+                                      "replaces": replaces, "launches": None,
+                                      "max_abs_err": err, "ms": r["ms"],
+                                      "plain_ms": r["plain_ms"], "bound_ms": bms,
+                                      "bound_by": by, "library_ms": lib_ms}
+                else:
+                    rows[row_name]["max_abs_err"] = max(rows[row_name]["max_abs_err"], err)
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
     return rows
@@ -1180,11 +1247,20 @@ HYBRID_KW = dict(max_slots=16, max_len=1024, prefill_chunk_tokens=None)
 HYBRID_KERNELS = ("decode_attention", "ssd_decode", "ragged_moe_gemm", "ragged_moe_gemv")
 
 
-def serve_phase(torch):
+def timed(seconds, name, fn, *a):
+    """``fn(*a)``, its wall seconds put in ``seconds[name]``: each phase's
+    share of the smoke's time limit."""
+    t = time.perf_counter()
+    out = fn(*a)
+    seconds[name] = round(time.perf_counter() - t, 1)
+    return out
+
+
+def serve_phase(torch, seconds):
     """Serve 16 seeded requests on OLMoE-1B-7B down each path; returns
     ({kernel: launches} with each kernel's count from its own path's run,
-    path r's {kernel: launches}, path a's tokens by rid). Raises on any
-    failed check."""
+    path r's {kernel: launches}, path a's tokens by rid), each path's wall
+    seconds in ``seconds``. Raises on any failed check."""
     from repro_torch.configs import resolve_config
     from repro_torch.models.params import init_model, tree_leaves
 
@@ -1197,6 +1273,7 @@ def serve_phase(torch):
         f"in {time.perf_counter() - t0:.1f}s")
     launches, pool_bytes = {}, {}
     a_tokens = None
+    t_ab = time.perf_counter()
     for label, flags, kernels in PATHS:
         engine_kw = {**ENGINE_KW, **flags}
         reqs = path_a_requests(cfg)
@@ -1239,13 +1316,14 @@ def serve_phase(torch):
     log(f"serve: KV pool bytes [{a}] {na / 2**20:.1f} MiB, [{b}] {nb / 2**20:.1f} MiB, "
         f"ratio {na / nb:.3f} ({want:.3f} expected: 2*KV*hd*2 over 2*KV*(hd + 4) bytes "
         f"per token)")
-    r_launches = sim_phase(torch, cfg, params)
-    e_tokens = shared_phase(torch, cfg, params)
-    dense_phase(torch, cfg, params)
-    overload_phase(torch, cfg, params, e_tokens)
-    async_phase(torch, cfg, params, a_tokens)
-    spec_phase(torch, cfg, params)
-    fleet_phase(torch, cfg, params)
+    seconds["a, b"] = round(time.perf_counter() - t_ab, 1)
+    r_launches = timed(seconds, "r", sim_phase, torch, cfg, params)
+    e_tokens = timed(seconds, "e", shared_phase, torch, cfg, params)
+    timed(seconds, "f", dense_phase, torch, cfg, params)
+    timed(seconds, "g", overload_phase, torch, cfg, params, e_tokens)
+    timed(seconds, "h", async_phase, torch, cfg, params, a_tokens)
+    timed(seconds, "i", spec_phase, torch, cfg, params)
+    timed(seconds, "j", fleet_phase, torch, cfg, params)
     return launches, r_launches, a_tokens
 
 
@@ -2716,6 +2794,90 @@ def serve_path(torch, cfg, params, label, engine_kw, reqs=None):
     return launches, eng
 
 
+# path t: path a's engine in float32 at full width and depth: OLMoE-1B-7B
+# with dtype and param_dtype float32 (6.92B parameters, 27.7 GB), path r's
+# four requests; every chunk call on the 3xTF32 route (chunk_f32_sm90.cu),
+# the paged decode (kernel 1 in float32) and the MoE's float32 kernels
+# (moe_gemm.cu, moe_gemv.cu) launched; greedy tokens equal to the plain
+# float32 path's on the same engine, the kernel run's expert choices pinned
+T_LABEL = "olmoe float32: path a's engine"
+T_KERNELS = ("paged_decode_attention", "chunked_prefill_attention", "ragged_moe_gemm",
+             "ragged_moe_gemv")
+
+
+def f32_phase(torch):
+    """Path t. Returns {row of the kernels line: launches}: the float32
+    chunk route's, the float32 MoE kernels', and kernel 1's."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.kernels import build
+    from repro_torch.models.params import init_model
+    from repro_torch.serving.engine import ServingEngine
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(resolve_config("olmoe-1b-7b"), dtype="float32",
+                              param_dtype="float32")
+    params = init_model(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"serve [{T_LABEL}]: random init (seed 0), float32 weights "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB in {time.perf_counter() - t_phase:.1f}s")
+    kw = {**ENGINE_KW, **PATHS[0][1]}
+    reqs = short_requests(cfg)
+    eng = ServingEngine(cfg, params, device="cuda", **kw)
+    build.reset_launch_counts()
+    with recorded_routes(torch) as routes:
+        t0 = time.perf_counter()
+        for r in reqs:
+            r.arrival_time = time.monotonic()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = dict(build.launch_counts)
+    stages = len(eng.reports)
+    del eng
+    gen = sum(len(r.output) for r in reqs)
+    log(f"serve [{T_LABEL}]: {sum(r.completed for r in reqs)}/{len(reqs)} completed, "
+        f"{stages} stages in {wall:.2f}s, generated tokens/s={gen / wall:.1f}; kernel "
+        f"launches {json.dumps({k: counts[k] for k in T_KERNELS})}")
+    missing = [k for k in T_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"[{T_LABEL}] kernels never launched on the path: {missing}")
+    f32, chunks = counts["chunked_prefill_attention_f32_sm90"], counts["chunked_prefill_attention"]
+    scalar = chunks - f32 - counts["chunked_prefill_attention_sm90"]
+    log(f"serve [{T_LABEL}]: chunked prefill launches {chunks}, {f32} of them on the 3xTF32 "
+        f"route (chunk_f32_sm90.cu), {scalar} on the scalar kernel (decode_attn.cu); hot GEMM "
+        f"{counts['ragged_moe_gemm']} and cold GEMV {counts['ragged_moe_gemv']} launches, all "
+        f"float32 (moe_gemm.cu, moe_gemv.cu): {counts['ragged_moe_gemm_sm90']} and "
+        f"{counts['ragged_moe_gemv_sm90']} on the bf16 routes")
+    if f32 != chunks:
+        raise AssertionError(f"[{T_LABEL}] chunked prefill left the 3xTF32 route")
+    if counts["ragged_moe_gemm_sm90"] or counts["ragged_moe_gemv_sm90"]:
+        raise AssertionError(f"[{T_LABEL}] a float32 MoE call took a bf16 route")
+    # the plain path on the same engine: no kernel, the duplex MoE on every
+    # stage as the kernel path runs it, so each router call takes the kernel
+    # run's expert choice (a router near-tie is no fault)
+    plain = short_requests(cfg)
+    eng = ServingEngine(cfg, params, device="cuda", use_kernels=False, **kw)
+    eng.moe_ragged = True
+    t0 = time.perf_counter()
+    with recorded_routes(torch, routes) as calls:
+        eng.run(plain)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    del eng
+    same = sum(a.output == b.output for a, b in zip(reqs, plain))
+    log(f"serve [{T_LABEL}]: the plain float32 path on the kernel run's {len(routes)} router "
+        f"calls ({len(calls)} made) in {t_plain:.2f}s: {same}/{len(reqs)} requests emit the "
+        f"kernel path's greedy tokens")
+    if same != len(reqs) or len(calls) != len(routes):
+        raise AssertionError(f"[{T_LABEL}] the kernel path's tokens differ from the plain "
+                             f"path's")
+    profile_stages(torch, cfg, params, T_LABEL, kw)
+    log(f"serve [{T_LABEL}]: path t in {time.perf_counter() - t_phase:.1f} s")
+    return {"chunked_prefill_attention_f32_sm90": f32,
+            "ragged_moe_gemm_f32": counts["ragged_moe_gemm"],
+            "ragged_moe_gemv_f32": counts["ragged_moe_gemv"],
+            "paged_decode_attention": counts["paged_decode_attention"]}
+
+
 def hybrid_phase(torch):
     """Path c: Jamba-v0.1 at full width and 16 layers, random weights from
     seed 0, the same 16 requests on the dense KV layout with the legacy
@@ -3813,13 +3975,15 @@ def gemma_train_phase(torch, card):
     return {k: run["launches"][k] for k in TRAIN_KERNELS}
 
 
-# path d2: checkpoints and resume. OLMoE-1B-7B at full width cut to the
-# fewest layers that keep its structure (every layer is the same attention +
-# 64-expert MoE block, so 2): the embedding and LM head (2 x 103M) and two
-# layers (2 x 419.6M) make 1.045B parameters, 10 bytes each in a checkpoint
-# (bf16 parameters, float32 mu and nu; the gradients are not state)
+# path d2: checkpoints and resume. OLMoE-1B-7B at full width cut to one
+# layer (every layer is the same attention + 64-expert MoE block, stacked
+# under a leading layer dim all the same): the embedding and LM head (2 x
+# 103M) and the layer (419.6M) make 0.626B parameters, 10 bytes each in a
+# checkpoint (bf16 parameters, float32 mu and nu; the gradients are not
+# state). The path's time is its checkpoint writes and reads, which scale
+# with the state; at 2 layers it took 162 s of the smoke's time limit
 RESUME_LABEL = "olmoe resume"
-RESUME_LAYERS = 2
+RESUME_LAYERS = 1
 RESUME_STEPS = 6
 RESUME_EVERY = 2
 RESUME_KEEP = 2
@@ -4509,9 +4673,10 @@ def log_hd256_ptxas(build) -> None:
 def tensor_core_sass(build) -> None:
     """Counts the tensor-core instructions in each built library's SASS
     (``cuobjdump -sass``): warpgroup products (HGMMA; IGMMA on int8) and
-    warp ones (HMMA; IMMA on int8). The bf16 flash forward and backward and
-    the bf16 chunk attention must hold HGMMA, the bf16 hot GEMM and cold
-    GEMV HMMA or HGMMA, the int8 chunk attention IMMA or IGMMA."""
+    warp ones (HMMA, TF32 ones too; IMMA on int8). The bf16 flash forward
+    and backward and the bf16 chunk attention must hold HGMMA, the bf16 hot
+    GEMM and cold GEMV and the float32 chunk attention HMMA or HGMMA, the
+    int8 chunk attention IMMA or IGMMA."""
     tool = Path(build._nvcc()).with_name("cuobjdump")
     for src in build.SOURCES:
         sass = subprocess.run([str(tool), "-sass", str(build._lib_path(src))],
@@ -4522,7 +4687,8 @@ def tensor_core_sass(build) -> None:
         if src in ("flash_fwd_sm90.cu", "flash_bwd_sm90.cu", "chunk_attn_sm90.cu") \
                 and not n["HGMMA"]:
             raise AssertionError(f"the SASS of {src} holds no HGMMA")
-        if src in ("moe_gemv_sm90.cu", "moe_gemm_sm90.cu") and not (n["HGMMA"] or n["HMMA"]):
+        if src in ("moe_gemv_sm90.cu", "moe_gemm_sm90.cu", "chunk_f32_sm90.cu") \
+                and not (n["HGMMA"] or n["HMMA"]):
             raise AssertionError(f"the SASS of {src} holds no HMMA or HGMMA")
         if src == "chunk_int8_sm90.cu" and not (n["IGMMA"] or n["IMMA"]):
             raise AssertionError(f"the SASS of {src} holds no IMMA or IGMMA")
@@ -4557,8 +4723,10 @@ def main(argv=None) -> int:
         f"count {torch.cuda.device_count()}")
 
     from repro_torch.kernels import build
-    t0 = time.perf_counter()
+    t_main = t0 = time.perf_counter()
+    phase_s = {}                          # wall seconds of each phase
     build.build_all()
+    phase_s["build"] = round(time.perf_counter() - t0, 1)
     log(f"build: {len(build.SOURCES)} sources with nvcc in "
         f"{time.perf_counter() - t0:.1f}s")
     for src in build.SOURCES:
@@ -4569,7 +4737,7 @@ def main(argv=None) -> int:
     log_hd256_ptxas(build)
     tensor_core_sass(build)
 
-    rows = kernel_phase(torch)
+    rows = timed(phase_s, "kernels", kernel_phase, torch)
     by_path = {}
 
     def count(path, launches):
@@ -4579,44 +4747,49 @@ def main(argv=None) -> int:
             by_path.setdefault(name, {})[path] = n
 
     if not args.kernels_only:
-        launches, r_launches, a_tokens = serve_phase(torch)
+        launches, r_launches, a_tokens = serve_phase(torch, phase_s)
         count("a, b", launches)
         count("r", r_launches)
         gc.collect()                      # the OLMoE model and its caches go
         torch.cuda.empty_cache()
-        cli_phase(torch, a_tokens)        # the CLI makes its own OLMoE weights
+        count("t", timed(phase_s, "t", f32_phase, torch))
+        gc.collect()                      # the float32 OLMoE goes
+        torch.cuda.empty_cache()
+        timed(phase_s, "k", cli_phase, torch, a_tokens)   # the CLI makes its own OLMoE weights
         gc.collect()
         torch.cuda.empty_cache()
-        count("c", hybrid_phase(torch))
+        count("c", timed(phase_s, "c", hybrid_phase, torch))
         gc.collect()                      # the Jamba model and its caches go
         torch.cuda.empty_cache()
-        ring_phase(torch)
+        timed(phase_s, "l, l2", ring_phase, torch)
         gc.collect()                      # gemma3-4b and its caches go
         torch.cuda.empty_cache()
-        configs_phase(torch)
+        timed(phase_s, "m", configs_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
-        count("n", deepseek_phase(torch))
+        count("n", timed(phase_s, "n", deepseek_phase, torch))
         gc.collect()                      # deepseek-moe-16b and its pool go
         torch.cuda.empty_cache()
-        count("o, o2", whisper_phase(torch))
-        count("p", vlm_phase(torch))
-        path_d = train_phase(torch)
+        count("o, o2", timed(phase_s, "o, o2", whisper_phase, torch))
+        count("p", timed(phase_s, "p", vlm_phase, torch))
+        path_d = timed(phase_s, "d", train_phase, torch)
         count("d", path_d["launches"])
         gc.collect()                      # path d's state goes
         torch.cuda.empty_cache()
-        count("s", gemma_train_phase(torch, card))
+        count("s", timed(phase_s, "s", gemma_train_phase, torch, card))
         gc.collect()                      # path s's state goes
         torch.cuda.empty_cache()
-        resume_phase(torch)
+        timed(phase_s, "d2", resume_phase, torch)
         gc.collect()
         torch.cuda.empty_cache()
-        remat_phase(torch, path_d)
+        timed(phase_s, "d3", remat_phase, torch, path_d)
         gc.collect()
         torch.cuda.empty_cache()
-        steps_phase(torch)
+        timed(phase_s, "q", steps_phase, torch)
         log(f"kernels: launches by path (each counted from 0 over its own run): "
             f"{json.dumps(by_path)}")
+    log(f"phases (s): {json.dumps(phase_s)}; {time.perf_counter() - t_main:.1f} s since the "
+        f"build began")
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

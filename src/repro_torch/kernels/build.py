@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("decode_attn.cu", "moe_gemm.cu", "moe_gemv.cu", "ssd_decode.cu",
            "flash_attn.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
            "chunk_attn_sm90.cu", "decode_sm90.cu", "moe_gemv_sm90.cu", "moe_gemm_sm90.cu",
-           "chunk_int8_sm90.cu")
+           "chunk_int8_sm90.cu", "chunk_f32_sm90.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,8 +38,9 @@ DTYPE_CODES = {"float32": 0, "bfloat16": 1}   # csrc/common.cuh DTYPE_*
 launch_counts: Dict[str, int] = {
     "paged_decode_attention": 0,
     "chunked_prefill_attention": 0,
-    # the bf16 tensor-core route of the one above, counted in both
+    # the bf16 and float32 tensor-core routes of the one above, counted in both
     "chunked_prefill_attention_sm90": 0,
+    "chunked_prefill_attention_f32_sm90": 0,
     "ragged_moe_gemm": 0,
     "ragged_moe_gemv": 0,
     # the bf16 tensor-core routes of the hot GEMMs and the cold GEMVs,

@@ -5,8 +5,9 @@
 //                               chunked_prefill_attention_kernel (fp body
 //                               _chunked_prefill_kernel), in bfloat16
 //
-// The float32 route, bf16 at other head or page sizes, and the int8 body
-// stay the scalar kernels of decode_attn.cu.
+// The float32 route is chunk_f32_sm90.cu (3xTF32 mma.sync); the int8 body
+// is chunk_int8_sm90.cu; other head or page sizes stay the scalar kernels
+// of decode_attn.cu.
 //
 // What bounds it on the card: bytes in principle (a 64-row tile does about
 // 64 FLOPs a K/V byte it reads at qpk 1, below the H100's ~295 Op/B knee),

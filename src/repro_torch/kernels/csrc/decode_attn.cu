@@ -5,10 +5,12 @@
 // Replaces (TPU / Pallas):
 //   * chunked_prefill_kernel  <- src/repro/kernels/decode_attn.py:
 //                                chunked_prefill_attention_kernel (fp body
-//                                _chunked_prefill_kernel), in float32 and
-//                                at the shapes chunk_attn_sm90.cu does not
-//                                take; bf16 at head_dim 64 or 128 and pages
-//                                of 8-64 keys runs that tensor-core kernel
+//                                _chunked_prefill_kernel), at the shapes the
+//                                tensor-core kernels do not take (head_dim
+//                                other than 64 and 128, pages outside
+//                                8-64 keys): there bf16 runs
+//                                chunk_attn_sm90.cu and float32
+//                                chunk_f32_sm90.cu
 //   * paged_decode_int8_kernel, chunked_prefill_int8_kernel
 //                             <- the int8 bodies of the same two functions
 //                                (_paged_decode_kernel_int8,

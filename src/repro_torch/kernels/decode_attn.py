@@ -1,6 +1,7 @@
 """Attention kernels (CUDA, ``csrc/decode_sm90.cu``, ``csrc/decode_attn.cu``,
-``csrc/chunk_attn_sm90.cu`` and ``csrc/chunk_int8_sm90.cu``) and their plain
-PyTorch versions, in the kernel layouts.
+``csrc/chunk_attn_sm90.cu``, ``csrc/chunk_f32_sm90.cu`` and
+``csrc/chunk_int8_sm90.cu``) and their plain PyTorch versions, in the kernel
+layouts.
 
 * ``decode_attention_kernel`` — GQA decode on the dense cache: one query
   token per sequence, ``qpk`` query heads per KV head, online softmax over
@@ -28,11 +29,13 @@ PyTorch versions, in the kernel layouts.
 * ``chunked_prefill_attention_kernel`` — chunk queries (heads innermost, row
   r = position ``start + r // qpk``) against the paged prefix plus the chunk
   just written; mask ``kpos <= qpos and kpos < total``. Port of
-  ``chunked_prefill_attention_kernel`` (fp body). Two routes: bfloat16 at
-  head_dim 64 or 128 and pages of 8, 16, 32 or 64 runs the tensor-core
-  kernel of ``csrc/chunk_attn_sm90.cu`` (wgmma, paged K/V tiles by TMA);
-  float32, and bfloat16 at other shapes, the scalar kernel of
-  ``decode_attn.cu``.
+  ``chunked_prefill_attention_kernel`` (fp body). Three routes
+  (``chunk_route``): at head_dim 64 or 128 and pages of 8, 16, 32 or 64,
+  bfloat16 runs the tensor-core kernel of ``csrc/chunk_attn_sm90.cu``
+  (wgmma, paged K/V tiles by TMA) and float32 that of
+  ``csrc/chunk_f32_sm90.cu`` (3xTF32 mma.sync, paged K/V by cp.async, an
+  item's key tiles split over several blocks when a call has fewer items
+  than SMs); other shapes run the scalar kernel of ``decode_attn.cu``.
 * ``paged_decode_attention_int8_kernel`` / ``chunked_prefill_attention_int8_
   kernel`` — the same two functions over int8 page pools with float32
   per-(token, KV head) scale pools: int8 dots with the scales folded in and
@@ -389,10 +392,42 @@ def paged_decode_attention_kernel(q, k_pages, v_pages, lengths, block_tables, *,
     return out
 
 
-# (head_dim, page) the tensor-core routes of the chunk attention take, bf16
-# and int8 pools alike: 64-column wgmma panels (bf16) or one swizzled row
-# of int8, and pages of whole 8-row swizzle atoms
+# (head_dim, page) the tensor-core routes of the chunk attention take, bf16,
+# float32 and int8 pools alike: 64-column wgmma panels (bf16), whole 8-key
+# mma.sync steps of 16-byte rows (float32) or one swizzled row of int8, and
+# pages of whole 8-row tiles
 SM90_SHAPES = {(hd, page) for hd in (64, 128) for page in (8, 16, 32, 64)}
+
+# the float chunk attention's routes: launch counter (and C entry) -> source
+CHUNK_ROUTES = {"chunked_prefill_attention_sm90": "chunk_attn_sm90.cu",
+                "chunked_prefill_attention_f32_sm90": "chunk_f32_sm90.cu",
+                "chunked_prefill_attention": "decode_attn.cu"}
+
+
+def chunk_f32_splits(items: int, max_tiles: int, sms: int) -> int:
+    """Blocks of ``chunk_f32_sm90.cu`` a work item (64 rows of one sequence
+    and KV head) is spread over, from the call's shapes alone: a call of
+    fewer items than the card has SMs shares each item's live 64-key tiles
+    among up to ``sms // items`` blocks, no more than ``max_tiles`` (the
+    block table's width in tiles); a second kernel merges the splits in
+    order. A serving stage's chunk is 16-64 items, each walking its prefix
+    tile after tile, so without the split most SMs would idle while the
+    longest item sets the time."""
+    return max(1, min(sms // max(items, 1), max_tiles))
+
+
+def chunk_route(dtype, hd: int, page: int) -> str:
+    """The route of a float chunk attention call on the card, from its
+    dtype, head_dim and page size alone: bfloat16 at ``SM90_SHAPES`` runs
+    ``chunk_attn_sm90.cu`` (wgmma), float32 there ``chunk_f32_sm90.cu``
+    (3xTF32 mma.sync), anything else the scalar kernel of
+    ``decode_attn.cu``. Returns the route's key in ``CHUNK_ROUTES``."""
+    if (hd, page) in SM90_SHAPES:
+        if dtype == torch.bfloat16:
+            return "chunked_prefill_attention_sm90"
+        if dtype == torch.float32:
+            return "chunked_prefill_attention_f32_sm90"
+    return "chunked_prefill_attention"
 
 
 def chunked_prefill_attention_kernel(q, k_pages, v_pages, totals, starts,
@@ -400,10 +435,9 @@ def chunked_prefill_attention_kernel(q, k_pages, v_pages, totals, starts,
                                      softcap: float = 0.0):
     """Kernel layout as ``chunked_prefill_attention_plain``; runs a CUDA
     kernel for CUDA tensors and the plain version for CPU tensors. The
-    kernel is chosen before the launch: bfloat16 with head_dim and page in
-    ``SM90_SHAPES`` runs ``chunk_attn_sm90.cu`` (counted under
-    ``chunked_prefill_attention_sm90`` as well), anything else the scalar
-    kernel of ``decode_attn.cu``."""
+    kernel is ``chunk_route``'s, chosen before the launch; a tensor-core
+    route is counted under its own name and under
+    ``chunked_prefill_attention`` as well."""
     if q.device.type == "cpu":
         return chunked_prefill_attention_plain(q, k_pages, v_pages, totals,
                                                starts, block_tables, qpk=qpk,
@@ -413,31 +447,35 @@ def chunked_prefill_attention_kernel(q, k_pages, v_pages, totals, starts,
     page = k_pages.shape[2]
     if R % qpk:
         raise ValueError(f"rows {R} not a multiple of qpk {qpk}")
-    sm90 = q.dtype == torch.bfloat16 and (hd, page) in SM90_SHAPES
-    if sm90 and any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
-        raise ValueError("the bf16 chunk kernel reads q and the pools by TMA: their "
-                         "bases must be 16-byte aligned")
+    route = chunk_route(q.dtype, hd, page)
+    scalar = route == "chunked_prefill_attention"
+    if not scalar and any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("the tensor-core chunk kernels read q and the pools 16 bytes at a "
+                         "time: their bases must be 16-byte aligned")
     smem = (2 * 16 * hd + 16 * page + 48) * 4 + 2 * page * hd * q.element_size()
-    if not sm90 and smem > 227 * 1024:
+    if scalar and smem > 227 * 1024:
         raise ValueError("page/head_dim too large for one block's shared memory")
     out = torch.empty_like(q)
+    maxp = block_tables.shape[1]
     ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), totals.data_ptr(),
             starts.data_ptr(), block_tables.data_ptr(), out.data_ptr())
-    ints = (B, KV, R, qpk, hd, page, block_tables.shape[1])
-    tail = (float(softcap), 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    code = build.DTYPE_CODES[str(q.dtype).split(".")[1]]
-    if sm90:
-        name = "chunked_prefill_attention_sm90"
-        fn = build.bind("chunk_attn_sm90.cu", name, 7, 8, 2)
-        err = fn(code, *ptrs, *ints, k_pages.shape[0], *tail)
-    else:
-        name = "chunked_prefill_attention"
-        fn = build.bind("decode_attn.cu", name, 7, 7, 2)
-        err = fn(code, *ptrs, *ints, *tail)
-    build.check(err, name)
-    build.launch_counts[name] += 1
-    if sm90:
+    ints = (B, KV, R, qpk, hd, page, maxp)
+    if route == "chunked_prefill_attention_sm90":
+        ints += (k_pages.shape[0],)            # its tensor maps take the pool's page count
+    elif route == "chunked_prefill_attention_f32_sm90":
+        items = -(-R // 64) * KV * B
+        nsplit = chunk_f32_splits(items, -(-maxp * page // 64),
+                                  torch.cuda.get_device_properties(q.device).multi_processor_count)
+        ws = (torch.empty(items * nsplit * 64 * (hd + 4), dtype=torch.float32, device=q.device)
+              if nsplit > 1 else None)
+        ptrs += (0 if ws is None else ws.data_ptr(),)
+        ints += (nsplit,)
+    fn = build.bind(CHUNK_ROUTES[route], route, len(ptrs), len(ints), 2)
+    err = fn(build.DTYPE_CODES[str(q.dtype).split(".")[1]], *ptrs, *ints, float(softcap),
+             1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, route)
+    build.launch_counts[route] += 1
+    if not scalar:
         build.launch_counts["chunked_prefill_attention"] += 1
     return out
 

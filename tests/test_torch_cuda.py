@@ -65,9 +65,12 @@ def test_cuda_kernels_match_plain(card, dtype, tol):
     k, v, bt = _pools(rng, list(totals))
     qc = rng.standard_normal((4, 2, 12, 16)).astype(np.float32)
     args = (t(qc).to(dtype), t(k).to(dtype), t(v).to(dtype), t(totals), t(starts), t(bt))
-    sm90 = build.launch_counts["chunked_prefill_attention_sm90"]
+    tc = [build.launch_counts[r] for r in ("chunked_prefill_attention_sm90",
+                                           "chunked_prefill_attention_f32_sm90")]
     got = decode_attn.chunked_prefill_attention_kernel(*args, qpk=2)
-    assert build.launch_counts["chunked_prefill_attention_sm90"] == sm90   # hd 16: scalar
+    assert [build.launch_counts[r] for r in ("chunked_prefill_attention_sm90",
+                                             "chunked_prefill_attention_f32_sm90")] == tc
+    # hd 16: the scalar route
     want = decode_attn.chunked_prefill_attention_plain(*args, qpk=2)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     w = {kk: t(vv).to(dtype) for kk, vv in _experts(rng, 6, d=64, f=128).items()}
@@ -408,36 +411,77 @@ SM90_CHUNK_CASES = [(128, 16, 1, 64, 0.0, False), (128, 16, 4, 64, 30.0, False),
                     (64, 32, 1, 64, 30.0, False)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("hd,page,qpk,Sc,softcap,long", SM90_CHUNK_CASES)
-def test_cuda_bf16_chunked_prefill_matches_plain(card, hd, page, qpk, Sc, softcap, long):
-    """The tensor-core bf16 chunk kernel (``chunk_attn_sm90.cu``) against
-    the plain version within 2e-2: starts off the page grid, a chunk shorter
-    than Sc (padded rows), a sequence with total == 0 (exact zeros), and
+def _chunk_case(rng, hd, page, qpk, Sc, long, KV=2):
+    """Numpy inputs of a chunk case: starts off the page grid, a chunk
+    shorter than Sc (padded rows), a sequence with total == 0, and
     block-table columns past the live pages on a null page 0 of large finite
-    values. The call must take the tensor-core route, and a second call give
-    the same bits; the same inputs in float32 take the scalar route (1e-4)."""
-    rng = np.random.default_rng(hd + page + qpk + Sc)
-    KV = 2
+    values. Returns (q, k_pages, v_pages, totals, starts, tables)."""
     starts = np.asarray([0, 37, 2100 if long else 130, 0], np.int32)
     totals = starts + np.asarray([Sc, Sc - 3, Sc, 0], np.int32)
     maxp = -(-int(totals.max()) // page) + 2          # columns past every live page
     k, v, bt = _pools(rng, list(totals), KV=KV, hd=hd, page=page, maxp=maxp)
     k[0] = v[0] = 1e4                                 # the null page: never live
     q = rng.standard_normal((len(starts), KV, Sc * qpk, hd)).astype(np.float32)
+    return q, k, v, totals, starts, bt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,page,qpk,Sc,softcap,long", SM90_CHUNK_CASES)
+def test_cuda_bf16_chunked_prefill_matches_plain(card, hd, page, qpk, Sc, softcap, long):
+    """The tensor-core chunk kernels against the plain version: bf16
+    (``chunk_attn_sm90.cu``) within 2e-2 and the same inputs in float32
+    (``chunk_f32_sm90.cu``, 3xTF32) within 1e-4, each on its own route and
+    counted under ``chunked_prefill_attention`` too (the scalar kernel
+    never runs); a second call gives the same bits."""
+    rng = np.random.default_rng(hd + page + qpk + Sc)
+    q, k, v, totals, starts, bt = _chunk_case(rng, hd, page, qpk, Sc, long)
     t = lambda a: torch.tensor(a, device=card)
     ints = (t(totals), t(starts), t(bt))
-    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+    for dtype, tol, route in ((torch.bfloat16, 2e-2, "chunked_prefill_attention_sm90"),
+                              (torch.float32, 1e-4, "chunked_prefill_attention_f32_sm90")):
+        assert decode_attn.chunk_route(dtype, hd, page) == route
         args = (t(q).to(dtype), t(k).to(dtype), t(v).to(dtype), *ints)
-        sm90 = build.launch_counts["chunked_prefill_attention_sm90"]
+        before = {r: build.launch_counts[r] for r in decode_attn.CHUNK_ROUTES}
         got = decode_attn.chunked_prefill_attention_kernel(*args, qpk=qpk, softcap=softcap)
-        assert build.launch_counts["chunked_prefill_attention_sm90"] == sm90 + (
-            dtype == torch.bfloat16)
+        assert {r: build.launch_counts[r] - n for r, n in before.items()} == {
+            r: int(r in (route, "chunked_prefill_attention")) for r in before}
         want = decode_attn.chunked_prefill_attention_plain(*args, qpk=qpk, softcap=softcap)
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
         assert not got[3].any()                       # total == 0
         again = decode_attn.chunked_prefill_attention_kernel(*args, qpk=qpk, softcap=softcap)
         assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,page,qpk,Sc,softcap,long", SM90_CHUNK_CASES)
+def test_cuda_f32_chunked_prefill_matches_mirror(card, monkeypatch, hd, page, qpk, Sc, softcap,
+                                                 long):
+    """The float32 chunk kernel (``chunk_f32_sm90.cu``) against its 3xTF32
+    mirror on the CPU (``tests/torch_chunk_mirror.py``: the same TF32
+    splits, 64-key tiles, softmax and splits of the key range, float32 sums
+    in another order) within 1e-5, and against the plain version within the
+    smoke's float32 band of 1e-4, at the wrapper's split count (these calls
+    have fewer items than SMs: several) and at one; a second call gives the
+    same bits."""
+    from torch_chunk_mirror import chunk_attention_tf32
+    rng = np.random.default_rng(7 * hd + page + qpk + Sc)
+    arrays = _chunk_case(rng, hd, page, qpk, Sc, long)
+    kw = dict(qpk=qpk, softcap=softcap)
+    args = [torch.tensor(a, device=card) for a in arrays]
+    want = decode_attn.chunked_prefill_attention_plain(*args, **kw)
+    B, KV, R, _ = arrays[0].shape
+    nsplit = decode_attn.chunk_f32_splits(
+        -(-R // 64) * KV * B, -(-arrays[5].shape[1] * page // 64),
+        torch.cuda.get_device_properties(card).multi_processor_count)
+    assert nsplit > 1
+    for n in (nsplit, 1):
+        monkeypatch.setattr(decode_attn, "chunk_f32_splits", lambda *a: n)
+        got = decode_attn.chunked_prefill_attention_kernel(*args, **kw)
+        mirror = chunk_attention_tf32(*map(torch.tensor, arrays), nsplit=n, **kw)
+        torch.testing.assert_close(got.cpu(), mirror, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        assert not got[3].any()                       # total == 0
+        assert torch.equal(got, decode_attn.chunked_prefill_attention_kernel(*args, **kw))
 
 
 # (S, KV, qpk, causal, window, softcap): S 1000 and 2047 are not multiples
